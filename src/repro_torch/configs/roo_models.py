@@ -1,0 +1,21 @@
+"""The paper's HSTU-GR config at the repo's width (torch port of
+``repro/configs/roo_models.py``; the retrieval / ESR / LSR configs wait for
+their models).
+
+``attn_backend`` selects the HSTU attention backend (kernels/dispatch.py);
+None = auto (the CUDA kernel on a CUDA tensor, torch-chunked elsewhere).
+"""
+from typing import Optional
+
+from repro_torch.core.hstu import HSTUConfig
+from repro_torch.models.gr import GRConfig
+
+N_ITEMS = 50000
+
+
+def gr_config(hist_len: int = 64, m_targets: int = 16,
+              attn_backend: Optional[str] = None) -> GRConfig:
+    return GRConfig(n_items=N_ITEMS, hist_len=hist_len, m_targets=m_targets,
+                    hstu=HSTUConfig(d_model=64, n_heads=2, d_qk=32, d_v=32,
+                                    n_layers=2, max_rel_pos=hist_len,
+                                    attn_backend=attn_backend))

@@ -1,0 +1,180 @@
+"""HSTU — Hierarchical Sequential Transduction Unit (Zhai et al. 2024), torch
+port of ``repro/core/hstu.py``.
+
+One HSTU layer (pointwise attention variant):
+
+    [U, V, Q, K] = SiLU( X @ W_uvqk )                        (f1)
+    A            = SiLU( Q K^T / sqrt(d) + rab ) * mask / n  (pointwise attn)
+    Y            = ( LayerNorm( A @ V ) * U ) @ W_o          (f2)
+    out          = X + Y                                     (residual)
+
+The attention goes through ``kernels/dispatch.py`` (the CUDA kernel on the
+card). Params are a nested dict/list of tensors in the reference's layout
+(``x @ w + b`` with ``w`` as (in, out)). The cached-prefix variants
+(incremental serving) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.masks import MaskSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class HSTUConfig:
+    d_model: int
+    n_heads: int
+    d_qk: int
+    d_v: int
+    n_layers: int
+    max_rel_pos: int = 128         # rab table covers deltas in [-max, max]
+    use_rab: bool = True
+    eps: float = 1e-6
+    # attention backend (kernels/dispatch.py): None = auto (cuda on a CUDA
+    # tensor, torch-chunked elsewhere) | "cuda" | "torch-chunked" |
+    # "torch-dense"
+    attn_backend: Optional[str] = None
+
+
+def _ln(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm without affine: population variance, eps inside rsqrt."""
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, unbiased=False, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def normal_init(gen: torch.Generator, shape, std: float, dtype=torch.float32,
+                device="cuda") -> torch.Tensor:
+    """N(0, std²) values drawn from ``gen`` (on the generator's device),
+    then moved to ``device`` — the port's one random initializer."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * std).to(
+        device=device, dtype=dtype)
+
+
+def hstu_layer_init(gen: torch.Generator, cfg: HSTUConfig,
+                    dtype=torch.float32, device="cuda") -> Dict:
+    h, dqk, dv, d = cfg.n_heads, cfg.d_qk, cfg.d_v, cfg.d_model
+    width = h * (2 * dv + 2 * dqk)
+    params = {
+        "w_uvqk": normal_init(gen, (d, width), (2.0 / (d + width)) ** 0.5,
+                              dtype, device),
+        "b_uvqk": torch.zeros((width,), dtype=dtype, device=device),
+        "w_o": normal_init(gen, (h * dv, d), (2.0 / (h * dv + d)) ** 0.5,
+                           dtype, device),
+        "ln_scale": torch.ones((h * dv,), dtype=dtype, device=device),
+        "ln_bias": torch.zeros((h * dv,), dtype=dtype, device=device),
+    }
+    if cfg.use_rab:
+        params["rab"] = normal_init(gen, (h, 2 * cfg.max_rel_pos + 1),
+                                    0.02, dtype, device)
+    return params
+
+
+def hstu_init(gen: torch.Generator, cfg: HSTUConfig, dtype=torch.float32,
+              device="cuda") -> Dict:
+    return {"layers": [hstu_layer_init(gen, cfg, dtype, device)
+                       for _ in range(cfg.n_layers)],
+            "in_ln_scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                      device=device),
+            "in_ln_bias": torch.zeros((cfg.d_model,), dtype=dtype,
+                                      device=device)}
+
+
+def hstu_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rab: Optional[torch.Tensor], spec: MaskSpec,
+                           max_rel_pos: int = 128,
+                           chunk: int = 128) -> torch.Tensor:
+    """Blockwise torch path: scores, rab bias and the ROO mask are produced
+    one q-chunk at a time, so no (S, S) tensor exists — what
+    `torch-chunked` dispatches to. Matches kernels/ref.py numerics.
+
+    q, k: (B, H, S, Dqk); v: (B, H, S, Dv); rab: (H, 2*max_rel_pos+1) | None.
+    """
+    b, h, s, dqk = q.shape
+    device = q.device
+    cq = max(1, min(chunk, s))
+    inv_d = 1.0 / math.sqrt(dqk)
+    inv_n = 1.0 / s
+    n_hist = spec.n_hist
+    hl, tc = spec.hist_lengths, spec.target_counts
+    kf = k.float()
+    cols = torch.arange(s, device=device)
+    is_hk = cols < n_hist
+    valid_c = torch.where(is_hk[None, :], cols[None, :] < hl[:, None],
+                          (cols[None, :] - n_hist) < tc[:, None])    # (B, S)
+    outs = []
+    for c0 in range(0, s, cq):
+        rows = torch.arange(c0, min(c0 + cq, s), device=device)
+        q_c = q[:, :, c0:c0 + cq].float()
+        scores = torch.einsum("bhid,bhjd->bhij", q_c, kf) * inv_d
+        if rab is not None:
+            delta = torch.clamp(rows[:, None] - cols[None, :],
+                                -max_rel_pos, max_rel_pos) + max_rel_pos
+            scores = scores + rab[:, delta][None].to(scores.dtype)
+        is_hq = rows < n_hist
+        struct = ((is_hq[:, None] & is_hk[None, :]
+                   & (cols[None, :] <= rows[:, None]))
+                  | (~is_hq[:, None] & is_hk[None, :])
+                  | (~is_hq[:, None] & ~is_hk[None, :]
+                     & (rows[:, None] == cols[None, :])))            # (cq, S)
+        valid_r = torch.where(is_hq[None, :], rows[None, :] < hl[:, None],
+                              (rows[None, :] - n_hist) < tc[:, None])  # (B, cq)
+        m = struct[None] & valid_r[:, :, None] & valid_c[:, None, :]
+        a = F.silu(scores) * inv_n
+        a = a * m[:, None].to(a.dtype)
+        outs.append(torch.einsum("bhij,bhjd->bhid", a.to(v.dtype), v))
+    return torch.cat(outs, dim=2)
+
+
+def hstu_layer_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
+                     mask: MaskSpec,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """x: (B, S, d). Returns (B, S, d). ``mask`` is a :class:`MaskSpec`
+    (the dense-mask legacy path of the reference is not ported);
+    ``backend`` overrides ``cfg.attn_backend`` for this call."""
+    if not isinstance(mask, MaskSpec):
+        raise TypeError("hstu_layer_apply takes a MaskSpec")
+    b, s, d = x.shape
+    h, dqk, dv = cfg.n_heads, cfg.d_qk, cfg.d_v
+    xn = _ln(x, cfg.eps)
+    uvqk = F.silu(xn @ params["w_uvqk"] + params["b_uvqk"])
+    u, v, q, k = torch.split(uvqk, [h * dv, h * dv, h * dqk, h * dqk], dim=-1)
+    q = q.reshape(b, s, h, dqk).transpose(1, 2)
+    k = k.reshape(b, s, h, dqk).transpose(1, 2)
+    v = v.reshape(b, s, h, dv).transpose(1, 2)
+
+    from repro_torch.kernels import dispatch
+    rab = params["rab"] if cfg.use_rab else None
+    av = dispatch.hstu_attention(q, k, v, rab, mask,
+                                 backend=backend or cfg.attn_backend,
+                                 max_rel_pos=cfg.max_rel_pos)
+
+    av = av.transpose(1, 2).reshape(b, s, h * dv)
+    y = _ln(av, cfg.eps) * params["ln_scale"] + params["ln_bias"]
+    y = (y * u) @ params["w_o"]
+    return x + y
+
+
+def hstu_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
+               mask: MaskSpec, backend: Optional[str] = None) -> torch.Tensor:
+    x = _ln(x, cfg.eps) * params["in_ln_scale"] + params["in_ln_bias"]
+    for layer in params["layers"]:
+        x = hstu_layer_apply(layer, cfg, x, mask, backend=backend)
+    return x
+
+
+def hstu_flops(cfg: HSTUConfig, batch: int, seq: int) -> int:
+    """Forward FLOPs (2x MACs) of the encoder, dense (unmasked) count."""
+    h, dqk, dv, d = cfg.n_heads, cfg.d_qk, cfg.d_v, cfg.d_model
+    per_layer = (
+        2 * seq * d * h * (2 * dv + 2 * dqk)        # f1 projections
+        + 2 * h * seq * seq * dqk                   # Q K^T
+        + 2 * h * seq * seq * dv                    # A V
+        + 2 * seq * h * dv * d                      # f2 output proj
+    )
+    return batch * cfg.n_layers * per_layer

@@ -1,0 +1,32 @@
+"""Carry parameter trees between numpy and the port.
+
+The JAX package keeps params as a nested dict/list of arrays; the port keeps
+the same tree of tensors, path for path. A caller that holds the
+reference's params converts the leaves to numpy first (e.g.
+``tree_map(np.asarray, params)``), so the port never sees a JAX array.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """Nested dict/list/tuple of numpy arrays -> the same tree of tensors on
+    ``device`` (tuples become lists, as the port's params use lists)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's tree of tensors -> the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().to("cpu").numpy()

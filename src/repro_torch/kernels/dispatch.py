@@ -1,0 +1,88 @@
+"""Backend dispatch for HSTU attention (port of ``repro/kernels/dispatch.py``).
+
+Backends:
+
+  cuda           — the hand-written CUDA kernel (kernels/hstu_attention.py);
+                   CUDA tensors only
+  torch-chunked  — blockwise torch path (core.hstu): scores, bias and mask
+                   are produced per q-chunk, so no (S, S) tensor exists
+  torch-dense    — the (S, S)-materializing oracle (kernels/ref.py)
+
+Resolution walks the port's own knob ladder (explicit ``backend=`` >
+:func:`use_backend` scope > :func:`set_default_backend` >
+``REPRO_TORCH_HSTU_BACKEND`` > auto). The env var is the port's own, so a
+``REPRO_HSTU_BACKEND`` exported for the JAX package never reaches it. Auto
+follows the tensor: ``cuda`` when q lives on a CUDA device, ``torch-chunked``
+otherwise. On a CUDA tensor auto launches the kernel or raises; the plain
+backends stay available on any device by explicit choice only.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.masks import MaskSpec
+from repro_torch.scenario.knobs import UNSET, Knob
+
+BACKENDS = ("cuda", "torch-chunked", "torch-dense")
+ENV_VAR = "REPRO_TORCH_HSTU_BACKEND"
+
+# auto is device-dependent, so it resolves in resolve_backend (a None from
+# the ladder means "no rung set")
+ATTN_KNOB = Knob("attn_backend", ENV_VAR, choices=BACKENDS, kind="backend")
+
+
+def set_default_backend(backend: Optional[str]) -> None:
+    """Process-wide default; ``None`` clears it."""
+    ATTN_KNOB.set_default(UNSET if backend is None else backend)
+
+
+def get_default_backend() -> Optional[str]:
+    return ATTN_KNOB.get_default()
+
+
+def use_backend(backend: Optional[str]):
+    """Scoped backend override (ContextVar); ``None`` is a no-op."""
+    return ATTN_KNOB.scoped(UNSET if backend is None else backend)
+
+
+def resolve_backend(backend: Optional[str] = None,
+                    device: Optional[torch.device] = None) -> str:
+    """The backend a call on ``device`` runs: the ladder's value, else
+    ``cuda`` for a CUDA device and ``torch-chunked`` otherwise."""
+    be = ATTN_KNOB.resolve(UNSET if backend is None else backend)
+    if be is not None:
+        return be
+    is_cuda = device is not None and torch.device(device).type == "cuda"
+    return "cuda" if is_cuda else "torch-chunked"
+
+
+def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   rab: Optional[torch.Tensor], spec: MaskSpec,
+                   backend: Optional[str] = None, *,
+                   max_rel_pos: int = 128,
+                   chunk: int = 128) -> torch.Tensor:
+    """Masked HSTU pointwise attention on the selected backend.
+
+    q, k: (B, H, S, Dqk); v: (B, H, S, Dv); rab: (H, 2*max_rel_pos+1) or
+    None; ``spec`` describes the ROO mask structurally. Returns
+    (B, H, S, Dv).
+    """
+    be = resolve_backend(backend, q.device)
+    if be == "cuda":
+        if q.device.type != "cuda":
+            raise ValueError(f"attention backend 'cuda' needs CUDA tensors, "
+                             f"got {q.device}")
+        from repro_torch.kernels.hstu_attention import hstu_attention_cuda
+        return hstu_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            None if rab is None else rab.contiguous(), spec.n_hist,
+            spec.hist_lengths, spec.target_counts, max_rel_pos)
+    if be == "torch-chunked":
+        from repro_torch.core.hstu import hstu_attention_chunked
+        return hstu_attention_chunked(q, k, v, rab, spec,
+                                      max_rel_pos=max_rel_pos, chunk=chunk)
+    from repro_torch.kernels.ref import hstu_attention_ref
+    return hstu_attention_ref(q, k, v, rab, spec.n_hist, spec.hist_lengths,
+                              spec.target_counts, max_rel_pos)

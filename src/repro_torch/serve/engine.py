@@ -1,0 +1,358 @@
+"""Micro-batching scoring engine — the request is the unit of work (torch
+port of the stateless path of ``repro/serve/engine.py``).
+
+  * **request-aligned scoring** — the batcher's ``BatchPlan`` maps every
+    request to its contiguous slot range, so the engine returns exactly one
+    score array per input request, shape-aligned with ``request.item_ids``
+    (empty for zero-impression requests). Requests larger than the biggest
+    batch are *split* across batches and reassembled, never truncated.
+  * **adaptive micro-batching** — online traffic is admitted into a pending
+    queue and flushed by a size-or-deadline policy (``EnginePolicy``); every
+    flush is rounded up to a rung of a fixed shape ladder
+    (serve/bucketing.py).
+  * **failure isolation** — a batch whose forward raises resolves its
+    requests to ``ScoreError`` values; a circuit breaker sheds work after
+    consecutive failures.
+
+Batches are packed on the host and moved to ``device`` once; scores come
+back to the host as numpy arrays.
+
+Not ported yet: the user-tower cache and the incremental state store (next
+slice), and the ``obs`` spans/counters and ``faults.maybe_fail`` injection
+site (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import (Callable, Dict, Hashable, Iterable, Iterator, List,
+                    Optional, Sequence, Tuple)
+
+import numpy as np
+import torch
+
+from repro_torch.core.joiner import ROOSample
+from repro_torch.data.batcher import BatcherConfig, ROOBatcher
+from repro_torch.kernels.dispatch import use_backend
+from repro_torch.serve.adapter import ServeAdapter
+from repro_torch.serve.bucketing import BucketLadder, BucketStats
+
+
+class ScoreError:
+    """Returned (never raised) in place of a score array when the engine
+    could not score a request: its batch's forward failed, or the circuit
+    breaker shed it. Callers check ``isinstance(x, ScoreError)``."""
+    __slots__ = ("reason", "shed")
+
+    def __init__(self, reason: str, shed: bool = False):
+        self.reason = reason
+        self.shed = shed
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"ScoreError({self.reason!r}, shed={self.shed})"
+
+
+@dataclasses.dataclass
+class EnginePolicy:
+    """Admission policy: a flush happens when the pending queue reaches
+    ``max_requests`` requests or ``max_impressions`` impressions (size), or
+    when the oldest pending request has waited ``max_delay_ms`` (deadline).
+
+    Circuit breaker: after ``breaker_threshold`` CONSECUTIVE batch scoring
+    failures the engine sheds incoming work (``ScoreError(shed=True)``) for
+    ``breaker_cooldown_s``; the first batch after the cooldown is a
+    half-open trial. ``breaker_threshold=0`` disables shedding."""
+    max_requests: int = 64
+    max_impressions: int = 512
+    max_delay_ms: float = 2.0
+    hist_len: int = 64
+    breaker_threshold: int = 5
+    breaker_cooldown_s: float = 1.0
+
+
+@dataclasses.dataclass
+class EngineStats:
+    n_requests: int = 0
+    n_impressions: int = 0
+    n_batches: int = 0
+    n_split_requests: int = 0          # requests scored across >1 batch
+    n_size_flushes: int = 0
+    n_deadline_flushes: int = 0
+    n_forced_flushes: int = 0
+    n_failed_batches: int = 0          # forwards that raised (isolated)
+    n_failed_requests: int = 0         # requests resolved to ScoreError
+    n_shed_requests: int = 0           # requests shed by the open breaker
+    n_breaker_opens: int = 0           # open transitions (incl. re-opens)
+    buckets: BucketStats = dataclasses.field(default_factory=BucketStats)
+    # counters may be read from monitoring threads; bare += loses updates
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def inc(self, field: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def record_bucket(self, spec) -> None:
+        with self._lock:
+            self.buckets.record(spec)
+
+    def snapshot(self) -> dict:
+        """Consistent point-in-time copy of every counter."""
+        with self._lock:
+            out = {f.name: getattr(self, f.name)
+                   for f in dataclasses.fields(self)
+                   if not f.name.startswith("_") and f.name != "buckets"}
+            out["buckets"] = self.buckets.snapshot()
+            return out
+
+
+def split_oversize(sample: ROOSample, cap: int) -> List[ROOSample]:
+    """Chunk a request with more than ``cap`` impressions into sub-requests
+    sharing the RO payload; the engine scores each chunk and concatenates."""
+    if sample.num_impressions <= cap:
+        return [sample]
+    return [
+        dataclasses.replace(
+            sample,
+            item_ids=sample.item_ids[lo:lo + cap],
+            item_dense=sample.item_dense[lo:lo + cap],
+            item_idlist=sample.item_idlist[lo:lo + cap],
+            labels=sample.labels[lo:lo + cap])
+        for lo in range(0, sample.num_impressions, cap)
+    ]
+
+
+class ScoringEngine:
+    """Request-aligned scoring around an eager model forward.
+
+    ``score_fn(params, batch) -> (B_NRO,) | (B_NRO, n_tasks)`` (or an
+    adapter's ``score``) runs on batches placed on ``device``.
+
+    Two front ends share one scoring core:
+      * online:  ``submit`` / ``poll`` / ``flush`` / ``take``  (micro-batcher)
+      * bulk:    ``score_stream`` (generator) / ``score_requests`` (list)
+    """
+
+    def __init__(self, params, score_fn: Optional[Callable] = None, *,
+                 policy: Optional[EnginePolicy] = None,
+                 ladder: Optional[BucketLadder] = None,
+                 adapter: Optional[ServeAdapter] = None,
+                 attn_backend: Optional[str] = None,
+                 device="cuda",
+                 clock: Callable[[], float] = time.monotonic):
+        if adapter is not None:
+            score_fn = score_fn or adapter.score
+        if score_fn is None:
+            raise ValueError("ScoringEngine needs score_fn or an adapter")
+        self.params = params
+        self.policy = policy or EnginePolicy()
+        self.ladder = ladder or BucketLadder.geometric(
+            max_b_ro=self.policy.max_requests,
+            max_b_nro=self.policy.max_impressions)
+        self.attn_backend = attn_backend
+        self.device = torch.device(device)
+        self.clock = clock
+        self.stats = EngineStats()
+        self._score = score_fn
+        # online micro-batcher state
+        self._pending: List[Tuple[int, ROOSample]] = []
+        self._pending_imps = 0
+        self._oldest_ts: Optional[float] = None
+        self._next_ticket = 0
+        self._results: Dict[int, np.ndarray] = {}
+        # trailing score dims ((,) single-task, (n_tasks,) multi-task) from
+        # the last scored batch — shapes empty results of zero-impression
+        # requests
+        self._score_tail: Tuple[int, ...] = ()
+        # circuit breaker: consecutive batch failures + open-until deadline
+        self._breaker_failures = 0
+        self._breaker_open_until: Optional[float] = None
+
+    # ---- online front end ----------------------------------------------------
+    def submit(self, request: ROOSample) -> int:
+        """Admit one request; returns a ticket redeemable via ``take``."""
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        if not self._pending:
+            self._oldest_ts = self.clock()
+        self._pending.append((ticket, request))
+        self._pending_imps += request.num_impressions
+        return ticket
+
+    def poll(self, now: Optional[float] = None) -> bool:
+        """Flush if the admission policy triggers. Returns True if a batch
+        was scored (results became available)."""
+        if not self._pending:
+            return False
+        now = self.clock() if now is None else now
+        if (len(self._pending) >= self.policy.max_requests
+                or self._pending_imps >= self.policy.max_impressions):
+            self.stats.inc("n_size_flushes")
+        elif (now - self._oldest_ts) * 1e3 >= self.policy.max_delay_ms:
+            self.stats.inc("n_deadline_flushes")
+        else:
+            return False
+        self._drain()
+        return True
+
+    def flush(self) -> None:
+        """Force-score everything pending regardless of policy."""
+        if self._pending:
+            self.stats.inc("n_forced_flushes")
+            self._drain()
+
+    def take(self, ticket: int) -> Optional[np.ndarray]:
+        """Scores for a submitted request, or None if not yet flushed."""
+        return self._results.pop(ticket, None)
+
+    def _drain(self) -> None:
+        pending, self._pending = self._pending, []
+        self._pending_imps, self._oldest_ts = 0, None
+        for ticket, scores in self._score_keyed(pending):
+            self._results[ticket] = scores
+
+    # ---- bulk front end ------------------------------------------------------
+    def score_stream(self, requests: Iterable[ROOSample]
+                     ) -> Iterator[Tuple[int, np.ndarray]]:
+        """Yield ``(request_index, scores)`` as batches complete."""
+        yield from self._score_keyed(enumerate(requests))
+
+    def score_requests(self, requests: Sequence[ROOSample]
+                       ) -> List[np.ndarray]:
+        """One score array per input request, aligned with that request's
+        ``item_ids`` (empty array for zero-impression requests)."""
+        out: List[Optional[np.ndarray]] = [None] * len(requests)
+        for i, scores in self.score_stream(requests):
+            out[i] = scores
+        return out
+
+    # ---- scoring core --------------------------------------------------------
+    def _score_keyed(self, keyed: Iterable[Tuple[Hashable, ROOSample]]
+                     ) -> Iterator[Tuple[Hashable, np.ndarray]]:
+        """Split oversize requests, group into bucket-shaped flushes, score,
+        reassemble per original key. Yields each key exactly once."""
+        top = self.ladder.max_rung
+        parts_needed: Dict[Hashable, int] = {}
+        parts_got: Dict[Hashable, List[np.ndarray]] = {}
+        group: List[Tuple[Hashable, ROOSample]] = []
+        group_imps = 0
+        # zero-impression requests never enter a batch; they resolve to an
+        # empty array once the trailing score dims are known
+        deferred_empty: List[Hashable] = []
+
+        def reassemble(scored: Iterator[Tuple[Hashable, np.ndarray]]):
+            for key, piece in scored:
+                got = parts_got.setdefault(key, [])
+                got.append(piece)
+                if len(got) == parts_needed[key]:
+                    del parts_got[key], parts_needed[key]
+                    errs = [p for p in got if isinstance(p, ScoreError)]
+                    if errs:
+                        # one bad piece poisons the request: a partial
+                        # score array misaligned with item_ids is worse
+                        # than an explicit error
+                        hard = [e for e in errs if not e.shed]
+                        err = hard[0] if hard else errs[0]
+                        self.stats.inc("n_failed_requests" if hard
+                                       else "n_shed_requests")
+                        yield key, err
+                        continue
+                    yield key, (np.concatenate(got, axis=0)
+                                if len(got) > 1 else got[0])
+
+        def flush_empty():
+            while deferred_empty:
+                yield (deferred_empty.pop(),
+                       np.zeros((0,) + self._score_tail, np.float32))
+
+        for key, sample in keyed:
+            self.stats.inc("n_requests")
+            self.stats.inc("n_impressions", sample.num_impressions)
+            if sample.num_impressions == 0:
+                deferred_empty.append(key)
+                continue
+            parts = split_oversize(sample, top.b_nro)
+            parts_needed[key] = len(parts)
+            if len(parts) > 1:
+                self.stats.inc("n_split_requests")
+            for part in parts:
+                n = part.num_impressions
+                if group and (len(group) + 1 > top.b_ro
+                              or group_imps + n > top.b_nro):
+                    yield from reassemble(self._score_group(group))
+                    yield from flush_empty()
+                    group, group_imps = [], 0
+                group.append((key, part))
+                group_imps += n
+        if group:
+            yield from reassemble(self._score_group(group))
+        yield from flush_empty()
+        if parts_needed:
+            raise RuntimeError("engine bug: unreassembled request parts")
+
+    def _score_group(self, group: List[Tuple[Hashable, ROOSample]]
+                     ) -> Iterator[Tuple[Hashable, np.ndarray]]:
+        """Score one flush-group at its bucket shape; yields (key, piece)
+        for every request part via the batch plan's slot mapping."""
+        n_imps = sum(s.num_impressions for _, s in group)
+        bucket = self.ladder.select(len(group), n_imps)
+        self.stats.record_bucket(bucket)
+        batcher = ROOBatcher(BatcherConfig(
+            b_ro=bucket.b_ro, b_nro=bucket.b_nro,
+            hist_len=self.policy.hist_len), device=self.device)
+        samples = [s for _, s in group]
+        for batch, plan in batcher.batches_with_plan(samples):
+            if self._breaker_sheds():
+                for p in plan.requests:
+                    yield (group[p.request_index][0],
+                           ScoreError("shed: circuit breaker open",
+                                      shed=True))
+                continue
+            try:
+                scores = self._score_batch(batch)
+            except Exception as e:   # isolation boundary: batch != engine
+                self._breaker_record_failure()
+                self.stats.inc("n_failed_batches")
+                for p in plan.requests:
+                    yield (group[p.request_index][0],
+                           ScoreError(f"scoring failed: {e!r}"))
+                continue
+            self._breaker_failures = 0
+            self._breaker_open_until = None
+            self.stats.inc("n_batches")
+            for p in plan.requests:
+                if p.n_dropped:
+                    raise RuntimeError(
+                        "engine invariant violated: truncation inside a "
+                        f"bucket-shaped batch ({p.n_dropped} dropped)")
+                yield (group[p.request_index][0],
+                       scores[p.slot_start:p.slot_start + p.n_packed])
+
+    # ---- circuit breaker -----------------------------------------------------
+    def _breaker_sheds(self) -> bool:
+        """True when the open breaker should shed the next batch; an expired
+        cooldown admits the batch as a half-open trial."""
+        if (self.policy.breaker_threshold <= 0
+                or self._breaker_open_until is None):
+            return False
+        if self.clock() < self._breaker_open_until:
+            return True
+        self._breaker_open_until = None        # half-open: one trial batch
+        return False
+
+    def _breaker_record_failure(self) -> None:
+        self._breaker_failures += 1
+        if (self.policy.breaker_threshold > 0
+                and self._breaker_failures >= self.policy.breaker_threshold):
+            if self._breaker_open_until is None:
+                self.stats.inc("n_breaker_opens")
+            self._breaker_open_until = (self.clock()
+                                        + self.policy.breaker_cooldown_s)
+
+    def _score_batch(self, batch) -> np.ndarray:
+        with use_backend(self.attn_backend), torch.inference_mode():
+            scores = self._score(self.params, batch)
+        out = scores.detach().to("cpu").numpy()
+        self._score_tail = out.shape[1:]
+        return out
