@@ -112,13 +112,17 @@ def attention_inputs(shape, seed, device):
 
 def bound(x) -> tuple:
     """Least time (ms) the card needs for one call on these inputs: bytes
-    (each input read once, the output written once) over HBM rate vs the
-    FMAs of the cells the ROO mask keeps over the fp32 rate."""
+    over HBM rate vs FLOPs over the fp32 rate, both counted on what the ROO
+    mask keeps. Bytes: the q, k and v rows the output depends on (history
+    rows < hist_lengths, target rows < target_counts) read once, the whole
+    output written once, rab and the lengths. FLOPs: 2 (Dqk + Dv) per cell
+    the mask keeps."""
     from repro_torch.core.masks import roo_spec
     b, h, s, dqk = x["q"].shape
     dv = x["v"].shape[-1]
-    n_bytes = 4 * (x["q"].numel() + x["k"].numel() + x["v"].numel()
-                   + b * h * s * dv + x["rab"].numel() + 2 * b)
+    valid_rows = int((x["hl"] + x["tc"]).sum()) * h
+    n_bytes = 4 * (valid_rows * (2 * dqk + dv) + b * h * s * dv
+                   + x["rab"].numel() + 2 * b)
     cells = int(roo_spec(x["hl"], x["tc"], x["n_hist"]).dense(s).sum()) * h
     ops = 2 * cells * (dqk + dv)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
@@ -136,11 +140,13 @@ def phase_build(kmod) -> None:
 
 
 def phase_kernels(kmod, device) -> float:
-    """Kernel vs plain version (and the chunked path) on the card; returns
-    the largest |kernel - plain|."""
+    """Kernel vs plain version (and the chunked path) on the card, the
+    kernel reached through the dispatch entry the model calls (auto
+    backend); returns the largest |kernel - plain|."""
     import torch
     from repro_torch.core.hstu import hstu_attention_chunked
     from repro_torch.core.masks import roo_spec
+    from repro_torch.kernels import dispatch
     shapes = {
         "serve B64 S80": (64, 2, 80, 32, 32, 64, 64),
         "ragged S203": (5, 3, 203, 48, 40, 150, 100),
@@ -154,13 +160,18 @@ def phase_kernels(kmod, device) -> float:
             x["tc"].zero_()
         for use_rab in (True, False):
             rab = x["rab"] if use_rab else None
-            args = (x["q"], x["k"], x["v"], rab, x["n_hist"], x["hl"],
-                    x["tc"], x["max_rel"])
-            got = kmod.hstu_attention(*args)
-            plain = kmod.hstu_attention_plain(*args)
+            spec = roo_spec(x["hl"], x["tc"], x["n_hist"])
+            before = kmod.launch_count
+            got = dispatch.hstu_attention(x["q"], x["k"], x["v"], rab, spec,
+                                          max_rel_pos=x["max_rel"])
+            if kmod.launch_count != before + 1:
+                raise SystemExit("dispatch auto did not launch the kernel "
+                                 "on a CUDA tensor")
+            plain = kmod.hstu_attention_plain(
+                x["q"], x["k"], x["v"], rab, x["n_hist"], x["hl"], x["tc"],
+                x["max_rel"])
             chunked = hstu_attention_chunked(
-                x["q"], x["k"], x["v"], rab,
-                roo_spec(x["hl"], x["tc"], x["n_hist"]),
+                x["q"], x["k"], x["v"], rab, spec,
                 max_rel_pos=x["max_rel"], chunk=32)
             torch.cuda.synchronize()
             err = (got - plain).abs()
@@ -168,8 +179,7 @@ def phase_kernels(kmod, device) -> float:
             ok = bool(torch.all(err <= ATOL + RTOL * plain.abs()))
             ok_chunk = torch.allclose(got, chunked, atol=ATOL, rtol=RTOL)
             s = x["q"].shape[2]
-            dead = ~roo_spec(x["hl"], x["tc"], x["n_hist"]).dense(s) \
-                .any(-1)                                      # (B, S)
+            dead = ~spec.dense(s).any(-1)                     # (B, S)
             zero = bool(torch.all(got.transpose(1, 2)[dead] == 0))
             finite = bool(torch.isfinite(got).all())
             print(f"[kernels] {name} rab={use_rab}: max|kernel-plain| = "
@@ -258,9 +268,12 @@ def phase_serve(kmod, device) -> dict:
               f"pack + copy to card {pack_s * 1e3:.1f} ms, forward + copy "
               f"back {fwd_s * 1e3:.1f} ms; engine total {wall * 1e3:.1f} ms")
 
+    before = kmod.launch_count
     dense = ROOServer(params, score, ServeConfig(
         b_ro=64, b_nro=512, hist_len=cfg.hist_len,
         attn_backend="torch-dense"), device=device).score_requests(requests)
+    if kmod.launch_count != before:
+        raise SystemExit("the torch-dense server launched the kernel")
     diff = max(float(np.abs(a - b).max(initial=0.0))
                for a, b in zip(scores, dense))
     ok = all(np.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)

@@ -3,16 +3,17 @@
 Packs a list of ROOSamples into fixed-shape ``ROOBatch``es on the host in
 numpy, then moves each packed batch to the requested device in one step:
   * ``B_RO`` request rows, ``B_NRO`` impression slots (static capacities);
-  * requests are packed shard-by-shard so that, when the leading dims are
-    split over N data shards, every request's impressions live on the same
-    shard as the request row (request locality);
+  * requests are packed greedily, in order, onto one device; every
+    request's impressions take contiguous slots;
   * ``batches_with_plan`` also yields a ``BatchPlan`` mapping every input
     request to its (row, slot range) — what serving needs to return scores
     aligned with each request's ``item_ids`` — and counts impressions
     dropped by truncation.
 
-The impression-level packing (``impression_batches``) and the obs counter
-mirror are not ported yet.
+The impression-level packing (``impression_batches``), the obs counter
+mirror and the reference's multi-shard options (``n_shards``,
+``local_segment_ids``) are not ported yet: they wait for a slice that
+shards a batch across cards.
 """
 from __future__ import annotations
 
@@ -35,8 +36,6 @@ class BatcherConfig:
     hist_len: int = 64
     ro_idlist_capacity: int = 1024
     item_idlist_capacity: int = 4096
-    n_shards: int = 1              # data shards; leading dims divisible by it
-    local_segment_ids: bool = False
     label_keys: Sequence[str] = ("click", "view_sec")
 
 
@@ -102,12 +101,10 @@ def _pad_seq(rows: List[List[int]], n: int, width: int):
 
 
 class ROOBatcher:
-    """Greedy shard-aware packer: fills each shard's request/impression
-    quota; every batch lands on ``device``."""
+    """Greedy packer: fills each batch's request/impression capacity; every
+    batch lands on ``device``."""
 
     def __init__(self, cfg: BatcherConfig, device="cuda"):
-        if cfg.b_ro % cfg.n_shards or cfg.b_nro % cfg.n_shards:
-            raise ValueError("b_ro and b_nro must be divisible by n_shards")
         self.cfg = cfg
         self.device = torch.device(device)
         self.stats = BatcherStats()   # accumulated over the most recent call
@@ -123,45 +120,36 @@ class ROOBatcher:
         """Yield (batch, plan); the plan maps every admitted request to its
         (row, slot range) and records impressions dropped by truncation."""
         cfg = self.cfg
-        per_shard_ro = cfg.b_ro // cfg.n_shards
-        per_shard_nro = cfg.b_nro // cfg.n_shards
         queue = list(enumerate(samples))
         self.stats = BatcherStats()
         while queue:
-            # entries: (request_index, sample, n_total_impressions)
-            shard_reqs: List[List[Tuple[int, ROOSample, int]]] = [
-                [] for _ in range(cfg.n_shards)]
-            shard_imps = [0] * cfg.n_shards
-            for shard in range(cfg.n_shards):
-                while queue and len(shard_reqs[shard]) < per_shard_ro:
-                    idx, s = queue[0]
-                    # clamped to the shard quota, so an over-size request is
-                    # always admitted into an empty shard (and truncated by
-                    # _pack, which the plan records)
-                    n_imp = min(s.num_impressions, per_shard_nro)
-                    if shard_imps[shard] + n_imp > per_shard_nro:
-                        break
-                    queue.pop(0)
-                    shard_reqs[shard].append((idx, s, s.num_impressions))
-                    shard_imps[shard] += n_imp
-            batch, plan = self._pack(shard_reqs)
+            reqs: List[Tuple[int, ROOSample]] = []
+            n_imps = 0
+            while queue and len(reqs) < cfg.b_ro:
+                idx, s = queue[0]
+                # clamped to the capacity, so an over-size request is always
+                # admitted into an empty batch (and truncated by _pack, which
+                # the plan records)
+                n_imp = min(s.num_impressions, cfg.b_nro)
+                if n_imps + n_imp > cfg.b_nro:
+                    break
+                queue.pop(0)
+                reqs.append((idx, s))
+                n_imps += n_imp
+            batch, plan = self._pack(reqs)
             self.stats.update(plan)
             if plan.dropped_impressions and not self._trunc_warned:
                 self._trunc_warned = True
                 warnings.warn(
                     f"ROOBatcher: dropped {plan.dropped_impressions} "
                     f"impression(s) from {plan.truncated_requests} "
-                    f"truncated request(s) — b_nro={cfg.b_nro} "
-                    f"(per-shard {per_shard_nro}) is smaller than the "
-                    f"request", stacklevel=2)
+                    f"truncated request(s) — b_nro={cfg.b_nro} is smaller "
+                    f"than the request", stacklevel=2)
             yield batch, plan
 
-    def _pack(self, shard_reqs: List[List[Tuple[int, ROOSample, int]]]
+    def _pack(self, reqs: List[Tuple[int, ROOSample]]
               ) -> Tuple[ROOBatch, BatchPlan]:
         cfg = self.cfg
-        per_shard_ro = cfg.b_ro // cfg.n_shards
-        per_shard_nro = cfg.b_nro // cfg.n_shards
-
         ro_dense_rows, ro_idlists, hists, acts = [], [], [], []
         num_imp = np.zeros((cfg.b_ro,), np.int32)
         seg = np.full((cfg.b_nro,), cfg.b_ro, np.int32)
@@ -170,33 +158,27 @@ class ROOBatcher:
         item_ids = np.zeros((cfg.b_nro,), np.int32)
         labels = np.zeros((cfg.b_nro, len(cfg.label_keys)), np.float32)
 
-        nro_fill = [0] * cfg.n_shards
+        fill = 0
         packed: List[PackedRequest] = []
-        for shard, reqs in enumerate(shard_reqs):
-            for j, (idx, s, n_total) in enumerate(reqs):
-                row = shard * per_shard_ro + j
-                ro_dense_rows.append((row, s.ro_dense))
-                ro_idlists.append((row, s.ro_idlist))
-                hists.append((row, s.history_ids))
-                acts.append((row, s.history_actions))
-                n = min(s.num_impressions, per_shard_nro - nro_fill[shard])
-                num_imp[row] = n
-                packed.append(PackedRequest(
-                    request_index=idx, row=row,
-                    slot_start=shard * per_shard_nro + nro_fill[shard],
-                    n_packed=n, n_total=n_total))
-                for k in range(n):
-                    slot = shard * per_shard_nro + nro_fill[shard]
-                    nro_fill[shard] += 1
-                    seg[slot] = (j if cfg.local_segment_ids else row)
-                    item_ids[slot] = s.item_ids[k]
-                    nro_dense_rows.append((slot, s.item_dense[k]))
-                    nro_idlists.append((slot, s.item_idlist[k]))
-                    labels[slot] = [s.labels[k].get(key, 0.0)
-                                    for key in cfg.label_keys]
-        if cfg.local_segment_ids:
-            # padding marker becomes local b_ro
-            seg = np.where(seg == cfg.b_ro, per_shard_ro, seg)
+        for row, (idx, s) in enumerate(reqs):
+            ro_dense_rows.append((row, s.ro_dense))
+            ro_idlists.append((row, s.ro_idlist))
+            hists.append((row, s.history_ids))
+            acts.append((row, s.history_actions))
+            n = min(s.num_impressions, cfg.b_nro - fill)
+            num_imp[row] = n
+            packed.append(PackedRequest(
+                request_index=idx, row=row, slot_start=fill, n_packed=n,
+                n_total=s.num_impressions))
+            for k in range(n):
+                slot = fill + k
+                seg[slot] = row
+                item_ids[slot] = s.item_ids[k]
+                nro_dense_rows.append((slot, s.item_dense[k]))
+                nro_idlists.append((slot, s.item_idlist[k]))
+                labels[slot] = [s.labels[k].get(key, 0.0)
+                                for key in cfg.label_keys]
+            fill += n
 
         # densify RO side
         n_ro_dense = ro_dense_rows[0][1].shape[-1] if ro_dense_rows else 1

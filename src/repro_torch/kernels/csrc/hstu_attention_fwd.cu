@@ -180,8 +180,6 @@ long long hstu_attention_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
           (long long)BQ * (BK + 1) + nrab);
 }
 
-int hstu_attention_fwd_max_d() { return MAX_D; }
-
 // q, k: (B, H, S, Dqk); v, out: (B, H, S, Dv); rab: (H, 2*max_rel+1) or
 // null when use_rab == 0; hist_lengths, target_counts: (B,) int32. All
 // contiguous fp32 on the current device.

@@ -11,9 +11,11 @@ the source into a shared library with a plain C interface under
 hash of the source and flags, and ``ctypes`` loads it. Nothing CUDA- or
 nvcc-related happens at import time, so the CPU tests import this module.
 
-:func:`hstu_attention` is the wrapper: a CPU tensor takes the plain version
-(:func:`hstu_attention_plain`, the dense oracle of ``kernels/ref.py``); a
-CUDA tensor launches the kernel or raises — there is no fallback.
+:func:`hstu_attention_cuda` is the kernel's wrapper: it launches the kernel
+on CUDA tensors or raises — there is no fallback. Callers reach it through
+``kernels/dispatch.py``, whose auto rung picks it for CUDA tensors and the
+plain torch path for CPU tensors. :func:`hstu_attention_plain` (the dense
+oracle of ``kernels/ref.py``) is what the kernel is held against.
 ``launch_count`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -38,7 +40,7 @@ MAX_D = 128              # largest Dqk / Dv the kernel takes
 MAX_REL_POS = 4096       # the rab row lives in shared memory
 MAX_SMEM_BYTES = 227 * 1024
 
-# the plain torch version the kernel is held against (CPU path, tests)
+# the plain torch version the kernel is held against
 hstu_attention_plain = hstu_attention_ref
 
 launch_count = 0         # kernel launches since the last reset
@@ -171,16 +173,3 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({err})")
     launch_count += 1
     return out
-
-
-def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   rab: Optional[torch.Tensor], n_hist: int,
-                   hist_lengths: torch.Tensor, target_counts: torch.Tensor,
-                   max_rel_pos: int = 128) -> torch.Tensor:
-    """HSTU attention forward: (B, H, S, Dv). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
-    if q.device.type == "cpu":
-        return hstu_attention_plain(q, k, v, rab, n_hist, hist_lengths,
-                                    target_counts, max_rel_pos)
-    return hstu_attention_cuda(q, k, v, rab, n_hist, hist_lengths,
-                               target_counts, max_rel_pos)

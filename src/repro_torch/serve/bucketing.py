@@ -1,5 +1,6 @@
 """Shape-bucketed batching for serving — a copy of
-``repro/serve/bucketing.py`` (framework-free).
+``repro/serve/bucketing.py`` (framework-free), without the single-shape
+``fixed`` ladder, which nothing in the port uses.
 
 The engine rounds every flush up to a rung of a fixed *bucket ladder*, so
 the model only ever sees ``len(ladder)`` batch shapes. In the JAX package
@@ -46,11 +47,6 @@ class BucketLadder:
             b_ro = min(2 * b_ro, max_b_ro)
             b_nro = min(2 * b_nro, max_b_nro)
         return cls(tuple(rungs))
-
-    @classmethod
-    def fixed(cls, b_ro: int, b_nro: int) -> "BucketLadder":
-        """Single-shape ladder (one batch shape)."""
-        return cls((BucketSpec(b_ro, b_nro),))
 
     @property
     def max_rung(self) -> BucketSpec:

@@ -8,7 +8,7 @@ zero-impression request); oversize requests are split across batches and
 reassembled. Flushes are shape-bucketed (serve/bucketing.py).
 
 The user-tower cache options of the reference's ``ServeConfig`` wait for the
-next slice.
+next slice; its single-shape ``bucketed=False`` option is not ported.
 """
 from __future__ import annotations
 
@@ -33,7 +33,6 @@ class ServeConfig:
     # HSTU attention backend for inference (kernels/dispatch.py); None =
     # auto (the CUDA kernel on the card, torch-chunked on the CPU)
     attn_backend: Optional[str] = None
-    bucketed: bool = True          # shape ladder vs a single fixed shape
     max_delay_ms: float = 2.0      # online admission deadline
 
 
@@ -52,11 +51,9 @@ class ROOServer:
                               max_impressions=cfg.b_nro,
                               max_delay_ms=cfg.max_delay_ms,
                               hist_len=cfg.hist_len)
-        ladder = (BucketLadder.geometric(
-                      min_b_ro=min(4, cfg.b_ro), min_b_nro=min(32, cfg.b_nro),
-                      max_b_ro=cfg.b_ro, max_b_nro=cfg.b_nro)
-                  if cfg.bucketed else
-                  BucketLadder.fixed(cfg.b_ro, cfg.b_nro))
+        ladder = BucketLadder.geometric(
+            min_b_ro=min(4, cfg.b_ro), min_b_nro=min(32, cfg.b_nro),
+            max_b_ro=cfg.b_ro, max_b_nro=cfg.b_nro)
         self.engine = ScoringEngine(params, score_fn, policy=policy,
                                     ladder=ladder,
                                     attn_backend=cfg.attn_backend,

@@ -97,13 +97,11 @@ def test_samples_equal_reference(samples, jax_samples):
         assert_same_record(a, b)
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 1, False), (16, 48, 2, False),
-                                   (16, 48, 4, True)],
-                         ids=["8x64", "16x48-2shards", "16x48-4shards-local"])
+@pytest.mark.parametrize("shape", [(8, 64), (16, 48), (4, 32)],
+                         ids=["8x64", "16x48", "4x32"])
 def test_batches_equal_reference(samples, jax_samples, shape):
-    b_ro, b_nro, n_shards, local = shape
-    kw = dict(b_ro=b_ro, b_nro=b_nro, hist_len=64, n_shards=n_shards,
-              local_segment_ids=local)
+    b_ro, b_nro = shape
+    kw = dict(b_ro=b_ro, b_nro=b_nro, hist_len=64)
     port_it = batcher.ROOBatcher(batcher.BatcherConfig(**kw),
                                  device="cpu").batches_with_plan(samples)
     ref_it = jax_batcher.ROOBatcher(

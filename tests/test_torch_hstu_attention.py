@@ -3,8 +3,8 @@
 Same numpy inputs go through the reference's dense oracle, its chunked jnp
 path and its Pallas forward (interpret mode, as the reference's own tests
 run it on the CPU), and through the port's ``torch-dense`` and
-``torch-chunked`` backends and the kernel module's CPU path. The CUDA kernel
-itself is checked on the card by ``chip_smoke.py``.
+``torch-chunked`` backends, which dispatch's auto rung picks on the CPU. The
+CUDA kernel itself is checked on the card by ``chip_smoke.py``.
 
 Tolerance: atol = rtol = 1e-5 (fp32 on both sides; only summation order
 differs).
@@ -129,14 +129,17 @@ def test_chunk_size_independence(chunk):
                                want, **TOL)
 
 
-def test_kernel_wrapper_cpu_takes_plain_version():
+def test_kernel_wrapper_cpu_takes_plain_version(monkeypatch):
+    # the entry the model calls: auto on a CPU tensor runs a plain version
+    monkeypatch.delenv(dispatch.ENV_VAR, raising=False)
     x = make_inputs("ragged100", seed=5)
     t = to_torch(x)
-    args = (t["q"], t["k"], t["v"], t["rab"], t["n_hist"], t["hl"], t["tc"],
-            t["max_rel"])
     before = kmod.launch_count
-    got = kmod.hstu_attention(*args)
-    assert torch.equal(got, kmod.hstu_attention_plain(*args))
+    got = port(x, None, True)
+    plain = kmod.hstu_attention_plain(t["q"], t["k"], t["v"], t["rab"],
+                                      t["n_hist"], t["hl"], t["tc"],
+                                      t["max_rel"])
+    np.testing.assert_allclose(got, plain.numpy(), **TOL)
     assert kmod.launch_count == before      # the CPU path launches nothing
     assert kmod.hstu_attention_plain is kmod.hstu_attention_ref
 
