@@ -6,19 +6,32 @@ Run from the repo root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. device   — the card's name and power limit; no CUDA, no run
-  2. build    — nvcc builds every kernel of the path from the sources in
-                this checkout (registers / shared memory from -Xptxas -v)
-  3. kernels  — each kernel against its plain torch version on the card, at
-                the serving shape and at a ragged S > 128 shape, rab on/off
-  4. serve    — ROOServer with random hstu-gr params (seeded
-                torch.Generator) scores a few hundred simulated requests on
-                the card through the kernel; launch counts, failed batches
-                and scores are checked against the torch-dense server and a
-                CPU server
-  5. times    — kernel vs plain version (CUDA events; device time with the
-                host run ahead, and host-issued call time) beside the bound,
-                and the server's requests/s
+  1. device      — the card's name and power limit; no CUDA, no run
+  2. build       — nvcc builds every kernel of the paths from the sources in
+                   this checkout, one nvcc per source, all started together
+                   (registers / shared memory from -Xptxas -v)
+  3. kernels     — each kernel against its plain torch version on the card,
+                   reached through dispatch's auto backend: the HSTU forward
+                   (B1) at the serving shape and ragged / wide / causal
+                   shapes; the cached-prefix forward (B4) at the serving
+                   shape with n_new 1, 8 and 64 and at ragged, wide and
+                   extend-only shapes, and its prefix-0 case against B1;
+                   rab on and off, masked rows exactly 0
+  4. serve       — ROOServer with random hstu-gr params (seeded
+                   torch.Generator) scores 1,000 simulated requests on the
+                   card through B1; launch counts, failed batches and
+                   scores are checked against the torch-dense server and a
+                   CPU server
+  5. incremental — the state-store engine serves 64 users over 4 waves of
+                   appended events (then the simulated stream) through B4
+                   alone: hits, launch counts and scores vs the stateless
+                   server, requests/s of both, and where the time goes
+  6. cache       — ROOServer with the user-tower cache serves the stream
+                   twice; the second pass is all full-cache batches with
+                   the same scores; a weight swap empties the cache
+  7. times       — each kernel vs its plain version (CUDA events; device
+                   time with the host run ahead, and host-issued call time)
+                   beside its bound, and the servers' requests/s
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -130,13 +143,69 @@ def bound(x) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
 
 
-def phase_build(kmod) -> None:
+def prefix_inputs(shape, seed, device):
+    """Random q/k/v/rab for the cached-prefix layout and ragged per-request
+    counts from numpy, honoring prefix + new <= n_hist, with edge rows: a
+    full request from an empty cache, a request that fills the cache with
+    no target, and (B > 2) a request with nothing valid."""
+    import numpy as np
+    import torch
+    b, h, n_hist, n_new, m, dqk, dv, max_rel, scale_len = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, n_new + m, dqk)).astype(np.float32)
+    k = rng.normal(size=(b, h, n_hist + m, dqk)).astype(np.float32)
+    v = rng.normal(size=(b, h, n_hist + m, dv)).astype(np.float32)
+    rab = (0.5 * rng.normal(size=(h, 2 * max_rel + 1))).astype(np.float32)
+    hl = rng.integers(0, n_hist + 1, size=b)
+    pfx = (rng.random(b) * (hl + 1)).astype(np.int64)
+    nc = np.minimum(hl - pfx, n_new)
+    tc = rng.integers(0, m + 1, size=b)
+    full = min(n_hist, n_new)
+    pfx[0], nc[0], tc[0] = 0, full, m
+    if b > 1:
+        pfx[1], nc[1], tc[1] = n_hist - full, full, 0
+    if b > 2:
+        nc[2], tc[2] = 0, 0
+    t = lambda a: torch.from_numpy(a).to(device)
+    i32 = lambda a: t(a.astype(np.int32))
+    return dict(q=t(q), k=t(k), v=t(v), rab=t(rab), pfx=i32(pfx),
+                nc=i32(nc), tc=i32(tc), n_hist=n_hist, n_new=n_new,
+                max_rel=max_rel, scale_len=scale_len)
+
+
+def bound_prefix(x) -> tuple:
+    """Least time (ms) the card needs for one cached-prefix call on these
+    inputs, on the mask's basis as for ``bound()``. Bytes: the q rows the
+    mask keeps (new < new_counts, targets < target_counts), the k and v
+    columns it keeps (prefix + new + targets), the whole output, rab and
+    the three (B,) counts. FLOPs: 2 (Dqk + Dv) per cell the mask keeps."""
+    from repro_torch.core.masks import prefix_spec
+    b, h, n_rows, dqk = x["q"].shape
+    n_cols, dv = x["k"].shape[2], x["v"].shape[-1]
+    q_rows = int((x["nc"] + x["tc"]).sum()) * h
+    kv_cols = int((x["pfx"] + x["nc"] + x["tc"]).sum()) * h
+    n_bytes = 4 * (q_rows * dqk + kv_cols * (dqk + dv)
+                   + b * h * n_rows * dv + x["rab"].numel() + 3 * b)
+    spec = prefix_spec(x["pfx"], x["nc"], x["tc"], x["n_hist"], x["n_new"])
+    cells = int(spec.dense(n_rows, n_cols).sum()) * h
+    ops = 2 * cells * (dqk + dv)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
+
+
+def phase_build(kmods) -> None:
+    """Build every kernel at once: one nvcc per source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    path, log = kmod.build()
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(kmods)) as pool:
+        built = list(pool.map(lambda m: m.build(), kmods))
+    print(f"[build] {len(kmods)} kernels in {time.perf_counter() - t0:.2f} s")
+    for path, log in built:
+        print(f"[build] {path.name}")
+        for line in log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
 
 
 def phase_kernels(kmod, device) -> float:
@@ -188,6 +257,81 @@ def phase_kernels(kmod, device) -> float:
             if not (ok and ok_chunk and zero and finite):
                 raise SystemExit(f"kernel disagrees with its plain version "
                                  f"at {name} rab={use_rab}")
+    return worst
+
+
+def phase_prefix_kernels(kmod, pmod, device) -> float:
+    """B4 vs its plain version (and the chunked path) on the card through
+    dispatch's auto backend; its prefix-0 case vs B1. Returns the largest
+    |kernel - plain|."""
+    import torch
+    from repro_torch.core.hstu import hstu_attention_prefix_chunked
+    from repro_torch.core.masks import prefix_spec
+    from repro_torch.kernels import dispatch
+    # (B, H, n_hist, n_new, m, Dqk, Dv, max_rel, scale_len)
+    shapes = {
+        "serve n_new=1": (64, 2, 64, 1, 16, 32, 32, 64, 80),
+        "serve n_new=8": (64, 2, 64, 8, 16, 32, 32, 64, 80),
+        "serve n_new=64": (64, 2, 64, 64, 16, 32, 32, 64, 80),
+        "ragged": (5, 3, 150, 37, 5, 48, 40, 100, 155),
+        "wide D128": (3, 2, 140, 20, 20, 128, 128, 128, 160),  # > 48 KB smem
+        "extend-only": (64, 2, 64, 8, 0, 32, 32, 64, 80),
+    }
+    worst = 0.0
+    for i, (name, shape) in enumerate(shapes.items()):
+        x = prefix_inputs(shape, seed=10 + i, device=device)
+        spec = prefix_spec(x["pfx"], x["nc"], x["tc"], x["n_hist"],
+                           x["n_new"])
+        for use_rab in (True, False):
+            rab = x["rab"] if use_rab else None
+            before = pmod.launch_count
+            got = dispatch.hstu_attention_prefix(
+                x["q"], x["k"], x["v"], rab, spec,
+                scale_len=x["scale_len"], max_rel_pos=x["max_rel"])
+            if pmod.launch_count != before + 1:
+                raise SystemExit("dispatch auto did not launch the prefix "
+                                 "kernel on a CUDA tensor")
+            plain = pmod.hstu_attention_prefix_plain(
+                x["q"], x["k"], x["v"], rab, x["n_hist"], x["n_new"],
+                x["pfx"], x["nc"], x["tc"], x["scale_len"], x["max_rel"])
+            chunked = hstu_attention_prefix_chunked(
+                x["q"], x["k"], x["v"], rab, spec, x["scale_len"],
+                max_rel_pos=x["max_rel"], chunk=32)
+            torch.cuda.synchronize()
+            err = (got - plain).abs()
+            worst = max(worst, float(err.max()))
+            ok = bool(torch.all(err <= ATOL + RTOL * plain.abs()))
+            ok_chunk = torch.allclose(got, chunked, atol=ATOL, rtol=RTOL)
+            dead = ~spec.dense(got.shape[2], x["k"].shape[2]).any(-1)
+            zero = bool(torch.all(got.transpose(1, 2)[dead] == 0))
+            finite = bool(torch.isfinite(got).all())
+            print(f"[kernels] prefix {name} rab={use_rab}: max|kernel-plain|"
+                  f" = {float(err.max()):.3e} ok={ok} chunked_ok={ok_chunk} "
+                  f"masked_rows_zero={zero} finite={finite}")
+            if not (ok and ok_chunk and zero and finite):
+                raise SystemExit(f"prefix kernel disagrees with its plain "
+                                 f"version at {name} rab={use_rab}")
+
+    # the unified fallback: prefix 0 and n_new == n_hist is the full ROO
+    # forward, so B4 must agree with B1 on the same inputs
+    x = attention_inputs((64, 2, 80, 32, 32, 64, 64), seed=7, device=device)
+    zeros = torch.zeros_like(x["hl"])
+    spec = prefix_spec(zeros, x["hl"], x["tc"], 64, 64)
+    for use_rab in (True, False):
+        rab = x["rab"] if use_rab else None
+        b4 = dispatch.hstu_attention_prefix(x["q"], x["k"], x["v"], rab, spec,
+                                            scale_len=80,
+                                            max_rel_pos=x["max_rel"])
+        b1 = kmod.hstu_attention_cuda(x["q"], x["k"], x["v"], rab, 64,
+                                      x["hl"], x["tc"], x["max_rel"])
+        torch.cuda.synchronize()
+        diff = float((b4 - b1).abs().max())
+        ok = torch.allclose(b4, b1, atol=ATOL, rtol=RTOL)
+        print(f"[kernels] prefix 0, n_new = n_hist vs B1 rab={use_rab}: "
+              f"max|B4-B1| = {diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit("the prefix kernel's full-recompute case "
+                             "disagrees with the HSTU forward kernel")
     return worst
 
 
@@ -296,7 +440,243 @@ def phase_serve(kmod, device) -> dict:
         raise SystemExit("served scores disagree with the CPU server")
 
     return dict(launches=launches, requests_per_s=len(requests) / wall,
-                n_batches=st.n_batches)
+                n_batches=st.n_batches, cfg=cfg, params=params, score=score,
+                requests=requests, scores=scores)
+
+
+def max_diff_ok(got, want, what: str) -> float:
+    """Largest |got - want| over aligned score lists; fails beyond 1e-4."""
+    import numpy as np
+    from repro_torch.serve.engine import ScoreError
+    if len(got) != len(want) or any(isinstance(g, ScoreError)
+                                    for g in got):
+        raise SystemExit(f"{what}: misaligned results or a ScoreError")
+    diff = max(float(np.abs(a - b).max(initial=0.0))
+               for a, b in zip(got, want))
+    if not all(a.shape == b.shape and np.allclose(a, b, atol=LOGIT_TOL,
+                                                  rtol=LOGIT_TOL)
+               for a, b in zip(got, want)):
+        raise SystemExit(f"{what}: scores disagree (max |diff| {diff:.3e})")
+    return diff
+
+
+def repeat_waves(cfg, n_users=64, n_waves=4, seed=1):
+    """Repeat traffic: ``n_users`` users, each of ``n_waves`` waves appends
+    1-8 events to every user's history (which stays inside the hist_len
+    window) and asks for 1-8 candidates; one request per user per wave."""
+    import numpy as np
+    from repro_torch.core.joiner import ROOSample
+    rng = np.random.default_rng(seed)
+    start_max = cfg.hist_len - 8 * (n_waves - 1)
+    hists = [list(rng.integers(1, cfg.n_items,
+                               size=int(rng.integers(0, start_max + 1))))
+             for _ in range(n_users)]
+    waves = []
+    for w in range(n_waves):
+        reqs = []
+        for u in range(n_users):
+            if w:
+                hists[u] = hists[u] + list(rng.integers(
+                    1, cfg.n_items, size=int(rng.integers(1, 9))))
+            items = [int(i) for i in rng.integers(
+                1, cfg.n_items, size=int(rng.integers(1, 9)))]
+            hist = [int(i) for i in hists[u]]
+            reqs.append(ROOSample(
+                request_id=w * n_users + u, user_id=u,
+                ro_dense=np.full((8,), float(u), np.float32),
+                ro_idlist=[1 + u % 7], history_ids=hist,
+                history_actions=[i % 4 for i in hist], item_ids=items,
+                item_dense=[np.zeros((8,), np.float32) for _ in items],
+                item_idlist=[[1 + i % 7] for i in items],
+                labels=[{"click": 0.0, "view_sec": 0.0} for _ in items]))
+        waves.append(reqs)
+    return waves
+
+
+def incremental_engine(serve, device, capacity=4096):
+    """The state-store engine for hstu-gr at the stateless server's
+    admission policy and bucket ladder."""
+    from repro_torch.models.gr import (gr_extend_user_state,
+                                       gr_score_from_state, gr_state_init)
+    from repro_torch.serve.adapter import ServeAdapter
+    from repro_torch.serve.bucketing import BucketLadder
+    from repro_torch.serve.engine import EnginePolicy, ScoringEngine
+    from repro_torch.serve.user_cache import UserStateStore
+    cfg = serve["cfg"]
+    adapter = ServeAdapter(
+        score=serve["score"],
+        init_user_state=lambda: gr_state_init(cfg, device=device),
+        extend_user_state=lambda p, b, s, *, n_new:
+            gr_extend_user_state(p, cfg, b, s, n_new=n_new),
+        score_from_state=lambda p, b, s, *, n_new:
+            gr_score_from_state(p, cfg, b, s, n_new=n_new),
+        state_hist_len=cfg.hist_len)
+    return ScoringEngine(
+        serve["params"], adapter=adapter,
+        policy=EnginePolicy(max_requests=64, max_impressions=512,
+                            hist_len=cfg.hist_len),
+        ladder=BucketLadder.geometric(min_b_ro=4, min_b_nro=32,
+                                      max_b_ro=64, max_b_nro=512),
+        state_store=UserStateStore(capacity), device=device)
+
+
+def serve_waves(engine, waves):
+    """One score_requests call per wave; returns (scores, wall seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = [s for wave in waves for s in engine.score_requests(wave)]
+    torch.cuda.synchronize()
+    return scores, time.perf_counter() - t0
+
+
+def timed_breakdown(engine, waves) -> dict:
+    """Serve ``waves`` through ``engine`` with each stage of the
+    incremental path wrapped in host timers (the card is synchronised at
+    the end of each device stage); returns seconds per stage."""
+    import dataclasses
+    import torch
+    acc = {"probe": 0.0, "stack + copy to card": 0.0, "forward": 0.0,
+           "copy back": 0.0, "store writes": 0.0}
+
+    def timed(name, fn, sync):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    store = engine.state_store
+    store.probe = timed("probe", store.probe, False)
+    store.put = timed("store writes", store.put, False)
+    engine._stack_states = timed("stack + copy to card",
+                                 engine._stack_states, True)
+    engine._states_to_host = timed("copy back", engine._states_to_host,
+                                   False)
+    engine.adapter = dataclasses.replace(
+        engine.adapter, score_from_state=timed(
+            "forward", engine.adapter.score_from_state, True))
+    _, wall = serve_waves(engine, waves)
+    acc["rest (pack, batch copy, scores back, engine)"] = \
+        wall - sum(acc.values())
+    acc["total"] = wall
+    return acc
+
+
+def phase_incremental(kmod, pmod, device, serve) -> dict:
+    """Incremental serving at gr_config width: repeat traffic and the
+    simulated stream through the state-store engine on the card."""
+    from repro_torch.serve.serving import ROOServer, ServeConfig
+    cfg = serve["cfg"]
+    n_layers = cfg.hstu.n_layers
+    waves = repeat_waves(cfg)
+    n_req = sum(len(w) for w in waves)
+    stateless = ROOServer(serve["params"], serve["score"], ServeConfig(
+        b_ro=64, b_nro=512, hist_len=cfg.hist_len), device=device)
+    want, stateless_s = serve_waves(stateless, waves)
+    serve_waves(incremental_engine(serve, device), waves)      # warm-up
+
+    engine = incremental_engine(serve, device)
+    kmod.reset_launch_count()
+    pmod.reset_launch_count()
+    got, wall = serve_waves(engine, waves)
+    b1, b4 = kmod.launch_count, pmod.launch_count
+    st, ss = engine.stats, engine.state_store.stats
+    print(f"[incremental] repeat traffic: {len(waves)} waves x "
+          f"{len(waves[0])} users, {st.n_batches} batches, hits {ss.hits} "
+          f"misses {ss.misses} prefix_mismatches {ss.prefix_mismatches}; "
+          f"launches B4 {b4} B1 {b1}; failed batches "
+          f"{st.n_failed_batches}")
+    if st.n_failed_batches or ss.prefix_mismatches \
+            or ss.hits != len(waves[0]) * (len(waves) - 1):
+        raise SystemExit("repeat traffic: failed batches, or hits != "
+                         "users x repeat waves, or a prefix mismatch")
+    if b4 != n_layers * st.n_batches or b4 == 0 or b1 != 0 \
+            or st.n_incremental_batches != st.n_batches:
+        raise SystemExit(f"repeat traffic: B4 launches {b4} != n_layers x "
+                         f"n_batches = {n_layers * st.n_batches}, or B1 "
+                         f"launched {b1} times")
+    diff = max_diff_ok(got, want, "incremental vs stateless server")
+    print(f"[incremental] max|incremental - stateless| over scores = "
+          f"{diff:.3e}")
+    print(f"[incremental] {n_req} requests: incremental {wall * 1e3:.1f} ms "
+          f"({n_req / wall:.1f} requests/s), stateless server "
+          f"{stateless_s * 1e3:.1f} ms ({n_req / stateless_s:.1f} "
+          f"requests/s)")
+    for rnd in range(2):
+        parts = timed_breakdown(incremental_engine(serve, device), waves)
+        print(f"[incremental] breakdown {rnd + 1} (ms over {len(waves)} "
+              f"batches): " + ", ".join(f"{k} {v * 1e3:.2f}"
+                                         for k, v in parts.items()))
+
+    stream = incremental_engine(serve, device)
+    kmod.reset_launch_count()
+    pmod.reset_launch_count()
+    got_stream, stream_s = serve_waves(stream, [serve["requests"]])
+    ss, st = stream.state_store.stats, stream.stats
+    diff_stream = max_diff_ok(got_stream, serve["scores"],
+                              "incremental stream vs stateless server")
+    print(f"[incremental] stream: {len(serve['requests'])} requests in "
+          f"{stream_s * 1e3:.1f} ms, {st.n_batches} batches, hits {ss.hits} "
+          f"misses {ss.misses} prefix_mismatches {ss.prefix_mismatches}; "
+          f"launches B4 {pmod.launch_count} B1 {kmod.launch_count}; "
+          f"max|incremental - stateless| = {diff_stream:.3e}")
+    if pmod.launch_count != n_layers * st.n_batches or kmod.launch_count \
+            or st.n_failed_batches:
+        raise SystemExit("stream: wrong launch counts or a failed batch")
+    return dict(launches=b4, requests_per_s=n_req / wall,
+                stateless_requests_per_s=n_req / stateless_s)
+
+
+def phase_cache(kmod, pmod, device, serve) -> None:
+    """ROOServer with the user-tower cache serves the stream twice."""
+    from repro_torch.models.gr import (gr_history_repr,
+                                       gr_ranking_logits_from_history)
+    from repro_torch.serve.serving import ROOServer, ServeConfig
+    cfg, params, requests = serve["cfg"], serve["params"], serve["requests"]
+    server = ROOServer(
+        params, serve["score"], ServeConfig(
+            b_ro=64, b_nro=512, hist_len=cfg.hist_len,
+            cache_user_tower=True),
+        user_fn=lambda p, b: gr_history_repr(p, cfg, b),
+        score_from_user=lambda p, b, u:
+            gr_ranking_logits_from_history(p, cfg, b, u),
+        device=device)
+    kmod.reset_launch_count()
+    pmod.reset_launch_count()
+    first, first_s = serve_waves(server, [requests])
+    st = server.stats
+    batches_1, full_1 = st.n_batches, st.n_full_cache_batches
+    second, second_s = serve_waves(server, [requests])
+    batches_2 = st.n_batches - batches_1
+    full_2 = st.n_full_cache_batches - full_1
+    cs = server.cache.stats
+    print(f"[cache] pass 1: {first_s * 1e3:.1f} ms "
+          f"({len(requests) / first_s:.1f} requests/s), {batches_1} "
+          f"batches, {full_1} full-cache; pass 2: {second_s * 1e3:.1f} ms "
+          f"({len(requests) / second_s:.1f} requests/s), {batches_2} "
+          f"batches, {full_2} full-cache; cache hits {cs.hits} misses "
+          f"{cs.misses}; launches B1 {kmod.launch_count} B4 "
+          f"{pmod.launch_count}")
+    if full_2 != batches_2 or batches_2 == 0 or st.n_failed_batches:
+        raise SystemExit("cache: the second pass was not all full-cache "
+                         "batches, or a batch failed")
+    if kmod.launch_count != cfg.hstu.n_layers * st.n_batches \
+            or pmod.launch_count:
+        raise SystemExit("cache: B1 launches != n_layers x n_batches, or "
+                         "B4 launched")
+    d_pass = max_diff_ok(second, first, "cache pass 2 vs pass 1")
+    d_stateless = max_diff_ok(first, serve["scores"],
+                              "cache path vs stateless server")
+    server.params = params                         # weight swap
+    print(f"[cache] max|pass 2 - pass 1| = {d_pass:.3e}, max|cache path - "
+          f"stateless| = {d_stateless:.3e}; after a weight swap the cache "
+          f"holds {len(server.cache)} rows")
+    if len(server.cache):
+        raise SystemExit("cache: a weight swap did not empty the cache")
 
 
 def phase_times(kmod, device, card: str) -> dict:
@@ -323,6 +703,31 @@ def phase_times(kmod, device, card: str) -> dict:
                 bound_by=bound_by)
 
 
+def phase_prefix_times(pmod, device, card: str) -> dict:
+    x = prefix_inputs((64, 2, 64, 8, 16, 32, 32, 64, 80), seed=11,
+                      device=device)
+    args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["n_new"],
+            x["pfx"], x["nc"], x["tc"], x["scale_len"], x["max_rel"])
+    kernel = lambda: pmod.hstu_attention_prefix_cuda(*args)
+    plain = lambda: pmod.hstu_attention_prefix_plain(*args)
+    plain_ms = device_ms(plain, iters=20)
+    ms = device_ms(kernel, iters=200)
+    ms_again = device_ms(kernel, iters=200)
+    plain_again = device_ms(plain, iters=20)
+    kernel_call, plain_call = call_ms(kernel, 200), call_ms(plain, 50)
+    bound_ms, bound_by, n_bytes, ops = bound_prefix(x)
+    print(f"[times] {card}: hstu_attention_prefix_fwd B64 H2 n_hist64 "
+          f"n_new8 m16 D32 rab, device time per call: kernel {ms:.5f} ms "
+          f"(again {ms_again:.5f}), plain torch {plain_ms:.5f} ms (again "
+          f"{plain_again:.5f}); bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 TFLOP/s); library: "
+          f"none")
+    print(f"[times] {card}: host-issued back-to-back calls: prefix kernel "
+          f"{kernel_call:.5f} ms, plain torch {plain_call:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -343,11 +748,22 @@ def main() -> int:
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     from repro_torch.kernels import hstu_attention as kmod
-    phase_build(kmod)
+    from repro_torch.kernels import hstu_attention_prefix as pmod
+    phase_build([kmod, pmod])
     worst = phase_kernels(kmod, device)
+    worst_prefix = phase_prefix_kernels(kmod, pmod, device)
+    pmod.reset_launch_count()
     serve = phase_serve(kmod, device)
+    if pmod.launch_count:
+        raise SystemExit("the stateless server launched the prefix kernel")
+    inc = phase_incremental(kmod, pmod, device, serve)
+    phase_cache(kmod, pmod, device, serve)
     times = phase_times(kmod, device, card)
+    ptimes = phase_prefix_times(pmod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
+    print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
+          f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
+          f"stateless")
 
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
@@ -356,6 +772,13 @@ def main() -> int:
         "launches": serve["launches"], "max_abs_err": worst,
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        "library_ms": None}, {
+        "name": "hstu_attention_prefix_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_prefix_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:392",
+        "launches": inc["launches"], "max_abs_err": worst_prefix,
+        "ms": ptimes["ms"], "plain_ms": ptimes["plain_ms"],
+        "bound_ms": ptimes["bound_ms"], "bound_by": ptimes["bound_by"],
         "library_ms": None}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ n history items followed by the request's m target (candidate) items.
     scoring m candidates in one pass equals m independent passes.
 
 All masks also honor per-request valid history length and target count.
-The cached-prefix spec (``PrefixMaskSpec``) waits for incremental serving.
+``PrefixMaskSpec`` describes the cached-prefix layout of incremental
+serving (new events and targets against a per-user K/V cache).
 """
 from __future__ import annotations
 
@@ -68,6 +69,66 @@ class MaskSpec:
         """Materialize the (B, seq_len, seq_len) bool mask (oracle path)."""
         return roo_batch_mask(self.hist_lengths, self.target_counts,
                               self.n_hist, seq_len - self.n_hist)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PrefixMaskSpec:
+    """ROO mask for the cached-prefix (incremental) attention layout.
+
+    Rows are ``[e_0 .. e_{n_new-1} | t_0 .. t_{m-1}]`` — the request's new
+    history events followed by its target slots. Columns are the full K/V
+    buffer ``[h_0 .. h_{n_hist-1} | t_0 .. t_{m-1}]`` — the per-user cache
+    (new events scattered in at ``prefix_lengths + r``) followed by the same
+    target slots. New event r sits at absolute history position
+    ``prefix_lengths[b] + r``, so:
+
+      * new event → history  : causal on absolute positions (j <= prefix + r);
+      * new event → target   : never;
+      * target → history     : the full valid history (j < prefix + n_new);
+      * target → target      : diagonal only.
+
+    With ``prefix_lengths == 0`` and ``n_new == n_hist`` this is exactly the
+    :class:`MaskSpec` ROO mask: extend-from-empty is full recompute.
+    """
+    n_hist: int                      # K/V cache capacity (history columns)
+    n_new: int                       # padded new-event row count
+    prefix_lengths: torch.Tensor     # (B,) events already in the cache
+    new_counts: torch.Tensor         # (B,) valid new events this request
+    target_counts: torch.Tensor      # (B,) valid targets this request
+
+    def dense(self, n_rows: int, n_cols: int) -> torch.Tensor:
+        """Materialize the (B, n_rows, n_cols) bool mask (oracle path)."""
+        device = self.prefix_lengths.device
+        r = torch.arange(n_rows, device=device)
+        j = torch.arange(n_cols, device=device)
+        is_new_r = r < self.n_new                                   # (R,)
+        is_hist_c = j < self.n_hist                                 # (C,)
+        pfx = self.prefix_lengths[:, None]                          # (B, 1)
+        row_pos = torch.where(is_new_r[None, :], pfx + r[None, :],
+                              r[None, :] + (self.n_hist - self.n_new))
+        new_hist = (is_new_r[None, :, None] & is_hist_c[None, None, :]
+                    & (j[None, None, :] <= row_pos[:, :, None]))
+        tgt_hist = (~is_new_r)[:, None] & is_hist_c[None, :]        # (R, C)
+        tgt_diag = ((~is_new_r)[:, None] & (~is_hist_c)[None, :]
+                    & ((r - self.n_new)[:, None]
+                       == (j - self.n_hist)[None, :]))
+        struct = new_hist | (tgt_hist | tgt_diag)[None]             # (B, R, C)
+        valid_r = torch.where(
+            is_new_r[None, :], r[None, :] < self.new_counts[:, None],
+            (r[None, :] - self.n_new) < self.target_counts[:, None])
+        valid_c = torch.where(
+            is_hist_c[None, :],
+            j[None, :] < (self.prefix_lengths + self.new_counts)[:, None],
+            (j[None, :] - self.n_hist) < self.target_counts[:, None])
+        return struct & valid_r[:, :, None] & valid_c[:, None, :]
+
+
+def prefix_spec(prefix_lengths: torch.Tensor, new_counts: torch.Tensor,
+                target_counts: torch.Tensor, n_hist: int,
+                n_new: int) -> PrefixMaskSpec:
+    """Spec for the cached-prefix [new events | targets] row layout."""
+    return PrefixMaskSpec(n_hist, n_new, prefix_lengths, new_counts,
+                          target_counts)
 
 
 def roo_spec(hist_lengths: torch.Tensor, target_counts: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Carry parameter trees between numpy and the port.
+"""Carry parameter trees and user states between numpy and the port.
 
 The JAX package keeps params as a nested dict/list of arrays; the port keeps
 the same tree of tensors, path for path. A caller that holds the
 reference's params converts the leaves to numpy first (e.g.
 ``tree_map(np.asarray, params)``), so the port never sees a JAX array.
+Incremental-serving user states (``GRUserState``: k, v, length) cross the
+same way, field by field.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.models.gr import GRUserState
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
@@ -30,3 +34,18 @@ def params_to_numpy(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tree.detach().to("cpu").numpy()
+
+
+def gr_state_from_numpy(state: Any, device="cuda") -> GRUserState:
+    """Any (k, v, length) record of numpy arrays — e.g. the reference's
+    ``GRUserState`` after ``tree_map(np.asarray, ...)`` — -> the port's
+    :class:`GRUserState` of tensors on ``device``."""
+    k, v, length = state
+    return GRUserState(*(torch.from_numpy(np.array(a, copy=True)).to(device)
+                         for a in (k, v, length)))
+
+
+def gr_state_to_numpy(state: GRUserState) -> GRUserState:
+    """The port's state -> the same record of numpy arrays (the reference's
+    ``GRUserState(*gr_state_to_numpy(s))`` takes it as is)."""
+    return GRUserState(*(a.detach().to("cpu").numpy() for a in state))

@@ -1,9 +1,10 @@
-"""Backend dispatch for HSTU attention (port of ``repro/kernels/dispatch.py``).
+"""Backend dispatch for HSTU attention and its cached-prefix variant (port
+of ``repro/kernels/dispatch.py``).
 
 Backends:
 
-  cuda           — the hand-written CUDA kernel (kernels/hstu_attention.py);
-                   CUDA tensors only
+  cuda           — the hand-written CUDA kernels (kernels/hstu_attention.py,
+                   kernels/hstu_attention_prefix.py); CUDA tensors only
   torch-chunked  — blockwise torch path (core.hstu): scores, bias and mask
                    are produced per q-chunk, so no (S, S) tensor exists
   torch-dense    — the (S, S)-materializing oracle (kernels/ref.py)
@@ -14,7 +15,9 @@ Resolution walks the port's own knob ladder (explicit ``backend=`` >
 ``REPRO_HSTU_BACKEND`` exported for the JAX package never reaches it. Auto
 follows the tensor: ``cuda`` when q lives on a CUDA device, ``torch-chunked``
 otherwise. On a CUDA tensor auto launches the kernel or raises; the plain
-backends stay available on any device by explicit choice only.
+backends stay available on any device by explicit choice only. Both entry
+points (:func:`hstu_attention`, :func:`hstu_attention_prefix`) use the same
+ladder.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.masks import MaskSpec
+from repro_torch.core.masks import MaskSpec, PrefixMaskSpec
 from repro_torch.scenario.knobs import UNSET, Knob
 
 BACKENDS = ("cuda", "torch-chunked", "torch-dense")
@@ -86,3 +89,42 @@ def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels.ref import hstu_attention_ref
     return hstu_attention_ref(q, k, v, rab, spec.n_hist, spec.hist_lengths,
                               spec.target_counts, max_rel_pos)
+
+
+def hstu_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          rab: Optional[torch.Tensor], spec: PrefixMaskSpec,
+                          backend: Optional[str] = None, *,
+                          scale_len: int, max_rel_pos: int = 128,
+                          chunk: int = 128) -> torch.Tensor:
+    """Cached-prefix HSTU attention (incremental serving; forward only).
+
+    Rows are [new events | targets] (q: (B, H, n_new + m, Dqk)); columns
+    the full K/V buffer [history cache | targets] (k, v: (B, H, n_hist + m,
+    ·)). ``spec`` carries the per-request prefix/new/target counts;
+    ``scale_len`` pins the 1/n normalizer to the equivalent full-sequence
+    length. Same backend ladder as :func:`hstu_attention`; with
+    ``prefix_lengths == 0`` and ``n_new == n_hist`` each backend computes
+    its full-recompute counterpart.
+    """
+    be = resolve_backend(backend, q.device)
+    if be == "cuda":
+        if q.device.type != "cuda":
+            raise ValueError(f"attention backend 'cuda' needs CUDA tensors, "
+                             f"got {q.device}")
+        from repro_torch.kernels.hstu_attention_prefix import (
+            hstu_attention_prefix_cuda)
+        return hstu_attention_prefix_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            None if rab is None else rab.contiguous(), spec.n_hist,
+            spec.n_new, spec.prefix_lengths, spec.new_counts,
+            spec.target_counts, scale_len, max_rel_pos)
+    if be == "torch-chunked":
+        from repro_torch.core.hstu import hstu_attention_prefix_chunked
+        return hstu_attention_prefix_chunked(q, k, v, rab, spec, scale_len,
+                                             max_rel_pos=max_rel_pos,
+                                             chunk=chunk)
+    from repro_torch.kernels.ref import hstu_attention_prefix_ref
+    return hstu_attention_prefix_ref(q, k, v, rab, spec.n_hist, spec.n_new,
+                                     spec.prefix_lengths, spec.new_counts,
+                                     spec.target_counts, scale_len,
+                                     max_rel_pos)

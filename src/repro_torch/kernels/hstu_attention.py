@@ -61,22 +61,22 @@ def _nvcc() -> str:
         if path and os.path.exists(path):
             return path
     raise RuntimeError("nvcc not found (set CUDA_HOME); the HSTU CUDA "
-                       "kernel is built on the machine with the card")
+                       "kernels are built on the machine with the card")
 
 
-def build() -> Tuple[Path, str]:
-    """Compile the kernel (once per source hash); returns the library path
-    and the compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills)."""
-    src = SOURCE.read_bytes()
+def build_library(source: Path) -> Tuple[Path, str]:
+    """Compile one kernel source into ``build/kernels/`` (once per source
+    hash); returns the library path and the compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills)."""
+    src = source.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"hstu_attention_fwd-{digest[:16]}.so"
+    lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists() and log_path.exists():
         return lib_path, log_path.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -84,6 +84,11 @@ def build() -> Tuple[Path, str]:
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, log
+
+
+def build() -> Tuple[Path, str]:
+    """Compile this kernel (see :func:`build_library`)."""
+    return build_library(SOURCE)
 
 
 def _load():
@@ -103,7 +108,7 @@ def _load():
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
+def check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.float32:
@@ -132,7 +137,7 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, dqk = q.shape
     dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, device)
+        check_operand(name, t, device)
     if not (0 < dqk <= MAX_D and 0 < dv <= MAX_D):
         raise ValueError(f"Dqk={dqk}, Dv={dv}: the kernel takes 1..{MAX_D}")
     if not 0 <= n_hist <= s:
@@ -144,7 +149,7 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("tensor too large for the kernel's indexing")
     use_rab = rab is not None
     if use_rab:
-        _check("rab", rab, device)
+        check_operand("rab", rab, device)
         if tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
             raise ValueError(f"rab{tuple(rab.shape)} != "
                              f"({h}, {2 * max_rel_pos + 1})")

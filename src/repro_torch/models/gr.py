@@ -4,16 +4,20 @@
 Ranking appends the request's m targets to the user's interleaved (item,
 action) history under the ROO mask (core.sequence) and reads multi-task
 logits from the target positions. The per-user state functions
-(incremental serving), the losses and retrieval are not ported yet.
+(``GRUserState``, ``gr_score_from_state``, ``gr_extend_user_state``) serve
+the same ranking incrementally from a per-user K/V cache. The losses and
+retrieval are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.hstu import HSTUConfig, hstu_init, normal_init
+from repro_torch.core.hstu import (HSTUConfig, hstu_init, hstu_prefix_apply,
+                                   normal_init)
+from repro_torch.core.masks import prefix_spec
 from repro_torch.core.roo_batch import ROOBatch
 from repro_torch.core.sequence import (ROOSequenceConfig, encode_roo,
                                        gather_targets_to_ro,
@@ -78,3 +82,95 @@ def gr_ranking_logits(params: Dict, cfg: GRConfig,
     (B_NRO, n_tasks) logits."""
     return gr_ranking_logits_from_history(
         params, cfg, batch, gr_history_repr(params, cfg, batch))
+
+
+class GRUserState(NamedTuple):
+    """Per-user incremental serving state: the per-layer history K/V cache.
+
+    Unbatched (as stored per user): k (n_layers, hist_len, H, dqk),
+    v (n_layers, hist_len, H, dv), length () int32 — how many history
+    events are resident. The serving store stacks these along a leading
+    batch axis.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+def gr_state_init(cfg: GRConfig, dtype=torch.float32,
+                  device="cuda") -> GRUserState:
+    """Empty (zero-length) user state — extend-from-empty through the prefix
+    path computes exactly the full-recompute forward."""
+    h = cfg.hstu
+    return GRUserState(
+        k=torch.zeros((h.n_layers, cfg.hist_len, h.n_heads, h.d_qk),
+                      dtype=dtype, device=device),
+        v=torch.zeros((h.n_layers, cfg.hist_len, h.n_heads, h.d_v),
+                      dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _gr_new_event_emb(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                      prefix: torch.Tensor, n_new: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embed the n_new not-yet-cached history events of each request (row r
+    of request b is history slot ``prefix[b] + r``). Returns
+    (emb (B_RO, n_new, d), new_counts (B_RO,) int32), both on the batch's
+    device."""
+    n_hist = cfg.hist_len
+    ids = batch.history_ids[:, :n_hist]
+    acts = batch.history_actions[:, :n_hist]
+    lengths = torch.clamp(batch.history_lengths, max=n_hist).to(torch.int32)
+    new_counts = torch.clamp(lengths - prefix, min=0)
+    rows = torch.arange(n_new, device=prefix.device)
+    ridx = torch.clamp(prefix[:, None].long() + rows[None, :],
+                       max=ids.shape[1] - 1)
+    e = ec.seq_lookup(params["item_emb"], torch.gather(ids, 1, ridx),
+                      vocab=cfg.n_items)
+    a = ec.seq_lookup(params["act_emb"], torch.gather(acts, 1, ridx), vocab=4)
+    return e + a, new_counts
+
+
+def gr_score_from_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                        state: GRUserState, *, n_new: int
+                        ) -> Tuple[torch.Tensor, GRUserState]:
+    """Incremental GR ranking: score the request's targets by attending
+    [new events | targets] against the per-user K/V cache.
+
+    ``state`` is a batched :class:`GRUserState` (leading B_RO axis) on the
+    batch's device; ``n_new`` is the new-event row budget (>= every
+    request's uncached-event count; extra rows are masked). With zero-length
+    state and ``n_new == cfg.hist_len`` this computes exactly
+    :func:`gr_ranking_logits` — the unified fallback path. Returns
+    ``(logits (B_NRO, n_tasks), new_state)``.
+    """
+    prefix = state.length.to(torch.int32)
+    emb, new_counts = _gr_new_event_emb(params, cfg, batch, prefix, n_new)
+    tgt_nro = ec.row_lookup(params["item_emb"], batch.item_ids,
+                            vocab=cfg.n_items)
+    tgt_ro = gather_targets_to_ro(tgt_nro, batch, cfg.m_targets)
+    x = torch.cat([emb, tgt_ro], dim=1)             # (B_RO, n_new + m, d)
+    spec = prefix_spec(prefix, new_counts, batch.num_impressions,
+                       cfg.hist_len, n_new)
+    scale_len = cfg.hist_len + cfg.m_targets
+    x, ks, vs = hstu_prefix_apply(params["hstu"], cfg.hstu, x, state.k,
+                                  state.v, spec, scale_len)
+    feats = scatter_targets_to_nro(x[:, n_new:, :], batch, cfg.m_targets)
+    logits = mlp_apply(params["task_head"], feats)
+    return logits, GRUserState(ks, vs, prefix + new_counts)
+
+
+def gr_extend_user_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                         state: GRUserState, *, n_new: int) -> GRUserState:
+    """Extend the per-user K/V cache with the request's new events without
+    scoring any targets (prewarm / write-only traffic). The 1/n scale stays
+    pinned to ``hist_len + m_targets``, so the resulting cache equals the
+    one :func:`gr_score_from_state` would have produced."""
+    prefix = state.length.to(torch.int32)
+    emb, new_counts = _gr_new_event_emb(params, cfg, batch, prefix, n_new)
+    spec = prefix_spec(prefix, new_counts, torch.zeros_like(new_counts),
+                       cfg.hist_len, n_new)
+    scale_len = cfg.hist_len + cfg.m_targets
+    _, ks, vs = hstu_prefix_apply(params["hstu"], cfg.hstu, emb, state.k,
+                                  state.v, spec, scale_len)
+    return GRUserState(ks, vs, prefix + new_counts)

@@ -2,15 +2,18 @@
 engine (a copy of ``repro/serve/adapter.py``, framework-free).
 
   * ``score(params, batch)`` — the fused forward; the only required entry
-    point, and the only one the port's engine consumes so far.
-  * ``user_repr`` / ``score_from_user`` — the RO/NRO split for the
-    user-tower cache.
+    point. Stateless archs stop here.
+  * ``user_repr`` / ``score_from_user`` — the RO/NRO split, memoized by the
+    user-tower cache (serve/user_cache.py ``UserTowerCache``).
   * ``init_user_state`` / ``extend_user_state`` / ``score_from_state`` —
-    the stateful hooks for incremental serving; ``state_hist_len`` is the
-    history capacity the state covers.
+    the stateful hooks for incremental serving: per-user K/V state persisted
+    across requests (``UserStateStore``), so a repeat user costs O(new
+    events). ``state_hist_len`` is the history capacity the state covers;
+    the engine requires it to equal the batcher window.
 
-The user-tower cache and the incremental state store are not ported yet,
-so the port's engine calls ``score`` only.
+The port's engine consumes all three capabilities: ``supports_user_cache``
+gates the memoized split path, ``supports_incremental`` the state-store
+path, and everything else runs the fused ``score``.
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ class ServeAdapter:
       * score(params, batch) -> (B_NRO,) | (B_NRO, n_tasks)
       * user_repr(params, batch) -> (B_RO, ...)
       * score_from_user(params, batch, user) -> like ``score``
-      * init_user_state() -> per-user state (no batch axis)
+      * init_user_state() -> per-user state record (no batch axis)
       * extend_user_state(params, batch, state, *, n_new) -> state
       * score_from_state(params, batch, state, *, n_new) -> (scores, state)
+        where ``state`` carries a leading batch axis and ``n_new`` is the
+        new-event row budget.
     """
     score: Callable
     user_repr: Optional[Callable] = None

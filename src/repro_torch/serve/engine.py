@@ -1,5 +1,5 @@
 """Micro-batching scoring engine — the request is the unit of work (torch
-port of the stateless path of ``repro/serve/engine.py``).
+port of ``repro/serve/engine.py``).
 
   * **request-aligned scoring** — the batcher's ``BatchPlan`` maps every
     request to its contiguous slot range, so the engine returns exactly one
@@ -13,13 +13,22 @@ port of the stateless path of ``repro/serve/engine.py``).
   * **failure isolation** — a batch whose forward raises resolves its
     requests to ``ScoreError`` values; a circuit breaker sheds work after
     consecutive failures.
+  * **user-tower memoization** — with split model entry points
+    (``user_fn`` + ``score_from_user``) and a ``cache``, the RO side is
+    computed once per unique request payload and reused
+    (serve/user_cache.py ``UserTowerCache``).
+  * **incremental user state** — with an adapter's stateful hooks and a
+    ``state_store``, each user's per-layer K/V cache persists across
+    requests (``UserStateStore``): a repeat user costs O(new events), and
+    every miss recomputes from empty through the same prefix path.
 
 Batches are packed on the host and moved to ``device`` once; scores come
-back to the host as numpy arrays.
+back to the host as numpy arrays. User states and cached user-tower rows
+live on the host as numpy; per batch, each state leaf is stacked and copied
+to the card once, and copied back once.
 
-Not ported yet: the user-tower cache and the incremental state store (next
-slice), and the ``obs`` spans/counters and ``faults.maybe_fail`` injection
-site (ROADMAP A8).
+Not ported yet: the ``obs`` spans/counters and the ``faults.maybe_fail``
+injection site (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -33,10 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.joiner import ROOSample
-from repro_torch.data.batcher import BatcherConfig, ROOBatcher
+from repro_torch.data.batcher import BatchPlan, BatcherConfig, ROOBatcher
 from repro_torch.kernels.dispatch import use_backend
 from repro_torch.serve.adapter import ServeAdapter
 from repro_torch.serve.bucketing import BucketLadder, BucketStats
+from repro_torch.serve.user_cache import (StateProbe, UserStateStore,
+                                          UserTowerCache, request_key)
 
 
 class ScoreError:
@@ -80,6 +91,8 @@ class EngineStats:
     n_size_flushes: int = 0
     n_deadline_flushes: int = 0
     n_forced_flushes: int = 0
+    n_full_cache_batches: int = 0      # batches whose user tower was skipped
+    n_incremental_batches: int = 0     # batches scored via the state store
     n_failed_batches: int = 0          # forwards that raised (isolated)
     n_failed_requests: int = 0         # requests resolved to ScoreError
     n_shed_requests: int = 0           # requests shed by the open breaker
@@ -124,10 +137,16 @@ def split_oversize(sample: ROOSample, cap: int) -> List[ROOSample]:
 
 
 class ScoringEngine:
-    """Request-aligned scoring around an eager model forward.
+    """Request-aligned, cache-aware scoring around an eager model forward.
 
-    ``score_fn(params, batch) -> (B_NRO,) | (B_NRO, n_tasks)`` (or an
-    adapter's ``score``) runs on batches placed on ``device``.
+    The model halves come from a :class:`~repro_torch.serve.adapter.
+    ServeAdapter` (``adapter=``) or from bare callables: ``score_fn(params,
+    batch) -> (B_NRO,) | (B_NRO, n_tasks)`` is the fused forward; the split
+    entry points ``user_fn(params, batch) -> (B_RO, ...)`` and
+    ``score_from_user(params, batch, user)`` additionally enable the
+    user-tower cache; an adapter with stateful hooks plus a ``state_store``
+    routes every batch through the incremental path. Batches run on
+    ``device``.
 
     Two front ends share one scoring core:
       * online:  ``submit`` / ``poll`` / ``flush`` / ``take``  (micro-batcher)
@@ -138,23 +157,56 @@ class ScoringEngine:
                  policy: Optional[EnginePolicy] = None,
                  ladder: Optional[BucketLadder] = None,
                  adapter: Optional[ServeAdapter] = None,
+                 user_fn: Optional[Callable] = None,
+                 score_from_user: Optional[Callable] = None,
+                 cache: Optional[UserTowerCache] = None,
+                 state_store: Optional[UserStateStore] = None,
                  attn_backend: Optional[str] = None,
                  device="cuda",
                  clock: Callable[[], float] = time.monotonic):
         if adapter is not None:
             score_fn = score_fn or adapter.score
+            user_fn = user_fn or adapter.user_repr
+            score_from_user = score_from_user or adapter.score_from_user
         if score_fn is None:
             raise ValueError("ScoringEngine needs score_fn or an adapter")
-        self.params = params
+        if cache is not None and (user_fn is None or score_from_user is None):
+            raise ValueError("user-tower cache requires the split entry "
+                             "points user_fn and score_from_user")
+        if state_store is not None:
+            if adapter is None or not adapter.supports_incremental:
+                raise ValueError(
+                    "state_store requires an adapter with the stateful "
+                    "hooks (init_user_state / score_from_state)")
+            if cache is not None:
+                raise ValueError("state_store and the user-tower cache are "
+                                 "mutually exclusive")
+        self._params = params
         self.policy = policy or EnginePolicy()
+        if (state_store is not None
+                and adapter.state_hist_len != self.policy.hist_len):
+            raise ValueError(
+                f"incremental serving needs the adapter state capacity "
+                f"({adapter.state_hist_len}) to equal the batcher window "
+                f"(policy.hist_len={self.policy.hist_len}) so 'prefix of "
+                f"the effective history' is well defined")
         self.ladder = ladder or BucketLadder.geometric(
             max_b_ro=self.policy.max_requests,
             max_b_nro=self.policy.max_impressions)
+        self.adapter = adapter
+        self.cache = cache
+        self.state_store = state_store
         self.attn_backend = attn_backend
         self.device = torch.device(device)
         self.clock = clock
         self.stats = EngineStats()
         self._score = score_fn
+        self._user = user_fn
+        self._from_user = score_from_user
+        # param epoch versions every store entry; bumped on weight swap
+        self._param_epoch = 0
+        # host (numpy) copy of the adapter's empty user state, made once
+        self._state_template = None
         # online micro-batcher state
         self._pending: List[Tuple[int, ROOSample]] = []
         self._pending_imps = 0
@@ -168,6 +220,42 @@ class ScoringEngine:
         # circuit breaker: consecutive batch failures + open-until deadline
         self._breaker_failures = 0
         self._breaker_open_until: Optional[float] = None
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, new_params) -> None:
+        # cached rows / user states were computed with the old params — a
+        # weight refresh bumps the epoch and drops every stale-epoch entry,
+        # so mixed-version scores are impossible
+        self._params = new_params
+        self._param_epoch += 1
+        if self.cache is not None:
+            self.cache.invalidate_epoch(self._param_epoch)
+        if self.state_store is not None:
+            self.state_store.invalidate_epoch(self._param_epoch)
+
+    @property
+    def param_epoch(self) -> int:
+        """Monotone version of the served parameters (0 at construction,
+        +1 per assignment to ``params``); stores key entries by it."""
+        return self._param_epoch
+
+    def snapshot(self) -> dict:
+        """Whole-engine view: scoring counters, cache effectiveness,
+        breaker state — one consistent read."""
+        out = {"stats": self.stats.snapshot(),
+               "pending_requests": len(self._pending),
+               "param_epoch": self._param_epoch,
+               "breaker": {"consecutive_failures": self._breaker_failures,
+                           "open": self._breaker_open_until is not None}}
+        if self.cache is not None:
+            out["cache"] = self.cache.snapshot()
+        if self.state_store is not None:
+            out["state_store"] = self.state_store.snapshot()
+        return out
 
     # ---- online front end ----------------------------------------------------
     def submit(self, request: ROOSample) -> int:
@@ -310,7 +398,7 @@ class ScoringEngine:
                                       shed=True))
                 continue
             try:
-                scores = self._score_batch(batch)
+                scores = self._score_batch(batch, samples, plan)
             except Exception as e:   # isolation boundary: batch != engine
                 self._breaker_record_failure()
                 self.stats.inc("n_failed_batches")
@@ -350,9 +438,106 @@ class ScoringEngine:
             self._breaker_open_until = (self.clock()
                                         + self.policy.breaker_cooldown_s)
 
-    def _score_batch(self, batch) -> np.ndarray:
+    def _score_batch(self, batch, samples: List[ROOSample],
+                     plan: BatchPlan) -> np.ndarray:
         with use_backend(self.attn_backend), torch.inference_mode():
-            scores = self._score(self.params, batch)
+            scores = self._score_batch_device(batch, samples, plan)
         out = scores.detach().to("cpu").numpy()
         self._score_tail = out.shape[1:]
         return out
+
+    def _score_batch_device(self, batch, samples: List[ROOSample],
+                            plan: BatchPlan) -> torch.Tensor:
+        if self.state_store is not None:
+            return self._score_batch_incremental(batch, samples, plan)
+        if self.cache is None:
+            return self._score(self.params, batch)
+        # cache path: try to serve the whole RO side from cache; on any
+        # miss compute the user tower once for the batch and backfill.
+        epoch = self._param_epoch
+        keys = {p.row: request_key(samples[p.request_index])
+                for p in plan.requests}
+        cached = {row: self.cache.get(k, epoch) for row, k in keys.items()}
+        if cached and all(v is not None for v in cached.values()):
+            any_row = next(iter(cached.values()))
+            u_host = np.zeros((batch.b_ro,) + any_row.shape, any_row.dtype)
+            for row, v in cached.items():
+                u_host[row] = v
+            user = torch.from_numpy(u_host).to(self.device)
+            self.stats.inc("n_full_cache_batches")
+        else:
+            user = self._user(self.params, batch)
+            u_host = user.detach().to("cpu").numpy()
+            for row, k in keys.items():
+                self.cache.put(k, u_host[row], epoch)
+        return self._from_user(self.params, batch, user)
+
+    def _score_batch_incremental(self, batch, samples: List[ROOSample],
+                                 plan: BatchPlan) -> torch.Tensor:
+        """Incremental path: probe the state store per row, extend each
+        user's K/V state with only their uncached events, score, and write
+        the refreshed per-row states back.
+
+        Misses (unknown user / eviction / epoch change / prefix mismatch)
+        probe as prefix 0 with an empty state, which makes them full
+        recomputes through the same prefix kernel. The per-batch new-event
+        budget ``n_new`` is the largest uncached count rounded up to a power
+        of two and capped at the state capacity, so a batch has one of at
+        most log2(capacity) + 1 row counts.
+        """
+        ad = self.adapter
+        epoch = self._param_epoch
+        cap = ad.state_hist_len
+        probes = {p.row: self.state_store.probe(
+            samples[p.request_index], epoch, cap) for p in plan.requests}
+        for pr in probes.values():
+            # the prefix kernel's contract, checked here on host ints so
+            # that no device value is read back
+            if not 0 <= pr.prefix_len <= pr.eff_len <= cap:
+                raise RuntimeError(
+                    f"engine invariant violated: prefix {pr.prefix_len}, "
+                    f"history {pr.eff_len}, capacity {cap}")
+        n_new_max = max([pr.eff_len - pr.prefix_len
+                         for pr in probes.values()], default=1)
+        n_new = 1
+        while n_new < n_new_max:
+            n_new *= 2
+        n_new = min(n_new, cap)
+        state = self._stack_states(probes, batch.b_ro)
+        scores, new_state = ad.score_from_state(self.params, batch, state,
+                                                n_new=n_new)
+        self._put_states(samples, plan, probes, self._states_to_host(
+            new_state), epoch)
+        self.stats.inc("n_incremental_batches")
+        return scores
+
+    def _stack_states(self, probes: Dict[int, StateProbe], b_ro: int):
+        """Stack each row's host state (the empty template for misses and
+        padding rows) and copy each leaf to the card once. States are
+        NamedTuples of arrays (e.g. ``GRUserState``)."""
+        if self._state_template is None:
+            self._state_template = self._states_to_host(
+                self.adapter.init_user_state())
+        template = self._state_template
+        rows = [probes[r].state if r in probes and probes[r].state is not None
+                else template for r in range(b_ro)]
+        return template._make(torch.from_numpy(np.stack(leaves)).to(
+            self.device) for leaves in zip(*rows))
+
+    @staticmethod
+    def _states_to_host(state):
+        """The state record with each leaf copied to host numpy once."""
+        return state._make(leaf.detach().to("cpu").numpy()
+                           for leaf in state)
+
+    def _put_states(self, samples: List[ROOSample], plan: BatchPlan,
+                    probes: Dict[int, StateProbe], new_host,
+                    epoch: int) -> None:
+        """Write each request's refreshed row state back to the store (a
+        copy of its row, so the store never pins the batch arrays)."""
+        for p in plan.requests:
+            pr = probes[p.row]
+            row_state = new_host._make(np.array(leaf[p.row])
+                                       for leaf in new_host)
+            self.state_store.put(samples[p.request_index].user_id, epoch,
+                                 pr.eff_len, pr.digest, row_state)

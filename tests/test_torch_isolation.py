@@ -31,7 +31,9 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES}
     assert {"kernels/hstu_attention.py", "kernels/dispatch.py",
-            "serve/serving.py", "models/gr.py", "interop.py"} <= names
+            "kernels/hstu_attention_prefix.py", "serve/serving.py",
+            "serve/user_cache.py", "serve/engine.py", "models/gr.py",
+            "interop.py"} <= names
 
 
 @pytest.mark.parametrize(
