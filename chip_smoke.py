@@ -17,25 +17,42 @@ Phases (any failure exits non-zero and prints no result):
                    shape with n_new 1, 8 and 64 and at ragged, wide and
                    extend-only shapes, and its prefix-0 case against B1;
                    rab on and off, masked rows exactly 0
-  4. serve       — ROOServer with random hstu-gr params (seeded
+  4. bwd kernels — the backward kernels B2 (dq + drab) and B3 (dk + dv)
+                   through the autograd Function that dispatch's cuda rung
+                   runs (forward B1), against their plain torch version at
+                   the training shape (rab on and off), a ragged S = 100
+                   shape, Dqk = Dv = 128, a causal shape and a clip shape
+                   (max_rel_pos < S); two calls equal bit for bit; the
+                   forward-only prefix rung refuses a call under grad
+  5. serve       — ROOServer with random hstu-gr params (seeded
                    torch.Generator) scores 1,000 simulated requests on the
                    card through B1; launch counts, failed batches and
                    scores are checked against the torch-dense server and a
                    CPU server
-  5. incremental — the state-store engine serves 64 users over 4 waves of
+  6. incremental — the state-store engine serves 64 users over 4 waves of
                    appended events (then the simulated stream) through B4
                    alone: hits, launch counts and scores vs the stateless
                    server, requests/s of both, and where the time goes
-  6. cache       — ROOServer with the user-tower cache serves the stream
+  7. cache       — ROOServer with the user-tower cache serves the stream
                    twice; the second pass is all full-cache batches with
                    the same scores; a weight swap empties the cache
-  7. times       — each kernel vs its plain version (CUDA events; device
+  8. train       — the hstu-gr Trainer (Adam on dense weights, row-wise
+                   Adagrad on the tables) takes 20 steps on ROOBatcher
+                   batches of the simulated stream (32 requests / 192
+                   impressions) through B1-B3: launch counts, no skipped
+                   step, NE logged, per-step losses vs the same run on
+                   torch-dense and on the CPU, the w_uvqk gradient vs
+                   torch-dense, a kill at step 12 and a restart from the
+                   checkpoint vs the uninterrupted run; steps/s,
+                   requests/s and a per-step breakdown
+  9. times       — each kernel vs its plain version (CUDA events; device
                    time with the host run ahead, and host-issued call time)
                    beside its bound, and the servers' requests/s
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
-order (atol = rtol = 1e-5 on attention outputs, 1e-4 on logits).
+order (atol = rtol = 1e-5 on attention outputs and on dq, dk, dv; 1e-4 on
+drab, a sum over B·S² cells, and on logits and gradients of the model).
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -51,8 +68,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-ATOL = RTOL = 1e-5            # attention outputs, kernel vs plain
-LOGIT_TOL = 1e-4              # logits / scores
+ATOL = RTOL = 1e-5            # attention outputs and dq/dk/dv, vs plain
+LOGIT_TOL = 1e-4              # logits / scores; drab; model gradients
+LOSS_TOL = 1e-5               # per-step training losses (rtol; atol 1e-6)
+PARAM_TOL = 1e-5              # params after a kill and restart (atol)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 
@@ -85,7 +104,9 @@ def call_ms(fn, iters: int, warmup: int = 10) -> float:
 def device_ms(fn, iters: int) -> float:
     """Mean device time per call of ``fn``: a sleep kernel holds the card
     while the host enqueues every call, so the CUDA events between them
-    time the device alone. Fails if the host did not get ahead."""
+    time the device alone. Fails if the host did not get ahead — also when
+    ``iters`` calls launch more kernels than the launch queue holds (about
+    a thousand), since the host then waits for the card."""
     import torch
     host_s = call_ms(fn, iters) * 1e-3 * iters        # also the warm-up
     for cycles in (4e9 * host_s + 1e7, 40e9 * host_s + 1e8):
@@ -333,6 +354,331 @@ def phase_prefix_kernels(kmod, pmod, device) -> float:
             raise SystemExit("the prefix kernel's full-recompute case "
                              "disagrees with the HSTU forward kernel")
     return worst
+
+
+def bound_bwd(x, which: str) -> tuple:
+    """Least time (ms) the card needs for one backward kernel call on these
+    inputs, on ``bound()``'s basis. Bytes: the q, k, v and g rows the mask
+    keeps, read once, rab and the lengths, and the kernel's outputs written
+    once (B2: dq and drab; B3: dk and dv). FLOPs per kept cell: B2
+    2 (2 Dqk + Dv) (score, g.v, dq), B3 4 (Dqk + Dv) (score, g.v, dk, dv)."""
+    from repro_torch.core.masks import roo_spec
+    b, h, s, dqk = x["q"].shape
+    dv = x["v"].shape[-1]
+    valid_rows = int((x["hl"] + x["tc"]).sum()) * h
+    n_rab = x["rab"].numel()
+    outputs = (b * h * s * dqk + n_rab if which == "dq"
+               else b * h * s * (dqk + dv))
+    n_bytes = 4 * (valid_rows * 2 * (dqk + dv) + n_rab + 2 * b + outputs)
+    cells = int(roo_spec(x["hl"], x["tc"], x["n_hist"]).dense(s).sum()) * h
+    ops = cells * (2 * (2 * dqk + dv) if which == "dq" else 4 * (dqk + dv))
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
+
+
+def phase_bwd_kernels(kmod, pmod, bmod, device) -> dict:
+    """B2 and B3 against their plain version on the card, reached the way
+    training reaches them: autograd through dispatch's auto (cuda) rung,
+    i.e. ``HSTUAttentionFn``. Returns the largest |kernel - plain| of each
+    kernel's outputs."""
+    import torch
+    from repro_torch.core.masks import prefix_spec, roo_spec
+    from repro_torch.kernels import dispatch
+    shapes = {   # (B, H, S, Dqk, Dv, n_hist, max_rel)
+        "train B32 S80": (32, 2, 80, 32, 32, 64, 64),
+        "ragged S100": (5, 3, 100, 48, 40, 70, 100),
+        "wide D128 S160": (3, 2, 160, 128, 128, 140, 128),  # > 48 KB smem
+        "causal S96": (4, 2, 96, 32, 32, 96, 96),
+        "clip S80 max_rel16": (8, 2, 80, 32, 32, 64, 16),
+    }
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for i, (name, shape) in enumerate(shapes.items()):
+        x = attention_inputs(shape, seed=20 + i, device=device)
+        if name.startswith("causal"):
+            x["tc"].zero_()
+        g = torch.randn(x["v"].shape, generator=torch.Generator(
+            device=device).manual_seed(i), device=device)
+        spec = roo_spec(x["hl"], x["tc"], x["n_hist"])
+        for use_rab in (True, False):
+            leaves = [x["q"], x["k"], x["v"]] + ([x["rab"]] if use_rab
+                                                 else [])
+            runs = []
+            for _ in range(2):
+                args = [t.detach().requires_grad_(True) for t in leaves]
+                rab = args[3] if use_rab else None
+                before = (kmod.launch_count, bmod.dq_launch_count,
+                          bmod.dkv_launch_count)
+                out = dispatch.hstu_attention(
+                    args[0], args[1], args[2], rab, spec,
+                    max_rel_pos=x["max_rel"])
+                runs.append(torch.autograd.grad(out, args, g))
+                after = (kmod.launch_count, bmod.dq_launch_count,
+                         bmod.dkv_launch_count)
+                if tuple(a - b for a, b in zip(after, before)) != (1, 1, 1):
+                    raise SystemExit(f"{name}: autograd through dispatch did "
+                                     f"not launch B1, B2 and B3 once each")
+            plain = bmod.hstu_attention_bwd_plain(
+                x["q"], x["k"], x["v"], x["rab"] if use_rab else None,
+                x["n_hist"], x["hl"], x["tc"], x["max_rel"], g)
+            torch.cuda.synchronize()
+            errs, oks = {}, []
+            for key, got, want, tol in zip(
+                    ("dq", "dk", "dv", "drab"), runs[0], plain,
+                    (ATOL, ATOL, ATOL, LOGIT_TOL)):
+                err = (got - want).abs()
+                errs[key] = float(err.max())
+                oks.append(bool(torch.all(err <= tol + tol * want.abs())))
+                worst["dq" if key in ("dq", "drab") else "dkv"] = max(
+                    worst["dq" if key in ("dq", "drab") else "dkv"],
+                    errs[key])
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            dead_r = ~spec.dense(x["q"].shape[2]).any(-1)       # (B, S)
+            dead_c = ~spec.dense(x["q"].shape[2]).any(-2)
+            zero = (bool(torch.all(runs[0][0].transpose(1, 2)[dead_r] == 0))
+                    and bool(torch.all(runs[0][1].transpose(1, 2)[dead_c]
+                                       == 0))
+                    and bool(torch.all(runs[0][2].transpose(1, 2)[dead_c]
+                                       == 0)))
+            finite = all(bool(torch.isfinite(a).all()) for a in runs[0])
+            print(f"[bwd kernels] {name} rab={use_rab}: max|kernel-plain| "
+                  + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" ok={all(oks)} bitwise_repeat={same} "
+                  f"masked_zero={zero} finite={finite}")
+            if not (all(oks) and same and zero and finite):
+                raise SystemExit(f"backward kernels disagree with their "
+                                 f"plain version at {name} rab={use_rab}")
+
+    # the cached-prefix attention is forward only: refused under grad
+    x = prefix_inputs((4, 2, 64, 8, 16, 32, 32, 64, 80), seed=30,
+                      device=device)
+    spec = prefix_spec(x["pfx"], x["nc"], x["tc"], x["n_hist"], x["n_new"])
+    before = pmod.launch_count
+    try:
+        dispatch.hstu_attention_prefix(
+            x["q"].requires_grad_(True), x["k"], x["v"], x["rab"], spec,
+            scale_len=x["scale_len"], max_rel_pos=x["max_rel"])
+    except RuntimeError as err:
+        print(f"[bwd kernels] prefix rung under grad refused: {err}")
+    else:
+        raise SystemExit("the prefix rung ran under grad")
+    if pmod.launch_count != before:
+        raise SystemExit("the refused prefix call launched its kernel")
+    return worst
+
+
+def train_setup(device, attn_backend=None):
+    """hstu-gr at gr_config width with seeded random params, the
+    scenario's optimizer and NE metric, and the simulated stream packed
+    into 32-request / 192-impression batches on the host."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.roo_models import gr_config
+    from repro_torch.core.joiner import RequestLevelJoiner
+    from repro_torch.data.batcher import BatcherConfig, ROOBatcher
+    from repro_torch.data.events import EventSimulator, EventStreamConfig
+    from repro_torch.models.gr import (gr_init, gr_ranking_logits,
+                                       gr_ranking_loss)
+    from repro_torch.train.metrics import make_ne_metrics
+    from repro_torch.train.optim import (adam, default_is_embedding,
+                                         make_mixed, rowwise_adagrad)
+    cfg = gr_config()
+    cfg = dataclasses.replace(cfg, hstu=dataclasses.replace(
+        cfg.hstu, attn_backend=attn_backend))
+    samples = RequestLevelJoiner().join(list(EventSimulator(
+        EventStreamConfig(n_requests=800, n_users=200, n_items=cfg.n_items,
+                          hist_init_max=48, seed=0)).stream()))
+    batches = list(ROOBatcher(BatcherConfig(b_ro=32, b_nro=192,
+                                            hist_len=cfg.hist_len),
+                              device="cpu").batches(samples))
+    return dict(
+        cfg=cfg, batches=batches,
+        loss=lambda p, b, gen: gr_ranking_loss(p, cfg, b),
+        opt=make_mixed(adam(1e-3), rowwise_adagrad(0.05),
+                       default_is_embedding),
+        init=lambda: gr_init(torch.Generator().manual_seed(0), cfg,
+                             device=device),
+        ne=make_ne_metrics(lambda p, b: (gr_ranking_logits(p, cfg, b)[:, 0],
+                                         b.labels[:, 0],
+                                         b.impression_mask())))
+
+
+def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
+                stop_after=None, halt_after_skips=1):
+    """One Trainer run over the setup's batches (copied to ``device`` per
+    step); returns (trainer, final state, per-step losses)."""
+    import torch
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+    losses = []
+
+    def loss_fn(p, b, gen):
+        loss = setup["loss"](p, b, gen)
+        losses.append(loss.detach())
+        return loss
+
+    batches = setup["batches"]
+
+    def batch_iter(start):
+        step = start
+        while True:
+            yield batches[step % len(batches)].to(device)
+            step += 1
+
+    trainer = Trainer(loss_fn, setup["opt"], TrainLoopConfig(
+        total_steps=steps, log_every=log_every, ckpt_dir=ckpt_dir,
+        ckpt_every=4, halt_after_skips=halt_after_skips), setup["init"],
+        metrics_fn=setup["ne"], device=device)
+    state = trainer.run(batch_iter, 0, stop_after=stop_after)
+    return trainer, state, torch.stack(losses).cpu()
+
+
+def phase_train(kmod, pmod, bmod, device, card: str) -> dict:
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import leaves
+    setup = train_setup(device)
+    cfg, steps = setup["cfg"], 20
+    n_layers = cfg.hstu.n_layers
+    print(f"[train] hstu-gr d_model={cfg.hstu.d_model} heads="
+          f"{cfg.hstu.n_heads} layers={n_layers} hist={cfg.hist_len} "
+          f"m={cfg.m_targets} items={cfg.n_items}; {len(setup['batches'])} "
+          f"batches of 32 requests / 192 impressions; {steps} steps")
+    for mod in (kmod, pmod, bmod):
+        mod.reset_launch_count()
+    trainer, state, losses = run_trainer(setup, device, steps)
+    torch.cuda.synchronize()
+    launches = dict(b1=kmod.launch_count, b2=bmod.dq_launch_count,
+                    b3=bmod.dkv_launch_count, b4=pmod.launch_count)
+    n_metric = sum(1 for row in trainer.history if "ne" in row)
+    print(f"[train] launches B1 {launches['b1']} B2 {launches['b2']} B3 "
+          f"{launches['b3']} B4 {launches['b4']}; {n_metric} NE forwards; "
+          f"history {trainer.history}")
+    if launches["b2"] != n_layers * steps or launches["b3"] != launches["b2"] \
+            or launches["b1"] != n_layers * (steps + n_metric) \
+            or launches["b4"] or n_metric != steps // 10:
+        raise SystemExit("train: launch counts are not B2 = B3 = n_layers x "
+                         "steps, B1 = n_layers x (steps + NE forwards), B4 0")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()):
+        raise SystemExit("train: wrong step count or a non-finite loss")
+
+    # the same run on torch-dense (card) and torch-chunked (CPU)
+    for mod in (kmod, pmod, bmod):
+        mod.reset_launch_count()
+    _, dense_state, dense_losses = run_trainer(
+        train_setup(device, "torch-dense"), device, steps)
+    if kmod.launch_count or bmod.dq_launch_count or bmod.dkv_launch_count:
+        raise SystemExit("train: the torch-dense run launched a kernel")
+    _, _, cpu_losses = run_trainer(train_setup("cpu"), "cpu", steps)
+    for what, other in (("torch-dense on the card", dense_losses),
+                        ("torch-chunked on the CPU", cpu_losses)):
+        diff = float((losses - other).abs().max())
+        ok = torch.allclose(losses, other, atol=1e-6, rtol=LOSS_TOL)
+        print(f"[train] per-step losses vs {what}: max|diff| {diff:.3e} "
+              f"ok={ok}")
+        if not ok:
+            raise SystemExit(f"train: losses disagree with {what}")
+    print(f"[train] losses {[round(float(v), 6) for v in losses]}")
+
+    # the w_uvqk gradient after 20 steps: kernels vs torch-dense on the
+    # same params and batch
+    params = state["params"]
+    batch = setup["batches"][steps % len(setup["batches"])].to(device)
+    grads = {}
+    for name, s in (("cuda", setup), ("dense", train_setup(device,
+                                                           "torch-dense"))):
+        _, g = value_and_grad(s["loss"])(params, batch, None)
+        grads[name] = g["hstu"]["layers"]
+    diff = max(float((a["w_uvqk"] - b["w_uvqk"]).abs().max())
+               for a, b in zip(grads["cuda"], grads["dense"]))
+    ok = all(torch.allclose(a["w_uvqk"], b["w_uvqk"], atol=LOGIT_TOL,
+                            rtol=LOGIT_TOL)
+             for a, b in zip(grads["cuda"], grads["dense"]))
+    print(f"[train] w_uvqk gradient after {steps} steps, kernels vs "
+          f"torch-dense: max|diff| {diff:.3e} ok={ok}")
+    if not ok:
+        raise SystemExit("train: the w_uvqk gradient disagrees with the "
+                         "torch-dense backward")
+
+    # kill at step 12, restart from the checkpoint, end where the
+    # uninterrupted run ended
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run_trainer(setup, device, steps, ckpt_dir=str(ckpt_dir), stop_after=12)
+    _, resumed, _ = run_trainer(setup, device, steps, ckpt_dir=str(ckpt_dir))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a, b = params_to_numpy(state["params"]), params_to_numpy(
+        resumed["params"])
+    diff = max(float(np.abs(x - y).max()) for x, y in zip(leaves(a),
+                                                         leaves(b)))
+    print(f"[train] kill at step 12 + restart vs uninterrupted: final "
+          f"params max|diff| {diff:.3e} (tolerance {PARAM_TOL})")
+    if int(resumed["step"]) != steps or diff > PARAM_TOL:
+        raise SystemExit("train: the restarted run did not end at the "
+                         "uninterrupted run's params")
+
+    # throughput, and where a step's time goes
+    run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    req_per_batch = float(np.mean([
+        int(b.request_mask().sum()) for b in setup["batches"][:steps]]))
+    print(f"[train] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * req_per_batch / wall:.1f} "
+          f"requests/s; Trainer.run incl. init and 2 NE forwards)")
+    breakdown = step_breakdown(setup, device, state)
+    for rnd, parts in enumerate(breakdown):
+        print(f"[train] {card}: breakdown {rnd + 1} (ms per step, card "
+              f"synchronised after each stage): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return dict(launches=launches, steps_per_s=steps / wall,
+                requests_per_s=steps * req_per_batch / wall)
+
+
+def step_breakdown(setup, device, state, steps=10, rounds=2) -> list:
+    """Per-step time of the train step's stages, host clocks around work
+    that ends in a synchronize: host batch copy, forward, backward,
+    optimizer (update + the non-finite guard)."""
+    import torch
+    from repro_torch.tree import leaves, tree_map, unflatten
+    opt = setup["opt"]
+    out = []
+    for _ in range(rounds):
+        params, opt_state = state["params"], state["opt"]
+        acc = dict.fromkeys(("batch copy", "forward", "backward",
+                             "optimizer"), 0.0)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            batch = setup["batches"][i % len(setup["batches"])].to(device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+            loss = setup["loss"](unflatten(params, flat), batch, None)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            grads = unflatten(params, torch.autograd.grad(loss, flat))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            new_p, new_s = opt.update(grads, opt_state, params)
+            ok = torch.isfinite(loss)
+            params = tree_map(lambda n, o: torch.where(ok, n, o), new_p,
+                              params)
+            opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_s,
+                                 opt_state)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for key, dt in zip(acc, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                acc[key] += dt
+        parts = {k: v * 1e3 / steps for k, v in acc.items()}
+        parts["total"] = sum(parts.values())
+        out.append(parts)
+    return out
 
 
 def make_requests(cfg, n_requests):
@@ -728,6 +1074,42 @@ def phase_prefix_times(pmod, device, card: str) -> dict:
                 bound_by=bound_by)
 
 
+def phase_bwd_times(bmod, device, card: str) -> dict:
+    """B2 and B3 at the training shape (B 32, H 2, S 80, D 32, rab on)
+    beside the plain backward (which computes all four gradients) and each
+    kernel's bound."""
+    import torch
+    x = attention_inputs((32, 2, 80, 32, 32, 64, 64), seed=0, device=device)
+    g = torch.randn(x["v"].shape, generator=torch.Generator(
+        device=device).manual_seed(0), device=device)
+    args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"], x["tc"],
+            x["max_rel"], g)
+    b2 = lambda: bmod.hstu_attention_bwd_dq_cuda(*args)
+    b3 = lambda: bmod.hstu_attention_bwd_dkv_cuda(*args)
+    plain = lambda: bmod.hstu_attention_bwd_plain(*args)
+    # the plain backward issues ~60 launches a call: 8 calls stay inside
+    # the launch queue, so the host can run ahead of the sleeping card
+    plain_ms = device_ms(plain, iters=8)
+    ms = {"dq": device_ms(b2, iters=200), "dkv": device_ms(b3, iters=200)}
+    again = {"dq": device_ms(b2, iters=200), "dkv": device_ms(b3, iters=200)}
+    plain_again = device_ms(plain, iters=8)
+    out = {}
+    for which, label in (("dq", "B2 hstu_attention_bwd_dq"),
+                         ("dkv", "B3 hstu_attention_bwd_dkv")):
+        bound_ms, bound_by, n_bytes, ops = bound_bwd(x, which)
+        print(f"[times] {card}: {label} B32 H2 S80 D32 rab, device time per "
+              f"call: kernel {ms[which]:.5f} ms (again {again[which]:.5f}); "
+              f"bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} "
+              f"FLOP at 3.35 TB/s / 67 TFLOP/s); library: none")
+        out[which] = dict(ms=ms[which], plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    print(f"[times] {card}: plain torch backward (dq, dk, dv, drab) "
+          f"{plain_ms:.5f} ms (again {plain_again:.5f}); host-issued "
+          f"back-to-back calls: B2 {call_ms(b2, 200):.5f} ms, B3 "
+          f"{call_ms(b3, 200):.5f} ms, plain {call_ms(plain, 50):.5f} ms")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -748,22 +1130,28 @@ def main() -> int:
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     from repro_torch.kernels import hstu_attention as kmod
+    from repro_torch.kernels import hstu_attention_bwd as bmod
     from repro_torch.kernels import hstu_attention_prefix as pmod
-    phase_build([kmod, pmod])
+    phase_build([kmod, pmod, bmod])
     worst = phase_kernels(kmod, device)
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
+    worst_bwd = phase_bwd_kernels(kmod, pmod, bmod, device)
     pmod.reset_launch_count()
     serve = phase_serve(kmod, device)
     if pmod.launch_count:
         raise SystemExit("the stateless server launched the prefix kernel")
     inc = phase_incremental(kmod, pmod, device, serve)
     phase_cache(kmod, pmod, device, serve)
+    train = phase_train(kmod, pmod, bmod, device, card)
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
+    btimes = phase_bwd_times(bmod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
           f"stateless")
+    print(f"[train] {card}: {train['steps_per_s']:.2f} steps/s, "
+          f"{train['requests_per_s']:.1f} requests/s")
 
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
@@ -779,7 +1167,15 @@ def main() -> int:
         "launches": inc["launches"], "max_abs_err": worst_prefix,
         "ms": ptimes["ms"], "plain_ms": ptimes["plain_ms"],
         "bound_ms": ptimes["bound_ms"], "bound_by": ptimes["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": train["launches"][key], "max_abs_err": worst_bwd[which],
+        **btimes[which], "library_ms": None}
+        for name, line, key, which in (
+            ("hstu_attention_bwd_dq", 108, "b2", "dq"),
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ the same tree of tensors, path for path. A caller that holds the
 reference's params converts the leaves to numpy first (e.g.
 ``tree_map(np.asarray, params)``), so the port never sees a JAX array.
 Incremental-serving user states (``GRUserState``: k, v, length) cross the
-same way, field by field.
+same way, field by field, and so do training states ``{params, opt, step}``
+(the optimizers keep the reference's state layout). A state's ``rng`` does
+not cross: the two packages' generators differ.
 """
 from __future__ import annotations
 
@@ -49,3 +51,20 @@ def gr_state_to_numpy(state: GRUserState) -> GRUserState:
     """The port's state -> the same record of numpy arrays (the reference's
     ``GRUserState(*gr_state_to_numpy(s))`` takes it as is)."""
     return GRUserState(*(a.detach().to("cpu").numpy() for a in state))
+
+
+TRAIN_STATE_KEYS = ("params", "opt", "step")
+
+
+def train_state_from_numpy(state: Any, device="cuda") -> dict:
+    """The ``{params, opt, step}`` of a training state whose leaves are
+    numpy arrays (e.g. the reference Trainer's state after
+    ``tree_map(np.asarray, ...)``) -> the port's state on ``device``. Any
+    ``rng`` entry is dropped; the port's Trainer adopts its own seed."""
+    return {k: params_from_numpy(state[k], device) for k in TRAIN_STATE_KEYS}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's ``{params, opt, step}`` -> the same tree of numpy
+    arrays."""
+    return {k: params_to_numpy(state[k]) for k in TRAIN_STATE_KEYS}

@@ -3,8 +3,11 @@ of ``repro/kernels/dispatch.py``).
 
 Backends:
 
-  cuda           — the hand-written CUDA kernels (kernels/hstu_attention.py,
-                   kernels/hstu_attention_prefix.py); CUDA tensors only
+  cuda           — the hand-written CUDA kernels; CUDA tensors only. The
+                   full attention runs as hstu_attention_bwd.HSTUAttentionFn
+                   (forward B1, backward B2 + B3); the cached-prefix
+                   attention (kernels/hstu_attention_prefix.py) is forward
+                   only and raises when autograd would differentiate it
   torch-chunked  — blockwise torch path (core.hstu): scores, bias and mask
                    are produced per q-chunk, so no (S, S) tensor exists
   torch-dense    — the (S, S)-materializing oracle (kernels/ref.py)
@@ -70,15 +73,16 @@ def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k: (B, H, S, Dqk); v: (B, H, S, Dv); rab: (H, 2*max_rel_pos+1) or
     None; ``spec`` describes the ROO mask structurally. Returns
-    (B, H, S, Dv).
+    (B, H, S, Dv). Differentiable w.r.t. q, k, v and rab on every backend
+    (on ``cuda`` through the backward kernels).
     """
     be = resolve_backend(backend, q.device)
     if be == "cuda":
         if q.device.type != "cuda":
             raise ValueError(f"attention backend 'cuda' needs CUDA tensors, "
                              f"got {q.device}")
-        from repro_torch.kernels.hstu_attention import hstu_attention_cuda
-        return hstu_attention_cuda(
+        from repro_torch.kernels.hstu_attention_bwd import HSTUAttentionFn
+        return HSTUAttentionFn.apply(
             q.contiguous(), k.contiguous(), v.contiguous(),
             None if rab is None else rab.contiguous(), spec.n_hist,
             spec.hist_lengths, spec.target_counts, max_rel_pos)
@@ -108,6 +112,8 @@ def hstu_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     be = resolve_backend(backend, q.device)
     if be == "cuda":
+        from repro_torch.kernels.hstu_attention import refuse_grad
+        refuse_grad("the cached-prefix cuda backend", q, k, v, rab)
         if q.device.type != "cuda":
             raise ValueError(f"attention backend 'cuda' needs CUDA tensors, "
                              f"got {q.device}")

@@ -13,9 +13,12 @@ nvcc-related happens at import time, so the CPU tests import this module.
 
 :func:`hstu_attention_cuda` is the kernel's wrapper: it launches the kernel
 on CUDA tensors or raises — there is no fallback. Callers reach it through
-``kernels/dispatch.py``, whose auto rung picks it for CUDA tensors and the
-plain torch path for CPU tensors. :func:`hstu_attention_plain` (the dense
-oracle of ``kernels/ref.py``) is what the kernel is held against.
+``kernels/dispatch.py``, whose auto rung picks it for CUDA tensors (inside
+``hstu_attention_bwd.HSTUAttentionFn``, which adds the backward kernels) and
+the plain torch path for CPU tensors. It refuses inputs that require grad
+under grad mode, so autograd can reach it only through that Function.
+:func:`hstu_attention_plain` (the dense oracle of ``kernels/ref.py``) is
+what the kernel is held against.
 ``launch_count`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -117,6 +120,19 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would differentiate through a kernel call: the raw
+    wrappers build their outputs outside the graph, so under grad mode an
+    input that requires grad would silently get no gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad under grad mode, but the "
+            f"kernel's output is outside the autograd graph (the "
+            f"differentiable op is dispatch.hstu_attention; the "
+            f"cached-prefix attention is forward only)")
+
+
 def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rab: Optional[torch.Tensor], n_hist: int,
                         hist_lengths: torch.Tensor,
@@ -124,8 +140,12 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         max_rel_pos: int = 128) -> torch.Tensor:
     """Launch the CUDA kernel. q, k: (B, H, S, Dqk); v: (B, H, S, Dv);
     rab: (H, 2*max_rel_pos+1) or None; lengths (B,). fp32, contiguous, on
-    one CUDA device; raises on anything the kernel does not take."""
+    one CUDA device; raises on anything the kernel does not take, and on
+    inputs that require grad under grad mode (the output is outside the
+    autograd graph: :class:`hstu_attention_bwd.HSTUAttentionFn` is the
+    differentiable op)."""
     global launch_count
+    refuse_grad("hstu_attention_cuda", q, k, v, rab)
     if q.device.type != "cuda":
         raise ValueError(f"the HSTU CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")

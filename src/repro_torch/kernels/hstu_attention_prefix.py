@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels.hstu_attention import (MAX_D, MAX_REL_POS,
                                                 MAX_SMEM_BYTES, build_library,
-                                                check_operand)
+                                                check_operand, refuse_grad)
 from repro_torch.kernels.ref import hstu_attention_prefix_ref
 
 SOURCE = (Path(__file__).resolve().parent / "csrc"
@@ -78,8 +78,10 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch the CUDA kernel. q: (B, H, n_new + m, Dqk); k: (B, H,
     n_hist + m, Dqk); v: (B, H, n_hist + m, Dv); rab: (H, 2*max_rel_pos+1)
     or None; counts (B,). fp32, contiguous, on one CUDA device; raises on
-    anything the kernel does not take."""
+    anything the kernel does not take. Forward only, as in the reference:
+    raises on inputs that require grad under grad mode."""
     global launch_count
+    refuse_grad("hstu_attention_prefix_cuda", q, k, v, rab)
     if q.device.type != "cuda":
         raise ValueError(f"the HSTU prefix CUDA kernel needs CUDA tensors, "
                          f"got {q.device}")

@@ -1,17 +1,18 @@
 """Plain torch oracles for the port's kernels (``repro/kernels/ref.py``).
 
-The HSTU forward and cached-prefix forward oracles are ported so far; the
-embedding-bag and dot-interaction oracles land with their kernels.
+The HSTU forward, its backward and the cached-prefix forward oracles are
+ported so far; the embedding-bag and dot-interaction oracles land with
+their kernels.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.masks import PrefixMaskSpec
+from repro_torch.core.masks import PrefixMaskSpec, roo_batch_mask
 
 
 def hstu_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,6 +50,52 @@ def hstu_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a = F.silu(scores) / float(s)
     a = a * mask[:, None].to(a.dtype)
     return torch.einsum("bhij,bhjd->bhid", a.to(v.dtype), v)
+
+
+def hstu_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rab: Optional[torch.Tensor], n_hist: int,
+                           hist_lengths: torch.Tensor,
+                           target_counts: torch.Tensor, max_rel_pos: int,
+                           g: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, Optional[torch.Tensor]]:
+    """Gradients of :func:`hstu_attention_ref` w.r.t. q, k, v and rab
+    (dense oracle of the backward kernels), given the output gradient g
+    (B, H, S, Dv).
+
+    Recomputes the scores, then with the ROO mask M:
+    ``ds = (g vᵀ) / S * silu'(scores) * M``, ``dq = ds k / sqrt(Dqk)``,
+    ``dk = dsᵀ q / sqrt(Dqk)``, ``dv = aᵀ g``; ``drab[h, t]`` sums ds over
+    the batch and every cell whose clipped delta
+    ``clip(i - j, -max_rel, max_rel) + max_rel`` is t. Returns
+    ``(dq, dk, dv, drab)``; drab is None when rab is None.
+    """
+    b, h, s, dqk = q.shape
+    device = q.device
+    inv_d = 1.0 / math.sqrt(dqk)
+    scores = torch.einsum("bhid,bhjd->bhij", q, k) * inv_d
+    pos = torch.arange(s, device=device)
+    delta = torch.clamp(pos[:, None] - pos[None, :],
+                        -max_rel_pos, max_rel_pos) + max_rel_pos
+    if rab is not None:
+        scores = scores + rab[:, delta][None]
+    mask = roo_batch_mask(hist_lengths, target_counts, n_hist,
+                          s - n_hist)[:, None].to(q.dtype)   # (B, 1, S, S)
+    sig = torch.sigmoid(scores)
+    a = F.silu(scores) * (1.0 / s) * mask
+    ds = (torch.einsum("bhid,bhjd->bhij", g, v) * (1.0 / s)
+          * (sig * (1.0 + scores * (1.0 - sig))) * mask)
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k) * inv_d
+    dk = torch.einsum("bhij,bhid->bhjd", ds, q) * inv_d
+    dv = torch.einsum("bhij,bhid->bhjd", a, g)
+    drab = None
+    if rab is not None:
+        # per-bin sums as a product with the (S*S, nrab) one-hot of delta:
+        # no atomics and no host sync on the card
+        bins = torch.arange(2 * max_rel_pos + 1, device=device)
+        onehot = (delta.reshape(-1, 1) == bins).to(ds.dtype)
+        drab = (ds.sum(0).reshape(h, s * s) @ onehot).to(rab.dtype)
+    return dq, dk, dv, drab
 
 
 def hstu_attention_prefix_ref(q: torch.Tensor, k: torch.Tensor,

@@ -1,12 +1,21 @@
 """Generative Recommender (GR) ranking on HSTU (paper §3.3), torch port of
 ``repro/models/gr.py``.
 
-Ranking appends the request's m targets to the user's interleaved (item,
-action) history under the ROO mask (core.sequence) and reads multi-task
-logits from the target positions. The per-user state functions
-(``GRUserState``, ``gr_score_from_state``, ``gr_extend_user_state``) serve
-the same ranking incrementally from a per-user K/V cache. The losses and
-retrieval are not ported yet.
+One autoregressive HSTU stack over the user's interleaved (item, action)
+history, used two ways:
+
+  * ranking    — the request's m targets appended under the ROO mask
+    (core.sequence), multi-task logits read from the target positions;
+    trained with :func:`gr_ranking_loss` (masked multi-task BCE);
+  * retrieval  — next-item prediction over the history alone (a causal
+    mask: targets NOT in the sequence), trained with
+    :func:`gr_retrieval_loss` (in-batch sampled softmax).
+
+Both losses are differentiable end to end; on the card the attention's
+gradient comes from the backward kernels (kernels/hstu_attention_bwd.py).
+The per-user state functions (``GRUserState``, ``gr_score_from_state``,
+``gr_extend_user_state``) serve the same ranking incrementally from a
+per-user K/V cache (forward only).
 """
 from __future__ import annotations
 
@@ -15,9 +24,9 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.hstu import (HSTUConfig, hstu_init, hstu_prefix_apply,
-                                   normal_init)
-from repro_torch.core.masks import prefix_spec
+from repro_torch.core.hstu import (HSTUConfig, hstu_apply, hstu_init,
+                                   hstu_prefix_apply, normal_init)
+from repro_torch.core.masks import causal_spec, prefix_spec
 from repro_torch.core.roo_batch import ROOBatch
 from repro_torch.core.sequence import (ROOSequenceConfig, encode_roo,
                                        gather_targets_to_ro,
@@ -174,3 +183,55 @@ def gr_extend_user_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
     _, ks, vs = hstu_prefix_apply(params["hstu"], cfg.hstu, emb, state.k,
                                   state.v, spec, scale_len)
     return GRUserState(ks, vs, prefix + new_counts)
+
+
+def gr_table_ids(cfg: GRConfig, batch: ROOBatch) -> Dict:
+    """Per-table id declaration for sparse-gradient training (ranking
+    path; retrieval adds the shifted next-item targets, already covered by
+    the history slice)."""
+    return {"item_emb": torch.cat([
+                batch.history_ids[:, :cfg.hist_len].reshape(-1),
+                batch.item_ids.reshape(-1)]),
+            "act_emb": batch.history_actions[:, :cfg.hist_len].reshape(-1)}
+
+
+def gr_ranking_loss(params: Dict, cfg: GRConfig,
+                    batch: ROOBatch) -> torch.Tensor:
+    """Mean BCE over the real impressions and the n_tasks heads (task 0:
+    label 0; task 1: label 1 > 0)."""
+    logits = gr_ranking_logits(params, cfg, batch)
+    labels = batch.labels
+    y = torch.stack([labels[:, 0],
+                     (labels[:, min(1, labels.shape[1] - 1)] > 0
+                      ).to(logits.dtype)], -1)[:, :cfg.n_tasks]
+    w = batch.impression_mask().to(logits.dtype)[:, None]
+    bce = torch.clamp(logits, min=0) - logits * y + \
+        torch.log1p(torch.exp(-torch.abs(logits)))
+    return torch.sum(bce * w) / torch.clamp(torch.sum(w) * cfg.n_tasks,
+                                            min=1.0)
+
+
+def gr_retrieval_loss(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                      temperature: float = 0.05) -> torch.Tensor:
+    """Autoregressive next-item prediction over the history (RO-only) plus
+    in-batch candidate softmax — the GR retrieval objective. The encoder
+    runs under a causal mask (n_hist == S, no target slots)."""
+    hist = gr_history_repr(params, cfg, batch)
+    lengths = torch.clamp(batch.history_lengths, max=cfg.hist_len)
+    spec = causal_spec(lengths, cfg.hist_len)
+    enc = hstu_apply(params["hstu"], cfg.hstu, hist, spec)   # (B_RO, n, d)
+    # position t predicts item t+1
+    q = enc[:, :-1, :]
+    nxt = batch.history_ids[:, 1:cfg.hist_len]
+    valid = (torch.arange(cfg.hist_len - 1, device=q.device)[None]
+             < (lengths - 1)[:, None])
+    # sampled softmax against the in-batch item candidates
+    cand = ec.row_lookup(params["item_emb"], batch.item_ids,
+                         vocab=cfg.n_items)
+    logits = torch.einsum("bnd,cd->bnc", q, cand) / temperature
+    tgt_emb = ec.seq_lookup(params["item_emb"], nxt, vocab=cfg.n_items)
+    pos = torch.sum(q * tgt_emb, dim=-1) / temperature      # (B_RO, n-1)
+    lse = torch.logaddexp(torch.logsumexp(logits, dim=-1), pos)
+    nll = lse - pos
+    w = valid.to(nll.dtype)
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)

@@ -1,0 +1,221 @@
+"""Generic training loop: the train step, gradient accumulation,
+checkpoint/resume and deterministic data skipping (torch port of
+``repro/train/loop.py``).
+
+The loop is model-agnostic: it takes ``loss_fn(params, batch, gen)`` — gen
+a ``torch.Generator`` — and an :class:`~repro_torch.train.optim.Optimizer`.
+Fault tolerance contract:
+
+  * state = {params, opt, step, rng} checkpointed every ``ckpt_every`` steps
+    (async, atomic). ``rng`` is the run's base seed (an int64 tensor); the
+    step's generator is seeded from (base, step) and, under accumulation,
+    microbatch i's from (base, step, i). Because the base seed is part of
+    the checkpointed state, a resumed run continues bit for bit even if the
+    caller passes a different seed to ``run()``;
+  * on (re)start, ``run()`` restores the newest committed step and asks the
+    data iterator for batches from that step on (iterator keyed by step),
+    so a preempted-and-restarted run replays nothing and skips nothing;
+  * a non-finite loss or gradient keeps the old params and optimizer state
+    (``torch.where`` on the device: no host sync per step unless
+    ``halt_after_skips > 0``).
+
+The port's generators are not JAX's PRNG, so a loss that draws random
+numbers gives other draws than the reference; everything else follows the
+reference step for step. Not ported yet: the compressed gradient exchange
+and the SPMD plan (comms, A9), the obs spans, the ``train.batch`` fault
+site and ``run()``'s ``on_checkpoint`` hook for disk loaders (A8), and
+sparse-row gradients.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.optim import Optimizer
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+class NonFiniteLossError(RuntimeError):
+    """Raised when ``halt_after_skips`` consecutive steps produced a
+    non-finite loss/gradient — the run is diverging, not glitching."""
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    total_steps: int = 100
+    ckpt_every: int = 50
+    log_every: int = 10
+    microbatches: int = 1          # grad accumulation factor
+    ckpt_dir: Optional[str] = None
+    keep_last: int = 3
+    # halt after this many CONSECUTIVE non-finite (skipped) steps; 0 keeps
+    # the guard passive (skips counted in metrics, loop never halts).
+    # Enabling it reads the skip flag every step (one small host sync).
+    halt_after_skips: int = 0
+    # extra provenance merged into every checkpoint's meta.json
+    ckpt_meta: Optional[Dict[str, Any]] = None
+
+
+def step_generator(base: int, *keys: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from (base, *keys) — the port's
+    ``fold_in``: distinct keys give unrelated streams."""
+    seed = np.random.SeedSequence([int(base) & (2 ** 63 - 1),
+                                   *map(int, keys)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """``(params, batch, gen) -> (loss, grads)`` by autograd; ``grads`` has
+    the params' tree shape (zeros for a leaf the loss does not use)."""
+    def vag(params, batch, gen):
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss = loss_fn(unflatten(params, flat), batch, gen)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        return loss.detach(), unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, grads)])
+    return vag
+
+
+def make_train_step(loss_fn: Callable, opt: Optimizer,
+                    microbatches: int = 1):
+    """Returns ``step(state, batch, base_seed, step) -> (state, metrics)``.
+
+    With microbatches > 1, every tensor leaf of ``batch`` has a leading
+    microbatch axis; gradients are summed over the microbatches in fp32 and
+    divided once, as the reference's accumulation scan does, and each
+    microbatch gets its own generator. Metrics stay on the device:
+    ``loss``, ``grad_norm`` and ``skipped`` (int32 0/1).
+    """
+    vag = value_and_grad(loss_fn)
+
+    def step(state, batch, base: int, step_idx: int):
+        params = state["params"]
+        device = leaves(params)[0].device
+        if microbatches > 1:
+            acc, losses = None, []
+            for i in range(microbatches):
+                mb = tree_map(lambda x, i=i: x[i], batch)
+                loss_i, g = vag(params, mb, step_generator(
+                    base, step_idx, i, device=device))
+                g = tree_map(lambda x: x.float(), g)
+                acc = g if acc is None else tree_map(torch.add, acc, g)
+                losses.append(loss_i)
+            grads = tree_map(lambda g: g / microbatches, acc)
+            loss = torch.mean(torch.stack(losses))
+        else:
+            loss, grads = vag(params, batch, step_generator(
+                base, step_idx, device=device))
+
+        new_params, new_opt = opt.update(grads, state["opt"], params)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in leaves(grads)) + 1e-20)
+        # non-finite guard: a NaN/Inf loss or gradient must not poison the
+        # parameters — keep the old params/opt for this step (the step
+        # counter still advances so data alignment is unchanged) and
+        # surface the skip in the metrics
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+
+        def keep(new, old):
+            return torch.where(ok, new, old)
+        new_state = {**state,
+                     "params": tree_map(keep, new_params, params),
+                     "opt": tree_map(keep, new_opt, state["opt"]),
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm,
+                           "skipped": (~ok).to(torch.int32)}
+
+    return step
+
+
+class Trainer:
+    def __init__(self, loss_fn: Callable, opt: Optimizer,
+                 cfg: TrainLoopConfig, init_params_fn: Callable[[], Any], *,
+                 metrics_fn: Optional[Callable] = None, device="cuda"):
+        self.opt = opt
+        self.cfg = cfg
+        self.init_params_fn = init_params_fn
+        self.device = torch.device(device)
+        # extra metrics (e.g. NE) run only at logging steps, without
+        # autograd — a quality metric read 1-in-log_every times must not
+        # cost a second model forward on every step
+        self.metrics_fn = metrics_fn
+        self.step_fn = make_train_step(loss_fn, opt, cfg.microbatches)
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir, cfg.keep_last,
+                                       meta=cfg.ckpt_meta)
+                     if cfg.ckpt_dir else None)
+        self.history: list = []
+        self.skipped_steps = 0   # non-finite steps the guard neutralized
+
+    def _to_device(self, tree):
+        return tree_map(lambda t: t.to(self.device), tree)
+
+    def init_state(self, seed: int = 0) -> Dict:
+        params = self._to_device(self.init_params_fn())
+        return {"params": params, "opt": self.opt.init(params),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.device),
+                "rng": torch.tensor(int(seed), dtype=torch.int64)}
+
+    def run(self, batch_iter_fn: Callable[[int], Iterator], seed: int = 0,
+            stop_after: Optional[int] = None) -> Dict:
+        """batch_iter_fn(start_step) must yield batches from that step on
+        (the deterministic-skip contract). ``seed`` is the base seed of a
+        fresh run; a restored run keeps its checkpointed one."""
+        state = None
+        start = 0
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            restored = self.ckpt.restore()
+            start = int(restored["step"])
+            # pre-rng checkpoints: adopt the caller's seed
+            rng = restored.pop("rng", torch.tensor(int(seed),
+                                                   dtype=torch.int64))
+            state = {**self._to_device(restored), "rng": rng}
+        if state is None:
+            state = self.init_state(seed)
+        base = int(state["rng"])      # the checkpointed base seed wins
+        it = batch_iter_fn(start)
+        t0 = time.monotonic()
+        consecutive_skips = 0
+        for step in range(start, self.cfg.total_steps):
+            batch = next(it)
+            state, metrics = self.step_fn(state, batch, base, step)
+            if self.cfg.halt_after_skips > 0:
+                if int(metrics["skipped"]):
+                    consecutive_skips += 1
+                    self.skipped_steps += 1
+                    if consecutive_skips >= self.cfg.halt_after_skips:
+                        raise NonFiniteLossError(
+                            f"{consecutive_skips} consecutive non-finite "
+                            f"steps ending at step {step + 1} — halting "
+                            f"instead of spinning on a diverged run")
+                else:
+                    consecutive_skips = 0
+            if (step + 1) % self.cfg.log_every == 0:
+                rate = (step + 1 - start) / max(time.monotonic() - t0, 1e-9)
+                row = {"step": step + 1, "loss": float(metrics["loss"]),
+                       "steps_per_s": rate}
+                row.update({k: float(v) for k, v in metrics.items()
+                            if k not in row})
+                if self.metrics_fn is not None:
+                    mb = (tree_map(lambda x: x[0], batch)
+                          if self.cfg.microbatches > 1 else batch)
+                    with torch.no_grad():
+                        extra = self.metrics_fn(
+                            state["params"], mb,
+                            step_generator(base, step, device=self.device))
+                    row.update({k: float(v) for k, v in extra.items()})
+                self.history.append(row)
+            if self.ckpt is not None and (step + 1) % self.cfg.ckpt_every == 0:
+                self.ckpt.save(step + 1, state, blocking=False)
+            if stop_after is not None and (step + 1 - start) >= stop_after:
+                break   # simulated preemption (tests)
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        return state

@@ -1,0 +1,164 @@
+"""In-repo optimizers: Adam, row-wise Adagrad, SGD, and the mixed router
+(torch port of ``repro/train/optim.py``).
+
+Row-wise Adagrad is the production embedding optimizer (one accumulator
+scalar per table ROW instead of per element — 1/D the state, the TorchRec
+default for huge tables); Adam handles the dense parameters.
+``make_mixed`` routes by parameter path, which is how DLRM deployments
+configure it.
+
+They are functional, as the reference's are: ``update(grads, state,
+params) -> (new_params, new_state)`` returns new tensors and changes
+nothing in place (the Trainer's non-finite guard keeps the old ones), and
+states keep the reference's layout, leaf for leaf, so a state crosses
+between the packages through ``interop``. They run on plain tensors, with
+no ``torch.optim``. Row-wise Adagrad takes dense gradients only; its
+sparse-row apply (``SparseRows`` grads) waits for the sparse-embedding path.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable        # (grads, state, params) -> (new_params, new_state)
+
+
+def _map3(fn, params, grads, *states):
+    """``fn(p, g, *s) -> tuple`` over the leaves; returns one tree per
+    output position."""
+    outs = [fn(*xs) for xs in zip(leaves(params), leaves(grads),
+                                  *(leaves(s) for s in states))]
+    n = len(outs[0]) if outs else 1 + len(states)
+    return [unflatten(params, [o[i] for o in outs]) for i in range(n)]
+
+
+def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0,
+         grad_clip: float = 0.0) -> Optimizer:
+    def init(params):
+        zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
+        first = next(iter(leaves(params)), None)
+        device = first.device if first is not None else "cpu"
+        return {"m": zeros,
+                "v": tree_map(torch.zeros_like, zeros),
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update(grads, state, params):
+        if grad_clip > 0:
+            gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                for g in leaves(grads)) + 1e-12)
+            scale = torch.clamp(grad_clip / gn, max=1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        t = state["t"] + 1
+        tf = t.to(torch.float32)
+        bc1 = 1 - torch.pow(b1, tf)
+        bc2 = 1 - torch.pow(b2, tf)
+
+        def upd(p, g, m, v):
+            g32 = g.float()
+            m = b1 * m + (1 - b1) * g32
+            v = b2 * v + (1 - b2) * g32 * g32
+            step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                step = step + lr * weight_decay * p.float()
+            return (p.float() - step).to(p.dtype), m, v
+
+        new_p, new_m, new_v = _map3(upd, params, grads, state["m"],
+                                    state["v"])
+        return new_p, {"m": new_m, "v": new_v, "t": t}
+
+    return Optimizer(init, update)
+
+
+def rowwise_adagrad(lr: float = 0.01, eps: float = 1e-8) -> Optimizer:
+    """One accumulator per embedding row: state[p] has shape p.shape[:1].
+    Dense grads update every row."""
+    def init(params):
+        return {"acc": tree_map(
+            lambda p: torch.zeros(p.shape[:1], dtype=torch.float32,
+                                  device=p.device), params)}
+
+    def update(grads, state, params):
+        def upd(p, g, a):
+            g32 = g.float()
+            sq = g32 * g32
+            row_sq = sq.mean(dim=tuple(range(1, sq.dim()))) \
+                if sq.dim() > 1 else sq
+            a = a + row_sq
+            scale = lr / (torch.sqrt(a) + eps)
+            step = g32 * scale.reshape((-1,) + (1,) * (g32.dim() - 1))
+            return (p.float() - step).to(p.dtype), a
+
+        new_p, new_a = _map3(upd, params, grads, state["acc"])
+        return new_p, {"acc": new_a}
+
+    return Optimizer(init, update)
+
+
+def sgd(lr: float = 0.1, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum:
+            return {"mom": tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+        return {}
+
+    def update(grads, state, params):
+        if momentum:
+            new_mom = tree_map(lambda m, g: momentum * m + g.float(),
+                               state["mom"], grads)
+            new_p = tree_map(lambda p, m: (p.float() - lr * m).to(p.dtype),
+                             params, new_mom)
+            return new_p, {"mom": new_mom}
+        new_p = tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+                         params, grads)
+        return new_p, {}
+
+    return Optimizer(init, update)
+
+
+def make_mixed(dense_opt: Optimizer, embedding_opt: Optimizer,
+               is_embedding: Callable[[Tuple[str, ...]], bool]) -> Optimizer:
+    """Route params by tree path: embedding tables -> embedding_opt,
+    everything else -> dense_opt (the standard DLRM setup). Paths and leaf
+    order are the reference's (``repro_torch.tree``), so the ``emb`` and
+    ``dense`` state lists line up with its own."""
+
+    def _mask(params):
+        return [is_embedding(path) for path, _ in flatten_with_path(params)]
+
+    def init(params):
+        emb_mask = _mask(params)
+        flat = leaves(params)
+        return {
+            "emb": embedding_opt.init(
+                [p for p, m in zip(flat, emb_mask) if m]),
+            "dense": dense_opt.init(
+                [p for p, m in zip(flat, emb_mask) if not m]),
+        }
+
+    def update(grads, state, params):
+        emb_mask = _mask(params)
+        g_leaves, p_leaves = leaves(grads), leaves(params)
+        ge = [g for g, m in zip(g_leaves, emb_mask) if m]
+        pe = [p for p, m in zip(p_leaves, emb_mask) if m]
+        gd = [g for g, m in zip(g_leaves, emb_mask) if not m]
+        pd = [p for p, m in zip(p_leaves, emb_mask) if not m]
+        new_pe, new_se = embedding_opt.update(ge, state["emb"], pe)
+        new_pd, new_sd = dense_opt.update(gd, state["dense"], pd)
+        it_e, it_d = iter(new_pe), iter(new_pd)
+        merged = [next(it_e) if m else next(it_d) for m in emb_mask]
+        return unflatten(params, merged), {"emb": new_se, "dense": new_sd}
+
+    return Optimizer(init, update)
+
+
+def default_is_embedding(path: Tuple[str, ...]) -> bool:
+    s = "/".join(path).lower()
+    return any(k in s for k in ("emb", "table"))

@@ -1,0 +1,80 @@
+"""Nested containers of tensors ("trees"): the port's stand-in for
+``jax.tree_util`` over params, optimizer states and batches.
+
+A tree is a dict, list, tuple or dataclass instance of subtrees; ``None``
+is an empty subtree, and anything else is a leaf. Leaves are visited in the
+order ``jax.tree_util.tree_flatten`` uses: dict keys sorted, sequences and
+dataclass fields in order. So a leaf list of the port lines up, index for
+index, with the reference's for the same tree — which is what keeps
+``make_mixed``'s per-leaf optimizer states and the checkpoints' leaf
+numbering in the reference's layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterator, List, Tuple
+
+
+def _children(tree: Any):
+    """(key string, child) pairs of a node in flatten order, or None for a
+    leaf. Key strings are formatted as ``str`` of JAX's path keys
+    (``['name']`` for a dict key or field, ``[i]`` for an index)."""
+    if isinstance(tree, dict):
+        return [(f"['{k}']", tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", c) for i, c in enumerate(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f"['{f.name}']", getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
+    return None
+
+
+def flatten_with_path(tree: Any) -> List[Tuple[Tuple[str, ...], Any]]:
+    """[(path, leaf)] in flatten order; a path is a tuple of key strings."""
+    out: List[Tuple[Tuple[str, ...], Any]] = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        kids = _children(node)
+        if kids is None:
+            out.append((path, node))
+            return
+        for key, child in kids:
+            walk(child, path + (key,))
+
+    walk(tree, ())
+    return out
+
+
+def leaves(tree: Any) -> List[Any]:
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def unflatten(like: Any, new_leaves) -> Any:
+    """A tree shaped like ``like`` whose leaves are ``new_leaves`` in
+    flatten order."""
+    it: Iterator = iter(new_leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            rebuilt = {k: build(node[k]) for k in sorted(node)}
+            return {k: rebuilt[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(c) for c in node)
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: build(getattr(node, f.name))
+                for f in dataclasses.fields(node)})
+        return next(it)
+
+    return build(like)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and of each tree in ``rest``
+    (same structure), position by position."""
+    return unflatten(tree, [fn(*xs) for xs in zip(
+        leaves(tree), *(leaves(r) for r in rest))])

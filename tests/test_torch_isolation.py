@@ -33,7 +33,9 @@ def test_port_has_modules():
     assert {"kernels/hstu_attention.py", "kernels/dispatch.py",
             "kernels/hstu_attention_prefix.py", "serve/serving.py",
             "serve/user_cache.py", "serve/engine.py", "models/gr.py",
-            "interop.py"} <= names
+            "interop.py", "kernels/hstu_attention_bwd.py", "tree.py",
+            "train/optim.py", "train/loop.py", "train/checkpoint.py",
+            "train/metrics.py"} <= names
 
 
 @pytest.mark.parametrize(
