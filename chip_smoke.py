@@ -24,19 +24,31 @@ Phases (any failure exits non-zero and prints no result):
                    shape, Dqk = Dv = 128, a causal shape and a clip shape
                    (max_rel_pos < S); two calls equal bit for bit; the
                    forward-only prefix rung refuses a call under grad
-  5. serve       — ROOServer with random hstu-gr params (seeded
+  5. bag kernels — the embedding-bag forward (B5) through dispatch's auto
+                   backend against its plain version, sum / mean / max, at
+                   the LSR training, serving and impression-level shapes,
+                   ragged lengths with zeros, D 8 and 128 and out-of-range
+                   ids (empty bags exactly 0; bf16 against the plain
+                   version on the same bf16 table); the backward through
+                   ``EmbeddingBagFn`` (B6 + the densify) against autograd
+                   of the plain version, B6's rows and ids equal to the
+                   plain COO function, two backward calls bitwise equal;
+                   the padded bag under REPRO_TORCH_EMB_DEDUP=always still
+                   launches B5 and B6; the raw wrappers refuse a
+                   grad-requiring input and launch nothing
+  6. serve       — ROOServer with random hstu-gr params (seeded
                    torch.Generator) scores 1,000 simulated requests on the
                    card through B1; launch counts, failed batches and
                    scores are checked against the torch-dense server and a
                    CPU server
-  6. incremental — the state-store engine serves 64 users over 4 waves of
+  7. incremental — the state-store engine serves 64 users over 4 waves of
                    appended events (then the simulated stream) through B4
                    alone: hits, launch counts and scores vs the stateless
                    server, requests/s of both, and where the time goes
-  7. cache       — ROOServer with the user-tower cache serves the stream
+  8. cache       — ROOServer with the user-tower cache serves the stream
                    twice; the second pass is all full-cache batches with
                    the same scores; a weight swap empties the cache
-  8. train       — the hstu-gr Trainer (Adam on dense weights, row-wise
+  9. train       — the hstu-gr Trainer (Adam on dense weights, row-wise
                    Adagrad on the tables) takes 20 steps on ROOBatcher
                    batches of the simulated stream (32 requests / 192
                    impressions) through B1-B3: launch counts, no skipped
@@ -45,14 +57,33 @@ Phases (any failure exits non-zero and prints no result):
                    torch-dense, a kill at step 12 and a restart from the
                    checkpoint vs the uninterrupted run; steps/s,
                    requests/s and a per-step breakdown
-  9. times       — each kernel vs its plain version (CUDA events; device
+ 10. lsr serve   — roo-lsr ``userarch`` at lsr_config width (seeded random
+                   params) scores the 1,000 requests through B5 (launches
+                   == scored batches, B1 0) against the plain embedding
+                   backend on the card and a CPU server; ROO vs
+                   impression-level logits on one batch (B5 at B_NRO); the
+                   user-tower cache over the stream twice (the second pass
+                   all full-cache, 0 B5 launches, the same scores);
+                   requests/s of both servers
+ 11. lsr train   — the roo-lsr ``userarch`` Trainer, 20 steps through B5 and
+                   B6 (B5 = steps + NE forwards, B6 = steps, B1-B4 0):
+                   losses vs the plain embedding backend on the card and
+                   the CPU run, the item_emb gradient vs plain, a kill at
+                   step 12 and a restart, steps/s and a per-step breakdown;
+                   then ``userarch_hstu`` for 10 steps through B1-B3 (B5,
+                   B6 0), losses vs torch-dense attention
+ 12. times       — each kernel vs its plain version (CUDA events; device
                    time with the host run ahead, and host-issued call time)
-                   beside its bound, and the servers' requests/s
+                   beside its bound, the bag kernels also beside one
+                   PyTorch call (F.embedding_bag and its backward), and the
+                   servers' and trainers' rates
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
 order (atol = rtol = 1e-5 on attention outputs and on dq, dk, dv; 1e-4 on
 drab, a sum over B·S² cells, and on logits and gradients of the model).
+Bag outputs: |kernel - plain| <= 1e-5 with the table at lsr_init's scale;
+the table gradient atol = rtol = 1e-5; B6's rows and ids bit for bit.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -72,6 +103,9 @@ ATOL = RTOL = 1e-5            # attention outputs and dq/dk/dv, vs plain
 LOGIT_TOL = 1e-4              # logits / scores; drab; model gradients
 LOSS_TOL = 1e-5               # per-step training losses (rtol; atol 1e-6)
 PARAM_TOL = 1e-5              # params after a kill and restart (atol)
+BAG_TOL = 1e-5                # embedding-bag outputs vs plain (atol)
+BF16_RTOL = 1e-2              # bf16 B5 vs plain on the same bf16 table
+BF16_ATOL = 1e-3              # (table ~ N(0, 1): outputs are O(1))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 
@@ -467,38 +501,66 @@ def phase_bwd_kernels(kmod, pmod, bmod, device) -> dict:
     return worst
 
 
-def train_setup(device, attn_backend=None):
-    """hstu-gr at gr_config width with seeded random params, the
-    scenario's optimizer and NE metric, and the simulated stream packed
+def train_batches(n_items: int, hist_len: int) -> list:
+    """The scenario's simulated stream (800 requests, 200 users) packed
     into 32-request / 192-impression batches on the host."""
-    import dataclasses
-    import torch
-    from repro_torch.configs.roo_models import gr_config
     from repro_torch.core.joiner import RequestLevelJoiner
     from repro_torch.data.batcher import BatcherConfig, ROOBatcher
     from repro_torch.data.events import EventSimulator, EventStreamConfig
+    samples = RequestLevelJoiner().join(list(EventSimulator(
+        EventStreamConfig(n_requests=800, n_users=200, n_items=n_items,
+                          hist_init_max=48, seed=0)).stream()))
+    return list(ROOBatcher(BatcherConfig(b_ro=32, b_nro=192,
+                                         hist_len=hist_len),
+                           device="cpu").batches(samples))
+
+
+def mixed_optimizer():
+    """The scenario's optimizer: Adam on dense weights, row-wise Adagrad on
+    the tables."""
+    from repro_torch.train.optim import (adam, default_is_embedding,
+                                         make_mixed, rowwise_adagrad)
+    return make_mixed(adam(1e-3), rowwise_adagrad(0.05), default_is_embedding)
+
+
+def train_setup(device, attn_backend=None):
+    """hstu-gr at gr_config width with seeded random params, the
+    scenario's optimizer and NE metric, and the train batches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.roo_models import gr_config
     from repro_torch.models.gr import (gr_init, gr_ranking_logits,
                                        gr_ranking_loss)
     from repro_torch.train.metrics import make_ne_metrics
-    from repro_torch.train.optim import (adam, default_is_embedding,
-                                         make_mixed, rowwise_adagrad)
     cfg = gr_config()
     cfg = dataclasses.replace(cfg, hstu=dataclasses.replace(
         cfg.hstu, attn_backend=attn_backend))
-    samples = RequestLevelJoiner().join(list(EventSimulator(
-        EventStreamConfig(n_requests=800, n_users=200, n_items=cfg.n_items,
-                          hist_init_max=48, seed=0)).stream()))
-    batches = list(ROOBatcher(BatcherConfig(b_ro=32, b_nro=192,
-                                            hist_len=cfg.hist_len),
-                              device="cpu").batches(samples))
     return dict(
-        cfg=cfg, batches=batches,
+        cfg=cfg, batches=train_batches(cfg.n_items, cfg.hist_len),
         loss=lambda p, b, gen: gr_ranking_loss(p, cfg, b),
-        opt=make_mixed(adam(1e-3), rowwise_adagrad(0.05),
-                       default_is_embedding),
+        opt=mixed_optimizer(),
         init=lambda: gr_init(torch.Generator().manual_seed(0), cfg,
                              device=device),
         ne=make_ne_metrics(lambda p, b: (gr_ranking_logits(p, cfg, b)[:, 0],
+                                         b.labels[:, 0],
+                                         b.impression_mask())))
+
+
+def lsr_train_setup(device, mode="userarch", attn_backend=None):
+    """roo-lsr at lsr_config width in ``mode``, otherwise as
+    :func:`train_setup`."""
+    import torch
+    from repro_torch.configs.roo_models import lsr_config
+    from repro_torch.models.lsr import lsr_init, lsr_logits_roo, lsr_loss
+    from repro_torch.train.metrics import make_ne_metrics
+    cfg = lsr_config(mode, attn_backend)
+    return dict(
+        cfg=cfg, batches=train_batches(cfg.n_items, cfg.hist_len),
+        loss=lambda p, b, gen: lsr_loss(p, cfg, b),
+        opt=mixed_optimizer(),
+        init=lambda: lsr_init(torch.Generator().manual_seed(0), cfg,
+                              device=device),
+        ne=make_ne_metrics(lambda p, b: (lsr_logits_roo(p, cfg, b)[:, 0],
                                          b.labels[:, 0],
                                          b.impression_mask())))
 
@@ -662,7 +724,10 @@ def step_breakdown(setup, device, state, steps=10, rounds=2) -> list:
             loss = setup["loss"](unflatten(params, flat), batch, None)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            grads = unflatten(params, torch.autograd.grad(loss, flat))
+            grads = unflatten(params, [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(flat, torch.autograd.grad(
+                    loss, flat, allow_unused=True))])
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             new_p, new_s = opt.update(grads, opt_state, params)
@@ -1110,6 +1175,535 @@ def phase_bwd_times(bmod, device, card: str) -> dict:
     return out
 
 
+BAG_SHAPES = {   # (B, L, D, V): the LSR history bag and edge shapes
+    "train B32 L64 D64": (32, 64, 64, 50000),
+    "serve B64 L64 D64": (64, 64, 64, 50000),
+    "impression B192 L64 D64": (192, 64, 64, 50000),
+    "ragged B37 L50 D64": (37, 50, 64, 50000),
+    "D8": (16, 20, 8, 1000),
+    "D128": (16, 20, 128, 5000),
+    "out-of-range ids": (16, 20, 64, 300),
+}
+
+
+def bag_inputs(shape, seed, device, dtype=None, scale=0.02):
+    """A table at lsr_init's scale (std 0.02, or ``scale``), ids with
+    out-of-range entries, ragged lengths with zeros and full bags, a bag of
+    one repeated id (ties for max), and an output gradient g ~ N(0, 1),
+    from numpy."""
+    import numpy as np
+    import torch
+    b, l, d, v = shape
+    rng = np.random.default_rng(seed)
+    table = (scale * rng.normal(size=(v, d))).astype(np.float32)
+    ids = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    if v < 1000:                        # the out-of-range shape: half of them
+        far = rng.random((b, l)) < 0.5
+        ids[far] = rng.integers(-2 * v, 3 * v, size=int(far.sum()))
+    ids[0, 0], ids[-1, -1] = -3, v + 7
+    lens = rng.integers(0, l + 1, size=b).astype(np.int32)
+    lens[::5] = 0
+    lens[0], lens[-1] = l, 0
+    ids[1, :], lens[1] = ids[1, 0], l
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    out = dict(table=t(table), ids=t(ids), lens=t(lens), g=t(g), v=v)
+    if dtype is not None:
+        out["table"], out["g"] = out["table"].to(dtype), out["g"].to(dtype)
+    return out
+
+
+def phase_bag_kernels(emod, device) -> dict:
+    """B5 against its plain version through dispatch's auto backend, and B6
+    through ``EmbeddingBagFn`` against autograd of the plain version, at
+    the LSR shapes and edge shapes. Returns the largest |kernel - plain| of
+    each kernel's outputs."""
+    import torch
+    worst = {"fwd": 0.0, "coo": 0.0}
+    for i, (name, shape) in enumerate(BAG_SHAPES.items()):
+        x = bag_inputs(shape, 40 + i, device)
+        args = (x["ids"], x["lens"])
+        empty = x["lens"] <= 0
+        for pooling in ("sum", "mean", "max"):
+            before = emod.fwd_launch_count
+            got = emod.embedding_bag(x["table"], *args, pooling)
+            if emod.fwd_launch_count != before + 1:
+                raise SystemExit("dispatch auto did not launch B5 on a CUDA "
+                                 "table")
+            plain = emod.embedding_bag_fwd_plain(x["table"], *args, pooling)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            worst["fwd"] = max(worst["fwd"], err)
+            zero = bool(torch.all(got[empty] == 0))
+            finite = bool(torch.isfinite(got).all())
+
+            # the backward: the Function (B5 then B6 + densify) vs autograd
+            # of the plain version; max takes the plain tie split
+            grads = []
+            for _ in range(2):
+                table = x["table"].detach().requires_grad_(True)
+                b5, b6 = emod.fwd_launch_count, emod.coo_launch_count
+                out = emod.embedding_bag(table, *args, pooling)
+                grads.append(torch.autograd.grad(out, table, x["g"])[0])
+                if (emod.fwd_launch_count - b5, emod.coo_launch_count - b6) \
+                        != (1, 0 if pooling == "max" else 1):
+                    raise SystemExit(f"{name} {pooling}: the Function did not "
+                                     f"launch B5 and B6 once each")
+            table = x["table"].detach().requires_grad_(True)
+            want = torch.autograd.grad(emod.embedding_bag_fwd_plain(
+                table, *args, pooling), table, x["g"])[0]
+            torch.cuda.synchronize()
+            gerr = float((grads[0] - want).abs().max())
+            grad_ok = torch.allclose(grads[0], want, atol=ATOL, rtol=RTOL)
+            same = torch.equal(grads[0], grads[1])
+            coo = "-"
+            coo_ok = True
+            if pooling != "max":
+                cids, rows = emod.embedding_bag_coo_rows_cuda(
+                    x["g"], *args, x["v"], pooling)
+                pids, prows = emod.embedding_bag_coo_rows_plain(
+                    x["g"], *args, x["v"], pooling)
+                torch.cuda.synchronize()
+                rerr = float((rows - prows).abs().max())
+                worst["coo"] = max(worst["coo"], rerr)
+                coo_ok = torch.equal(cids, pids) and rerr == 0.0
+                coo = f"{rerr:.3e} ids_equal={torch.equal(cids, pids)}"
+            print(f"[bag kernels] {name} {pooling}: max|B5-plain| {err:.3e} "
+                  f"empty_zero={zero} finite={finite}; table grad "
+                  f"max|Fn-plain| {gerr:.3e} ok={grad_ok} bitwise_repeat="
+                  f"{same}; B6 rows max|diff| {coo}")
+            if not (err <= BAG_TOL and zero and finite and grad_ok and same
+                    and coo_ok):
+                raise SystemExit(f"the bag kernels disagree with their plain "
+                                 f"versions at {name} {pooling}")
+
+    # bf16 tables at std 1 (outputs O(1), so a kernel that wrote zeros or
+    # pooled the wrong slots fails): B5 accumulates in fp32 and rounds once;
+    # the plain version on the same bf16 table rounds its sum, then its
+    # mean, so the two differ by about one bf16 rounding (2**-8 relative)
+    x = bag_inputs(BAG_SHAPES["train B32 L64 D64"], 50, device,
+                   torch.bfloat16, scale=1.0)
+    for pooling in ("sum", "mean", "max"):
+        got = emod.embedding_bag(x["table"], x["ids"], x["lens"], pooling)
+        want = emod.embedding_bag_fwd_plain(x["table"], x["ids"], x["lens"],
+                                            pooling).float()
+        cids, rows = emod.embedding_bag_coo_rows_cuda(
+            x["g"], x["ids"], x["lens"], x["v"], "mean")
+        pids, prows = emod.embedding_bag_coo_rows_plain(
+            x["g"], x["ids"], x["lens"], x["v"], "mean")
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max())
+        ok = got.dtype == torch.bfloat16 and torch.allclose(
+            got.float(), want, atol=BF16_ATOL, rtol=BF16_RTOL)
+        same = torch.equal(rows, prows) and torch.equal(cids, pids)
+        print(f"[bag kernels] bf16 {pooling}: max|B5-plain| {err:.3e} "
+              f"(max|plain| {float(want.abs().max()):.3e}) ok={ok}; B6 rows "
+              f"equal to plain={same}")
+        if not (ok and same):
+            raise SystemExit(f"bf16 bag kernels disagree at {pooling}")
+
+    # forced dedup: the padded bag pools the distinct rows by the inverse
+    # ids, still through B5 and B6; same output and table gradient as plain
+    import os
+    from repro_torch.embeddings import collection
+    x = bag_inputs(BAG_SHAPES["train B32 L64 D64"], 52, device)
+    os.environ[collection.DEDUP_KNOB.env_var] = "always"
+    try:
+        for pooling in ("sum", "mean"):
+            table = x["table"].detach().requires_grad_(True)
+            b5, b6 = emod.fwd_launch_count, emod.coo_launch_count
+            got = collection.bag_lookup_dense(table, x["ids"], x["lens"],
+                                              pooling)
+            grad = torch.autograd.grad(got, table, x["g"])[0]
+            launched = (emod.fwd_launch_count - b5,
+                        emod.coo_launch_count - b6)
+            ptable = x["table"].detach().requires_grad_(True)
+            want = emod.embedding_bag_fwd_plain(ptable, x["ids"], x["lens"],
+                                                pooling)
+            pgrad = torch.autograd.grad(want, ptable, x["g"])[0]
+            torch.cuda.synchronize()
+            err = float((got - want).detach().abs().max())
+            gerr = float((grad - pgrad).abs().max())
+            print(f"[bag kernels] dedup=always {pooling}: launches B5/B6 "
+                  f"{launched}; max|out-plain| {err:.3e}, max|grad-plain| "
+                  f"{gerr:.3e}")
+            if launched != (1, 1) or err > BAG_TOL or not torch.allclose(
+                    grad, pgrad, atol=ATOL, rtol=RTOL):
+                raise SystemExit(f"the dedup=always bag did not run B5 and "
+                                 f"B6 once, or disagrees at {pooling}")
+    finally:
+        del os.environ[collection.DEDUP_KNOB.env_var]
+
+    # the raw wrappers build outputs outside autograd: refused under grad,
+    # before any launch
+    x = bag_inputs(BAG_SHAPES["D8"], 51, device)
+    before = (emod.fwd_launch_count, emod.coo_launch_count)
+    for call in (lambda: emod.embedding_bag_fwd_cuda(
+                     x["table"].requires_grad_(True), x["ids"], x["lens"]),
+                 lambda: emod.embedding_bag_coo_rows_cuda(
+                     x["g"].requires_grad_(True), x["ids"], x["lens"],
+                     x["v"])):
+        try:
+            call()
+        except RuntimeError as err:
+            print(f"[bag kernels] raw wrapper under grad refused: {err}")
+        else:
+            raise SystemExit("a raw bag wrapper ran on a grad-requiring input")
+    if (emod.fwd_launch_count, emod.coo_launch_count) != before:
+        raise SystemExit("a refused raw bag call launched its kernel")
+    return worst
+
+
+def phase_lsr_serve(emod, kmod, device) -> dict:
+    """roo-lsr ``userarch`` at lsr_config width: the stateless server over
+    the simulated stream through B5, against the plain embedding backend on
+    the card and a CPU server; ROO vs impression-level logits on one batch
+    (B5 at B_NRO); the user-tower cache over the stream twice."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.roo_models import lsr_config
+    from repro_torch.data.batcher import BatcherConfig, ROOBatcher
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.lsr import (lsr_init, lsr_logits_from_user,
+                                        lsr_logits_impression,
+                                        lsr_logits_roo, lsr_user_repr)
+    from repro_torch.serve.serving import ROOServer, ServeConfig
+
+    cfg = lsr_config("userarch")
+    params = lsr_init(torch.Generator().manual_seed(0), cfg, device=device)
+    score = lambda p, b: lsr_logits_roo(p, cfg, b)
+    requests = make_requests(cfg, 1000)
+    print(f"[lsr serve] roo-lsr mode={cfg.mode} items={cfg.n_items} "
+          f"embed_dim={cfg.embed_dim} hist={cfg.hist_len} LCE "
+          f"{cfg.lce_n_out}x{cfg.lce_d_out} cross={cfg.n_cross_layers} top "
+          f"{cfg.top_mlp + (cfg.n_tasks,)}; {len(requests)} requests, "
+          f"{sum(r.num_impressions for r in requests)} impressions")
+    serve_cfg = ServeConfig(b_ro=64, b_nro=512, hist_len=cfg.hist_len)
+    ROOServer(params, score, serve_cfg, device=device).score_requests(
+        requests[:80])                                  # warm-up
+
+    server = ROOServer(params, score, serve_cfg, device=device)
+    emod.reset_launch_count()
+    kmod.reset_launch_count()
+    scores, wall = serve_waves(server, [requests])
+    st = server.stats
+    b5 = emod.fwd_launch_count
+    print(f"[lsr serve] {len(requests)} requests in {wall * 1e3:.1f} ms "
+          f"({len(requests) / wall:.1f} requests/s), {st.n_batches} batches "
+          f"{st.buckets.snapshot()['counts']}; launches B5 {b5} B6 "
+          f"{emod.coo_launch_count} B1 {kmod.launch_count}")
+    if st.n_failed_batches or len(scores) != len(requests) or any(
+            s.shape != (r.num_impressions, cfg.n_tasks)
+            or not np.isfinite(s).all() for r, s in zip(requests, scores)):
+        raise SystemExit("lsr serve: a failed batch, or scores misaligned "
+                         "or not finite")
+    if b5 != st.n_batches or b5 == 0 or kmod.launch_count \
+            or emod.coo_launch_count:
+        raise SystemExit(f"lsr serve: B5 launches {b5} != scored batches "
+                         f"{st.n_batches}, or B1 / B6 launched")
+
+    dispatch.set_default_emb_backend("torch")
+    try:
+        plain = ROOServer(params, score, serve_cfg,
+                          device=device).score_requests(requests)
+    finally:
+        dispatch.set_default_emb_backend(None)
+    if emod.fwd_launch_count != b5:
+        raise SystemExit("lsr serve: the plain-backend server launched B5")
+    d_plain = max_diff_ok(scores, plain, "lsr serve vs the plain backend")
+    cpu_params = params_from_numpy(params_to_numpy(params), "cpu")
+    cpu = ROOServer(cpu_params, score, serve_cfg,
+                    device="cpu").score_requests(requests[:48])
+    d_cpu = max_diff_ok(scores[:48], cpu, "lsr serve vs a CPU server")
+    print(f"[lsr serve] max|B5 - plain backend| over scores {d_plain:.3e}; "
+          f"max|card - CPU| over 48 requests {d_cpu:.3e}")
+
+    batch = next(ROOBatcher(BatcherConfig(b_ro=64, b_nro=512,
+                                          hist_len=cfg.hist_len),
+                            device=device).batches(requests))
+    before = emod.fwd_launch_count
+    with torch.inference_mode():
+        roo = lsr_logits_roo(params, cfg, batch)
+        imp = lsr_logits_impression(params, cfg, batch)
+    torch.cuda.synchronize()
+    mask = batch.impression_mask()
+    d_imp = float((roo[mask] - imp[mask]).abs().max())
+    ok = torch.allclose(roo[mask], imp[mask], atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    print(f"[lsr serve] ROO vs impression-level logits on one batch "
+          f"(B_RO {batch.b_ro}, B_NRO {batch.b_nro}, {int(mask.sum())} "
+          f"impressions): max|diff| {d_imp:.3e} ok={ok}; B5 launches "
+          f"{emod.fwd_launch_count - before}")
+    if not ok or emod.fwd_launch_count - before != 2:
+        raise SystemExit("lsr serve: ROO and impression-level logits "
+                         "disagree, or B5 did not run at B_RO and B_NRO")
+
+    cached = ROOServer(
+        params, score, ServeConfig(b_ro=64, b_nro=512, hist_len=cfg.hist_len,
+                                   cache_user_tower=True),
+        user_fn=lambda p, b: lsr_user_repr(p, cfg, b),
+        score_from_user=lambda p, b, u: lsr_logits_from_user(p, cfg, b, u),
+        device=device)
+    emod.reset_launch_count()
+    first, first_s = serve_waves(cached, [requests])
+    cs = cached.stats
+    batches_1, full_1, b5_1 = (cs.n_batches, cs.n_full_cache_batches,
+                               emod.fwd_launch_count)
+    second, second_s = serve_waves(cached, [requests])
+    batches_2 = cs.n_batches - batches_1
+    full_2 = cs.n_full_cache_batches - full_1
+    b5_2 = emod.fwd_launch_count - b5_1
+    print(f"[lsr cache] pass 1: {first_s * 1e3:.1f} ms "
+          f"({len(requests) / first_s:.1f} requests/s), {batches_1} batches, "
+          f"{full_1} full-cache, B5 {b5_1}; pass 2: {second_s * 1e3:.1f} ms "
+          f"({len(requests) / second_s:.1f} requests/s), {batches_2} "
+          f"batches, {full_2} full-cache, B5 {b5_2}")
+    if full_2 != batches_2 or batches_2 == 0 or b5_2 \
+            or b5_1 != batches_1 - full_1 or cs.n_failed_batches:
+        raise SystemExit("lsr cache: the second pass was not all full-cache "
+                         "with 0 B5 launches, or pass 1 launched B5 other "
+                         "than once per computed batch")
+    d_pass = max_diff_ok(second, first, "lsr cache pass 2 vs pass 1")
+    d_stateless = max_diff_ok(first, scores, "lsr cache vs stateless")
+    print(f"[lsr cache] max|pass 2 - pass 1| {d_pass:.3e}, max|cache path - "
+          f"stateless| {d_stateless:.3e}")
+    return dict(launches=b5, requests_per_s=len(requests) / wall,
+                cached_requests_per_s=len(requests) / second_s)
+
+
+def phase_lsr_train(emod, kmod, pmod, bmod, device, card: str) -> dict:
+    """roo-lsr ``userarch`` training through B5 and B6: launch counts,
+    losses vs the plain embedding backend on the card and the CPU run, the
+    item_emb gradient vs plain, kill at 12 + restart, throughput and a
+    per-step breakdown."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.kernels import dispatch
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import leaves
+    setup = lsr_train_setup(device)
+    cfg, steps = setup["cfg"], 20
+    mods = (emod, kmod, pmod, bmod)
+    print(f"[lsr train] roo-lsr mode={cfg.mode} items={cfg.n_items}; "
+          f"{len(setup['batches'])} batches of 32 requests / 192 "
+          f"impressions; {steps} steps")
+    for mod in mods:
+        mod.reset_launch_count()
+    trainer, state, losses = run_trainer(setup, device, steps)
+    torch.cuda.synchronize()
+    launches = dict(b5=emod.fwd_launch_count, b6=emod.coo_launch_count,
+                    hstu=(kmod.launch_count, bmod.dq_launch_count,
+                          bmod.dkv_launch_count, pmod.launch_count))
+    n_metric = sum(1 for row in trainer.history if "ne" in row)
+    print(f"[lsr train] launches B5 {launches['b5']} B6 {launches['b6']} "
+          f"B1-B4 {launches['hstu']}; {n_metric} NE forwards; history "
+          f"{trainer.history}")
+    if launches["b5"] != steps + n_metric or launches["b6"] != steps \
+            or any(launches["hstu"]) or n_metric != steps // 10:
+        raise SystemExit("lsr train: launch counts are not B5 = steps + NE "
+                         "forwards, B6 = steps, B1-B4 0")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()):
+        raise SystemExit("lsr train: wrong step count or a non-finite loss")
+
+    dispatch.set_default_emb_backend("torch")
+    try:
+        b5 = emod.fwd_launch_count
+        _, plain_state, plain_losses = run_trainer(lsr_train_setup(device),
+                                                   device, steps)
+        if emod.fwd_launch_count != b5:
+            raise SystemExit("lsr train: the plain-backend run launched B5")
+    finally:
+        dispatch.set_default_emb_backend(None)
+    _, _, cpu_losses = run_trainer(lsr_train_setup("cpu"), "cpu", steps)
+    for what, other in (("the plain embedding backend on the card",
+                         plain_losses), ("the CPU run", cpu_losses)):
+        diff = float((losses - other).abs().max())
+        ok = torch.allclose(losses, other, atol=1e-6, rtol=LOSS_TOL)
+        print(f"[lsr train] per-step losses vs {what}: max|diff| "
+              f"{diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit(f"lsr train: losses disagree with {what}")
+    print(f"[lsr train] losses {[round(float(v), 6) for v in losses]}")
+
+    # the item_emb gradient after 20 steps: kernels vs the plain backend on
+    # the same params and batch (history bag + item rows)
+    params = state["params"]
+    batch = setup["batches"][steps % len(setup["batches"])].to(device)
+    _, g_kernel = value_and_grad(setup["loss"])(params, batch, None)
+    dispatch.set_default_emb_backend("torch")
+    try:
+        _, g_plain = value_and_grad(setup["loss"])(params, batch, None)
+    finally:
+        dispatch.set_default_emb_backend(None)
+    diff = float((g_kernel["item_emb"] - g_plain["item_emb"]).abs().max())
+    ok = torch.allclose(g_kernel["item_emb"], g_plain["item_emb"],
+                        atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    print(f"[lsr train] item_emb gradient after {steps} steps, kernels vs "
+          f"plain: max|diff| {diff:.3e} ok={ok}")
+    if not ok:
+        raise SystemExit("lsr train: the item_emb gradient disagrees with "
+                         "the plain backward")
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_lsr_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run_trainer(setup, device, steps, ckpt_dir=str(ckpt_dir), stop_after=12)
+    _, resumed, _ = run_trainer(setup, device, steps, ckpt_dir=str(ckpt_dir))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a, b = params_to_numpy(state["params"]), params_to_numpy(
+        resumed["params"])
+    diff = max(float(np.abs(x - y).max()) for x, y in zip(leaves(a),
+                                                         leaves(b)))
+    print(f"[lsr train] kill at step 12 + restart vs uninterrupted: final "
+          f"params max|diff| {diff:.3e} (tolerance {PARAM_TOL})")
+    if int(resumed["step"]) != steps or diff > PARAM_TOL:
+        raise SystemExit("lsr train: the restarted run did not end at the "
+                         "uninterrupted run's params")
+
+    run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    req_per_batch = float(np.mean([
+        int(b.request_mask().sum()) for b in setup["batches"][:steps]]))
+    print(f"[lsr train] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * req_per_batch / wall:.1f} "
+          f"requests/s; Trainer.run incl. init and 2 NE forwards)")
+    for rnd, parts in enumerate(step_breakdown(setup, device, state)):
+        print(f"[lsr train] {card}: breakdown {rnd + 1} (ms per step, card "
+              f"synchronised after each stage): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return dict(launches=launches, steps_per_s=steps / wall,
+                requests_per_s=steps * req_per_batch / wall)
+
+
+def phase_lsr_hstu_train(emod, kmod, pmod, bmod, device) -> None:
+    """roo-lsr ``userarch_hstu`` (the default mode) trains through B1-B3
+    and never reaches the bag kernels; losses vs the torch-dense
+    attention run."""
+    import torch
+    steps = 10
+    setup = lsr_train_setup(device, "userarch_hstu")
+    for mod in (emod, kmod, pmod, bmod):
+        mod.reset_launch_count()
+    trainer, state, losses = run_trainer(setup, device, steps)
+    torch.cuda.synchronize()
+    n_layers = len(state["params"]["hstu"]["layers"])
+    n_metric = sum(1 for row in trainer.history if "ne" in row)
+    got = (kmod.launch_count, bmod.dq_launch_count, bmod.dkv_launch_count,
+           pmod.launch_count, emod.fwd_launch_count, emod.coo_launch_count)
+    print(f"[lsr hstu train] mode=userarch_hstu, {steps} steps: launches "
+          f"B1 {got[0]} B2 {got[1]} B3 {got[2]} B4 {got[3]} B5 {got[4]} B6 "
+          f"{got[5]}; {n_metric} NE forward")
+    if got != (n_layers * (steps + n_metric), n_layers * steps,
+               n_layers * steps, 0, 0, 0) or n_metric != 1:
+        raise SystemExit("lsr hstu train: launch counts are not B1 = "
+                         "n_layers x (steps + NE forwards), B2 = B3 = "
+                         "n_layers x steps, B4 = B5 = B6 = 0")
+    _, _, dense_losses = run_trainer(
+        lsr_train_setup(device, "userarch_hstu", "torch-dense"), device,
+        steps)
+    diff = float((losses - dense_losses).abs().max())
+    ok = bool(torch.isfinite(losses).all()) and torch.allclose(
+        losses, dense_losses, atol=1e-6, rtol=LOSS_TOL)
+    print(f"[lsr hstu train] per-step losses vs torch-dense attention: "
+          f"max|diff| {diff:.3e} ok={ok}")
+    if not ok:
+        raise SystemExit("lsr hstu train: losses disagree with torch-dense")
+
+
+def bound_bag(x, which: str) -> tuple:
+    """Least time (ms) the card needs for one B5 or B6 call on these
+    inputs. B5 bytes: the table rows the valid slots read, the ids and
+    lengths, the (B, D) output; its operations one add per kept element
+    (and a divide per output). B6 bytes: g, the ids and lengths read, all
+    B·L·D rows and B·L ids written; one multiply per row element."""
+    b, l = x["ids"].shape
+    d = x["table"].shape[1]
+    kept = int(x["lens"].clamp(0, l).sum())
+    if which == "fwd":
+        n_bytes = 4 * (kept * d + b * l + b + b * d)
+        ops = kept * d + b * d
+    else:
+        n_bytes = 4 * (b * d + b * l + b + b * l * d + b * l)
+        ops = b * l * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
+
+
+def phase_bag_times(emod, device, card: str) -> dict:
+    """B5 and B6 (mean pooling) at the LSR training shape (B 32, L 64,
+    D 64, V 50,000) beside their plain versions, their bounds and one
+    PyTorch call each (``F.embedding_bag`` on the flat valid ids; its
+    autograd backward, which includes the densify), and the densify."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.embeddings.sparse import SparseRows
+    x = bag_inputs(BAG_SHAPES["train B32 L64 D64"], 60, device)
+    table, ids, lens, g, v = x["table"], x["ids"], x["lens"], x["g"], x["v"]
+    b, l = ids.shape
+    fwd = lambda: emod.embedding_bag_fwd_cuda(table, ids, lens, "mean")
+    fwd_plain = lambda: emod.embedding_bag_fwd_plain(table, ids, lens, "mean")
+    coo = lambda: emod.embedding_bag_coo_rows_cuda(g, ids, lens, v, "mean")
+    coo_plain = lambda: emod.embedding_bag_coo_rows_plain(g, ids, lens, v,
+                                                          "mean")
+    cids, rows = coo()
+    densify = lambda: SparseRows(cids, rows, v).to_dense()
+    # the library yardstick: the valid ids flattened, one offset per bag
+    valid = torch.arange(l, device=device)[None, :] < lens[:, None]
+    flat = ids.clamp(0, v - 1)[valid].long()
+    offsets = torch.cumsum(lens.clamp(0, l), 0) - lens.clamp(0, l)
+    lib_fwd = lambda: F.embedding_bag(flat, table, offsets.long(),
+                                      mode="mean")
+    tg = table.detach().requires_grad_(True)
+    lib_out = F.embedding_bag(flat, tg, offsets.long(), mode="mean")
+    lib_bwd = lambda: torch.autograd.grad(lib_out, tg, g, retain_graph=True)
+    torch.cuda.synchronize()
+    if not torch.allclose(lib_fwd(), fwd(), atol=ATOL, rtol=RTOL):
+        raise SystemExit("times: F.embedding_bag disagrees with B5")
+    # plain, kernel, kernel, plain; iters x launches per call stay under
+    # ~1,000 (the launch queue)
+    ms = {key: device_ms(fn, iters) for key, fn, iters in (
+        ("fwd_plain", fwd_plain, 40), ("fwd", fwd, 200),
+        ("fwd_again", fwd, 200), ("fwd_plain_again", fwd_plain, 40),
+        ("coo_plain", coo_plain, 40), ("coo", coo, 200),
+        ("coo_again", coo, 200), ("coo_plain_again", coo_plain, 40),
+        ("densify", densify, 20), ("lib_fwd", lib_fwd, 100),
+        ("lib_bwd", lib_bwd, 20))}
+    calls = {"fwd": call_ms(fwd, 200), "coo": call_ms(coo, 200),
+             "fwd_plain": call_ms(fwd_plain, 50),
+             "coo_plain": call_ms(coo_plain, 50)}
+    out = {}
+    for which, label, lib in (("fwd", "B5 embedding_bag_fwd", "lib_fwd"),
+                              ("coo", "B6 embedding_bag_bwd_coo",
+                               "lib_bwd")):
+        bound_ms, bound_by, n_bytes, ops = bound_bag(x, which)
+        print(f"[times] {card}: {label} mean B32 L64 D64 V50000, device time "
+              f"per call: kernel {ms[which]:.5f} ms (again "
+              f"{ms[which + '_again']:.5f}), plain torch "
+              f"{ms[which + '_plain']:.5f} ms (again "
+              f"{ms[which + '_plain_again']:.5f}); bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 "
+              f"TFLOP/s); library {ms[lib]:.5f} ms; host-issued calls: "
+              f"kernel {calls[which]:.5f} ms, plain "
+              f"{calls[which + '_plain']:.5f} ms")
+        out[which] = dict(ms=ms[which], plain_ms=ms[which + "_plain"],
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=ms[lib])
+    print(f"[times] {card}: densify of the B6 rows to the (50000, 64) table "
+          f"gradient (SparseRows.to_dense: aten.embedding_dense_backward) "
+          f"{ms['densify']:.5f} "
+          f"ms; F.embedding_bag's backward (incl. its densify) "
+          f"{ms['lib_bwd']:.5f} ms")
+    return out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1129,29 +1723,44 @@ def main() -> int:
     print(f"[device] {card} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    from repro_torch.kernels import embedding_bag as emod
     from repro_torch.kernels import hstu_attention as kmod
     from repro_torch.kernels import hstu_attention_bwd as bmod
     from repro_torch.kernels import hstu_attention_prefix as pmod
-    phase_build([kmod, pmod, bmod])
+    phase_build([kmod, pmod, bmod, emod])
     worst = phase_kernels(kmod, device)
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
     worst_bwd = phase_bwd_kernels(kmod, pmod, bmod, device)
+    worst_bag = phase_bag_kernels(emod, device)
     pmod.reset_launch_count()
+    emod.reset_launch_count()
     serve = phase_serve(kmod, device)
-    if pmod.launch_count:
-        raise SystemExit("the stateless server launched the prefix kernel")
+    if pmod.launch_count or emod.fwd_launch_count:
+        raise SystemExit("the stateless hstu-gr server launched the prefix "
+                         "or the bag kernel")
     inc = phase_incremental(kmod, pmod, device, serve)
     phase_cache(kmod, pmod, device, serve)
     train = phase_train(kmod, pmod, bmod, device, card)
+    if emod.fwd_launch_count or emod.coo_launch_count:
+        raise SystemExit("hstu-gr launched a bag kernel")
+    lsr_serve = phase_lsr_serve(emod, kmod, device)
+    lsr_train = phase_lsr_train(emod, kmod, pmod, bmod, device, card)
+    phase_lsr_hstu_train(emod, kmod, pmod, bmod, device)
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
+    bag_times = phase_bag_times(emod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
           f"stateless")
     print(f"[train] {card}: {train['steps_per_s']:.2f} steps/s, "
           f"{train['requests_per_s']:.1f} requests/s")
+    print(f"[lsr serve] {card}: {lsr_serve['requests_per_s']:.1f} "
+          f"requests/s stateless, {lsr_serve['cached_requests_per_s']:.1f} "
+          f"with the user-tower cache (second pass)")
+    print(f"[lsr train] {card}: {lsr_train['steps_per_s']:.2f} steps/s, "
+          f"{lsr_train['requests_per_s']:.1f} requests/s")
 
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
@@ -1175,7 +1784,16 @@ def main() -> int:
         **btimes[which], "library_ms": None}
         for name, line, key, which in (
             ("hstu_attention_bwd_dq", 108, "b2", "dq"),
-            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))]}))
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": f"src/repro/kernels/embedding_bag.py:{line}",
+        "launches": launches, "max_abs_err": worst_bag[which],
+        **bag_times[which]}
+        for name, line, launches, which in (
+            ("embedding_bag_fwd", 48, lsr_serve["launches"], "fwd"),
+            ("embedding_bag_bwd_coo", 74, lsr_train["launches"]["b6"],
+             "coo"))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The paper's HSTU-GR config at the repo's width (torch port of
-``repro/configs/roo_models.py``; the retrieval / ESR / LSR configs wait for
-their models).
+"""The paper's HSTU-GR and LSR configs at the repo's width (torch port of
+``repro/configs/roo_models.py``; the retrieval / ESR configs wait for their
+models).
 
 ``attn_backend`` selects the HSTU attention backend (kernels/dispatch.py);
 None = auto (the CUDA kernel on a CUDA tensor, torch-chunked elsewhere).
@@ -9,6 +9,7 @@ from typing import Optional
 
 from repro_torch.core.hstu import HSTUConfig
 from repro_torch.models.gr import GRConfig
+from repro_torch.models.lsr import LSRConfig
 
 N_ITEMS = 50000
 
@@ -19,3 +20,8 @@ def gr_config(hist_len: int = 64, m_targets: int = 16,
                     hstu=HSTUConfig(d_model=64, n_heads=2, d_qk=32, d_v=32,
                                     n_layers=2, max_rel_pos=hist_len,
                                     attn_backend=attn_backend))
+
+
+def lsr_config(mode: str = "userarch_hstu",
+               attn_backend: Optional[str] = None) -> LSRConfig:
+    return LSRConfig(n_items=N_ITEMS, mode=mode, attn_backend=attn_backend)

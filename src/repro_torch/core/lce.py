@@ -1,0 +1,47 @@
+"""Linear Compressed Embedding (LCE) + UserArch (paper §3.2, Eq. 1–2),
+torch port of ``repro/core/lce.py``.
+
+LCE compresses a bag of feature embeddings along the feature-count axis
+first (n_in -> n_out, Eq. 1), then projects the embedding axis
+(d_in -> d_out, Eq. 2). Under ROO, UserArch runs at B_RO, so its cost is
+amortized across the request's impressions; ``models/lsr.py`` applies the
+LCE to the user features directly. Shapes follow the paper:
+X in R^{B, d_in, n_in}. The ``UserArchConfig`` wrappers and ``lce_flops``
+wait for a caller.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from repro_torch.core.hstu import normal_init
+
+
+@dataclasses.dataclass(frozen=True)
+class LCEConfig:
+    n_in: int          # input number of feature embeddings
+    d_in: int          # input embedding dim
+    n_out: int         # compressed number of embeddings
+    d_out: int         # output embedding dim
+
+
+def lce_init(gen: torch.Generator, cfg: LCEConfig, dtype=torch.float32,
+             device="cuda") -> Dict:
+    s1 = (2.0 / (cfg.n_in + cfg.n_out)) ** 0.5
+    s2 = (2.0 / (cfg.d_in + cfg.d_out)) ** 0.5
+    return {
+        "W": normal_init(gen, (cfg.n_in, cfg.n_out), s1, dtype, device),
+        "b": torch.zeros((1, cfg.n_out), dtype=dtype, device=device),
+        "W2": normal_init(gen, (cfg.d_in, cfg.d_out), s2, dtype, device),
+        "b2": torch.zeros((1, cfg.d_out), dtype=dtype, device=device),
+    }
+
+
+def lce_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Eq. 1–2. x: (B, d_in, n_in) -> (B, n_out, d_out)."""
+    h = torch.einsum("bdn,nm->bdm", x, params["W"]) + params["b"][None]
+    h = h.transpose(1, 2)                                 # (B, n_out, d_in)
+    return torch.einsum("bmd,de->bme", h, params["W2"]) + params["b2"][None]
+

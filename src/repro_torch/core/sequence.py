@@ -4,7 +4,8 @@
 Builds, per request, the sequence ``[history (n) | targets (m)]``, encodes it
 ONCE with HSTU under the ROO mask (targets see history + self only), and
 scatters the m target outputs back to their NRO impression slots. The
-impression-level baseline (``encode_per_impression``) is not ported yet.
+impression-level baseline (``encode_per_impression``) encodes (history + 1
+target) once per impression: the cost ROO amortizes.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.hstu import HSTUConfig, hstu_apply
+from repro_torch.core.hstu import HSTUConfig, hstu_apply, hstu_init
 from repro_torch.core.masks import roo_spec
 from repro_torch.core.roo_batch import ROOBatch
 
@@ -25,6 +26,11 @@ class ROOSequenceConfig:
     hstu: HSTUConfig
     n_hist: int                 # padded history length n
     m_targets: int              # padded per-request target capacity m
+
+
+def roo_sequence_init(gen: torch.Generator, cfg: ROOSequenceConfig,
+                      dtype=torch.float32, device="cuda") -> Dict:
+    return {"hstu": hstu_init(gen, cfg.hstu, dtype, device)}
 
 
 def target_positions(batch: ROOBatch, m_targets: int
@@ -64,6 +70,21 @@ def encode_roo(params: Dict, cfg: ROOSequenceConfig,
     spec = roo_spec(hist_lengths, target_counts, cfg.n_hist)
     y = hstu_apply(params["hstu"], cfg.hstu, x, spec, backend=backend)
     return y[:, cfg.n_hist:, :]
+
+
+def encode_per_impression(params: Dict, cfg: ROOSequenceConfig,
+                          hist_emb: torch.Tensor, hist_lengths: torch.Tensor,
+                          target_emb: torch.Tensor,
+                          backend: Optional[str] = None) -> torch.Tensor:
+    """Impression-level baseline: (history + 1 target) per impression.
+
+    hist_emb: (B_NRO, n, d) — history duplicated per impression;
+    target_emb: (B_NRO, d). Returns (B_NRO, d).
+    """
+    x = torch.cat([hist_emb, target_emb[:, None, :]], dim=1)
+    spec = roo_spec(hist_lengths, torch.ones_like(hist_lengths), cfg.n_hist)
+    y = hstu_apply(params["hstu"], cfg.hstu, x, spec, backend=backend)
+    return y[:, cfg.n_hist, :]
 
 
 def scatter_targets_to_nro(encoded_ro: torch.Tensor, batch: ROOBatch,

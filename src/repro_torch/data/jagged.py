@@ -1,9 +1,11 @@
 """Jagged (ragged) tensors — torch port of ``repro/data/jagged.py``.
 
 A JaggedTensor carries a fixed-capacity ``values`` buffer plus ``lengths``;
-entries past ``sum(lengths)`` are padding that every consumer masks. Only
-what the batcher needs is ported (construction from host lists, device
-moves); offsets, segment ids and padding helpers land with the bag lookups.
+entries past ``sum(lengths)`` are padding that every consumer masks. The
+batcher builds them from host lists; the jagged bag pools by their
+lengths. Offsets, segment ids, the valid mask and the padded-layout helpers
+(``to_padded``, ``from_dense``) are not ported yet: nothing in the port
+reads them.
 """
 from __future__ import annotations
 
@@ -20,6 +22,10 @@ class JaggedTensor:
 
     values: torch.Tensor      # (capacity, ...) packed row-major by batch entry
     lengths: torch.Tensor     # (batch,) int32
+
+    @property
+    def batch_size(self) -> int:
+        return self.lengths.shape[0]
 
     def to(self, device) -> "JaggedTensor":
         return JaggedTensor(self.values.to(device), self.lengths.to(device))

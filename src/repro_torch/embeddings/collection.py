@@ -1,15 +1,20 @@
 """Embedding lookups — torch port of the local path of
 ``repro/embeddings/collection.py``.
 
-  * ``seq_lookup`` — (B, L) ids -> (B, L, D) rows (HSTU inputs)
-  * ``row_lookup`` — (B,)  ids -> (B, D) single rows (item towers)
+  * ``seq_lookup``        — (B, L) ids -> (B, L, D) rows (HSTU inputs)
+  * ``row_lookup``        — (B,)  ids -> (B, D) single rows (item towers)
+  * ``bag_lookup``        — JaggedTensor id lists -> (B, D) pooled bags
+  * ``bag_lookup_dense``  — padded (B, L) multi-hot -> (B, D) pooled bags
 
-Both clip ids to ``[0, vocab)`` and may apply request-level id dedup
+All clip ids to ``[0, vocab)`` and may apply request-level id dedup
 (``dedup_gather``: each distinct id read once, duplicates expanded from the
 small gathered buffer — bit-identical to the direct gather). Policy: the
 ``emb_dedup`` knob (arg > process default > ``REPRO_TORCH_EMB_DEDUP`` >
-auto); auto never dedups, as the reference dedups only on TPU. The sharded
-paths, the bag lookups and the ``GatheredTable`` proxy are not ported yet.
+auto); auto never dedups, as the reference dedups only on TPU.
+``bag_lookup_dense`` always runs the embedding-bag entry point
+(kernels/embedding_bag.py, backend from ``kernels/dispatch.py``); forced
+dedup pools over the small table of distinct rows by the inverse ids. The
+sharded paths and the ``GatheredTable`` proxy are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +22,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.data.jagged import JaggedTensor
+from repro_torch.embeddings.bag import bag_pool
+from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.scenario.knobs import UNSET, Knob
 
 DEDUP_KNOB = Knob("emb_dedup", "REPRO_TORCH_EMB_DEDUP",
@@ -42,15 +50,21 @@ def dedup_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return rows[inv].reshape(tuple(ids.shape) + tuple(rows.shape[1:]))
 
 
+def _gather(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+            dedup: Optional[bool]) -> torch.Tensor:
+    """Row gather with dedup; ids of any shape, unclipped."""
+    ids = torch.clamp(ids.long(), 0, vocab - 1)
+    if _want_dedup(dedup):
+        return dedup_gather(table, ids)
+    return table[ids]
+
+
 def seq_lookup(table: torch.Tensor, ids: torch.Tensor, *,
                vocab: Optional[int] = None,
                dedup: Optional[bool] = None) -> torch.Tensor:
     """(B, L) ids -> (B, L, D); exact ``table[clip(ids)]`` semantics."""
     v = int(vocab) if vocab is not None else int(table.shape[0])
-    ids = torch.clamp(ids.long(), 0, v - 1)
-    if _want_dedup(dedup):
-        return dedup_gather(table, ids)
-    return table[ids]
+    return _gather(table, ids, v, dedup)
 
 
 def row_lookup(table: torch.Tensor, ids: torch.Tensor, *,
@@ -58,3 +72,30 @@ def row_lookup(table: torch.Tensor, ids: torch.Tensor, *,
                dedup: Optional[bool] = None) -> torch.Tensor:
     """(B,) ids -> (B, D) single-row gather."""
     return seq_lookup(table, ids[:, None], vocab=vocab, dedup=dedup)[:, 0, :]
+
+
+def bag_lookup(table: torch.Tensor, ids: JaggedTensor, pooling: str = "sum",
+               *, dedup: Optional[bool] = None) -> torch.Tensor:
+    """Jagged id-list bag -> (B, D): (dedup-)gather, then pool."""
+    emb = _gather(table, ids.values, int(table.shape[0]), dedup)
+    return bag_pool(emb, ids, pooling)
+
+
+def bag_lookup_dense(table: torch.Tensor, ids: torch.Tensor,
+                     lengths: torch.Tensor, pooling: str = "sum", *,
+                     vocab: Optional[int] = None,
+                     dedup: Optional[bool] = None,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Padded-layout bag: (B, L) ids + (B,) lengths -> (B, D).
+
+    Runs ``kernels/embedding_bag.embedding_bag`` (forward B5, backward B6
+    on a CUDA table; the plain path on a CPU one). Forced dedup (arg or the
+    "always" policy) gathers each distinct clipped id's row once and pools
+    that small table by the inverse ids, so it runs the same kernels.
+    """
+    if _want_dedup(dedup):
+        v = int(vocab) if vocab is not None else int(table.shape[0])
+        uids, inv = torch.unique(torch.clamp(ids.long(), 0, v - 1),
+                                 return_inverse=True)
+        table, ids = table[uids], inv.reshape(ids.shape)
+    return embedding_bag(table, ids, lengths, pooling, backend=backend)

@@ -1,7 +1,7 @@
-"""Backend dispatch for HSTU attention and its cached-prefix variant (port
-of ``repro/kernels/dispatch.py``).
+"""Backend dispatch for HSTU attention, its cached-prefix variant and the
+embedding bag (port of ``repro/kernels/dispatch.py``).
 
-Backends:
+HSTU backends:
 
   cuda           — the hand-written CUDA kernels; CUDA tensors only. The
                    full attention runs as hstu_attention_bwd.HSTUAttentionFn
@@ -21,6 +21,18 @@ otherwise. On a CUDA tensor auto launches the kernel or raises; the plain
 backends stay available on any device by explicit choice only. Both entry
 points (:func:`hstu_attention`, :func:`hstu_attention_prefix`) use the same
 ladder.
+
+Embedding-bag backends have their own knob (``REPRO_TORCH_EMB_BACKEND``,
+:func:`set_default_emb_backend`, :func:`use_emb_backend`):
+
+  cuda   — the hand-written CUDA kernels (kernels/embedding_bag.py):
+           ``EmbeddingBagFn``, forward B5, backward B6 then the densify;
+           CUDA tensors only
+  torch  — take + masked reduce oracle (kernels/ref.py)
+
+Auto follows the table: ``cuda`` on a CUDA device, ``torch`` otherwise; on
+a CUDA table auto launches the kernel or raises. ``REPRO_EMB_BACKEND``
+(the reference's) never reaches the port.
 """
 from __future__ import annotations
 
@@ -34,9 +46,14 @@ from repro_torch.scenario.knobs import UNSET, Knob
 BACKENDS = ("cuda", "torch-chunked", "torch-dense")
 ENV_VAR = "REPRO_TORCH_HSTU_BACKEND"
 
-# auto is device-dependent, so it resolves in resolve_backend (a None from
-# the ladder means "no rung set")
+EMB_BACKENDS = ("cuda", "torch")
+EMB_ENV_VAR = "REPRO_TORCH_EMB_BACKEND"
+
+# auto is device-dependent, so it resolves in resolve_backend /
+# resolve_emb_backend (a None from the ladder means "no rung set")
 ATTN_KNOB = Knob("attn_backend", ENV_VAR, choices=BACKENDS, kind="backend")
+EMB_KNOB = Knob("emb_backend", EMB_ENV_VAR, choices=EMB_BACKENDS,
+                kind="backend")
 
 
 def set_default_backend(backend: Optional[str]) -> None:
@@ -62,6 +79,31 @@ def resolve_backend(backend: Optional[str] = None,
         return be
     is_cuda = device is not None and torch.device(device).type == "cuda"
     return "cuda" if is_cuda else "torch-chunked"
+
+
+def set_default_emb_backend(backend: Optional[str]) -> None:
+    """Process-wide embedding-bag default; ``None`` clears it."""
+    EMB_KNOB.set_default(UNSET if backend is None else backend)
+
+
+def get_default_emb_backend() -> Optional[str]:
+    return EMB_KNOB.get_default()
+
+
+def use_emb_backend(backend: Optional[str]):
+    """Scoped embedding-bag backend override; ``None`` is a no-op."""
+    return EMB_KNOB.scoped(UNSET if backend is None else backend)
+
+
+def resolve_emb_backend(backend: Optional[str] = None,
+                        device: Optional[torch.device] = None) -> str:
+    """The embedding-bag backend a call on ``device`` runs: the ladder's
+    value, else ``cuda`` for a CUDA device and ``torch`` otherwise."""
+    be = EMB_KNOB.resolve(UNSET if backend is None else backend)
+    if be is not None:
+        return be
+    is_cuda = device is not None and torch.device(device).type == "cuda"
+    return "cuda" if is_cuda else "torch"
 
 
 def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

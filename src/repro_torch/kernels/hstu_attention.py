@@ -129,8 +129,9 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
         raise RuntimeError(
             f"{name}: an input requires grad under grad mode, but the "
             f"kernel's output is outside the autograd graph (the "
-            f"differentiable op is dispatch.hstu_attention; the "
-            f"cached-prefix attention is forward only)")
+            f"differentiable ops are dispatch.hstu_attention and "
+            f"embedding_bag.embedding_bag; the cached-prefix attention is "
+            f"forward only)")
 
 
 def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,8 @@
 """Plain torch oracles for the port's kernels (``repro/kernels/ref.py``).
 
-The HSTU forward, its backward and the cached-prefix forward oracles are
-ported so far; the embedding-bag and dot-interaction oracles land with
-their kernels.
+The HSTU forward, its backward, the cached-prefix forward and the
+embedding bag (forward, COO-row backward, max-pooling backward) oracles are
+ported so far; the dot-interaction oracle lands with its kernel.
 """
 from __future__ import annotations
 
@@ -137,3 +137,66 @@ def hstu_attention_prefix_ref(q: torch.Tensor, k: torch.Tensor,
     a = F.silu(scores) / float(scale_len)
     a = a * mask[:, None].to(a.dtype)
     return torch.einsum("bhij,bhjd->bhid", a.to(v.dtype), v)
+
+
+def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
+                      lengths: torch.Tensor,
+                      pooling: str = "sum") -> torch.Tensor:
+    """Pooled embedding bag (sum | mean | max). table: (V, D); ids: (B, L);
+    lengths: (B,). Slots past ``lengths`` never contribute, ids are clipped
+    to [0, V), and empty bags give zeros. Mean divides the sum by
+    ``max(lengths, 1)``, the reference's op."""
+    b, l = ids.shape
+    valid = torch.arange(l, device=ids.device)[None, :] < lengths[:, None]
+    safe = torch.clamp(ids.long(), 0, table.shape[0] - 1)
+    emb = table[safe.reshape(-1)].reshape(b, l, -1)
+    if pooling == "max":
+        neg = torch.full_like(emb, torch.finfo(emb.dtype).min)
+        out = torch.where(valid[..., None], emb, neg).amax(dim=1)
+        return torch.where((lengths > 0)[:, None], out, torch.zeros_like(out))
+    out = torch.sum(emb * valid[..., None].to(emb.dtype), dim=1)
+    if pooling == "mean":
+        out = out / torch.clamp(lengths, min=1).to(out.dtype)[:, None]
+    return out
+
+
+def embedding_bag_coo_rows_ref(g: torch.Tensor, ids: torch.Tensor,
+                               lengths: torch.Tensor, vocab: int,
+                               pooling: str = "sum"
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """COO gradient of a sum or mean bag w.r.t. its table, given the output
+    gradient g (B, D): slot (b, l) contributes ``g[b] * w(b, l)`` to row
+    ``ids[b, l]``, with w = [l < len] (sum) or [l < len] / max(len, 1)
+    (mean), w in fp32 as the reference's backward kernel computes it.
+    Returns ``(ids (B*L,) int32, rows (B*L, D) in g's dtype)``; invalid
+    slots carry the ``vocab`` sentinel id and zero rows."""
+    b, l = ids.shape
+    valid = torch.arange(l, device=ids.device)[None, :] < lengths[:, None]
+    w = valid.to(torch.float32)
+    if pooling == "mean":
+        w = w / torch.clamp(lengths, min=1).to(torch.float32)[:, None]
+    rows = (g.to(torch.float32)[:, None, :] * w[:, :, None]).to(g.dtype)
+    cids = torch.where(valid, torch.clamp(ids.long(), 0, vocab - 1), vocab)
+    return cids.reshape(-1).to(torch.int32), rows.reshape(b * l, -1)
+
+
+def embedding_bag_max_coo_rows_ref(table: torch.Tensor, ids: torch.Tensor,
+                                   lengths: torch.Tensor, out: torch.Tensor,
+                                   g: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """COO gradient of a max bag: each output element's gradient goes to
+    the slots that hold the maximum, split evenly among ties (the
+    reference's max backward). ``out`` is the bag's forward output.
+    Returns ``(ids, rows)`` as :func:`embedding_bag_coo_rows_ref`."""
+    b, l = ids.shape
+    v, d = table.shape
+    valid = torch.arange(l, device=ids.device)[None, :] < lengths[:, None]
+    safe = torch.where(valid, torch.clamp(ids.long(), 0, v - 1), 0)
+    emb = table[safe.reshape(-1)].reshape(b, l, d)
+    hit = (emb == out[:, None, :]) & valid[:, :, None]
+    cnt = torch.clamp(hit.sum(dim=1, keepdim=True), min=1)
+    rows = (hit.to(torch.float32) / cnt.to(torch.float32)) * \
+        g.to(torch.float32)[:, None, :]
+    cids = torch.where(valid, safe, v)
+    return (cids.reshape(-1).to(torch.int32),
+            rows.reshape(b * l, d).to(table.dtype))

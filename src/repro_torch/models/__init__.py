@@ -1,1 +1,2 @@
-"""Model zoo (torch port of ``repro/models``): MLP and GR ranking so far."""
+"""Model zoo (torch port of ``repro/models``): MLP, GR ranking, LSR and
+the DCNv2 interaction so far."""
