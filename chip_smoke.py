@@ -36,19 +36,30 @@ Phases (any failure exits non-zero and prints no result):
                    the padded bag under REPRO_TORCH_EMB_DEDUP=always still
                    launches B5 and B6; the raw wrappers refuse a
                    grad-requiring input and launch nothing
-  6. serve       — ROOServer with random hstu-gr params (seeded
+  6. dot kernels — the DLRM dot interaction (B7) through dispatch's auto
+                   backend against its plain version, with and without the
+                   diagonal, at the dlrm-mlperf scoring (512, 26, 128) and
+                   training (8,192, 26, 128) shapes, the scenario's
+                   reduced DLRM (F 4, D 16), B 1 and 37, D 24, F 1, 8, 13,
+                   40 and 63 (64 KB of shared memory); bf16 against the
+                   plain version on the same bf16 inputs; the backward
+                   through ``DotInteractionFn`` against autograd of the
+                   plain version, bitwise on repeat; the raw wrapper
+                   refuses a grad-requiring input and an unsupported shape
+                   and launches nothing
+  7. serve       — ROOServer with random hstu-gr params (seeded
                    torch.Generator) scores 1,000 simulated requests on the
                    card through B1; launch counts, failed batches and
                    scores are checked against the torch-dense server and a
                    CPU server
-  7. incremental — the state-store engine serves 64 users over 4 waves of
+  8. incremental — the state-store engine serves 64 users over 4 waves of
                    appended events (then the simulated stream) through B4
                    alone: hits, launch counts and scores vs the stateless
                    server, requests/s of both, and where the time goes
-  8. cache       — ROOServer with the user-tower cache serves the stream
+  9. cache       — ROOServer with the user-tower cache serves the stream
                    twice; the second pass is all full-cache batches with
                    the same scores; a weight swap empties the cache
-  9. train       — the hstu-gr Trainer (Adam on dense weights, row-wise
+ 10. train       — the hstu-gr Trainer (Adam on dense weights, row-wise
                    Adagrad on the tables) takes 20 steps on ROOBatcher
                    batches of the simulated stream (32 requests / 192
                    impressions) through B1-B3: launch counts, no skipped
@@ -57,7 +68,7 @@ Phases (any failure exits non-zero and prints no result):
                    torch-dense, a kill at step 12 and a restart from the
                    checkpoint vs the uninterrupted run; steps/s,
                    requests/s and a per-step breakdown
- 10. lsr serve   — roo-lsr ``userarch`` at lsr_config width (seeded random
+ 11. lsr serve   — roo-lsr ``userarch`` at lsr_config width (seeded random
                    params) scores the 1,000 requests through B5 (launches
                    == scored batches, B1 0) against the plain embedding
                    backend on the card and a CPU server; ROO vs
@@ -65,18 +76,37 @@ Phases (any failure exits non-zero and prints no result):
                    user-tower cache over the stream twice (the second pass
                    all full-cache, 0 B5 launches, the same scores);
                    requests/s of both servers
- 11. lsr train   — the roo-lsr ``userarch`` Trainer, 20 steps through B5 and
+ 12. lsr train   — the roo-lsr ``userarch`` Trainer, 20 steps through B5 and
                    B6 (B5 = steps + NE forwards, B6 = steps, B1-B4 0):
                    losses vs the plain embedding backend on the card and
                    the CPU run, the item_emb gradient vs plain, a kill at
                    step 12 and a restart, steps/s and a per-step breakdown;
                    then ``userarch_hstu`` for 10 steps through B1-B3 (B5,
                    B6 0), losses vs torch-dense attention
- 12. times       — each kernel vs its plain version (CUDA events; device
+ 13. dlrm score  — dlrm-mlperf at its published widths (tables capped at
+                   2**21 rows each: 13,693,773 rows, 7.0 GB; seeded
+                   random params) scores 16 synthetic batches of 128
+                   requests / 512 impressions under no_grad: B7 1 and B5
+                   26 launches per ROO forward, B1-B4 and B6 0; logits vs
+                   the plain dot and bag backends on the card and vs the
+                   impression-level forward; impressions/s, requests/s
+                   and peak memory
+ 14. dlrm train  — the dlrm-mlperf Trainer (Adam + row-wise Adagrad, dense
+                   table gradients) takes 20 steps of 2,048 requests /
+                   8,192 impressions: B7 20, B5 = B6 = 520, B1-B4 0, no
+                   skipped step; losses vs the plain backends on the card,
+                   and at a 2**14-row cap (64 / 256, 10 steps) vs the CPU;
+                   steps/s, impressions/s, a per-step breakdown, peak
+                   memory (no kill-and-restart here: phases 10 and 12
+                   check that contract, and a 7 GB checkpoint would
+                   dominate the phase)
+ 15. times       — each kernel vs its plain version (CUDA events; device
                    time with the host run ahead, and host-issued call time)
                    beside its bound, the bag kernels also beside one
-                   PyTorch call (F.embedding_bag and its backward), and the
-                   servers' and trainers' rates
+                   PyTorch call (F.embedding_bag and its backward), B7 at
+                   the dlrm scoring and training shapes beside torch.bmm
+                   + the tril index_select (two calls), and the servers'
+                   and trainers' rates
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -84,6 +114,8 @@ order (atol = rtol = 1e-5 on attention outputs and on dq, dk, dv; 1e-4 on
 drab, a sum over B·S² cells, and on logits and gradients of the model).
 Bag outputs: |kernel - plain| <= 1e-5 with the table at lsr_init's scale;
 the table gradient atol = rtol = 1e-5; B6's rows and ids bit for bit.
+Dot interaction: atol 1e-4, rtol 1e-5 at std-1 inputs (sums of up to 256
+O(1) products, summed in another order); DLRM logits 1e-4; losses 1e-5.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -106,6 +138,10 @@ PARAM_TOL = 1e-5              # params after a kill and restart (atol)
 BAG_TOL = 1e-5                # embedding-bag outputs vs plain (atol)
 BF16_RTOL = 1e-2              # bf16 B5 vs plain on the same bf16 table
 BF16_ATOL = 1e-3              # (table ~ N(0, 1): outputs are O(1))
+DOT_ATOL, DOT_RTOL = 1e-4, 1e-5  # B7 vs plain, std-1 inputs: sums of up
+                                 # to 256 O(1) products in another order
+DLRM_CAP = 2 ** 21            # rows per dlrm-mlperf table on the card
+DLRM_CPU_CAP = 2 ** 14        # rows per table in the CPU cross-check
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 
@@ -565,6 +601,13 @@ def lsr_train_setup(device, mode="userarch", attn_backend=None):
                                          b.impression_mask())))
 
 
+def batch_to(batch, device):
+    """A ROOBatch, or a dlrm field dict of tensors, on ``device``."""
+    if isinstance(batch, dict):
+        return {k: v.to(device) for k, v in batch.items()}
+    return batch.to(device)
+
+
 def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
                 stop_after=None, halt_after_skips=1):
     """One Trainer run over the setup's batches (copied to ``device`` per
@@ -583,13 +626,13 @@ def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
     def batch_iter(start):
         step = start
         while True:
-            yield batches[step % len(batches)].to(device)
+            yield batch_to(batches[step % len(batches)], device)
             step += 1
 
     trainer = Trainer(loss_fn, setup["opt"], TrainLoopConfig(
         total_steps=steps, log_every=log_every, ckpt_dir=ckpt_dir,
         ckpt_every=4, halt_after_skips=halt_after_skips), setup["init"],
-        metrics_fn=setup["ne"], device=device)
+        metrics_fn=setup.get("ne"), device=device)
     state = trainer.run(batch_iter, 0, stop_after=stop_after)
     return trainer, state, torch.stack(losses).cpu()
 
@@ -717,7 +760,8 @@ def step_breakdown(setup, device, state, steps=10, rounds=2) -> list:
                              "optimizer"), 0.0)
         for i in range(steps):
             t0 = time.perf_counter()
-            batch = setup["batches"][i % len(setup["batches"])].to(device)
+            batch = batch_to(setup["batches"][i % len(setup["batches"])],
+                             device)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             flat = [p.detach().requires_grad_(True) for p in leaves(params)]
@@ -1175,7 +1219,8 @@ def phase_bwd_times(bmod, device, card: str) -> dict:
     return out
 
 
-BAG_SHAPES = {   # (B, L, D, V): the LSR history bag and edge shapes
+BAG_SHAPES = {   # (B, L, D, V): the LSR history bag, edge shapes, and a
+                 # dlrm-mlperf field at B_NRO 8,192: many ids into few rows
     "train B32 L64 D64": (32, 64, 64, 50000),
     "serve B64 L64 D64": (64, 64, 64, 50000),
     "impression B192 L64 D64": (192, 64, 64, 50000),
@@ -1183,6 +1228,8 @@ BAG_SHAPES = {   # (B, L, D, V): the LSR history bag and edge shapes
     "D8": (16, 20, 8, 1000),
     "D128": (16, 20, 128, 5000),
     "out-of-range ids": (16, 20, 64, 300),
+    "dlrm field B8192 L1 D128 V4": (8192, 1, 128, 4),
+    "B3072 L1 D128 V4": (3072, 1, 128, 4),      # the densify's other path
 }
 
 
@@ -1654,6 +1701,11 @@ def phase_bag_times(emod, device, card: str) -> dict:
                                                           "mean")
     cids, rows = coo()
     densify = lambda: SparseRows(cids, rows, v).to_dense()
+    # a dlrm field at B_NRO: 8,192 ids into 4 rows take the sorted path
+    xd = bag_inputs(BAG_SHAPES["dlrm field B8192 L1 D128 V4"], 61, device)
+    dids, drows = emod.embedding_bag_coo_rows_cuda(xd["g"], xd["ids"],
+                                                   xd["lens"], xd["v"])
+    densify_dlrm = lambda: SparseRows(dids, drows, xd["v"]).to_dense()
     # the library yardstick: the valid ids flattened, one offset per bag
     valid = torch.arange(l, device=device)[None, :] < lens[:, None]
     flat = ids.clamp(0, v - 1)[valid].long()
@@ -1673,7 +1725,8 @@ def phase_bag_times(emod, device, card: str) -> dict:
         ("fwd_again", fwd, 200), ("fwd_plain_again", fwd_plain, 40),
         ("coo_plain", coo_plain, 40), ("coo", coo, 200),
         ("coo_again", coo, 200), ("coo_plain_again", coo_plain, 40),
-        ("densify", densify, 20), ("lib_fwd", lib_fwd, 100),
+        ("densify", densify, 20), ("densify_dlrm", densify_dlrm, 20),
+        ("lib_fwd", lib_fwd, 100),
         ("lib_bwd", lib_bwd, 20))}
     calls = {"fwd": call_ms(fwd, 200), "coo": call_ms(coo, 200),
              "fwd_plain": call_ms(fwd_plain, 50),
@@ -1696,10 +1749,518 @@ def phase_bag_times(emod, device, card: str) -> dict:
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=ms[lib])
     print(f"[times] {card}: densify of the B6 rows to the (50000, 64) table "
-          f"gradient (SparseRows.to_dense: aten.embedding_dense_backward) "
+          f"gradient (SparseRows.to_dense, 2,048 ids: "
+          f"aten.embedding_dense_backward) "
           f"{ms['densify']:.5f} "
           f"ms; F.embedding_bag's backward (incl. its densify) "
-          f"{ms['lib_bwd']:.5f} ms")
+          f"{ms['lib_bwd']:.5f} ms; densify of 8,192 ids into a (4, 128) "
+          f"table (index_put_ with accumulate) {ms['densify_dlrm']:.5f} ms")
+    return out
+
+
+DOT_SHAPES = {   # (B, F, D): dlrm-mlperf scoring and training, the
+                 # scenario's reduced DLRM, ragged and edge shapes
+    "score B512 F26 D128": (512, 26, 128),
+    "train B8192 F26 D128": (8192, 26, 128),
+    "scenario B512 F4 D16": (512, 4, 16),
+    "B1 F26 D128": (1, 26, 128),
+    "B37 F26 D128": (37, 26, 128),
+    "B37 F13 D24": (37, 13, 24),
+    "F1 D128": (64, 1, 128),
+    "F8 D64": (64, 8, 64),
+    "F40 D128": (16, 40, 128),
+    "F63 D256 (64 KB of shared memory)": (8, 63, 256),
+}
+
+
+def dot_inputs(shape, seed, device, dtype=None):
+    """dense_out (B, D) and sparse_embs (B, F, D) ~ N(0, 1) from numpy."""
+    import numpy as np
+    import torch
+    b, f, d = shape
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    dense, sparse = t(rng.normal(size=(b, d))), t(rng.normal(size=(b, f, d)))
+    if dtype is not None:
+        dense, sparse = dense.to(dtype), sparse.to(dtype)
+    return dense, sparse
+
+
+def phase_dot_kernels(dmod, device) -> float:
+    """B7 against its plain version through dispatch's auto backend, with
+    and without the diagonal, at the DOT_SHAPES; bf16 against the plain
+    version on the same bf16 inputs; the backward of ``DotInteractionFn``
+    against autograd of the plain version; the raw wrapper's refusals.
+    Returns the largest |kernel - plain| of the fp32 outputs."""
+    import torch
+    worst = 0.0
+    for i, (name, shape) in enumerate(DOT_SHAPES.items()):
+        dense, sparse = dot_inputs(shape, 70 + i, device)
+        d = shape[2]
+        for si in (False, True):
+            before = dmod.launch_count
+            got = dmod.dot_interaction(dense, sparse, self_interaction=si)
+            if dmod.launch_count != before + 1:
+                raise SystemExit("dispatch auto did not launch B7 on a CUDA "
+                                 "tensor")
+            plain = dmod.dot_interaction_plain(dense, sparse, si)
+            torch.cuda.synchronize()
+            err = (got - plain).abs()
+            worst = max(worst, float(err.max()))
+            ok = got.shape == plain.shape and bool(torch.all(
+                err <= DOT_ATOL + DOT_RTOL * plain.abs()))
+            dense_copy = torch.equal(got[:, :d], dense)
+            finite = bool(torch.isfinite(got).all())
+            print(f"[dot kernels] {name} self={si}: out {tuple(got.shape)} "
+                  f"max|B7-plain| {float(err.max()):.3e} ok={ok} "
+                  f"dense_copy_exact={dense_copy} finite={finite}")
+            if not (ok and dense_copy and finite):
+                raise SystemExit(f"B7 disagrees with its plain version at "
+                                 f"{name} self={si}")
+
+    # bf16: fp32 accumulation, one rounding of each pair; the plain version
+    # rounds its fp32 Gram matrix once too, so the two differ by at most
+    # about one bf16 rounding of values of size ~sqrt(D)
+    for name in ("score B512 F26 D128", "B37 F13 D24"):
+        dense, sparse = dot_inputs(DOT_SHAPES[name], 80, device,
+                                   torch.bfloat16)
+        got = dmod.dot_interaction(dense, sparse)
+        want = dmod.dot_interaction_plain(dense, sparse)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ok = got.dtype == torch.bfloat16 and torch.allclose(
+            got.float(), want.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
+        print(f"[dot kernels] bf16 {name}: max|B7-plain| {err:.3e} (max|plain| "
+              f"{float(want.float().abs().max()):.3e}) ok={ok}")
+        if not ok:
+            raise SystemExit(f"bf16 B7 disagrees with its plain version at "
+                             f"{name}")
+
+    # the backward: DotInteractionFn (B7 forward, plain torch backward) vs
+    # autograd of the plain version; two calls give the same bits
+    for name, si in (("score B512 F26 D128", False),
+                     ("train B8192 F26 D128", False), ("B37 F13 D24", True)):
+        dense, sparse = dot_inputs(DOT_SHAPES[name], 90, device)
+        g = torch.randn(dmod.dot_interaction_plain(dense, sparse, si).shape,
+                        generator=torch.Generator(device=device).manual_seed(1),
+                        device=device)
+        grads = []
+        for fn in (dmod.dot_interaction, dmod.dot_interaction,
+                   lambda a, s, self_interaction:
+                       dmod.dot_interaction_plain(a, s, self_interaction)):
+            a = dense.clone().requires_grad_(True)
+            s = sparse.clone().requires_grad_(True)
+            before = dmod.launch_count
+            out = fn(a, s, self_interaction=si)
+            grads.append(torch.autograd.grad(out, (a, s), g))
+            grads[-1] += (dmod.launch_count - before,)
+        torch.cuda.synchronize()
+        (kd, ks, n1), (kd2, ks2, n2), (pd, ps, n3) = grads
+        derr = max(float((kd - pd).abs().max()), float((ks - ps).abs().max()))
+        ok = torch.allclose(kd, pd, atol=LOGIT_TOL, rtol=LOGIT_TOL) and \
+            torch.allclose(ks, ps, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        same = torch.equal(kd, kd2) and torch.equal(ks, ks2)
+        print(f"[dot kernels] backward {name} self={si}: max|Fn-plain| "
+              f"{derr:.3e} ok={ok} bitwise_repeat={same}; B7 launches "
+              f"{(n1, n2, n3)}")
+        if not (ok and same and (n1, n2, n3) == (1, 1, 0)):
+            raise SystemExit(f"the DotInteractionFn backward disagrees with "
+                             f"autograd of the plain version at {name}")
+
+    # the raw wrapper builds its output outside autograd: refused under
+    # grad; a shape it does not take raises; neither launches
+    dense, sparse = dot_inputs((4, 3, 8), 91, device)
+    wide = dot_inputs((4, 64, 8), 92, device)
+    before = dmod.launch_count
+    for call, err_type in (
+            (lambda: dmod.dot_interaction_cuda(
+                dense.clone().requires_grad_(True), sparse), RuntimeError),
+            (lambda: dmod.dot_interaction_cuda(*wide), ValueError)):
+        try:
+            call()
+        except err_type as err:
+            print(f"[dot kernels] raw wrapper refused: {err}")
+        else:
+            raise SystemExit("the raw B7 wrapper ran on an input it must "
+                             "refuse")
+    if dmod.launch_count != before:
+        raise SystemExit("a refused raw B7 call launched its kernel")
+    return worst
+
+
+def dlrm_config(cap: int):
+    """dlrm-mlperf at its published widths, each vocabulary capped at
+    ``cap`` rows (then padded as the model pads)."""
+    from repro_torch.models.dlrm import MLPERF_VOCABS, DLRMConfig
+    return DLRMConfig(vocabs=tuple(min(v, cap) for v in MLPERF_VOCABS))
+
+
+def hstu_counts(kmod, pmod, bmod) -> tuple:
+    """Launches of B1, B2, B3 and B4 since their last reset."""
+    return (kmod.launch_count, bmod.dq_launch_count, bmod.dkv_launch_count,
+            pmod.launch_count)
+
+
+def dlrm_roo_args(b):
+    return (b["ro_dense"], b["ro_ids"], b["ro_len"], b["nro_ids"],
+            b["nro_len"], b["seg"])
+
+
+def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8):
+    """dlrm-mlperf training: the scenario's optimizer and BCE loss on
+    ``synthetic_dlrm_batches`` (made on the host, copied per step); params
+    from a generator on ``init_device``."""
+    import torch
+    from repro_torch.models.dlrm import dlrm_forward_roo, dlrm_init
+    from repro_torch.scenario.build import synthetic_dlrm_batches
+    from repro_torch.train.metrics import bce
+
+    def init():
+        return dlrm_init(torch.Generator(device=init_device).manual_seed(0),
+                         cfg, device=device)
+    return dict(
+        cfg=cfg, batches=synthetic_dlrm_batches(seed, b_ro, b_nro, cfg,
+                                                n_batches, device="cpu"),
+        loss=lambda p, b, gen: bce(dlrm_forward_roo(p, cfg,
+                                                    *dlrm_roo_args(b)),
+                                   b["y"]),
+        opt=mixed_optimizer(), init=init)
+
+
+def dlrm_describe(cfg) -> str:
+    n_rows = sum(t.vocab for t in cfg.tables().tables)
+    return (f"dlrm-mlperf dense {cfg.n_dense} fields {cfg.n_sparse} "
+            f"(RO {cfg.n_ro_fields}) D {cfg.embed_dim} bot {cfg.bot_mlp} top "
+            f"{(cfg.top_in_dim(),) + cfg.top_mlp[1:]} multi_hot "
+            f"{cfg.multi_hot}; tables capped at {max(cfg.vocabs)} rows: "
+            f"{n_rows} rows, {n_rows * cfg.embed_dim * 4 / 1e9:.2f} GB fp32")
+
+
+def phase_dlrm_score(dmod, emod, hstu_mods, device, card: str) -> dict:
+    """dlrm-mlperf scoring at the dry-run's serve_p99 shape (B_RO 128
+    requests, B_NRO 512 impressions) over 16 synthetic batches through B5
+    (26 bags) and B7 (one interaction) per forward: launch counts, scores
+    vs the plain dot and bag backends on the card, ROO vs impression-level
+    logits, rates and peak memory."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.dlrm import (dlrm_forward_impression,
+                                         dlrm_forward_roo, dlrm_init)
+    from repro_torch.scenario.build import synthetic_dlrm_batches
+    cfg = dlrm_config(DLRM_CAP)
+    n_batches, b_ro, b_nro = 16, 128, 512
+    torch.cuda.reset_peak_memory_stats()
+    params = dlrm_init(torch.Generator(device=device).manual_seed(0), cfg,
+                       device=device)
+    batches = synthetic_dlrm_batches(0, b_ro, b_nro, cfg, n_batches,
+                                     device=device)
+    score = lambda b: dlrm_forward_roo(params, cfg, *dlrm_roo_args(b))
+    print(f"[dlrm score] {dlrm_describe(cfg)}; {n_batches} batches of "
+          f"{b_ro} requests / {b_nro} impressions")
+    with torch.no_grad():
+        score(batches[0])                                     # warm-up
+        torch.cuda.synchronize()
+        for m in (dmod, emod) + hstu_mods:
+            m.reset_launch_count()
+        t0 = time.perf_counter()
+        logits = [score(b) for b in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(b7=dmod.launch_count, b5=emod.fwd_launch_count,
+                        b6=emod.coo_launch_count,
+                        hstu=hstu_counts(*hstu_mods))
+        print(f"[dlrm score] {n_batches} ROO forwards in {wall * 1e3:.1f} ms: "
+              f"{n_batches * b_nro / wall:.1f} impressions/s, "
+              f"{n_batches * b_ro / wall:.1f} requests/s; launches B7 "
+              f"{launches['b7']} B5 {launches['b5']} B6 {launches['b6']} "
+              f"B1-B4 {launches['hstu']}")
+        if launches["b7"] != n_batches or launches["b5"] != 26 * n_batches \
+                or launches["b6"] or any(launches["hstu"]):
+            raise SystemExit("dlrm score: launches are not B7 1 and B5 26 "
+                             "per forward, B1-B4 and B6 0")
+        if any(x.shape != (b_nro,) or not bool(torch.isfinite(x).all())
+               for x in logits):
+            raise SystemExit("dlrm score: logits of the wrong shape or not "
+                             "finite")
+
+        with dispatch.use_dot_backend("torch"), \
+                dispatch.use_emb_backend("torch"):
+            plain = [score(b) for b in batches]
+        torch.cuda.synchronize()
+        if (dmod.launch_count, emod.fwd_launch_count) != (launches["b7"],
+                                                          launches["b5"]):
+            raise SystemExit("dlrm score: the plain backends launched a "
+                             "kernel")
+        diff = max(float((a - p).abs().max()) for a, p in zip(logits, plain))
+        ok = all(torch.allclose(a, p, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+                 for a, p in zip(logits, plain))
+        print(f"[dlrm score] max|kernels - plain backends| over "
+              f"{n_batches * b_nro} logits {diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit("dlrm score: logits disagree with the plain "
+                             "backends")
+
+        b = batches[0]
+        seg = b["seg"].long()
+        before = (dmod.launch_count, emod.fwd_launch_count)
+        imp = dlrm_forward_impression(
+            params, cfg, b["ro_dense"][seg],
+            torch.cat([b["ro_ids"][seg], b["nro_ids"]], 1),
+            torch.cat([b["ro_len"][seg], b["nro_len"]], 1))
+        torch.cuda.synchronize()
+        d_imp = float((imp - logits[0]).abs().max())
+        ok = torch.allclose(imp, logits[0], atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        grew = (dmod.launch_count - before[0],
+                emod.fwd_launch_count - before[1])
+        print(f"[dlrm score] ROO vs impression-level logits on one batch: "
+              f"max|diff| {d_imp:.3e} ok={ok}; launches B7, B5 {grew}")
+        if not ok or grew != (1, 26):
+            raise SystemExit("dlrm score: ROO and impression-level logits "
+                             "disagree, or the impression-level forward did "
+                             "not launch B7 once and B5 26 times")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dlrm score] {card}: {n_batches * b_nro / wall:.1f} "
+          f"impressions/s, {n_batches * b_ro / wall:.1f} requests/s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB")
+    del params, batches, logits, plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches["b7"],
+                impressions_per_s=n_batches * b_nro / wall,
+                requests_per_s=n_batches * b_ro / wall)
+
+
+def shadowed(setup, shadow):
+    """``setup`` with its loss also computed at every step by ``shadow(p,
+    batch)`` on the same params and batch, outside autograd; returns the
+    new setup and the list the shadow's losses go to."""
+    import torch
+    out = []
+
+    def loss(p, b, gen):
+        with torch.no_grad():
+            out.append(shadow(p, b).detach())
+        return setup["loss"](p, b, gen)
+    return dict(setup, loss=loss), out
+
+
+def trajectory_diff(what, losses, other) -> None:
+    """Print how two free-running runs' per-step losses drift apart."""
+    import torch
+    diff = (losses - other).abs()
+    over = ~torch.isclose(losses, other, atol=1e-6, rtol=LOSS_TOL)
+    first = int(over.nonzero()[0, 0]) + 1 if bool(over.any()) else None
+    print(f"[dlrm train] free-running per-step losses vs {what}: max|diff| "
+          f"{float(diff.max()):.3e}; first step past rtol {LOSS_TOL}: "
+          f"{first}; per step {[float(f'{x:.3g}') for x in diff]}")
+
+
+def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
+    """dlrm-mlperf training, 20 steps at the dry-run's train_batch per card
+    (B_RO 2,048 / B_NRO 8,192) with dense table gradients, through B5, B6
+    and B7: launch counts, no skipped step; at every step the loss of the
+    plain dot and bag backends on the card on the same params and batch,
+    and, at a 2**14-row cap, the CPU's; a second run equal bit for bit; the
+    gradient of every leaf vs the plain backends; steps/s, impressions/s,
+    a per-step breakdown and peak memory.
+
+    Each step's loss is held against the plain backends on that step's own
+    params: two free-running runs that differ only in summation order
+    drift apart from step 3 on (the scenario's Adam and row-wise Adagrad
+    rates turn 1-ulp differences into 1e-4 by step 20), so their per-step
+    losses are printed, not gated. The Trainer's kill-and-restart contract
+    is checked by the hstu-gr and roo-lsr phases; here a 7 GB checkpoint
+    would dominate the phase, so it is left out."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    cfg = dlrm_config(DLRM_CAP)
+    steps, b_ro, b_nro = 20, 2048, 8192
+    setup = dlrm_setup(cfg, b_ro, b_nro, device, device)
+    print(f"[dlrm train] {dlrm_describe(cfg)}; {len(setup['batches'])} "
+          f"batches of {b_ro} requests / {b_nro} impressions; {steps} steps")
+
+    def counts():
+        return (dmod.launch_count, emod.fwd_launch_count,
+                emod.coo_launch_count) + hstu_counts(*hstu_mods)
+
+    def plain_loss(p, b):
+        with dispatch.use_dot_backend("torch"), \
+                dispatch.use_emb_backend("torch"):
+            return setup["loss"](p, b, None)
+
+    for m in (dmod, emod) + hstu_mods:
+        m.reset_launch_count()
+    traced, plain_losses = shadowed(setup, plain_loss)
+    trainer, state, losses = run_trainer(traced, device, steps)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[dlrm train] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} B1-B4 "
+          f"{got[3:]}; skipped steps {trainer.skipped_steps}; history "
+          f"{trainer.history}")
+    if got[:3] != (steps, 26 * steps, 26 * steps) or any(got[3:]):
+        raise SystemExit("dlrm train: launches are not B7 = steps, B5 = B6 "
+                         "= 26 x steps, B1-B4 0")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()) \
+            or trainer.skipped_steps \
+            or any(row["skipped"] for row in trainer.history):
+        raise SystemExit("dlrm train: wrong step count, a skipped step or a "
+                         "non-finite loss")
+    plain_losses = torch.stack(plain_losses).cpu()
+    diff = float((losses - plain_losses).abs().max())
+    ok = torch.allclose(losses, plain_losses, atol=1e-6, rtol=LOSS_TOL)
+    print(f"[dlrm train] per-step losses vs the plain backends on the same "
+          f"params and batch: max|diff| {diff:.3e} ok={ok}")
+    print(f"[dlrm train] losses {[round(float(v), 6) for v in losses]}")
+    if not ok:
+        raise SystemExit("dlrm train: losses disagree with the plain "
+                         "backends")
+
+    # every leaf's gradient, kernels vs plain backends, at the first and
+    # the last step's params
+    batch = batch_to(setup["batches"][steps % len(setup["batches"])], device)
+    vag = value_and_grad(setup["loss"])
+    for when, params in (("at init", setup["init"]()),
+                         (f"after {steps} steps", state["params"])):
+        _, g_kernel = vag(params, batch, None)
+        _, g_plain = value_and_grad(lambda p, b, gen: plain_loss(p, b))(
+            params, batch, None)
+        torch.cuda.synchronize()
+        worst = max((float((a - b).abs().max()), path) for (path, a), b in
+                    zip(flatten_with_path(g_kernel), leaves(g_plain)))
+        ok = all(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+                 for a, b in zip(leaves(g_kernel), leaves(g_plain)))
+        print(f"[dlrm train] gradients {when}, kernels vs plain backends: "
+              f"max|diff| {worst[0]:.3e} (at {'/'.join(worst[1])}) ok={ok}")
+        if not ok:
+            raise SystemExit(f"dlrm train: gradients {when} disagree with "
+                             f"the plain backends")
+        del params, g_kernel, g_plain
+    del state
+
+    _, _, again = run_trainer(setup, device, steps)
+    same = torch.equal(losses, again)
+    print(f"[dlrm train] a second run: per-step losses equal bit for bit "
+          f"{same}")
+    if not same:
+        raise SystemExit("dlrm train: two runs of the kernel path differ")
+    before = counts()
+    dispatch.set_default_dot_backend("torch")
+    dispatch.set_default_emb_backend("torch")
+    try:
+        _, _, free_plain = run_trainer(setup, device, steps)
+    finally:
+        dispatch.set_default_dot_backend(None)
+        dispatch.set_default_emb_backend(None)
+    if counts() != before:
+        raise SystemExit("dlrm train: the plain-backend run launched a "
+                         "kernel")
+    trajectory_diff("the plain backends on the card", losses, free_plain)
+
+    # the same widths with every table capped at 2**14 rows: at each step
+    # the CPU computes the loss on the card's params and batch
+    small = dlrm_config(DLRM_CPU_CAP)
+    cpu_setup = dlrm_setup(small, 64, 256, "cpu", "cpu")
+    cpu_steps = 10
+    traced, cpu_losses = shadowed(
+        dlrm_setup(small, 64, 256, device, "cpu"),
+        lambda p, b: cpu_setup["loss"](
+            tree_map(lambda x: x.detach().cpu(), p), batch_to(b, "cpu"), None))
+    b7 = dmod.launch_count
+    _, _, card_small = run_trainer(traced, device, cpu_steps)
+    cpu_losses = torch.stack(cpu_losses)
+    diff = float((card_small - cpu_losses).abs().max())
+    ok = torch.allclose(card_small, cpu_losses, atol=1e-6, rtol=LOSS_TOL)
+    print(f"[dlrm train] {dlrm_describe(small)}; 64 requests / 256 "
+          f"impressions, {cpu_steps} steps: per-step losses vs the CPU on the "
+          f"same params and batch max|diff| {diff:.3e} ok={ok}; B7 launches "
+          f"{dmod.launch_count - b7}")
+    if not ok or dmod.launch_count - b7 != cpu_steps:
+        raise SystemExit("dlrm train: the capped card run disagrees with "
+                         "the CPU, or did not launch B7 once a step")
+    _, _, free_cpu = run_trainer(cpu_setup, "cpu", cpu_steps)
+    trajectory_diff("a free-running CPU run (2**14 cap)", card_small,
+                    free_cpu)
+
+    run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, _ = run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dlrm train] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * b_nro / wall:.1f} "
+          f"impressions/s, {steps * b_ro / wall:.1f} requests/s; "
+          f"Trainer.run incl. init); peak memory {peak / 2 ** 30:.2f} GiB")
+    for rnd, parts in enumerate(step_breakdown(setup, device, state)):
+        print(f"[dlrm train] {card}: breakdown {rnd + 1} (ms per step, card "
+              f"synchronised after each stage): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    del state
+    torch.cuda.empty_cache()
+    return dict(launches=got[0], steps_per_s=steps / wall,
+                impressions_per_s=steps * b_nro / wall)
+
+
+def bound_dot(dense, sparse, self_interaction=False) -> tuple:
+    """Least time (ms) the card needs for one B7 call on these inputs:
+    dense_out and sparse_embs read once and the (B, D + P) output written
+    once, vs 2·D FLOPs for each of the B·P kept pairs."""
+    from repro_torch.kernels.dot_interaction import n_pairs
+    b, f, d = sparse.shape
+    esz = sparse.element_size()
+    p = n_pairs(f + 1, self_interaction)
+    n_bytes = esz * (b * d + b * f * d + b * (d + p))
+    ops = 2 * b * p * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
+
+
+def phase_dot_times(dmod, device, card: str) -> dict:
+    """B7 at the dlrm-mlperf scoring (B 512) and training (B 8,192) shapes
+    (F 26, D 128, fp32) beside its plain version and its bound. No single
+    PyTorch call computes this function; the yardstick is two calls,
+    ``torch.bmm(T, Tᵀ)`` and the tril ``index_select``, on T = [dense;
+    sparse] already concatenated (and without the dense copy)."""
+    import torch
+    out = {}
+    for key, name in (("score", "score B512 F26 D128"),
+                      ("train", "train B8192 F26 D128")):
+        dense, sparse = dot_inputs(DOT_SHAPES[name], 100, device)
+        f1 = sparse.shape[1] + 1
+        t = torch.cat([dense[:, None, :], sparse], dim=1)
+        i, j = torch.tril_indices(f1, f1, offset=-1, device=device)
+        flat = i * f1 + j
+        kernel = lambda: dmod.dot_interaction_cuda(dense, sparse)
+        plain = lambda: dmod.dot_interaction_plain(dense, sparse)
+        lib = lambda: torch.bmm(t, t.transpose(1, 2)).flatten(1).index_select(
+            1, flat)
+        torch.cuda.synchronize()
+        if not torch.allclose(lib(), kernel()[:, dense.shape[1]:],
+                              atol=DOT_ATOL, rtol=DOT_RTOL):
+            raise SystemExit("times: bmm + index_select disagrees with B7")
+        # plain, kernel, kernel, plain
+        ms = {k: device_ms(fn, iters) for k, fn, iters in (
+            ("plain", plain, 40), ("kernel", kernel, 200),
+            ("again", kernel, 200), ("plain_again", plain, 40),
+            ("library", lib, 100))}
+        bound_ms, bound_by, n_bytes, ops = bound_dot(dense, sparse)
+        print(f"[times] {card}: B7 dot_interaction_fwd {name} fp32, device "
+              f"time per call: kernel {ms['kernel']:.5f} ms (again "
+              f"{ms['again']:.5f}), plain torch {ms['plain']:.5f} ms (again "
+              f"{ms['plain_again']:.5f}); bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 "
+              f"TFLOP/s); library yardstick (two calls: torch.bmm + tril "
+              f"index_select) {ms['library']:.5f} ms; host-issued calls: "
+              f"kernel {call_ms(kernel, 200):.5f} ms, plain "
+              f"{call_ms(plain, 50):.5f} ms")
+        out[key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=ms["library"])
     return out
 
 
@@ -1723,17 +2284,20 @@ def main() -> int:
     print(f"[device] {card} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    from repro_torch.kernels import dot_interaction as dmod
     from repro_torch.kernels import embedding_bag as emod
     from repro_torch.kernels import hstu_attention as kmod
     from repro_torch.kernels import hstu_attention_bwd as bmod
     from repro_torch.kernels import hstu_attention_prefix as pmod
-    phase_build([kmod, pmod, bmod, emod])
+    phase_build([kmod, pmod, bmod, emod, dmod])
     worst = phase_kernels(kmod, device)
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
     worst_bwd = phase_bwd_kernels(kmod, pmod, bmod, device)
     worst_bag = phase_bag_kernels(emod, device)
+    worst_dot = phase_dot_kernels(dmod, device)
     pmod.reset_launch_count()
     emod.reset_launch_count()
+    dmod.reset_launch_count()
     serve = phase_serve(kmod, device)
     if pmod.launch_count or emod.fwd_launch_count:
         raise SystemExit("the stateless hstu-gr server launched the prefix "
@@ -1746,10 +2310,18 @@ def main() -> int:
     lsr_serve = phase_lsr_serve(emod, kmod, device)
     lsr_train = phase_lsr_train(emod, kmod, pmod, bmod, device, card)
     phase_lsr_hstu_train(emod, kmod, pmod, bmod, device)
+    if dmod.launch_count:
+        raise SystemExit("hstu-gr or roo-lsr launched the dot-interaction "
+                         "kernel")
+    dlrm_score = phase_dlrm_score(dmod, emod, (kmod, pmod, bmod), device,
+                                  card)
+    dlrm_train = phase_dlrm_train(dmod, emod, (kmod, pmod, bmod), device,
+                                  card)
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
     bag_times = phase_bag_times(emod, device, card)
+    dot_times = phase_dot_times(dmod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -1761,6 +2333,10 @@ def main() -> int:
           f"with the user-tower cache (second pass)")
     print(f"[lsr train] {card}: {lsr_train['steps_per_s']:.2f} steps/s, "
           f"{lsr_train['requests_per_s']:.1f} requests/s")
+    print(f"[dlrm score] {card}: {dlrm_score['impressions_per_s']:.1f} "
+          f"impressions/s, {dlrm_score['requests_per_s']:.1f} requests/s")
+    print(f"[dlrm train] {card}: {dlrm_train['steps_per_s']:.2f} steps/s, "
+          f"{dlrm_train['impressions_per_s']:.1f} impressions/s")
 
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
@@ -1793,7 +2369,12 @@ def main() -> int:
         for name, line, launches, which in (
             ("embedding_bag_fwd", 48, lsr_serve["launches"], "fwd"),
             ("embedding_bag_bwd_coo", 74, lsr_train["launches"]["b6"],
-             "coo"))]}))
+             "coo"))] + [{
+        "name": "dot_interaction_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+        "replaces": "src/repro/kernels/dot_interaction.py:22",
+        "launches": dlrm_score["launches"], "max_abs_err": worst_dot,
+        **dot_times["score"]}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

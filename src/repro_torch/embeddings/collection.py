@@ -13,15 +13,22 @@ small gathered buffer — bit-identical to the direct gather). Policy: the
 auto); auto never dedups, as the reference dedups only on TPU.
 ``bag_lookup_dense`` always runs the embedding-bag entry point
 (kernels/embedding_bag.py, backend from ``kernels/dispatch.py``); forced
-dedup pools over the small table of distinct rows by the inverse ids. The
-sharded paths and the ``GatheredTable`` proxy are not ported yet.
+dedup pools over the small table of distinct rows by the inverse ids.
+
+The named collection (``TableConfig``, ``FeatureSpec``,
+``EmbeddingCollection``) declares tables and routes features to them; so
+far it builds the tables (DLRM's 26 fields are its user). Its ``lookup``,
+``lookup_keyed`` and ``request_ids``, the sharded paths and the
+``GatheredTable`` proxy are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.hstu import normal_init
 from repro_torch.data.jagged import JaggedTensor
 from repro_torch.embeddings.bag import bag_pool
 from repro_torch.kernels.embedding_bag import embedding_bag
@@ -99,3 +106,63 @@ def bag_lookup_dense(table: torch.Tensor, ids: torch.Tensor,
                                  return_inverse=True)
         table, ids = table[uids], inv.reshape(ids.shape)
     return embedding_bag(table, ids, lengths, pooling, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Table configs and the named collection
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TableConfig:
+    name: str
+    vocab: int
+    dim: int
+    pooling: str = "sum"
+    side: str = "nro"          # "ro" (user/request) or "nro" (item): which
+                               # batch size the lookup runs at under ROO
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingCollectionConfig:
+    tables: Tuple[TableConfig, ...]
+
+    def table(self, name: str) -> TableConfig:
+        for t in self.tables:
+            if t.name == name:
+                return t
+        raise KeyError(name)
+
+
+def init_tables(gen: torch.Generator, cfg: EmbeddingCollectionConfig,
+                dtype=torch.float32, scale: float = 0.01,
+                device="cuda") -> Dict[str, torch.Tensor]:
+    """One (vocab, dim) table per config entry, N(0, scale²), drawn from
+    ``gen`` in declaration order."""
+    return {t.name: normal_init(gen, (t.vocab, t.dim), scale, dtype, device)
+            for t in cfg.tables}
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSpec:
+    """Feature -> table routing entry: which table a named feature reads,
+    in which lookup mode, with which pooling."""
+    name: str
+    table: str
+    kind: str = "bag"          # "jagged" | "bag" | "seq" | "row"
+    pooling: str = "sum"
+
+
+class EmbeddingCollection:
+    """Named tables + feature -> table routing (DLRM's 26 fields are the
+    canonical user)."""
+
+    def __init__(self, cfg: EmbeddingCollectionConfig,
+                 features: Tuple[FeatureSpec, ...]):
+        self.cfg = cfg
+        self.features = {f.name: f for f in features}
+        for f in features:
+            cfg.table(f.table)      # raises on a dangling route
+
+    def init(self, gen: torch.Generator, dtype=torch.float32,
+             scale: float = 0.01, device="cuda") -> Dict[str, torch.Tensor]:
+        return init_tables(gen, self.cfg, dtype, scale, device)

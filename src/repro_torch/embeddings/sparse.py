@@ -4,10 +4,16 @@
 :class:`SparseRows` holds a COO row gradient ``(ids, rows)`` for a
 ``(vocab, D)`` table: the form the embedding-bag backward
 (``kernels/embedding_bag.py``) produces before it densifies.
-:meth:`SparseRows.to_dense` sums duplicate ids with the embedding
-backward's own reduction (``aten.embedding_dense_backward``), which on the
-card merges duplicates in a fixed order rather than with float atomics, so
-two calls give the same bits (``index_add_`` does not).
+:meth:`SparseRows.to_dense` sums duplicate ids in a fixed order, so two
+calls give the same bits on the card (``index_add_``'s float atomics do
+not). Up to 3,072 ids it runs the embedding backward's own reduction
+(``aten.embedding_dense_backward``), which merges duplicates warp by warp
+in a fixed order. Past that, aten switches to an algorithm whose partial
+sums meet in no fixed order (on an H100, two calls over 8,192 ids into 4
+rows did not give the same bits), so larger inputs take ``index_put_(...,
+accumulate=True)``: it sorts the ids and adds each id's rows in that
+order. That is slower where one id repeats thousands of times (one warp
+walks the run), so the small case keeps the faster reduction.
 
 The merge, the gathered-rows proxy (``GatheredTable``),
 ``make_sparse_value_and_grad`` and the grad-accumulation helpers wait for
@@ -18,6 +24,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+# the most ids for which aten's embedding backward sums duplicates in a
+# fixed order on the card
+FIXED_ORDER_MAX_IDS = 3072
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +45,13 @@ class SparseRows:
 
     def to_dense(self) -> torch.Tensor:
         """Densify to the ``(vocab, D)`` scatter-add of the rows; the
-        sentinel is the padding row of a ``vocab + 1`` table, so padding
-        entries add nothing."""
-        return torch.ops.aten.embedding_dense_backward(
-            self.rows, self.ids, self.vocab + 1, self.vocab, False
-        )[:self.vocab]
+        sentinel lands in the extra row of a ``vocab + 1`` buffer, which is
+        cut off."""
+        if self.ids.numel() <= FIXED_ORDER_MAX_IDS:
+            out = torch.ops.aten.embedding_dense_backward(
+                self.rows, self.ids, self.vocab + 1, self.vocab, False)
+        else:
+            out = self.rows.new_zeros((self.vocab + 1,) + tuple(
+                self.rows.shape[1:]))
+            out.index_put_((self.ids,), self.rows, accumulate=True)
+        return out[:self.vocab]

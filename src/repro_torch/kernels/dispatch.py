@@ -1,5 +1,6 @@
-"""Backend dispatch for HSTU attention, its cached-prefix variant and the
-embedding bag (port of ``repro/kernels/dispatch.py``).
+"""Backend dispatch for HSTU attention, its cached-prefix variant, the
+embedding bag and the DLRM dot interaction (port of
+``repro/kernels/dispatch.py``).
 
 HSTU backends:
 
@@ -33,6 +34,18 @@ Embedding-bag backends have their own knob (``REPRO_TORCH_EMB_BACKEND``,
 Auto follows the table: ``cuda`` on a CUDA device, ``torch`` otherwise; on
 a CUDA table auto launches the kernel or raises. ``REPRO_EMB_BACKEND``
 (the reference's) never reaches the port.
+
+The dot interaction has a third knob (``REPRO_TORCH_DOT_BACKEND``,
+:func:`set_default_dot_backend`, :func:`use_dot_backend`), the port's
+counterpart of the reference's ``ops.dot_interaction(use_pallas=...)``:
+
+  cuda   — the hand-written CUDA kernel (kernels/dot_interaction.py):
+           ``DotInteractionFn``, forward B7, backward plain torch; CUDA
+           tensors only
+  torch  — fp32 bmm + tril gather oracle (kernels/ref.py)
+
+Auto follows the dense input: ``cuda`` on a CUDA device, ``torch``
+otherwise; on a CUDA tensor auto launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -49,10 +62,16 @@ ENV_VAR = "REPRO_TORCH_HSTU_BACKEND"
 EMB_BACKENDS = ("cuda", "torch")
 EMB_ENV_VAR = "REPRO_TORCH_EMB_BACKEND"
 
+DOT_BACKENDS = ("cuda", "torch")
+DOT_ENV_VAR = "REPRO_TORCH_DOT_BACKEND"
+
 # auto is device-dependent, so it resolves in resolve_backend /
-# resolve_emb_backend (a None from the ladder means "no rung set")
+# resolve_emb_backend / resolve_dot_backend (a None from the ladder means
+# "no rung set")
 ATTN_KNOB = Knob("attn_backend", ENV_VAR, choices=BACKENDS, kind="backend")
 EMB_KNOB = Knob("emb_backend", EMB_ENV_VAR, choices=EMB_BACKENDS,
+                kind="backend")
+DOT_KNOB = Knob("dot_backend", DOT_ENV_VAR, choices=DOT_BACKENDS,
                 kind="backend")
 
 
@@ -100,6 +119,27 @@ def resolve_emb_backend(backend: Optional[str] = None,
     """The embedding-bag backend a call on ``device`` runs: the ladder's
     value, else ``cuda`` for a CUDA device and ``torch`` otherwise."""
     be = EMB_KNOB.resolve(UNSET if backend is None else backend)
+    if be is not None:
+        return be
+    is_cuda = device is not None and torch.device(device).type == "cuda"
+    return "cuda" if is_cuda else "torch"
+
+
+def set_default_dot_backend(backend: Optional[str]) -> None:
+    """Process-wide dot-interaction default; ``None`` clears it."""
+    DOT_KNOB.set_default(UNSET if backend is None else backend)
+
+
+def use_dot_backend(backend: Optional[str]):
+    """Scoped dot-interaction backend override; ``None`` is a no-op."""
+    return DOT_KNOB.scoped(UNSET if backend is None else backend)
+
+
+def resolve_dot_backend(backend: Optional[str] = None,
+                        device: Optional[torch.device] = None) -> str:
+    """The dot-interaction backend a call on ``device`` runs: the ladder's
+    value, else ``cuda`` for a CUDA device and ``torch`` otherwise."""
+    be = DOT_KNOB.resolve(UNSET if backend is None else backend)
     if be is not None:
         return be
     is_cuda = device is not None and torch.device(device).type == "cuda"

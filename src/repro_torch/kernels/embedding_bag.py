@@ -203,9 +203,9 @@ class EmbeddingBagFn(torch.autograd.Function):
     """The embedding bag as one differentiable op on the card: forward B5,
     backward B6 (or the max rule) then the densify, the port of the
     reference's ``_bag_fused`` custom_vjp. The table gets a dense (V, D)
-    gradient (``SparseRows.to_dense``, which merges duplicate ids without
-    float atomics), so two backward calls give the same bits; ids and
-    lengths get none.
+    gradient (``SparseRows.to_dense``, which sums duplicate ids in a fixed
+    order, without float atomics), so two backward calls give the same
+    bits; ids and lengths get none.
 
     ``apply(table, ids, lengths, pooling)``; table contiguous fp32 or bf16
     on a CUDA device.

@@ -129,9 +129,10 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
         raise RuntimeError(
             f"{name}: an input requires grad under grad mode, but the "
             f"kernel's output is outside the autograd graph (the "
-            f"differentiable ops are dispatch.hstu_attention and "
-            f"embedding_bag.embedding_bag; the cached-prefix attention is "
-            f"forward only)")
+            f"differentiable ops are dispatch.hstu_attention, "
+            f"embedding_bag.embedding_bag and "
+            f"dot_interaction.dot_interaction; the cached-prefix attention "
+            f"is forward only)")
 
 
 def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,8 @@
 """Plain torch oracles for the port's kernels (``repro/kernels/ref.py``).
 
-The HSTU forward, its backward, the cached-prefix forward and the
-embedding bag (forward, COO-row backward, max-pooling backward) oracles are
-ported so far; the dot-interaction oracle lands with its kernel.
+The HSTU forward, its backward, the cached-prefix forward, the embedding
+bag (forward, COO-row backward, max-pooling backward) and the DLRM dot
+interaction oracles: one for each of the reference's kernels.
 """
 from __future__ import annotations
 
@@ -200,3 +200,20 @@ def embedding_bag_max_coo_rows_ref(table: torch.Tensor, ids: torch.Tensor,
     cids = torch.where(valid, safe, v)
     return (cids.reshape(-1).to(torch.int32),
             rows.reshape(b * l, d).to(table.dtype))
+
+
+def dot_interaction_ref(dense_out: torch.Tensor, sparse_embs: torch.Tensor,
+                        self_interaction: bool = False) -> torch.Tensor:
+    """DLRM dot interaction. dense_out: (B, D); sparse_embs: (B, F, D).
+    With T = [dense_out; sparse_embs] (B, F+1, D), returns (B, D + P):
+    dense_out, then the pairwise dots T_i . T_j for j < i (j <= i under
+    ``self_interaction``) in row-major tril order (1,0), (2,0), (2,1), ...
+    P = (F+1)F/2 (or (F+1)(F+2)/2). The Gram matrix is a ``bmm`` in fp32
+    (fp64 for fp64 inputs); the pairs are cast to ``dense_out``'s dtype."""
+    t = torch.cat([dense_out[:, None, :], sparse_embs], dim=1)
+    f1 = t.shape[1]
+    tf = t.to(torch.promote_types(t.dtype, torch.float32))
+    z = torch.bmm(tf, tf.transpose(1, 2))                    # (B, F1, F1)
+    i, j = torch.tril_indices(f1, f1, offset=0 if self_interaction else -1,
+                              device=t.device)
+    return torch.cat([dense_out, z[:, i, j].to(dense_out.dtype)], dim=1)

@@ -1,2 +1,2 @@
-"""Model zoo (torch port of ``repro/models``): MLP, GR ranking, LSR and
-the DCNv2 interaction so far."""
+"""Model zoo (torch port of ``repro/models``): MLP, GR ranking, LSR, DLRM
+and the DCNv2 and dot interactions so far."""

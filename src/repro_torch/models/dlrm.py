@@ -1,0 +1,158 @@
+"""DLRM (Naumov et al. 2019), MLPerf benchmark config, ROO-capable (torch
+port of ``repro/models/dlrm.py``).
+
+Assigned config (dlrm-mlperf): 13 dense features, 26 sparse fields,
+embed_dim=128, bottom MLP 13-512-256-128, top MLP 1024-1024-512-256-1,
+dot interaction, Criteo-1TB-scale vocabs.
+
+ROO applicability: the 13 dense features and the user-side subset of
+sparse fields are RO; item-side fields are NRO. Under ROO the bottom MLP
+and the RO lookups run at B_RO and fan out at the interaction.
+
+On the card each field's bag runs the embedding-bag kernels (B5 forward,
+B6 backward) and the interaction runs B7. Not ported yet: the sharded
+``plan`` / ``out_sharded`` lookups (multi-card slice) and
+``dlrm_table_ids`` (the sparse-row slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.fanout import fanout
+from repro_torch.embeddings.collection import (EmbeddingCollection,
+                                               EmbeddingCollectionConfig,
+                                               FeatureSpec, TableConfig,
+                                               bag_lookup_dense)
+from repro_torch.models.interactions import dot_interaction
+from repro_torch.models.mlp import mlp_apply, mlp_flops, mlp_init
+
+# MLPerf Criteo-1TB row counts (the capped variant of the reference v1
+# benchmark): 187,767,399 rows in all, 96.1 GB in fp32 at dim 128.
+MLPERF_VOCABS = (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36)
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    n_dense: int = 13
+    embed_dim: int = 128
+    bot_mlp: Tuple[int, ...] = (13, 512, 256, 128)
+    top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    vocabs: Tuple[int, ...] = MLPERF_VOCABS
+    n_ro_fields: int = 13       # first k sparse fields treated as user-side
+    multi_hot: int = 1          # ids per field (MLPerf v1 is one-hot)
+
+    @property
+    def n_sparse(self) -> int:
+        return len(self.vocabs)
+
+    SHARD_MIN_ROWS = 65536      # tables below this are replicated
+    ROW_PAD = 512               # sharded tables pad rows to this multiple
+
+    def padded_vocab(self, v: int) -> int:
+        if v < self.SHARD_MIN_ROWS:
+            return v
+        return ((v + self.ROW_PAD - 1) // self.ROW_PAD) * self.ROW_PAD
+
+    def tables(self) -> EmbeddingCollectionConfig:
+        return EmbeddingCollectionConfig(tuple(
+            TableConfig(name=f"t{i}", vocab=self.padded_vocab(v),
+                        dim=self.embed_dim,
+                        side="ro" if i < self.n_ro_fields else "nro")
+            for i, v in enumerate(self.vocabs)))
+
+    def collection(self) -> EmbeddingCollection:
+        """The named embedding entry point: one multi-hot bag feature per
+        sparse field, routed to its table."""
+        return EmbeddingCollection(self.tables(), tuple(
+            FeatureSpec(name=f"f{i}", table=f"t{i}", kind="bag",
+                        pooling="sum")
+            for i in range(self.n_sparse)))
+
+    def top_in_dim(self) -> int:
+        f = self.n_sparse + 1
+        return self.embed_dim + f * (f - 1) // 2
+
+
+def dlrm_init(gen: torch.Generator, cfg: DLRMConfig, dtype=torch.float32,
+              device="cuda") -> Dict:
+    """The reference's tree ``{tables: {t0..}, bot_mlp, top_mlp}``, drawn
+    from ``gen`` in that order (on the generator's device, then moved to
+    ``device``)."""
+    top_dims = (cfg.top_in_dim(),) + cfg.top_mlp[1:]
+    return {
+        "tables": cfg.collection().init(gen, dtype, device=device),
+        "bot_mlp": mlp_init(gen, cfg.bot_mlp, dtype, device),
+        "top_mlp": mlp_init(gen, top_dims, dtype, device),
+    }
+
+
+def _field_lookup(params: Dict, ids: torch.Tensor, lengths: torch.Tensor,
+                  fields) -> torch.Tensor:
+    """ids: (B, n_fields, multi_hot) -> (B, n_fields, D): one sum bag per
+    field through the collection's padded bag (B5 / B6 on the card)."""
+    embs = [bag_lookup_dense(params["tables"][f"t{i_field}"], ids[:, j, :],
+                             lengths[:, j])
+            for j, i_field in enumerate(fields)]
+    return torch.stack(embs, dim=1)
+
+
+def dlrm_forward_from_embs(params: Dict, cfg: DLRMConfig,
+                           ro_dense: torch.Tensor, ro_embs: torch.Tensor,
+                           nro_embs: torch.Tensor,
+                           segment_ids: torch.Tensor) -> torch.Tensor:
+    """Interaction + MLPs given already-gathered embeddings.
+
+    ro_embs: (B_RO, n_ro_fields, D); nro_embs: (B_NRO, n_nro_fields, D).
+    Split out so a sparse-update training path can differentiate w.r.t.
+    the gathered rows instead of the full tables.
+    """
+    dense_out = mlp_apply(params["bot_mlp"], ro_dense)            # (B_RO, D)
+    ro_pack = torch.cat([dense_out[:, None, :], ro_embs], dim=1)
+    ro_at_nro = fanout(ro_pack, segment_ids)                      # one fanout
+    sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
+    z = dot_interaction(ro_at_nro[:, 0, :], sparse)
+    return mlp_apply(params["top_mlp"], z)[:, 0]
+
+
+def dlrm_forward_roo(params: Dict, cfg: DLRMConfig, ro_dense: torch.Tensor,
+                     ro_ids: torch.Tensor, ro_lengths: torch.Tensor,
+                     nro_ids: torch.Tensor, nro_lengths: torch.Tensor,
+                     segment_ids: torch.Tensor) -> torch.Tensor:
+    """ROO path: user side at B_RO, fanned out once.
+
+    ro_dense: (B_RO, n_dense); ro_ids: (B_RO, n_ro_fields, mh);
+    nro_ids: (B_NRO, n_nro_fields, mh). Returns (B_NRO,) logits.
+    """
+    ro_embs = _field_lookup(params, ro_ids, ro_lengths,
+                            range(cfg.n_ro_fields))
+    nro_embs = _field_lookup(params, nro_ids, nro_lengths,
+                             range(cfg.n_ro_fields, cfg.n_sparse))
+    return dlrm_forward_from_embs(params, cfg, ro_dense, ro_embs, nro_embs,
+                                  segment_ids)
+
+
+def dlrm_forward_impression(params: Dict, cfg: DLRMConfig,
+                            dense: torch.Tensor, ids: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """Impression-level baseline: everything at B_NRO.
+
+    dense: (B, n_dense); ids: (B, n_sparse, mh). Returns (B,) logits.
+    """
+    dense_out = mlp_apply(params["bot_mlp"], dense)
+    embs = _field_lookup(params, ids, lengths, range(cfg.n_sparse))
+    z = dot_interaction(dense_out, embs)
+    return mlp_apply(params["top_mlp"], z)[:, 0]
+
+
+def dlrm_flops_per_example(cfg: DLRMConfig) -> int:
+    """Analytic dense forward FLOPs per impression (impression-level)."""
+    f = cfg.n_sparse + 1
+    top_dims = (cfg.top_in_dim(),) + cfg.top_mlp[1:]
+    return (mlp_flops(cfg.bot_mlp, 1) + mlp_flops(top_dims, 1)
+            + 2 * f * f * cfg.embed_dim)

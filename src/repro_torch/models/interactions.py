@@ -1,6 +1,12 @@
-"""Feature interactions: the DCNv2 cross network (torch port of
-``repro/models/interactions.py``). The DLRM dot interaction comes with its
-kernel (B7).
+"""Feature interactions: the DLRM dot interaction and the DCNv2 cross
+network (torch port of ``repro/models/interactions.py``).
+
+``dot_interaction`` is the MLPerf-DLRM op (pairwise dots between the dense
+output and the sparse embeddings, lower triangle flattened, dense output
+first). The reference computes it with a plain einsum, the oracle of its
+Pallas kernel; the port routes it through the kernel's entry point
+(``kernels/dot_interaction.py``), so on a CUDA tensor it runs B7 and on a
+CPU tensor the plain version.
 """
 from __future__ import annotations
 
@@ -9,6 +15,18 @@ from typing import Dict
 import torch
 
 from repro_torch.core.hstu import normal_init
+from repro_torch.kernels import dot_interaction as _dot
+
+
+def dot_interaction(dense_out: torch.Tensor, sparse_embs: torch.Tensor,
+                    self_interaction: bool = False) -> torch.Tensor:
+    """dense_out: (B, D); sparse_embs: (B, F, D) with the same D.
+
+    Returns (B, D + F'*(F'+offset)//2) where F' = F+1 (dense row included),
+    offset -1 (strict lower triangle) or 0 under ``self_interaction``.
+    """
+    return _dot.dot_interaction(dense_out, sparse_embs,
+                                self_interaction=self_interaction)
 
 
 def dcnv2_init(gen: torch.Generator, dim: int, n_layers: int, rank: int = 0,

@@ -29,21 +29,27 @@ def _children(tree: Any):
     return None
 
 
+# The walks below are module-level functions that take their accumulator
+# as an argument: a nested recursive function refers to itself through its
+# closure, and that cycle would keep every leaf it saw (whole parameter
+# trees) alive until the cyclic garbage collector happens to run.
+
+def _walk(node: Any, path: Tuple[str, ...],
+          out: List[Tuple[Tuple[str, ...], Any]]) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, path + (key,), out)
+
+
 def flatten_with_path(tree: Any) -> List[Tuple[Tuple[str, ...], Any]]:
     """[(path, leaf)] in flatten order; a path is a tuple of key strings."""
     out: List[Tuple[Tuple[str, ...], Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -51,26 +57,25 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
+def _build(node: Any, it: Iterator) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        rebuilt = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: rebuilt[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return dataclasses.replace(node, **{
+            f.name: _build(getattr(node, f.name), it)
+            for f in dataclasses.fields(node)})
+    return next(it)
+
+
 def unflatten(like: Any, new_leaves) -> Any:
     """A tree shaped like ``like`` whose leaves are ``new_leaves`` in
     flatten order."""
-    it: Iterator = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            rebuilt = {k: build(node[k]) for k in sorted(node)}
-            return {k: rebuilt[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            return dataclasses.replace(node, **{
-                f.name: build(getattr(node, f.name))
-                for f in dataclasses.fields(node)})
-        return next(it)
-
-    return build(like)
+    return _build(like, iter(new_leaves))
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -35,7 +35,10 @@ def test_port_has_modules():
             "serve/user_cache.py", "serve/engine.py", "models/gr.py",
             "interop.py", "kernels/hstu_attention_bwd.py", "tree.py",
             "train/optim.py", "train/loop.py", "train/checkpoint.py",
-            "train/metrics.py"} <= names
+            "train/metrics.py", "kernels/embedding_bag.py",
+            "kernels/dot_interaction.py", "models/interactions.py",
+            "embeddings/collection.py", "models/dlrm.py",
+            "scenario/build.py"} <= names
 
 
 @pytest.mark.parametrize(
