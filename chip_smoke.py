@@ -15,8 +15,9 @@ Phases (any failure exits non-zero and prints no result):
                    (B1) at the serving shape and ragged / wide / causal
                    shapes; the cached-prefix forward (B4) at the serving
                    shape with n_new 1, 8 and 64 and at ragged, wide and
-                   extend-only shapes, and its prefix-0 case against B1;
-                   rab on and off, masked rows exactly 0
+                   extend-only shapes, and its prefix-0 case against B1
+                   (bit for bit: one tile body); rab on and off, masked
+                   rows exactly 0, two calls equal bit for bit
   4. bwd kernels — the backward kernels B2 (dq + drab) and B3 (dk + dv)
                    through the autograd Function that dispatch's cuda rung
                    runs (forward B1), against their plain torch version at
@@ -106,7 +107,9 @@ Phases (any failure exits non-zero and prints no result):
                    PyTorch call (F.embedding_bag and its backward), B7 at
                    the dlrm scoring and training shapes beside torch.bmm
                    + the tril index_select (two calls), and the servers'
-                   and trainers' rates
+                   and trainers' rates; also B1 at the training shape,
+                   B4 at n_new 1, 8 and 64, and B5 / B6 at dlrm's one-hot
+                   bags (D 128, B 512 and 8,192) beside F.embedding_bag
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -344,10 +347,16 @@ def phase_kernels(kmod, device) -> float:
             finite = bool(torch.isfinite(got).all())
             print(f"[kernels] {name} rab={use_rab}: max|kernel-plain| = "
                   f"{float(err.max()):.3e} ok={ok} chunked_ok={ok_chunk} "
-                  f"masked_rows_zero={zero} finite={finite}")
+                  f"masked_rows_zero={zero} finite={finite} (then a second "
+                  f"call, bit for bit)")
             if not (ok and ok_chunk and zero and finite):
                 raise SystemExit(f"kernel disagrees with its plain version "
                                  f"at {name} rab={use_rab}")
+            again = dispatch.hstu_attention(x["q"], x["k"], x["v"], rab,
+                                            spec, max_rel_pos=x["max_rel"])
+            if not torch.equal(got, again):
+                raise SystemExit(f"two B1 calls differ at {name} "
+                                 f"rab={use_rab}")
     return worst
 
 
@@ -398,10 +407,17 @@ def phase_prefix_kernels(kmod, pmod, device) -> float:
             finite = bool(torch.isfinite(got).all())
             print(f"[kernels] prefix {name} rab={use_rab}: max|kernel-plain|"
                   f" = {float(err.max()):.3e} ok={ok} chunked_ok={ok_chunk} "
-                  f"masked_rows_zero={zero} finite={finite}")
+                  f"masked_rows_zero={zero} finite={finite} (then a second "
+                  f"call, bit for bit)")
             if not (ok and ok_chunk and zero and finite):
                 raise SystemExit(f"prefix kernel disagrees with its plain "
                                  f"version at {name} rab={use_rab}")
+            again = dispatch.hstu_attention_prefix(
+                x["q"], x["k"], x["v"], rab, spec,
+                scale_len=x["scale_len"], max_rel_pos=x["max_rel"])
+            if not torch.equal(got, again):
+                raise SystemExit(f"two B4 calls differ at {name} "
+                                 f"rab={use_rab}")
 
     # the unified fallback: prefix 0 and n_new == n_hist is the full ROO
     # forward, so B4 must agree with B1 on the same inputs
@@ -417,12 +433,12 @@ def phase_prefix_kernels(kmod, pmod, device) -> float:
                                       x["hl"], x["tc"], x["max_rel"])
         torch.cuda.synchronize()
         diff = float((b4 - b1).abs().max())
-        ok = torch.allclose(b4, b1, atol=ATOL, rtol=RTOL)
+        ok = torch.equal(b4, b1)       # one tile body, one summation order
         print(f"[kernels] prefix 0, n_new = n_hist vs B1 rab={use_rab}: "
-              f"max|B4-B1| = {diff:.3e} ok={ok}")
+              f"max|B4-B1| = {diff:.3e} bitwise={ok}")
         if not ok:
-            raise SystemExit("the prefix kernel's full-recompute case "
-                             "disagrees with the HSTU forward kernel")
+            raise SystemExit("the prefix kernel's full-recompute case is "
+                             "not bit for bit the HSTU forward kernel")
     return worst
 
 
@@ -1135,52 +1151,67 @@ def phase_cache(kmod, pmod, device, serve) -> None:
 
 
 def phase_times(kmod, device, card: str) -> dict:
-    x = attention_inputs((64, 2, 80, 32, 32, 64, 64), seed=0, device=device)
-    args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"], x["tc"],
-            x["max_rel"])
-    kernel = lambda: kmod.hstu_attention_cuda(*args)
-    plain = lambda: kmod.hstu_attention_plain(*args)
-    # plain, kernel, kernel, plain: turns within one call on one card
-    plain_ms = device_ms(plain, iters=20)
-    ms = device_ms(kernel, iters=200)
-    ms_again = device_ms(kernel, iters=200)
-    plain_again = device_ms(plain, iters=20)
-    kernel_call, plain_call = call_ms(kernel, 200), call_ms(plain, 50)
-    bound_ms, bound_by, n_bytes, ops = bound(x)
-    print(f"[times] {card}: hstu_attention_fwd B64 H2 S80 D32 rab, device "
-          f"time per call: kernel {ms:.5f} ms (again {ms_again:.5f}), plain "
-          f"torch {plain_ms:.5f} ms (again {plain_again:.5f}); bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} FLOP at "
-          f"3.35 TB/s / 67 TFLOP/s); library: none")
-    print(f"[times] {card}: host-issued back-to-back calls: kernel "
-          f"{kernel_call:.5f} ms, plain torch {plain_call:.5f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    """B1 at the serving shape (B 64; the JSON's entry) and the hstu-gr
+    training shape (B 32), H 2, S 80, D 32, rab on, beside the plain
+    version and the bound."""
+    out = {}
+    for key, b in (("serve", 64), ("train", 32)):
+        x = attention_inputs((b, 2, 80, 32, 32, 64, 64), seed=0,
+                             device=device)
+        args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"],
+                x["tc"], x["max_rel"])
+        kernel = lambda: kmod.hstu_attention_cuda(*args)
+        plain = lambda: kmod.hstu_attention_plain(*args)
+        # plain, kernel, kernel, plain: turns within one call on one card
+        plain_ms = device_ms(plain, iters=20)
+        ms = device_ms(kernel, iters=200)
+        ms_again = device_ms(kernel, iters=200)
+        plain_again = device_ms(plain, iters=20)
+        kernel_call, plain_call = call_ms(kernel, 200), call_ms(plain, 50)
+        bound_ms, bound_by, n_bytes, ops = bound(x)
+        print(f"[times] {card}: hstu_attention_fwd ({key}) B{b} H2 S80 D32 "
+              f"rab, device time per call: kernel {ms:.5f} ms (again "
+              f"{ms_again:.5f}), plain torch {plain_ms:.5f} ms (again "
+              f"{plain_again:.5f}); bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 TFLOP/s); "
+              f"library: none")
+        print(f"[times] {card}: host-issued back-to-back calls: kernel "
+              f"{kernel_call:.5f} ms, plain torch {plain_call:.5f} ms")
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+    return out["serve"]
 
 
 def phase_prefix_times(pmod, device, card: str) -> dict:
-    x = prefix_inputs((64, 2, 64, 8, 16, 32, 32, 64, 80), seed=11,
-                      device=device)
-    args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["n_new"],
-            x["pfx"], x["nc"], x["tc"], x["scale_len"], x["max_rel"])
-    kernel = lambda: pmod.hstu_attention_prefix_cuda(*args)
-    plain = lambda: pmod.hstu_attention_prefix_plain(*args)
-    plain_ms = device_ms(plain, iters=20)
-    ms = device_ms(kernel, iters=200)
-    ms_again = device_ms(kernel, iters=200)
-    plain_again = device_ms(plain, iters=20)
-    kernel_call, plain_call = call_ms(kernel, 200), call_ms(plain, 50)
-    bound_ms, bound_by, n_bytes, ops = bound_prefix(x)
-    print(f"[times] {card}: hstu_attention_prefix_fwd B64 H2 n_hist64 "
-          f"n_new8 m16 D32 rab, device time per call: kernel {ms:.5f} ms "
-          f"(again {ms_again:.5f}), plain torch {plain_ms:.5f} ms (again "
-          f"{plain_again:.5f}); bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 TFLOP/s); library: "
-          f"none")
-    print(f"[times] {card}: host-issued back-to-back calls: prefix kernel "
-          f"{kernel_call:.5f} ms, plain torch {plain_call:.5f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    """B4 at the serving shape (B 64, H 2, n_hist 64, m 16, D 32, rab on)
+    with n_new 1, 8 (the JSON's entry) and 64, beside the plain version
+    and the bound."""
+    out = {}
+    for n_new in (1, 8, 64):
+        x = prefix_inputs((64, 2, 64, n_new, 16, 32, 32, 64, 80), seed=11,
+                          device=device)
+        args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["n_new"],
+                x["pfx"], x["nc"], x["tc"], x["scale_len"], x["max_rel"])
+        kernel = lambda: pmod.hstu_attention_prefix_cuda(*args)
+        plain = lambda: pmod.hstu_attention_prefix_plain(*args)
+        plain_ms = device_ms(plain, iters=20)
+        ms = device_ms(kernel, iters=200)
+        ms_again = device_ms(kernel, iters=200)
+        plain_again = device_ms(plain, iters=20)
+        kernel_call, plain_call = call_ms(kernel, 200), call_ms(plain, 50)
+        bound_ms, bound_by, n_bytes, ops = bound_prefix(x)
+        print(f"[times] {card}: hstu_attention_prefix_fwd B64 H2 n_hist64 "
+              f"n_new{n_new} m16 D32 rab, device time per call: kernel "
+              f"{ms:.5f} ms (again {ms_again:.5f}), plain torch "
+              f"{plain_ms:.5f} ms (again {plain_again:.5f}); bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} FLOP at "
+              f"3.35 TB/s / 67 TFLOP/s); library: none")
+        print(f"[times] {card}: host-issued back-to-back calls: prefix "
+              f"kernel {kernel_call:.5f} ms, plain torch {plain_call:.5f} "
+              f"ms")
+        out[n_new] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    return out[8]
 
 
 def phase_bwd_times(bmod, device, card: str) -> dict:
@@ -1758,6 +1789,63 @@ def phase_bag_times(emod, device, card: str) -> dict:
     return out
 
 
+def phase_dlrm_bag_times(emod, device, card: str) -> None:
+    """B5 and B6 (sum pooling) at dlrm-mlperf's shapes: one-hot bags of a
+    field capped at DLRM_CAP rows, D 128, B 512 (scoring) and B 8,192
+    (training), beside their plain versions, their bounds and one PyTorch
+    call each (``F.embedding_bag``; its backward includes the densify into
+    the whole (DLRM_CAP, 128) table gradient)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(62)
+    table = 0.02 * torch.randn((DLRM_CAP, 128), generator=gen,
+                               device=device)
+    for b in (512, 8192):
+        ids = torch.randint(0, DLRM_CAP, (b, 1), generator=gen,
+                            device=device, dtype=torch.int32)
+        lens = torch.ones(b, dtype=torch.int32, device=device)
+        g = torch.randn((b, 128), generator=gen, device=device)
+        x = dict(table=table, ids=ids, lens=lens)
+        fwd = lambda: emod.embedding_bag_fwd_cuda(table, ids, lens, "sum")
+        fwd_plain = lambda: emod.embedding_bag_fwd_plain(table, ids, lens,
+                                                         "sum")
+        coo = lambda: emod.embedding_bag_coo_rows_cuda(g, ids, lens,
+                                                       DLRM_CAP, "sum")
+        coo_plain = lambda: emod.embedding_bag_coo_rows_plain(
+            g, ids, lens, DLRM_CAP, "sum")
+        flat = ids.reshape(-1).long()
+        offsets = torch.arange(b, device=device)
+        lib_fwd = lambda: F.embedding_bag(flat, table, offsets, mode="sum")
+        tg = table.detach().requires_grad_(True)
+        lib_out = F.embedding_bag(flat, tg, offsets, mode="sum")
+        lib_bwd = lambda: torch.autograd.grad(lib_out, tg, g,
+                                              retain_graph=True)
+        torch.cuda.synchronize()
+        if not torch.equal(lib_fwd(), fwd()):
+            raise SystemExit("times: F.embedding_bag disagrees with B5 at "
+                             "a dlrm shape")
+        ms = {key: device_ms(fn, iters) for key, fn, iters in (
+            ("fwd_plain", fwd_plain, 40), ("fwd", fwd, 200),
+            ("fwd_again", fwd, 200), ("fwd_plain_again", fwd_plain, 40),
+            ("coo_plain", coo_plain, 40), ("coo", coo, 200),
+            ("coo_again", coo, 200), ("coo_plain_again", coo_plain, 40),
+            ("lib_fwd", lib_fwd, 100), ("lib_bwd", lib_bwd, 20))}
+        for which, label, lib in (("fwd", "B5 embedding_bag_fwd", "lib_fwd"),
+                                  ("coo", "B6 embedding_bag_bwd_coo",
+                                   "lib_bwd")):
+            bound_ms, bound_by, n_bytes, ops = bound_bag(x, which)
+            print(f"[times] {card}: {label} sum dlrm field B{b} L1 D128 "
+                  f"V{DLRM_CAP} (one-hot), device time per call: kernel "
+                  f"{ms[which]:.5f} ms (again {ms[which + '_again']:.5f}), "
+                  f"plain torch {ms[which + '_plain']:.5f} ms (again "
+                  f"{ms[which + '_plain_again']:.5f}); bound "
+                  f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} FLOP "
+                  f"at 3.35 TB/s / 67 TFLOP/s); library {ms[lib]:.5f} ms")
+        del tg, lib_out
+    del table
+    torch.cuda.empty_cache()
+
+
 DOT_SHAPES = {   # (B, F, D): dlrm-mlperf scoring and training, the
                  # scenario's reduced DLRM, ragged and edge shapes
     "score B512 F26 D128": (512, 26, 128),
@@ -2321,6 +2409,7 @@ def main() -> int:
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
     bag_times = phase_bag_times(emod, device, card)
+    phase_dlrm_bag_times(emod, device, card)
     dot_times = phase_dot_times(dmod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "

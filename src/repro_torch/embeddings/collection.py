@@ -31,6 +31,7 @@ import torch
 from repro_torch.core.hstu import normal_init
 from repro_torch.data.jagged import JaggedTensor
 from repro_torch.embeddings.bag import bag_pool
+from repro_torch.embeddings.sparse import gather_rows
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.scenario.knobs import UNSET, Knob
 
@@ -53,8 +54,9 @@ def _want_dedup(dedup: Optional[bool]) -> bool:
 def dedup_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with each distinct id read once; ids pre-clipped."""
     uids, inv = torch.unique(ids.reshape(-1), return_inverse=True)
-    rows = table[uids]
-    return rows[inv].reshape(tuple(ids.shape) + tuple(rows.shape[1:]))
+    rows = gather_rows(table, uids)
+    return gather_rows(rows, inv).reshape(tuple(ids.shape)
+                                          + tuple(rows.shape[1:]))
 
 
 def _gather(table: torch.Tensor, ids: torch.Tensor, vocab: int,
@@ -63,7 +65,7 @@ def _gather(table: torch.Tensor, ids: torch.Tensor, vocab: int,
     ids = torch.clamp(ids.long(), 0, vocab - 1)
     if _want_dedup(dedup):
         return dedup_gather(table, ids)
-    return table[ids]
+    return gather_rows(table, ids)
 
 
 def seq_lookup(table: torch.Tensor, ids: torch.Tensor, *,
@@ -104,7 +106,7 @@ def bag_lookup_dense(table: torch.Tensor, ids: torch.Tensor,
         v = int(vocab) if vocab is not None else int(table.shape[0])
         uids, inv = torch.unique(torch.clamp(ids.long(), 0, v - 1),
                                  return_inverse=True)
-        table, ids = table[uids], inv.reshape(ids.shape)
+        table, ids = gather_rows(table, uids), inv.reshape(ids.shape)
     return embedding_bag(table, ids, lengths, pooling, backend=backend)
 
 

@@ -8,7 +8,9 @@ comment says what bounds it on an H100 and what the design does about it.
 Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles
 the source into a shared library with a plain C interface under
 ``build/kernels/`` at the repo root (listed in ``.gitignore``), named by a
-hash of the source and flags, and ``ctypes`` loads it. Nothing CUDA- or
+hash of the source, the ``csrc/*.cuh`` headers it includes (the tile body
+``hstu_fwd_tile.cuh`` that B1 shares with the cached-prefix forward) and
+the flags, and ``ctypes`` loads it. Nothing CUDA- or
 nvcc-related happens at import time, so the CPU tests import this module.
 
 :func:`hstu_attention_cuda` is the kernel's wrapper: it launches the kernel
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 MAX_D = 128              # largest Dqk / Dv the kernel takes
+ROW_TILE = 16            # q rows per warp: a grid row covers 1-4 tiles
+MAX_GRID_Y = 65535
 MAX_REL_POS = 4096       # the rab row lives in shared memory
 MAX_SMEM_BYTES = 227 * 1024
 
@@ -67,12 +72,32 @@ def _nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(source: Path) -> str:
+    """sha256 of the source, of every header it includes by ``#include
+    "..."`` (relative to the including file, recursively) and of the flags:
+    a change to a shared header alone rebuilds every library using it."""
+    h = hashlib.sha256()
+    seen, todo = set(), [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        todo.extend(path.parent / m.decode() for m in _INCLUDE.findall(text))
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def build_library(source: Path) -> Tuple[Path, str]:
-    """Compile one kernel source into ``build/kernels/`` (once per source
-    hash); returns the library path and the compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills)."""
-    src = source.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Compile one kernel source into ``build/kernels/`` (once per
+    :func:`source_digest`); returns the library path and the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills)."""
+    digest = source_digest(source)
     lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists() and log_path.exists():
@@ -167,7 +192,8 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 <= max_rel_pos <= MAX_REL_POS:
         raise ValueError(f"max_rel_pos={max_rel_pos} outside "
                          f"[0, {MAX_REL_POS}]")
-    if b * h > 2 ** 31 - 1 or b * h * s * max(dqk, dv) >= 2 ** 62:
+    if b * h > 2 ** 31 - 1 or -(-s // ROW_TILE) > MAX_GRID_Y \
+            or b * h * s * max(dqk, dv) >= 2 ** 62:
         raise ValueError("tensor too large for the kernel's indexing")
     use_rab = rab is not None
     if use_rab:

@@ -3,8 +3,10 @@ hand-written CUDA kernel, its build and binding, and its plain torch version.
 
 Port of ``repro/kernels/hstu_attention.py:_prefix_fwd_kernel`` (the Pallas
 TPU forward of the incremental path). The kernel source is
-``csrc/hstu_attention_prefix_fwd.cu``; its header comment says what bounds
-it on an H100 and how its row and column maps differ from the full forward.
+``csrc/hstu_attention_prefix_fwd.cu``: the prefix layout's row and column
+maps and tile skip around the tile body it shares with the full forward
+(``csrc/hstu_fwd_tile.cuh``); its header comment says what bounds it on an
+H100.
 It is built and loaded like that kernel (``hstu_attention.build_library``:
 nvcc ``sm_90a`` into ``build/kernels/`` at first use, plain C interface,
 ``ctypes``); nothing is built at import time.
@@ -25,14 +27,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.hstu_attention import (MAX_D, MAX_REL_POS,
-                                                MAX_SMEM_BYTES, build_library,
+from repro_torch.kernels.hstu_attention import (MAX_D, MAX_GRID_Y,
+                                                MAX_REL_POS, MAX_SMEM_BYTES,
+                                                ROW_TILE, build_library,
                                                 check_operand, refuse_grad)
 from repro_torch.kernels.ref import hstu_attention_prefix_ref
 
 SOURCE = (Path(__file__).resolve().parent / "csrc"
           / "hstu_attention_prefix_fwd.cu")
-BQ_ROWS = 32             # q rows per block (BQ in the source)
 
 # the plain torch version the kernel is held against
 hstu_attention_prefix_plain = hstu_attention_prefix_ref
@@ -106,7 +108,7 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
     if not 0 <= max_rel_pos <= MAX_REL_POS:
         raise ValueError(f"max_rel_pos={max_rel_pos} outside "
                          f"[0, {MAX_REL_POS}]")
-    if b * h > 2 ** 31 - 1 or (n_rows + BQ_ROWS - 1) // BQ_ROWS > 65535 \
+    if b * h > 2 ** 31 - 1 or -(-n_rows // ROW_TILE) > MAX_GRID_Y \
             or b * h * max(n_rows, n_cols) * max(dqk, dv) >= 2 ** 62:
         raise ValueError("tensor too large for the kernel's indexing")
     use_rab = rab is not None

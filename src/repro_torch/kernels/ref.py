@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.masks import PrefixMaskSpec, roo_batch_mask
+from repro_torch.embeddings.sparse import gather_rows
 
 
 def hstu_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,7 +150,7 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     b, l = ids.shape
     valid = torch.arange(l, device=ids.device)[None, :] < lengths[:, None]
     safe = torch.clamp(ids.long(), 0, table.shape[0] - 1)
-    emb = table[safe.reshape(-1)].reshape(b, l, -1)
+    emb = gather_rows(table, safe.reshape(-1)).reshape(b, l, -1)
     if pooling == "max":
         neg = torch.full_like(emb, torch.finfo(emb.dtype).min)
         out = torch.where(valid[..., None], emb, neg).amax(dim=1)
@@ -192,7 +193,7 @@ def embedding_bag_max_coo_rows_ref(table: torch.Tensor, ids: torch.Tensor,
     v, d = table.shape
     valid = torch.arange(l, device=ids.device)[None, :] < lengths[:, None]
     safe = torch.where(valid, torch.clamp(ids.long(), 0, v - 1), 0)
-    emb = table[safe.reshape(-1)].reshape(b, l, d)
+    emb = gather_rows(table, safe.reshape(-1)).reshape(b, l, d)
     hit = (emb == out[:, None, :]) & valid[:, :, None]
     cnt = torch.clamp(hit.sum(dim=1, keepdim=True), min=1)
     rows = (hit.to(torch.float32) / cnt.to(torch.float32)) * \

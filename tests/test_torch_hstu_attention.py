@@ -9,18 +9,22 @@ CUDA kernel itself is checked on the card by ``chip_smoke.py``.
 Tolerance: atol = rtol = 1e-5 (fp32 on both sides; only summation order
 differs).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.core.hstu import hstu_attention_chunked as jax_chunked
 from repro.core.masks import roo_spec as jax_roo_spec
 from repro.kernels.hstu_attention import hstu_attention as jax_pallas
 from repro.kernels.ref import hstu_attention_ref as jax_ref
-from repro_torch.core.masks import causal_spec, roo_spec
+from repro_torch.core.masks import causal_spec, prefix_spec, roo_spec
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import hstu_attention as kmod
+from repro_torch.kernels.ref import hstu_attention_prefix_ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -195,3 +199,156 @@ def test_backend_ladder_and_env_split(monkeypatch):
     monkeypatch.setenv(dispatch.ENV_VAR, "pallas")
     with pytest.raises(ValueError):
         dispatch.resolve_backend()
+
+
+# ---------------------------------------------------------------------------
+# The numerics of the CUDA forward kernels (B1, B4): every product (q·kᵀ and
+# p·v) runs on tensor cores as 3xTF32 (hi = tf32(x), lo = tf32(x - hi);
+# lo·hi + hi·lo + hi·hi, fp32 accumulators). Emulated here in torch, this
+# must stay within the card's gate (|got - plain| <= 1e-5 + 1e-5 |plain|)
+# of the fp32 oracles at the shapes chip_smoke.py checks.
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to nearest (ties away from zero) on the low
+    13 mantissa bits of fp32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands split into tf32 hi + lo parts; the small
+    cross terms first, then hi·hi, as the kernel accumulates them."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 2 ** -12,
+                      -(1.0 + 2 ** -11), 3.0])
+    got = tf32_round(x)
+    want = torch.tensor([1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0,
+                         -(1.0 + 2 ** -10), 3.0])   # ties go away from 0
+    assert torch.equal(got, want)
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=1000)
+                         .astype(np.float32))
+    assert torch.all((tf32_round(r).view(torch.int32) & 0x1FFF) == 0)
+    assert float(((tf32_round(r) - r) / r).abs().max()) <= 2 ** -11
+
+
+def tf32x3_attention(q, k, v, bias, mask, scale_len):
+    """SiLU attention with the kernels' products: bias (B, H, R, C) or None,
+    mask (B, R, C)."""
+    scores = tf32x3_matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias
+    a = F.silu(scores) / float(scale_len) * mask[:, None].to(scores.dtype)
+    return tf32x3_matmul(a, v)
+
+
+def within_gate(got, plain):
+    return bool(torch.all((got - plain).abs() <= 1e-5 + 1e-5 * plain.abs()))
+
+
+# (B, H, S, Dqk, Dv, n_hist, max_rel): chip_smoke.py's B1 shapes
+GATE_SHAPES = {
+    "serve B64 S80": (64, 2, 80, 32, 32, 64, 64),
+    "ragged S203": (5, 3, 203, 48, 40, 150, 100),
+    "wide D128 S160": (3, 2, 160, 128, 128, 140, 128),
+}
+
+
+@pytest.mark.parametrize("use_rab", [True, False], ids=["rab", "norab"])
+@pytest.mark.parametrize("shape", sorted(GATE_SHAPES))
+def test_tf32x3_products_hold_the_gate(shape, use_rab):
+    b, h, s, dqk, dv, n_hist, max_rel = GATE_SHAPES[shape]
+    rng = np.random.default_rng(20)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    q, k = t(rng.normal(size=(b, h, s, dqk))), t(rng.normal(size=(b, h, s, dqk)))
+    v = t(rng.normal(size=(b, h, s, dv)))
+    rab = t(0.5 * rng.normal(size=(h, 2 * max_rel + 1))) if use_rab else None
+    hl = torch.from_numpy(rng.integers(0, n_hist + 1, size=b).astype(np.int32))
+    tc = torch.from_numpy(rng.integers(0, s - n_hist + 1, size=b)
+                          .astype(np.int32))
+    hl[0], tc[0] = n_hist, s - n_hist
+    plain = kmod.hstu_attention_plain(q, k, v, rab, n_hist, hl, tc, max_rel)
+    pos = torch.arange(s)
+    bias = None
+    if use_rab:
+        delta = torch.clamp(pos[:, None] - pos[None, :], -max_rel,
+                            max_rel) + max_rel
+        bias = rab[:, delta][None]
+    mask = roo_spec(hl, tc, n_hist).dense(s)
+    got = tf32x3_attention(q, k, v, bias, mask, s)
+    assert within_gate(got, plain), float((got - plain).abs().max())
+    # one pass of plain tf32 would not: the split is what holds the gate
+    one = lambda a, c: tf32_round(a) @ tf32_round(c)
+    s1 = one(q, k.transpose(-1, -2)) / math.sqrt(dqk)
+    s1 = s1 + bias if use_rab else s1
+    a1 = F.silu(s1) / float(s) * mask[:, None].to(s1.dtype)
+    assert not within_gate(one(a1, v), plain)
+
+
+# (B, H, n_hist, n_new, m, Dqk, Dv, max_rel, scale_len): chip_smoke.py's B4
+PREFIX_GATE_SHAPES = {
+    "serve n_new=8": (64, 2, 64, 8, 16, 32, 32, 64, 80),
+    "ragged": (5, 3, 150, 37, 5, 48, 40, 100, 155),
+    "wide D128": (3, 2, 140, 20, 20, 128, 128, 128, 160),
+}
+
+
+@pytest.mark.parametrize("use_rab", [True, False], ids=["rab", "norab"])
+@pytest.mark.parametrize("shape", sorted(PREFIX_GATE_SHAPES))
+def test_tf32x3_products_hold_the_gate_prefix(shape, use_rab):
+    b, h, n_hist, n_new, m, dqk, dv, max_rel, scale_len = \
+        PREFIX_GATE_SHAPES[shape]
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    q = t(rng.normal(size=(b, h, n_new + m, dqk)))
+    k = t(rng.normal(size=(b, h, n_hist + m, dqk)))
+    v = t(rng.normal(size=(b, h, n_hist + m, dv)))
+    rab = t(0.5 * rng.normal(size=(h, 2 * max_rel + 1))) if use_rab else None
+    hl = rng.integers(0, n_hist + 1, size=b)
+    pfx = (rng.random(b) * (hl + 1)).astype(np.int64)
+    i32 = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32))
+    pfx_t, nc, tc = i32(pfx), i32(np.minimum(hl - pfx, n_new)), \
+        i32(rng.integers(0, m + 1, size=b))
+    plain = hstu_attention_prefix_ref(q, k, v, rab, n_hist, n_new, pfx_t, nc,
+                                      tc, scale_len, max_rel)
+    r, j = torch.arange(n_new + m), torch.arange(n_hist + m)
+    bias = None
+    if use_rab:
+        row_pos = torch.where((r < n_new)[None, :],
+                              pfx_t.long()[:, None] + r[None, :],
+                              r[None, :] + (n_hist - n_new))
+        delta = torch.clamp(row_pos[:, :, None] - j[None, None, :],
+                            -max_rel, max_rel) + max_rel
+        bias = rab[:, delta].transpose(0, 1)
+    mask = prefix_spec(pfx_t, nc, tc, n_hist, n_new).dense(n_new + m,
+                                                           n_hist + m)
+    got = tf32x3_attention(q, k, v, bias, mask, scale_len)
+    assert within_gate(got, plain), float((got - plain).abs().max())
+
+
+@pytest.mark.parametrize("source", ["hstu_attention_fwd.cu",
+                                    "hstu_attention_prefix_fwd.cu"])
+def test_build_digest_covers_included_headers(tmp_path, source):
+    # builds nothing: a copy of the sources, one header byte changed
+    import shutil
+    csrc = kmod.SOURCE.parent
+    for f in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+        shutil.copy(f, tmp_path / f.name)
+    src = tmp_path / source
+    assert b'#include "hstu_fwd_tile.cuh"' in src.read_bytes()
+    before = kmod.source_digest(src)
+    assert kmod.source_digest(src) == before
+    other = kmod.source_digest(tmp_path / "dot_interaction.cu")
+    header = tmp_path / "hstu_fwd_tile.cuh"
+    text = bytearray(header.read_bytes())
+    text[-2] ^= 1
+    header.write_bytes(bytes(text))
+    assert kmod.source_digest(src) != before
+    # a source that does not include the header keeps its digest
+    assert kmod.source_digest(tmp_path / "dot_interaction.cu") == other
+    assert kmod.source_digest(csrc / source) == before   # the repo's copy
