@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
   1. device      — the card's name and power limit; no CUDA, no run
   2. build       — nvcc builds every kernel of the paths from the sources in
                    this checkout, one nvcc per source, all started together
-                   (registers / shared memory from -Xptxas -v)
+                   (registers / shared memory from -Xptxas -v; B2's and B3's
+                   registers and spills per D template, none at D 32)
   3. kernels     — each kernel against its plain torch version on the card,
                    reached through dispatch's auto backend: the HSTU forward
                    (B1) at the serving shape and ragged / wide / causal
@@ -23,8 +24,13 @@ Phases (any failure exits non-zero and prints no result):
                    runs (forward B1), against their plain torch version at
                    the training shape (rab on and off), a ragged S = 100
                    shape, Dqk = Dv = 128, a causal shape and a clip shape
-                   (max_rel_pos < S); two calls equal bit for bit; the
-                   forward-only prefix rung refuses a call under grad
+                   (max_rel_pos < S), and the tiling's edges: S 81 and 17
+                   (the latter with D % 4 != 0), a B*H at which the k split
+                   is dropped, D 64, no history (n_hist 0) and the
+                   userarch_hstu step's causal B 32, S 64; two calls equal
+                   bit for bit, masked rows and columns exactly 0, all
+                   finite; the forward-only prefix rung refuses a call
+                   under grad
   5. bag kernels — the embedding-bag forward (B5) through dispatch's auto
                    backend against its plain version, sum / mean / max, at
                    the LSR training, serving and impression-level shapes,
@@ -109,7 +115,8 @@ Phases (any failure exits non-zero and prints no result):
                    + the tril index_select (two calls), and the servers'
                    and trainers' rates; also B1 at the training shape,
                    B4 at n_new 1, 8 and 64, and B5 / B6 at dlrm's one-hot
-                   bags (D 128, B 512 and 8,192) beside F.embedding_bag
+                   bags (D 128, B 512 and 8,192) beside F.embedding_bag,
+                   and B2 / B3 also at the userarch_hstu step's shape
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -300,6 +307,39 @@ def phase_build(kmods) -> None:
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
+    bwd = bwd_registers("\n".join(log for _, log in built))
+    for (name, dp), (regs, spill) in sorted(bwd.items()):
+        print(f"[build] {name} D{dp}: {regs} registers, {spill} bytes "
+              f"spilled")
+    if len(bwd) != 6 or any(spill for (_, dp), (_, spill) in bwd.items()
+                            if dp == 32):
+        raise SystemExit("the backward kernels' D 32 templates spill (the "
+                         "main path's) or a template is missing")
+
+
+def bwd_registers(log: str) -> dict:
+    """{(B2 | B3, padded D): (registers, spill store + load bytes)} of the
+    backward kernels' templates, from ``-Xptxas -v``."""
+    import re
+    out, cur = {}, None
+    names = {"hstu_bwd_dq_kernel": "B2", "hstu_bwd_dkv_kernel": "B3"}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(hstu_bwd_(?:dq|dkv)_kernel)ILi(\d+)E", m.group(1))
+            cur = (names[k.group(1)], int(k.group(2))) if k else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur] = (None, int(m.group(1)) + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur] = (int(m.group(1)), out.get(cur, (None, 0))[1])
+            cur = None
+    return out
 
 
 def phase_kernels(kmod, device) -> float:
@@ -477,12 +517,27 @@ def phase_bwd_kernels(kmod, pmod, bmod, device) -> dict:
         "wide D128 S160": (3, 2, 160, 128, 128, 140, 128),  # > 48 KB smem
         "causal S96": (4, 2, 96, 32, 32, 96, 96),
         "clip S80 max_rel16": (8, 2, 80, 32, 32, 64, 16),
+        # the tiling's edges: S no multiple of 16, D % 4 != 0 (4-byte
+        # copies), a B*H at which tile_config drops the split, D 64, no
+        # history row, and the userarch_hstu step's causal shape
+        "ragged S81": (6, 2, 81, 32, 32, 64, 64),
+        "short S17 D18/13": (7, 3, 17, 18, 13, 12, 8),
+        "no split B132 S80": (132, 2, 80, 32, 32, 64, 64),
+        "D64 S80": (8, 2, 80, 64, 64, 64, 64),
+        "all targets S40": (6, 2, 40, 32, 32, 0, 32),
+        "causal B32 S64": (32, 2, 64, 32, 32, 64, 64),
     }
     worst = {"dq": 0.0, "dkv": 0.0}
     for i, (name, shape) in enumerate(shapes.items()):
         x = attention_inputs(shape, seed=20 + i, device=device)
         if name.startswith("causal"):
             x["tc"].zero_()
+        b, h, s = shape[:3]
+        rows = bmod.rows_per_block(b * h, s)
+        print(f"[bwd kernels] {name}: {rows} rows a block, "
+              f"{4 // (rows // bmod.ROWS)}-way split")
+        if name.startswith("no split") and rows != 64:
+            raise SystemExit(f"{name}: tile_config kept the split")
         g = torch.randn(x["v"].shape, generator=torch.Generator(
             device=device).manual_seed(i), device=device)
         spec = roo_spec(x["hl"], x["tc"], x["n_hist"])
@@ -1215,38 +1270,49 @@ def phase_prefix_times(pmod, device, card: str) -> dict:
 
 
 def phase_bwd_times(bmod, device, card: str) -> dict:
-    """B2 and B3 at the training shape (B 32, H 2, S 80, D 32, rab on)
-    beside the plain backward (which computes all four gradients) and each
-    kernel's bound."""
+    """B2 and B3 at the hstu-gr training shape (B 32, H 2, S 80, D 32, rab
+    on) and at the roo-lsr ``userarch_hstu`` step's (B 32, S 64, causal
+    over the history) beside the plain backward (which computes all four
+    gradients) and each kernel's bound. Returns the training shape's."""
     import torch
-    x = attention_inputs((32, 2, 80, 32, 32, 64, 64), seed=0, device=device)
-    g = torch.randn(x["v"].shape, generator=torch.Generator(
-        device=device).manual_seed(0), device=device)
-    args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"], x["tc"],
-            x["max_rel"], g)
-    b2 = lambda: bmod.hstu_attention_bwd_dq_cuda(*args)
-    b3 = lambda: bmod.hstu_attention_bwd_dkv_cuda(*args)
-    plain = lambda: bmod.hstu_attention_bwd_plain(*args)
-    # the plain backward issues ~60 launches a call: 8 calls stay inside
-    # the launch queue, so the host can run ahead of the sleeping card
-    plain_ms = device_ms(plain, iters=8)
-    ms = {"dq": device_ms(b2, iters=200), "dkv": device_ms(b3, iters=200)}
-    again = {"dq": device_ms(b2, iters=200), "dkv": device_ms(b3, iters=200)}
-    plain_again = device_ms(plain, iters=8)
+    shapes = {"B32 H2 S80 D32 rab": ((32, 2, 80, 32, 32, 64, 64), False),
+              "userarch_hstu B32 H2 S64 causal D32 rab":
+                  ((32, 2, 64, 32, 32, 64, 64), True)}
     out = {}
-    for which, label in (("dq", "B2 hstu_attention_bwd_dq"),
-                         ("dkv", "B3 hstu_attention_bwd_dkv")):
-        bound_ms, bound_by, n_bytes, ops = bound_bwd(x, which)
-        print(f"[times] {card}: {label} B32 H2 S80 D32 rab, device time per "
-              f"call: kernel {ms[which]:.5f} ms (again {again[which]:.5f}); "
-              f"bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} "
-              f"FLOP at 3.35 TB/s / 67 TFLOP/s); library: none")
-        out[which] = dict(ms=ms[which], plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-    print(f"[times] {card}: plain torch backward (dq, dk, dv, drab) "
-          f"{plain_ms:.5f} ms (again {plain_again:.5f}); host-issued "
-          f"back-to-back calls: B2 {call_ms(b2, 200):.5f} ms, B3 "
-          f"{call_ms(b3, 200):.5f} ms, plain {call_ms(plain, 50):.5f} ms")
+    for shape_name, (shape, causal) in shapes.items():
+        x = attention_inputs(shape, seed=0, device=device)
+        if causal:
+            x["tc"].zero_()
+        g = torch.randn(x["v"].shape, generator=torch.Generator(
+            device=device).manual_seed(0), device=device)
+        args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"],
+                x["tc"], x["max_rel"], g)
+        b2 = lambda: bmod.hstu_attention_bwd_dq_cuda(*args)
+        b3 = lambda: bmod.hstu_attention_bwd_dkv_cuda(*args)
+        plain = lambda: bmod.hstu_attention_bwd_plain(*args)
+        # the plain backward issues ~60 launches a call: 8 calls stay
+        # inside the launch queue, so the host can run ahead of the card
+        plain_ms = device_ms(plain, iters=8)
+        ms = {"dq": device_ms(b2, iters=200), "dkv": device_ms(b3, iters=200)}
+        again = {"dq": device_ms(b2, iters=200),
+                 "dkv": device_ms(b3, iters=200)}
+        plain_again = device_ms(plain, iters=8)
+        for which, label in (("dq", "B2 hstu_attention_bwd_dq"),
+                             ("dkv", "B3 hstu_attention_bwd_dkv")):
+            bound_ms, bound_by, n_bytes, ops = bound_bwd(x, which)
+            print(f"[times] {card}: {label} {shape_name}, device time per "
+                  f"call: kernel {ms[which]:.5f} ms (again "
+                  f"{again[which]:.5f}); bound {bound_ms:.5f} ms "
+                  f"({bound_by}: {n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 "
+                  f"TFLOP/s); {ms[which] / bound_ms:.1f}x the bound; "
+                  f"library: none")
+            out.setdefault(which, dict(ms=ms[which], plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by))
+        print(f"[times] {card}: plain torch backward (dq, dk, dv, drab) "
+              f"{shape_name} {plain_ms:.5f} ms (again {plain_again:.5f}); "
+              f"host-issued back-to-back calls: B2 {call_ms(b2, 200):.5f} "
+              f"ms, B3 {call_ms(b3, 200):.5f} ms, plain "
+              f"{call_ms(plain, 50):.5f} ms")
     return out
 
 

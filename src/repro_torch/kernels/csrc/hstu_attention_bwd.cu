@@ -21,411 +21,577 @@
 //
 // What bounds them on this card: at the training shape (B = 32, H = 2,
 // S = 80, Dqk = Dv = 32, fp32) each kernel must read the kept q, k, v and g
-// rows once (~2 MB) and write its outputs once (~1.3 MB for dq, ~1.3 MB
-// each for dk and dv): under 2 us at 3.35 TB/s, against well under 1 us of
-// fp32 arithmetic at 67 TFLOP/s. So bytes set the bound. This first version
-// is far from it for the same reasons as the forward: serial FMA chains
-// that read two shared-memory operands each, and __syncthreads around
-// unoverlapped global loads.
+// rows once (~1.3 MB) and write its outputs once (~0.65 MB for dq, ~1.3 MB
+// for dk and dv): under 1 us at 3.35 TB/s, against well under 1 us of
+// arithmetic. So bytes set the bound; but, as for the forward, a launch of
+// a few hundred short blocks with two dependent tile rounds has a latency
+// floor of several us above it, and the design aims at that floor.
 //
-// Design. The TPU grid revisited its output blocks across the inner grid
-// axis (and the drab block across the whole q x k sub-grid); GPU blocks run
-// in any order, so each block owns its output rows and loops over the other
-// axis inside the block:
-//   * B2: one block per (b*h, 32-row q tile) walks the k tiles the ROO mask
-//     admits for that q tile (B1's skip) and keeps the 32 x Dqk dq tile in
-//     fp32 registers, stored once. For drab it sums each diagonal of the ds
-//     tile (fixed order), folds the sums into the head's compact delta table
-//     in shared memory -- the diagonals whose global delta clips to +-max_rel
-//     are folded by one thread, in order, as the reference's clip does -- and
-//     writes the block's partial table once to a (H, B * n_q_tiles, nrab)
-//     scratch buffer. The caller reduces it over its middle axis in a fixed
-//     order. No float atomics anywhere: two calls give the same bits.
-//   * B3: one block per (b*h, 32-column k tile) walks the q tiles whose rows
-//     the mask lets see that k tile (the mirror of B1's skip: a history k
-//     tile is read by valid history rows from its first column on and by
-//     every valid target row; a target k tile only by the q tile holding its
-//     diagonal) and keeps the 32 x Dqk dk and 32 x Dv dv tiles in fp32
-//     registers, stored once.
-// Both read the lengths in-block, load the ragged edge with bounds (no
-// pad-and-crop), use the unpadded S for 1/S, and give exact zeros for
-// masked rows and columns.
-//
-// Plain CUDA cores in fp32 (no wgmma/TMA/cp.async yet): the reference is
-// fp32 end to end.
+// Design: B1's tile body (hstu_fwd_tile.cuh) turned into a backward, one
+// template (bwd_tile) for both kernels. A warp owns 16 output rows: 16 q
+// rows in B2, 16 k columns in B3. The warp's two operand tiles stay in
+// shared memory for the whole launch (B2: q and g; B3: k and v), and the
+// other side streams past in 16-wide tiles (B2: k and v; B3: q and g):
+//  * Products on tensor cores at fp32 accuracy: 3xTF32 mma.sync.m16n8k8
+//    (lo*hi + hi*lo + hi*hi, fp32 accumulators) for every product: B2
+//    s = q.k^T, da = g.v^T, dq += ds.k; B3 s^T = k.q^T, da^T = v.g^T,
+//    dk += ds^T.q, dv += a^T.g. The score fragments are masked, scaled,
+//    rab'd and turned into a and ds (SiLU and SiLU', times 1/S) in
+//    registers, then fed to the next product as its A operand through the
+//    permuted k index (A column t <-> tile column 2t, t+4 <-> 2t+1), with
+//    the streamed rows read in that order: no shuffle, no barrier.
+//  * B3 is the same body transposed. Its tile rows are k positions j and
+//    its tile columns q positions i, so the mask is read as keep(i, j) with
+//    the two swapped, the rab delta is i - j with i the tile COLUMN, and the
+//    tile skip asks whether some q row of the streamed tile sees some k
+//    column of the warp's (a history column: valid history rows from its
+//    own row on and every valid target row; a target column: only its own
+//    diagonal).
+//  * Parallelism: a block covers one (b*h) and rb 16-row tiles; its 4 warps
+//    split the streamed tiles ks = 4 / rb ways, chosen from (B*H, S) alone
+//    by tile_config, as B1 does. The k-split partials of dq (B2) or dk and
+//    dv (B3) are summed through shared memory in a fixed order (split 0,
+//    then 1, 2, 3).
+//  * Loads: 16-byte cp.async (4-byte where D % 4 != 0 or a pointer is not
+//    16-byte aligned) into a double-buffered ring of rounds of ks tiles,
+//    round t+1 in flight while round t is multiplied; rows padded to D + 4
+//    floats (conflict-free fragment loads); out-of-range rows zero-filled
+//    by the copy. Rounds start at the block's first live tile, a tile no
+//    row of the block can see is never loaded, and a warp multiplies only
+//    the tiles its own rows can see.
+//  * drab without float atomics, in two fixed-order stages. In B2 each warp
+//    stages its 16 x 16 ds tile in shared memory and sums each of its 31
+//    diagonals in row order (one lane a diagonal); the diagonals whose
+//    delta clips to -max_rel or +max_rel are summed by a fixed shuffle
+//    tree. After the round's barrier the block folds them into the head's
+//    compact delta table in shared memory, one thread per delta of the
+//    round adding the warps' sums in warp order (an unclipped delta has a
+//    bin of its own; one thread adds the clipped sums to bins 0 and
+//    2*max_rel). The block writes its table once to an
+//    (H, nrab, B * row blocks) buffer, which the caller sums over its last
+//    (contiguous) axis. Two calls give the same bits.
+// Both read the lengths in-block, use the unpadded S for 1/S, and give
+// exact zeros for masked rows (dq) and columns (dk, dv).
 //
 // Interface: plain C, loaded with ctypes. Each host function launches one
 // kernel on the caller's stream, does not synchronise, and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "hstu_fwd_tile.cuh"
 
 namespace {
 
-constexpr int BT = 32;            // rows of a q tile == columns of a k tile
-constexpr int NT = 128;           // threads per block
-constexpr int TPR = NT / BT;      // threads sharing one output row (4)
-constexpr int MAX_D = 128;        // largest Dqk / Dv the kernels take
-constexpr int ACC = MAX_D / TPR;  // accumulators per thread and output (32)
-constexpr int NDIAG = 2 * BT - 1; // diagonals of one tile (63)
+using namespace hstu_fwd;
 
-struct Lengths {
-  int hl, tc;          // raw per-request lengths
-  int hist_end;        // valid history positions are [0, hist_end)
-  int tgt_end;         // valid target positions are [n_hist, tgt_end)
+constexpr int NDIAG = 2 * ROWS - 1;   // diagonals of a 16 x 16 tile (31)
+constexpr int DS_LD = ROWS + 1;       // row stride of a staged ds tile
+constexpr int DIAG_LD = NDIAG + 2;    // a warp's diagonal sums, lo, hi
+static_assert(BK == ROWS, "the drab fold stages square 16 x 16 tiles");
+
+// The ROO mask over positions 0..S-1 of [history | targets]; i is a q
+// position, j a k position, in both kernels.
+struct RooMask {
+  int S, n_hist, hl, tc;
+  int hist_end;   // valid history positions are [0, hist_end)
+  int tgt_end;    // valid target positions are [n_hist, tgt_end)
+
+  __device__ RooMask(const int* hist_lengths, const int* target_counts,
+                     int b, int S_, int n_hist_)
+      : S(S_), n_hist(n_hist_), hl(hist_lengths[b]), tc(target_counts[b]) {
+    hist_end = max(0, min(hl, n_hist));
+    tgt_end = n_hist + max(0, min(tc, S - n_hist));
+  }
+  __device__ bool keep(int i, int j) const {
+    const bool is_hq = i < n_hist, is_hk = j < n_hist;
+    const bool st = is_hk ? (!is_hq || j <= i) : (!is_hq && i == j);
+    const bool vr = is_hq ? (i < hl) : (i - n_hist < tc);
+    const bool vc = is_hk ? (j < hl) : (j - n_hist < tc);
+    return i < S && j < S && st && vr && vc;
+  }
+  // Whether some q row of [i_lo, i_hi] keeps some k column of [j_lo, j_hi]:
+  // a valid history column is seen by the valid history rows at or past it
+  // and by every valid target row; a valid target column only by its own
+  // diagonal.
+  __device__ bool live(int i_lo, int i_hi, int j_lo, int j_hi) const {
+    const int hrow_hi = min(i_hi, hist_end - 1);
+    const int trow_lo = max(i_lo, n_hist);
+    const int trow_hi = min(i_hi, tgt_end - 1);
+    const int hcol_hi = min(j_hi, hist_end - 1);
+    if (j_lo <= hcol_hi &&
+        (trow_lo <= trow_hi || (i_lo <= hrow_hi && j_lo <= hrow_hi)))
+      return true;
+    return max(max(j_lo, n_hist), trow_lo) <= min(j_hi, trow_hi);
+  }
 };
 
-__device__ __forceinline__ Lengths read_lengths(const int* hist_lengths,
-                                                const int* target_counts,
-                                                int b, int S, int n_hist) {
-  Lengths L;
-  L.hl = hist_lengths[b];
-  L.tc = target_counts[b];
-  L.hist_end = max(0, min(L.hl, n_hist));
-  L.tgt_end = n_hist + max(0, min(L.tc, S - n_hist));
-  return L;
-}
-
-// Whether the ROO mask keeps any cell of the (q tile, k tile) pair; uniform
-// over the block. A history column j is seen by valid history rows i >= j
-// and by every valid target row; a target column only by its own diagonal.
-__device__ __forceinline__ bool tile_live(int q0, int k0, int S, int n_hist,
-                                          const Lengths& L) {
-  const int q_last = min(q0 + BT, S) - 1;
-  const int k_last = min(k0 + BT, S) - 1;
-  const int hrow_hi = min(q_last, L.hist_end - 1);      // valid history rows
-  const int trow_lo = max(q0, n_hist);                  // valid target rows
-  const int trow_hi = min(q_last, L.tgt_end - 1);
-  const bool any_trow = trow_lo <= trow_hi;
-  const bool hist_cols = k0 < L.hist_end;
-  if (hist_cols && (any_trow || (q0 <= hrow_hi && hrow_hi >= k0)))
-    return true;
-  const int lo = max(max(k0, n_hist), trow_lo);
-  const int hi = min(k_last, trow_hi);
-  return lo <= hi;
-}
-
-__device__ __forceinline__ bool keep(int i, int j, int S, int n_hist,
-                                     const Lengths& L) {
-  const bool is_hq = i < n_hist, is_hk = j < n_hist;
-  const bool st = is_hk ? (!is_hq || j <= i) : (!is_hq && i == j);
-  const bool vr = is_hq ? (i < L.hl) : (i - n_hist < L.tc);
-  const bool vc = is_hk ? (j < L.hl) : (j - n_hist < L.tc);
-  return i < S && j < S && st && vr && vc;
-}
-
-// Loads rows [r0, r0 + BT) of a (S, D) matrix into a BT x ld tile; rows past
-// S read as 0.
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int r0, int S, int D) {
-  for (int idx = threadIdx.x; idx < BT * D; idx += NT) {
-    const int r = idx / D, d = idx - r * D;
-    const int row = r0 + r;
-    dst[r * ld + d] = row < S ? src[(size_t)row * D + d] : 0.0f;
-  }
-}
-
-// One cell (r, c) of a (q tile, k tile) pair, at global position (i, j):
-// both values are exactly 0 where the mask drops the cell.
-struct Cell {
-  float a, ds;         // masked SiLU(s) / S and dL/ds
+struct BwdArgs {
+  const float* hold1;   // the warps' own rows: q (B2) / k (B3), (S, Dqk)
+  const float* hold2;   //                      g (B2) / v (B3), (S, Dv)
+  const float* str1;    // the streamed tiles:  k (B2) / q (B3), (S, Dqk)
+  const float* str2;    //                      v (B2) / g (B3), (S, Dv)
+  const float* rab;     // (2*max_rel+1) of this h, or null
+  float* out1;          // dq (B2) / dk (B3), (S, Dqk)
+  float* out2;          // drab partials (B2, rab only) / dv (B3), (S, Dv)
+  int H, S, Dqk, Dv, max_rel;
+  int vec_qk, vec_v;    // 16-byte copies allowed
+  float inv_sqrt_d, inv_s;
+  int rb, ks;           // tile_config
 };
 
-__device__ __forceinline__ Cell cell(const float* q_s, const float* k_s,
-                                     const float* g_s, const float* v_s,
-                                     const float* rab_s, int ldk, int ldv,
-                                     int r, int c, int i, int j, int S,
-                                     int n_hist, int Dqk, int Dv,
-                                     int max_rel, int use_rab,
-                                     float inv_sqrt_d, float inv_s,
-                                     const Lengths& L) {
-  Cell out{0.0f, 0.0f};
-  if (!keep(i, j, S, n_hist, L)) return out;
-  float s = 0.0f;
-  for (int d = 0; d < Dqk; ++d)
-    s = fmaf(q_s[r * ldk + d], k_s[c * ldk + d], s);
-  s *= inv_sqrt_d;
-  if (use_rab) s += rab_s[min(max(i - j, -max_rel), max_rel) + max_rel];
-  float da = 0.0f;
-  for (int d = 0; d < Dv; ++d)
-    da = fmaf(g_s[r * ldv + d], v_s[c * ldv + d], da);
-  const float sig = 1.0f / (1.0f + expf(-s));
-  out.a = s * sig * inv_s;
-  out.ds = da * inv_s * (sig * (1.0f + s * (1.0f - sig)));
-  return out;
+// Dynamic shared memory of one block: the two held tiles, the two-stage
+// ring of ks streamed tile pairs, the rab row and, for B2's drab, the delta
+// table, the warps' staged ds tiles and their diagonal sums.
+inline long long bwd_smem_bytes(const TileConfig& c, int dp, int nrab,
+                                bool fold) {
+  const long long ld = dp + 4;
+  long long n = 2LL * c.rb * ROWS * ld + 2LL * c.ks * 2 * BK * ld + nrab;
+  if (fold) n += nrab + NWARPS * ROWS * DS_LD + NWARPS * DIAG_LD;
+  return 4 * n;
 }
 
-// ---------------------------------------------------------------------------
-// B2: dq and the per-block drab partials
-// ---------------------------------------------------------------------------
+// B3 holds two accumulator sets (dk and dv): at D 64 and 128 it gets more
+// registers a thread, and fewer blocks an SM, than B2.
+template <int DP, bool DKV>
+constexpr int min_blocks() {
+  return DP <= 32 ? 4 : DP <= 64 ? (DKV ? 3 : 4) : 2;
+}
 
-__global__ void __launch_bounds__(NT)
-hstu_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ rab,
-                   const float* __restrict__ g,
-                   const int* __restrict__ hist_lengths,
-                   const int* __restrict__ target_counts,
-                   float* __restrict__ dq, float* __restrict__ drab_part,
-                   int B, int H, int S, int Dqk, int Dv, int n_hist,
-                   int max_rel, int use_rab, float inv_sqrt_d, float inv_s) {
-  extern __shared__ float smem[];
-  const int ldk = Dqk + 1, ldv = Dv + 1, ldp = BT + 1;
-  const int nrab = 2 * max_rel + 1;
-  float* q_s = smem;                       // BT x ldk
-  float* g_s = q_s + BT * ldk;             // BT x ldv
-  float* k_s = g_s + BT * ldv;             // BT x ldk
-  float* v_s = k_s + BT * ldk;             // BT x ldv
-  float* ds_s = v_s + BT * ldv;            // BT x ldp
-  float* diag_s = ds_s + BT * ldp;         // NDIAG
-  float* rab_s = diag_s + NDIAG;           // nrab (use_rab only)
-  float* drab_s = rab_s + nrab;            // nrab (use_rab only)
+// The block's work: row tiles [blockIdx.y * rb, +rb) of one (b, h).
+template <int DP, bool DKV>
+__device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
+                                         float* smem) {
+  constexpr int LD = DP + 4;
+  constexpr int NB = DP / 8;      // 8-column blocks of D
+  const int ks_n = a.ks, S = a.S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int my_rt = warp / ks_n, my_ks = warp - my_rt * ks_n;
+  const bool use_rab = a.rab != nullptr;
+  const bool fold = !DKV && use_rab;
+  const int nrab = use_rab ? 2 * a.max_rel + 1 : 0;
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * BT;
-  const size_t base_qk = (size_t)bh * S * Dqk;
-  const size_t base_v = (size_t)bh * S * Dv;
-  const Lengths L = read_lengths(hist_lengths, target_counts, b, S, n_hist);
+  float* h1_s = smem;                               // rb*16 x LD
+  float* h2_s = h1_s + a.rb * ROWS * LD;            // rb*16 x LD
+  float* ring = h2_s + a.rb * ROWS * LD;            // [2][ks][1|2] BK x LD
+  float* rab_s = ring + 2 * ks_n * 2 * BK * LD;     // nrab
+  float* drab_s = rab_s + nrab;                     // nrab (fold)
+  float* ds_s = drab_s + nrab;                      // NWARPS x 16 x DS_LD
+  float* diag_s = ds_s + NWARPS * ROWS * DS_LD;     // NWARPS x DIAG_LD
 
-  load_tile(q_s, ldk, q + base_qk, q0, S, Dqk);
-  load_tile(g_s, ldv, g + base_v, q0, S, Dv);
-  if (use_rab) {
-    for (int t = tid; t < nrab; t += NT) {
-      rab_s[t] = rab[(size_t)h * nrab + t];
-      drab_s[t] = 0.0f;
+  const int br0 = blockIdx.y * a.rb * ROWS;
+  const int br_last = min(br0 + a.rb * ROWS, S) - 1;
+  const int wr0 = br0 + my_rt * ROWS;
+  const int wr_last = min(wr0 + ROWS, S) - 1;
+  const int n_t = (S + BK - 1) / BK;
+  const int nb_qk = (a.Dqk + 7) >> 3, nb_v = (a.Dv + 7) >> 3;
+
+  // whether some row of [r_lo, r_hi] sees some column of tile ct; rows are
+  // q positions in B2 and k positions in B3
+  auto live = [&](int ct, int r_lo, int r_hi) {
+    if (ct >= n_t || r_lo > r_hi) return false;
+    const int c0 = ct * BK, c_hi = min(c0 + BK, S) - 1;
+    return DKV ? L.live(c0, c_hi, r_lo, r_hi) : L.live(r_lo, r_hi, c0, c_hi);
+  };
+  int ct0 = 0;                      // rounds start at the first live tile
+  while (ct0 < n_t && !live(ct0, br0, br_last)) ++ct0;
+  const int n_rounds = (n_t - ct0 + ks_n - 1) / ks_n;
+  auto next_round = [&](int t) {    // first round >= t the block needs
+    for (; t < n_rounds; ++t)
+      for (int s = 0; s < ks_n; ++s)
+        if (live(ct0 + t * ks_n + s, br0, br_last)) return t;
+    return n_rounds;
+  };
+  auto issue_round = [&](int t, int stage) {
+    for (int s = 0; s < ks_n; ++s) {
+      const int ct = ct0 + t * ks_n + s;
+      if (!live(ct, br0, br_last)) continue;
+      float* s1 = ring + ((stage * ks_n + s) * 2) * BK * LD;
+      copy_rows<DP>(s1, a.str1, ct * BK, BK, S, a.Dqk, a.vec_qk);
+      copy_rows<DP>(s1 + BK * LD, a.str2, ct * BK, BK, S, a.Dv, a.vec_v);
     }
+  };
+
+  // the held rows and rab first, then the first round; the first barrier
+  // of the loop makes all of it visible
+  copy_rows<DP>(h1_s, a.hold1, br0, a.rb * ROWS, S, a.Dqk, a.vec_qk);
+  copy_rows<DP>(h2_s, a.hold2, br0, a.rb * ROWS, S, a.Dv, a.vec_v);
+  for (int i = threadIdx.x; i < nrab; i += NT) cp_async4(rab_s + i, a.rab + i,
+                                                         true);
+  int t = next_round(0);
+  if (t < n_rounds) issue_round(t, 0);
+  cp_async_commit();
+  // padding columns, once: no copy ever writes them
+  zero_pad<DP>(h1_s, a.rb * ROWS, a.Dqk);
+  zero_pad<DP>(h2_s, a.rb * ROWS, a.Dv);
+  for (int i = 0; i < 2 * ks_n; ++i) {
+    zero_pad<DP>(ring + i * 2 * BK * LD, BK, a.Dqk);
+    zero_pad<DP>(ring + (i * 2 + 1) * BK * LD, BK, a.Dv);
   }
+  if (fold)                         // visible after the first barrier
+    for (int i = threadIdx.x; i < nrab; i += NT) drab_s[i] = 0.0f;
 
-  const int r_own = tid / TPR;
-  const int c_own = tid - r_own * TPR;
-  float acc[ACC];
+  float acc1[NB][4];                // dq (B2) / dk (B3)
+  float acc2[DKV ? NB : 1][4];      // dv (B3)
 #pragma unroll
-  for (int t = 0; t < ACC; ++t) acc[t] = 0.0f;
-
-  for (int k0 = 0; k0 < S; k0 += BT) {
-    if (!tile_live(q0, k0, S, n_hist, L)) continue;
-    __syncthreads();  // previous tile's readers are done (q/g/rab loaded)
-    load_tile(k_s, ldk, k + base_qk, k0, S, Dqk);
-    load_tile(v_s, ldv, v + base_v, k0, S, Dv);
-    __syncthreads();
-
-    for (int idx = tid; idx < BT * BT; idx += NT) {
-      const int r = idx / BT, c = idx - r * BT;
-      const Cell x = cell(q_s, k_s, g_s, v_s, rab_s, ldk, ldv, r, c, q0 + r,
-                          k0 + c, S, n_hist, Dqk, Dv, max_rel, use_rab,
-                          inv_sqrt_d, inv_s, L);
-      ds_s[r * ldp + c] = x.ds;
-    }
-    __syncthreads();
-
-    const float* drow = ds_s + r_own * ldp;
-    for (int c = 0; c < BT; ++c) {
-      const float p = drow[c];
-      const float* krow = k_s + c * ldk;
+  for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int t = 0; t < ACC; ++t) {
-        const int d = c_own + t * TPR;
-        if (d < Dqk) acc[t] = fmaf(p, krow[d], acc[t]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      acc1[n][e] = 0.0f;
+      if constexpr (DKV) acc2[n][e] = 0.0f;
     }
 
-    if (use_rab) {
-      // diagonal u holds the cells with r - c == u - (BT - 1)
-      if (tid < NDIAG) {
-        const int off = tid - (BT - 1);
-        float sum = 0.0f;
-        for (int r = max(0, off); r < min(BT, BT + off); ++r)
-          sum += ds_s[r * ldp + (r - off)];
-        diag_s[tid] = sum;
-      }
-      __syncthreads();
-      // fold into the delta table: an unclipped diagonal has a bin of its
-      // own; the clipped ones are summed in order by one thread
-      const int base = q0 - k0 - (BT - 1);   // global delta of diagonal 0
-      if (tid < NDIAG) {
-        const int delta = base + tid;
-        if (delta > -max_rel && delta < max_rel)
-          drab_s[delta + max_rel] += diag_s[tid];
-      } else if (tid == NDIAG) {
-        float lo = 0.0f, hi = 0.0f;
-        bool any_lo = false, any_hi = false;
-        for (int u = 0; u < NDIAG; ++u) {
-          const int delta = base + u;
-          if (delta <= -max_rel) { lo += diag_s[u]; any_lo = true; }
-          else if (delta >= max_rel) { hi += diag_s[u]; any_hi = true; }
+  const float* h1w = h1_s + my_rt * ROWS * LD;
+  const float* h2w = h2_s + my_rt * ROWS * LD;
+  int stage = 0;
+  while (t < n_rounds) {
+    const int t_next = next_round(t + 1);
+    if (t_next < n_rounds) issue_round(t_next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this round (and the held rows) has landed here
+    __syncthreads();      // ... and for every thread
+
+    const int ct = ct0 + t * ks_n + my_ks;
+    const bool warp_live = live(ct, wr0, wr_last);
+    if (warp_live) {
+      const float* s1 = ring + ((stage * ks_n + my_ks) * 2) * BK * LD;
+      const float* s2 = s1 + BK * LD;
+      const int c0 = ct * BK;
+      // p = hold1 . str1^T (the scores), d = hold2 . str2^T (da): 16 x BK
+      float p[BK / 8][4], d[BK / 8][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = d[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        if (kk >= nb_qk) break;
+        const float* x = h1w + g * LD + kk * 8 + t4;
+        const SplitA af({x[0], x[8 * LD], x[4], x[8 * LD + 4]});
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float* y = s1 + (j * 8 + g) * LD + kk * 8 + t4;
+          const float bf[2] = {y[0], y[4]};
+          mma_3xtf32(p[j], af, bf);
         }
-        if (any_lo) drab_s[0] += lo;
-        if (any_hi) drab_s[2 * max_rel] += hi;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        if (kk >= nb_v) break;
+        const float* x = h2w + g * LD + kk * 8 + t4;
+        const SplitA af({x[0], x[8 * LD], x[4], x[8 * LD + 4]});
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float* y = s2 + (j * 8 + g) * LD + kk * 8 + t4;
+          const float bf[2] = {y[0], y[4]};
+          mma_3xtf32(d[j], af, bf);
+        }
+      }
+      // mask, scale, rab, SiLU / SiLU' and 1/S on the fragments; element e
+      // of block j is tile row g (+8 for e >= 2), column 8j + 2*t4 (+1 for
+      // odd e). p becomes a (B3 only), d becomes ds.
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = wr0 + g + (e >> 1) * 8;
+          const int c = c0 + j * 8 + 2 * t4 + (e & 1);
+          const int i = DKV ? c : r, jk = DKV ? r : c;
+          float av = 0.0f, dsv = 0.0f;
+          if (L.keep(i, jk)) {
+            float x = p[j][e] * a.inv_sqrt_d;
+            if (use_rab)
+              x += rab_s[min(max(i - jk, -a.max_rel), a.max_rel) +
+                         a.max_rel];
+            const float sig = 1.0f / (1.0f + expf(-x));
+            av = x * sig * a.inv_s;
+            dsv = d[j][e] * a.inv_s * (sig * (1.0f + x * (1.0f - sig)));
+          }
+          p[j][e] = av;
+          d[j][e] = dsv;
+        }
+      // acc1 += ds . str1 and (B3) acc2 += a . str2, with the permuted k
+      // index: A column t is tile column 2t, t + 4 is 2t + 1
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const SplitA af({d[j][0], d[j][2], d[j][1], d[j][3]});
+        const float* y = s1 + (j * 8 + 2 * t4) * LD + g;
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          if (n >= nb_qk) break;
+          const float bf[2] = {y[n * 8], y[LD + n * 8]};
+          mma_3xtf32(acc1[n], af, bf);
+        }
+        if constexpr (DKV) {
+          const SplitA aa({p[j][0], p[j][2], p[j][1], p[j][3]});
+          const float* z = s2 + (j * 8 + 2 * t4) * LD + g;
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            if (n >= nb_v) break;
+            const float bf[2] = {z[n * 8], z[LD + n * 8]};
+            mma_3xtf32(acc2[n], aa, bf);
+          }
+        }
+      }
+      if (fold) {
+        // stage the ds tile, sum diagonal `lane` (tile r - c == lane - 15)
+        // in row order, and the clipped diagonals by a fixed tree
+        float* st = ds_s + warp * ROWS * DS_LD;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[(g + (e >> 1) * 8) * DS_LD + j * 8 + 2 * t4 + (e & 1)] =
+                d[j][e];
+        __syncwarp();
+        const int off = lane - (ROWS - 1);
+        float sum = 0.0f;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const int c = r - off;
+          if (c >= 0 && c < ROWS) sum += st[r * DS_LD + c];
+        }
+        const int delta = wr0 - c0 + off;     // i - j of the diagonal
+        const bool diag = lane < NDIAG;
+        float lo = 0.0f, hi = 0.0f;
+        if (delta - lane <= -a.max_rel ||     // (warp-uniform) the tile
+            delta - lane + NDIAG - 1 >= a.max_rel) {   // has clipped ones
+          lo = diag && delta <= -a.max_rel ? sum : 0.0f;
+          hi = diag && delta > -a.max_rel && delta >= a.max_rel ? sum : 0.0f;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            lo += __shfl_xor_sync(0xffffffffu, lo, o);
+            hi += __shfl_xor_sync(0xffffffffu, hi, o);
+          }
+        }
+        float* dg = diag_s + warp * DIAG_LD;
+        if (diag) dg[lane] = sum;
+        if (lane == 0) {
+          dg[NDIAG] = lo;
+          dg[NDIAG + 1] = hi;
+        }
+      }
+    } else if (fold) {    // a warp without a tile adds zeros
+      diag_s[warp * DIAG_LD + lane] = 0.0f;
+      if (lane == 0) diag_s[warp * DIAG_LD + DIAG_LD - 1] = 0.0f;
+    }
+    __syncthreads();      // the stage is free for round t + 2
+    if (fold) {
+      // The round's diagonals into the delta table. Warp w = (rt, s) holds
+      // delta d0 + 16 (rt - s) + u in its diagonal u, so the round spans
+      // 16 (rb + ks - 2) + 31 <= 79 deltas: thread o owns delta
+      // d0 - 16 (ks - 1) + o and adds the warps' sums for it in warp
+      // order (unclipped deltas have distinct bins; a warp without a tile
+      // this round left zeros); one thread adds the clipped sums, all low
+      // then all high, in warp order.
+      const int d0 = br0 - (ct0 + t * ks_n) * BK - (ROWS - 1);
+      const int o = threadIdx.x;
+      const int delta = d0 - BK * (ks_n - 1) + o;
+      if (o < BK * (a.rb + ks_n - 2) + NDIAG && delta > -a.max_rel &&
+          delta < a.max_rel) {
+        float x = drab_s[delta + a.max_rel];
+#pragma unroll
+        for (int w = 0; w < NWARPS; ++w) {
+          const int rt = w / ks_n, sw = w - rt * ks_n;
+          const int u = o - BK * (ks_n - 1) - ROWS * (rt - sw);
+          if (u >= 0 && u < NDIAG) x += diag_s[w * DIAG_LD + u];
+        }
+        drab_s[delta + a.max_rel] = x;
+      } else if (o == NT - 1) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int bin = k ? 2 * a.max_rel : 0;
+          float x = drab_s[bin];
+#pragma unroll
+          for (int w = 0; w < NWARPS; ++w)
+            x += diag_s[w * DIAG_LD + NDIAG + k];
+          drab_s[bin] = x;
+        }
+      }
+    }
+    t = t_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // the k-split's partials, summed in a fixed order through the ring
+  constexpr int NACC = DKV ? 2 : 1;
+  if (ks_n > 1) {
+    __syncthreads();
+    float* part = ring;   // [rb][ks-1][NACC][NB][4][32]
+    if (my_ks > 0 && wr0 < S) {
+      float* q = part + ((my_rt * (ks_n - 1) + my_ks - 1) * NACC * NB) * 128;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          q[(n * 4 + e) * 32 + lane] = acc1[n][e];
+          if constexpr (DKV) q[((NB + n) * 4 + e) * 32 + lane] = acc2[n][e];
+        }
+    }
+    __syncthreads();
+    if (my_ks == 0 && wr0 < S) {
+      for (int s = 1; s < ks_n; ++s) {
+        const float* q =
+            part + ((my_rt * (ks_n - 1) + s - 1) * NACC * NB) * 128;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc1[n][e] += q[(n * 4 + e) * 32 + lane];
+            if constexpr (DKV) acc2[n][e] += q[((NB + n) * 4 + e) * 32 + lane];
+          }
       }
     }
   }
-
-  const int row = q0 + r_own;
-  if (row < S) {
-    float* out = dq + base_qk + (size_t)row * Dqk;
-#pragma unroll
-    for (int t = 0; t < ACC; ++t) {
-      const int d = c_own + t * TPR;
-      if (d < Dqk) out[d] = acc[t] * inv_sqrt_d;
-    }
-  }
-  if (use_rab) {
+  if (fold) {                       // the block's drab partials
     __syncthreads();
-    const int n_qt = gridDim.y;
-    float* part = drab_part +
-        ((size_t)h * B * n_qt + (size_t)b * n_qt + blockIdx.y) * nrab;
-    for (int t = tid; t < nrab; t += NT) part[t] = drab_s[t];
+    const size_t n_part = (size_t)(gridDim.x / a.H) * gridDim.y;
+    for (int i = threadIdx.x; i < nrab; i += NT)
+      a.out2[(size_t)i * n_part] = drab_s[i];
   }
+  if (my_ks != 0 || wr0 >= S) return;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = wr0 + g + (e >> 1) * 8;
+      const int c = n * 8 + 2 * t4 + (e & 1);
+      if (r >= S) continue;
+      if (c < a.Dqk) a.out1[(size_t)r * a.Dqk + c] = acc1[n][e] * a.inv_sqrt_d;
+      if constexpr (DKV)
+        if (c < a.Dv) a.out2[(size_t)r * a.Dv + c] = acc2[n][e];
+    }
 }
 
-// ---------------------------------------------------------------------------
-// B3: dk and dv
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT)
-hstu_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ rab,
-                    const float* __restrict__ g,
-                    const int* __restrict__ hist_lengths,
-                    const int* __restrict__ target_counts,
-                    float* __restrict__ dk, float* __restrict__ dv, int H,
-                    int S, int Dqk, int Dv, int n_hist, int max_rel,
-                    int use_rab, float inv_sqrt_d, float inv_s) {
-  extern __shared__ float smem[];
-  const int ldk = Dqk + 1, ldv = Dv + 1, ldp = BT + 1;
-  const int nrab = 2 * max_rel + 1;
-  float* k_s = smem;                       // BT x ldk
-  float* v_s = k_s + BT * ldk;             // BT x ldv
-  float* q_s = v_s + BT * ldv;             // BT x ldk
-  float* g_s = q_s + BT * ldk;             // BT x ldv
-  float* a_s = g_s + BT * ldv;             // BT x ldp (row = q, col = k)
-  float* ds_s = a_s + BT * ldp;            // BT x ldp
-  float* rab_s = ds_s + BT * ldp;          // nrab (use_rab only)
-
-  const int tid = threadIdx.x;
+// Per-(b, h) offsets, then the tile body.
+template <int DP, bool DKV>
+__device__ __forceinline__ void bwd_block(BwdArgs a, const int* hist_lengths,
+                                          const int* target_counts,
+                                          int n_hist) {
+  extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.y * BT;
-  const size_t base_qk = (size_t)bh * S * Dqk;
-  const size_t base_v = (size_t)bh * S * Dv;
-  const Lengths L = read_lengths(hist_lengths, target_counts, b, S, n_hist);
-
-  load_tile(k_s, ldk, k + base_qk, k0, S, Dqk);
-  load_tile(v_s, ldv, v + base_v, k0, S, Dv);
-  if (use_rab)
-    for (int t = tid; t < nrab; t += NT) rab_s[t] = rab[(size_t)h * nrab + t];
-
-  const int c_own = tid / TPR;             // this thread's k column
-  const int d_own = tid - c_own * TPR;     // and its first output dim
-  float acc_k[ACC], acc_v[ACC];
-#pragma unroll
-  for (int t = 0; t < ACC; ++t) {
-    acc_k[t] = 0.0f;
-    acc_v[t] = 0.0f;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const RooMask L(hist_lengths, target_counts, b, a.S, n_hist);
+  const size_t qk = (size_t)bh * a.S * a.Dqk, vv = (size_t)bh * a.S * a.Dv;
+  a.hold1 += qk;
+  a.str1 += qk;
+  a.out1 += qk;
+  a.hold2 += vv;
+  a.str2 += vv;
+  if (a.rab != nullptr) {
+    const int nrab = 2 * a.max_rel + 1;
+    a.rab += (size_t)h * nrab;
+    if (!DKV)   // drab partials: (H, nrab, B * row blocks)
+      a.out2 += (size_t)h * nrab * (gridDim.x / a.H) * gridDim.y +
+                (size_t)b * gridDim.y + blockIdx.y;
   }
-
-  // rows before k0 see no column of this tile (history rows are causal,
-  // target rows start at n_hist > every history column, and a target
-  // column is seen only from its own row)
-  for (int q0 = k0; q0 < S; q0 += BT) {
-    if (!tile_live(q0, k0, S, n_hist, L)) continue;
-    __syncthreads();
-    load_tile(q_s, ldk, q + base_qk, q0, S, Dqk);
-    load_tile(g_s, ldv, g + base_v, q0, S, Dv);
-    __syncthreads();
-
-    for (int idx = tid; idx < BT * BT; idx += NT) {
-      const int r = idx / BT, c = idx - r * BT;
-      const Cell x = cell(q_s, k_s, g_s, v_s, rab_s, ldk, ldv, r, c, q0 + r,
-                          k0 + c, S, n_hist, Dqk, Dv, max_rel, use_rab,
-                          inv_sqrt_d, inv_s, L);
-      a_s[r * ldp + c] = x.a;
-      ds_s[r * ldp + c] = x.ds;
-    }
-    __syncthreads();
-
-    for (int r = 0; r < BT; ++r) {
-      const float a = a_s[r * ldp + c_own];
-      const float ds = ds_s[r * ldp + c_own];
-      const float* grow = g_s + r * ldv;
-      const float* qrow = q_s + r * ldk;
-#pragma unroll
-      for (int t = 0; t < ACC; ++t) {
-        const int d = d_own + t * TPR;
-        if (d < Dv) acc_v[t] = fmaf(a, grow[d], acc_v[t]);
-        if (d < Dqk) acc_k[t] = fmaf(ds, qrow[d], acc_k[t]);
-      }
-    }
-  }
-
-  const int col = k0 + c_own;
-  if (col < S) {
-    float* ok = dk + base_qk + (size_t)col * Dqk;
-    float* ov = dv + base_v + (size_t)col * Dv;
-#pragma unroll
-    for (int t = 0; t < ACC; ++t) {
-      const int d = d_own + t * TPR;
-      if (d < Dqk) ok[d] = acc_k[t] * inv_sqrt_d;
-      if (d < Dv) ov[d] = acc_v[t];
-    }
-  }
+  if (DKV) a.out2 += vv;
+  bwd_tile<DP, DKV>(L, a, smem);
 }
 
-cudaError_t set_smem(const void* kernel, long long smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+template <int DP>
+__global__ void __launch_bounds__(NT, (min_blocks<DP, false>()))
+hstu_bwd_dq_kernel(BwdArgs a, const int* __restrict__ hist_lengths,
+                   const int* __restrict__ target_counts, int n_hist) {
+  bwd_block<DP, false>(a, hist_lengths, target_counts, n_hist);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NT, (min_blocks<DP, true>()))
+hstu_bwd_dkv_kernel(BwdArgs a, const int* __restrict__ hist_lengths,
+                    const int* __restrict__ target_counts, int n_hist) {
+  bwd_block<DP, true>(a, hist_lengths, target_counts, n_hist);
+}
+
+template <int DP, bool DKV>
+cudaError_t launch(const BwdArgs& a, const int* hl, const int* tc, int BH,
+                   int n_hist, cudaStream_t stream) {
+  const int nrab = a.rab != nullptr ? 2 * a.max_rel + 1 : 0;
+  const long long smem = bwd_smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab,
+                                        !DKV && a.rab != nullptr);
+  void (*kern)(BwdArgs, const int*, const int*, int) =
+      DKV ? &hstu_bwd_dkv_kernel<DP> : &hstu_bwd_dq_kernel<DP>;
+  const cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int rt = (a.S + ROWS - 1) / ROWS;
+  const dim3 grid(BH, (rt + a.rb - 1) / a.rb);
+  kern<<<grid, NT, (size_t)smem, stream>>>(a, hl, tc, n_hist);
+  return cudaGetLastError();
+}
+
+template <bool DKV>
+int run(const void* q, const void* k, const void* v, const void* rab,
+        const void* g, const void* hist_lengths, const void* target_counts,
+        void* out1, void* out2, int B, int H, int S, int Dqk, int Dv,
+        int n_hist, int max_rel, int use_rab, void* stream) {
+  if (B * H == 0 || S == 0) return (int)cudaSuccess;
+  const TileConfig cfg = tile_config((long long)B * H, S);
+  BwdArgs a;
+  a.hold1 = (const float*)(DKV ? k : q);
+  a.hold2 = (const float*)(DKV ? v : g);
+  a.str1 = (const float*)(DKV ? q : k);
+  a.str2 = (const float*)(DKV ? g : v);
+  a.rab = use_rab ? (const float*)rab : nullptr;
+  a.out1 = (float*)out1;
+  a.out2 = (float*)out2;
+  a.H = H;
+  a.S = S;
+  a.Dqk = Dqk;
+  a.Dv = Dv;
+  a.max_rel = max_rel;
+  a.vec_qk = vec_ok(q, k, Dqk);
+  a.vec_v = vec_ok(v, g, Dv);
+  a.inv_sqrt_d = 1.0f / sqrtf((float)Dqk);
+  a.inv_s = 1.0f / (float)S;
+  a.rb = cfg.rb;
+  a.ks = cfg.ks;
+  const int* hl = (const int*)hist_lengths;
+  const int* tc = (const int*)target_counts;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (padded_d(Dqk, Dv)) {
+    case 32: return (int)launch<32, DKV>(a, hl, tc, B * H, n_hist, st);
+    case 64: return (int)launch<64, DKV>(a, hl, tc, B * H, n_hist, st);
+    default: return (int)launch<128, DKV>(a, hl, tc, B * H, n_hist, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) one block of each kernel needs; the wrapper checks
-// it.
+// Shared memory (bytes) one block of each kernel may need, at most (the
+// 4-way split); the wrapper checks it.
 long long hstu_attention_bwd_dq_smem_bytes(int Dqk, int Dv, int max_rel,
                                            int use_rab) {
-  const long long nrab = use_rab ? 2LL * max_rel + 1 : 0;
-  return (long long)sizeof(float) *
-         (2LL * BT * (Dqk + 1) + 2LL * BT * (Dv + 1) +
-          (long long)BT * (BT + 1) + NDIAG + 2 * nrab);
+  return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
+                        use_rab ? 2 * max_rel + 1 : 0, use_rab != 0);
 }
 
 long long hstu_attention_bwd_dkv_smem_bytes(int Dqk, int Dv, int max_rel,
                                             int use_rab) {
-  const long long nrab = use_rab ? 2LL * max_rel + 1 : 0;
-  return (long long)sizeof(float) *
-         (2LL * BT * (Dqk + 1) + 2LL * BT * (Dv + 1) +
-          2LL * BT * (BT + 1) + nrab);
+  return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
+                        use_rab ? 2 * max_rel + 1 : 0, false);
+}
+
+// Output rows (q rows of B2, k columns of B3) one block covers at this
+// shape: 16 x tile_config's rb. B2 writes one drab partial row per block.
+int hstu_attention_bwd_rows_per_block(long long n_heads, int S) {
+  return tile_config(n_heads, S).rb * ROWS;
 }
 
 // q, k, dq: (B, H, S, Dqk); v, g: (B, H, S, Dv); rab: (H, 2*max_rel+1) or
 // null when use_rab == 0; hist_lengths, target_counts: (B,) int32;
-// drab_part: (H, B * ceil(S / 32), 2*max_rel+1), written only when use_rab.
-// All contiguous fp32 on the current device.
+// drab_part: (H, 2*max_rel+1, B * ceil(S / rows_per_block)), written only
+// when use_rab. All contiguous fp32 on the current device.
 int hstu_attention_bwd_dq(const void* q, const void* k, const void* v,
                           const void* rab, const void* g,
                           const void* hist_lengths, const void* target_counts,
                           void* dq, void* drab_part, int B, int H, int S,
                           int Dqk, int Dv, int n_hist, int max_rel,
                           int use_rab, void* stream) {
-  if (B * H == 0 || S == 0) return (int)cudaSuccess;
-  const long long smem =
-      hstu_attention_bwd_dq_smem_bytes(Dqk, Dv, max_rel, use_rab);
-  const cudaError_t e = set_smem((const void*)hstu_bwd_dq_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (S + BT - 1) / BT);
-  hstu_bwd_dq_kernel<<<grid, NT, (size_t)smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)rab,
-      (const float*)g, (const int*)hist_lengths, (const int*)target_counts,
-      (float*)dq, (float*)drab_part, B, H, S, Dqk, Dv, n_hist, max_rel,
-      use_rab, 1.0f / sqrtf((float)Dqk), 1.0f / (float)S);
-  return (int)cudaGetLastError();
+  return run<false>(q, k, v, rab, g, hist_lengths, target_counts, dq,
+                    drab_part, B, H, S, Dqk, Dv, n_hist, max_rel, use_rab,
+                    stream);
 }
 
 // k, dk: (B, H, S, Dqk); v, dv: (B, H, S, Dv); the rest as above.
@@ -435,18 +601,8 @@ int hstu_attention_bwd_dkv(const void* q, const void* k, const void* v,
                            const void* target_counts, void* dk, void* dv,
                            int B, int H, int S, int Dqk, int Dv, int n_hist,
                            int max_rel, int use_rab, void* stream) {
-  if (B * H == 0 || S == 0) return (int)cudaSuccess;
-  const long long smem =
-      hstu_attention_bwd_dkv_smem_bytes(Dqk, Dv, max_rel, use_rab);
-  const cudaError_t e = set_smem((const void*)hstu_bwd_dkv_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (S + BT - 1) / BT);
-  hstu_bwd_dkv_kernel<<<grid, NT, (size_t)smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)rab,
-      (const float*)g, (const int*)hist_lengths, (const int*)target_counts,
-      (float*)dk, (float*)dv, H, S, Dqk, Dv, n_hist, max_rel, use_rab,
-      1.0f / sqrtf((float)Dqk), 1.0f / (float)S);
-  return (int)cudaGetLastError();
+  return run<true>(q, k, v, rab, g, hist_lengths, target_counts, dk, dv, B,
+                   H, S, Dqk, Dv, n_hist, max_rel, use_rab, stream);
 }
 
 const char* hstu_attention_bwd_error_string(int code) {

@@ -33,7 +33,8 @@ from repro_torch.kernels.hstu_attention import (MAX_D, MAX_REL_POS,
 from repro_torch.kernels.ref import hstu_attention_bwd_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "hstu_attention_bwd.cu"
-BT = 32                  # q rows / k columns per block (BT in the source)
+ROWS = 16                # q rows (B2) / k columns (B3) per warp; a block
+                         # covers 1-4 of them (``rows_per_block``)
 
 # the plain torch version the kernels are held against
 hstu_attention_bwd_plain = hstu_attention_bwd_ref
@@ -67,6 +68,9 @@ def _load():
             smem = getattr(lib, name + "_smem_bytes")
             smem.argtypes = [i] * 4
             smem.restype = ctypes.c_longlong
+        lib.hstu_attention_bwd_rows_per_block.argtypes = [ctypes.c_longlong,
+                                                          i]
+        lib.hstu_attention_bwd_rows_per_block.restype = i
         lib.hstu_attention_bwd_error_string.argtypes = [i]
         lib.hstu_attention_bwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -95,7 +99,7 @@ def _checked(q, k, v, rab, n_hist, hist_lengths, target_counts, max_rel_pos,
     if not 0 <= max_rel_pos <= MAX_REL_POS:
         raise ValueError(f"max_rel_pos={max_rel_pos} outside "
                          f"[0, {MAX_REL_POS}]")
-    if b * h > 2 ** 31 - 1 or (s + BT - 1) // BT > 65535 \
+    if b * h > 2 ** 31 - 1 or (s + ROWS - 1) // ROWS > 65535 \
             or b * h * s * max(dqk, dv) >= 2 ** 62:
         raise ValueError("tensor too large for the kernels' indexing")
     if rab is not None:
@@ -124,6 +128,13 @@ def _launch(name: str, dqk: int, dv: int, max_rel_pos: int, use_rab: bool,
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
+def rows_per_block(n_heads: int, s: int) -> int:
+    """Output rows one block of B2 or B3 covers at this shape (16 x the
+    header's ``tile_config`` rb, from (B*H, S) alone); B2 writes one drab
+    partial table per block."""
+    return _load().hstu_attention_bwd_rows_per_block(n_heads, s)
+
+
 def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, rab: Optional[torch.Tensor],
                                n_hist: int, hist_lengths: torch.Tensor,
@@ -132,9 +143,10 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                ) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
     """Launch B2: ``(dq (B, H, S, Dqk), drab (H, 2*max_rel_pos+1) or
-    None)``. The kernel writes one drab partial row per (b, h, q tile); they
-    are summed here over b and the tiles in a fixed order (the reference's
-    ``.sum(0)`` over its per-(b, h) partials)."""
+    None)``. The kernel writes one partial drab table per (b, h, row
+    block) into an (H, nrab, B * row blocks) buffer; they are summed here
+    over its last axis in a fixed order (the reference's ``.sum(0)`` over
+    its per-(b, h) partials)."""
     global dq_launch_count
     hl, tc = _checked(q, k, v, rab, n_hist, hist_lengths, target_counts,
                       max_rel_pos, g)
@@ -142,9 +154,9 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = v.shape[-1]
     use_rab = rab is not None
     nrab = 2 * max_rel_pos + 1
-    n_qt = (s + BT - 1) // BT
+    n_blocks = -(-s // rows_per_block(b * h, s))
     dq = torch.empty_like(q)
-    part = torch.empty((h, b * n_qt, nrab) if use_rab else (0,),
+    part = torch.empty((h, nrab, b * n_blocks) if use_rab else (0,),
                        device=q.device, dtype=torch.float32)
     if dq.numel() == 0:
         return dq, (torch.zeros((h, nrab), device=q.device, dtype=rab.dtype)
@@ -155,7 +167,7 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
             tc.data_ptr(), dq.data_ptr(), part.data_ptr() if use_rab else None,
             b, h, s, dqk, dv, n_hist, max_rel_pos, int(use_rab))
     dq_launch_count += 1
-    return dq, (part.sum(1).to(rab.dtype) if use_rab else None)
+    return dq, (part.sum(-1).to(rab.dtype) if use_rab else None)
 
 
 def hstu_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,

@@ -332,7 +332,8 @@ def test_tf32x3_products_hold_the_gate_prefix(shape, use_rab):
 
 
 @pytest.mark.parametrize("source", ["hstu_attention_fwd.cu",
-                                    "hstu_attention_prefix_fwd.cu"])
+                                    "hstu_attention_prefix_fwd.cu",
+                                    "hstu_attention_bwd.cu"])
 def test_build_digest_covers_included_headers(tmp_path, source):
     # builds nothing: a copy of the sources, one header byte changed
     import shutil

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the card's
-machine has neither). An AST scan, so imports inside functions count too.
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's kernel scripts (``scripts/hstu_*``)
+imports ``jax`` or the JAX package ``repro`` (the card's machine has
+neither). An AST scan, so imports inside functions count too.
 """
 import ast
 from pathlib import Path
@@ -9,6 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+SCRIPT_FILES = sorted((ROOT / "scripts").glob("hstu_*_ablations.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -42,7 +44,7 @@ def test_port_has_modules():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"] + SCRIPT_FILES,
     ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_imports(path):
     bad = [(root, line) for root, line in imported_roots(path)
