@@ -37,12 +37,28 @@ Phases (any failure exits non-zero and prints no result):
                    ragged lengths with zeros, D 8 and 128 and out-of-range
                    ids (empty bags exactly 0; bf16 against the plain
                    version on the same bf16 table); the backward through
-                   ``EmbeddingBagFn`` (B6 + the densify) against autograd
+                   ``embedding_bag`` (``GroupedEmbeddingBagFn`` at one
+                   field: B6 + the densify) against autograd
                    of the plain version, B6's rows and ids equal to the
                    plain COO function, two backward calls bitwise equal;
                    the padded bag under REPRO_TORCH_EMB_DEDUP=always still
                    launches B5 and B6; the raw wrappers refuse a
-                   grad-requiring input and launch nothing
+                   grad-requiring input and launch nothing. Then the
+                   grouped launch (B5 and B6 over all fields of a lookup)
+                   through ``GroupedEmbeddingBagFn``: dlrm-mlperf's RO and
+                   NRO sides at its scoring and training batches (13
+                   fields, vocabs capped at 2**21), F = 1 at the LSR
+                   shapes, and groups of three fields at the edge shapes
+                   (ragged, D 8, D 20, out-of-range ids, V 4 at B 8,192
+                   and 3,072, bf16), sum / mean / max: against the plain
+                   grouped version, bit for bit against the stack of the
+                   F = 1 launches and (sum, mean) against slot-ordered fp32
+                   adds, B6's rows and ids equal to plain, two backward
+                   calls bit for bit, table gradients vs autograd of plain,
+                   one B5 and one B6 launch a call; the 16-byte and
+                   one-element load paths bit for bit, strided int64 ids,
+                   forced dedup (still one grouped launch each way), the
+                   raw grouped wrappers' refusals
   6. dot kernels — the DLRM dot interaction (B7) through dispatch's auto
                    backend against its plain version, with and without the
                    diagonal, at the dlrm-mlperf scoring (512, 26, 128) and
@@ -94,13 +110,14 @@ Phases (any failure exits non-zero and prints no result):
                    2**21 rows each: 13,693,773 rows, 7.0 GB; seeded
                    random params) scores 16 synthetic batches of 128
                    requests / 512 impressions under no_grad: B7 1 and B5
-                   26 launches per ROO forward, B1-B4 and B6 0; logits vs
-                   the plain dot and bag backends on the card and vs the
-                   impression-level forward; impressions/s, requests/s
-                   and peak memory
+                   2 launches per ROO forward (one grouped launch a side;
+                   1 for the impression-level forward's 26 fields), B1-B4
+                   and B6 0; logits vs the plain dot and bag backends on
+                   the card and vs the impression-level forward;
+                   impressions/s, requests/s and peak memory
  14. dlrm train  — the dlrm-mlperf Trainer (Adam + row-wise Adagrad, dense
                    table gradients) takes 20 steps of 2,048 requests /
-                   8,192 impressions: B7 20, B5 = B6 = 520, B1-B4 0, no
+                   8,192 impressions: B7 20, B5 = B6 = 40, B1-B4 0, no
                    skipped step; losses vs the plain backends on the card,
                    and at a 2**14-row cap (64 / 256, 10 steps) vs the CPU;
                    steps/s, impressions/s, a per-step breakdown, peak
@@ -116,14 +133,21 @@ Phases (any failure exits non-zero and prints no result):
                    and trainers' rates; also B1 at the training shape,
                    B4 at n_new 1, 8 and 64, and B5 / B6 at dlrm's one-hot
                    bags (D 128, B 512 and 8,192) beside F.embedding_bag,
-                   and B2 / B3 also at the userarch_hstu step's shape
+                   and B2 / B3 also at the userarch_hstu step's shape; the
+                   grouped B5 / B6 for each dlrm side at both batches
+                   beside their summed bound, plain, 13 F = 1 launches and
+                   13 F.embedding_bag calls (for B6 the backward of 13
+                   sparse=True calls: the per-slot COO rows), and one
+                   host-issued _field_lookup, grouped vs per-field
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
 order (atol = rtol = 1e-5 on attention outputs and on dq, dk, dv; 1e-4 on
 drab, a sum over B·S² cells, and on logits and gradients of the model).
 Bag outputs: |kernel - plain| <= 1e-5 with the table at lsr_init's scale;
-the table gradient atol = rtol = 1e-5; B6's rows and ids bit for bit.
+the table gradient atol = rtol = 1e-5; B6's rows and ids bit for bit; the
+grouped B5 bit for bit against its F = 1 launches and, for sum and mean,
+against fp32 adds in slot order (the kernel adds in that order).
 Dot interaction: atol 1e-4, rtol 1e-5 at std-1 inputs (sums of up to 256
 O(1) products, summed in another order); DLRM logits 1e-4; losses 1e-5.
 
@@ -1359,7 +1383,8 @@ def bag_inputs(shape, seed, device, dtype=None, scale=0.02):
 
 def phase_bag_kernels(emod, device) -> dict:
     """B5 against its plain version through dispatch's auto backend, and B6
-    through ``EmbeddingBagFn`` against autograd of the plain version, at
+    through ``embedding_bag`` (``GroupedEmbeddingBagFn`` at one field)
+    against autograd of the plain version, at
     the LSR shapes and edge shapes. Returns the largest |kernel - plain| of
     each kernel's outputs."""
     import torch
@@ -1495,6 +1520,293 @@ def phase_bag_kernels(emod, device) -> dict:
             raise SystemExit("a raw bag wrapper ran on a grad-requiring input")
     if (emod.fwd_launch_count, emod.coo_launch_count) != before:
         raise SystemExit("a refused raw bag call launched its kernel")
+    return worst
+
+
+def dlrm_side_vocabs(side: str) -> list:
+    """The padded vocabs of dlrm-mlperf's RO ("ro") or NRO ("nro") fields,
+    capped at DLRM_CAP rows as the dlrm phases cap them."""
+    return [t.vocab for t in dlrm_config(DLRM_CAP).tables().tables
+            if t.side == side]
+
+
+def group_inputs(b, l, d, vocabs, seed, device, dtype=None, scale=0.02,
+                 one_hot=False):
+    """A group's tables (std ``scale``, from a generator on ``device``:
+    dlrm's fields hold 2**21 rows), ids (B, F, L) with out-of-range entries,
+    ragged lengths with zeros, full bags and bags past L (all ones when
+    ``one_hot``, as dlrm's), and an output gradient g (B, F, D) ~ N(0, 1);
+    ids, lengths and g from numpy."""
+    import numpy as np
+    import torch
+    f = len(vocabs)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tables = [scale * torch.randn((v, d), generator=gen, device=device)
+              for v in vocabs]
+    ids = np.stack([rng.integers(0, v, size=(b, l)) for v in vocabs],
+                   axis=1).astype(np.int32)
+    if one_hot:
+        lens = np.ones((b, f), np.int32)
+    else:
+        far = rng.random((b, f, l)) < 0.1
+        ids[far] = rng.integers(-5, 2 * max(vocabs) + 5, size=int(far.sum()))
+        lens = rng.integers(0, l + 3, size=(b, f)).astype(np.int32)
+        lens[::5] = 0
+        lens[0], lens[-1] = l, 0
+    g = rng.normal(size=(b, f, d)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    out = dict(tables=tables, ids=t(ids), lens=t(lens), g=t(g),
+               vocabs=list(vocabs))
+    if dtype is not None:
+        out["tables"] = [x.to(dtype) for x in tables]
+        out["g"] = out["g"].to(dtype)
+    return out
+
+
+def ordered_bags(tables, ids, lens, pooling):
+    """Sum or mean bags added slot by slot in slot order, in fp32 with one
+    rounding per add, then rounded to the table's dtype and divided there:
+    B5's order of operations, so its output must equal this bit for bit."""
+    import torch
+    b, _, l = ids.shape
+    outs = []
+    for j, t in enumerate(tables):
+        n = lens[:, j].clamp(0, l)
+        acc = torch.zeros((b, t.shape[1]), device=t.device)
+        for s in range(l):
+            row = t[ids[:, j, s].long().clamp(0, t.shape[0] - 1)].float()
+            acc = torch.where((s < n)[:, None], acc + row, acc)
+        r = acc.to(t.dtype)
+        if pooling == "mean":
+            den = lens[:, j].clamp(min=1).to(t.dtype).float()
+            r = (r.float() / den[:, None]).to(t.dtype)
+        outs.append(r)
+    return torch.stack(outs, 1)
+
+
+def group_cases() -> dict:
+    """name: (B, L, D, vocabs, dtype, scale, one-hot). dlrm's sides at its
+    scoring and training batches (13 fields, capped vocabs), F = 1 at the
+    LSR shapes, and BAG_SHAPES' edges as groups of three fields."""
+    import torch
+    ro, nro = dlrm_side_vocabs("ro"), dlrm_side_vocabs("nro")
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {
+        "dlrm RO score B128 F13": (128, 1, 128, ro, f32, 0.01, True),
+        "dlrm NRO score B512 F13": (512, 1, 128, nro, f32, 0.01, True),
+        "dlrm RO train B2048 F13": (2048, 1, 128, ro, f32, 0.01, True),
+        "dlrm NRO train B8192 F13": (8192, 1, 128, nro, f32, 0.01, True),
+        "LSR train B32 L64 D64 F1": (32, 64, 64, [50000], f32, 0.02, False),
+        "LSR serve B64 L64 D64 F1": (64, 64, 64, [50000], f32, 0.02, False),
+        "LSR impression B192 L64 D64 F1": (192, 64, 64, [50000], f32, 0.02,
+                                           False),
+        "ragged B37 L50 D64 F3": (37, 50, 64, [50000, 3, 977], f32, 0.02,
+                                  False),
+        "D8 F3": (16, 20, 8, [1000, 4, 37], f32, 0.02, False),
+        "D20 (16-byte loads, 5 of 8 lanes) F3": (16, 9, 20, [100, 3, 77],
+                                                 f32, 0.02, False),
+        "D18 (one element a lane) F3": (16, 9, 18, [100, 3, 77], f32, 0.02,
+                                        False),
+        "out-of-range ids F3": (16, 20, 64, [300, 3, 50], f32, 0.02, False),
+        "V4 B8192 L1 D128 F3": (8192, 1, 128, [4, 4, 4], f32, 0.02, False),
+        "V4 B3072 L1 D128 F2": (3072, 1, 128, [4, 4], f32, 0.02, False),
+        "bf16 B32 L64 D64 F3": (32, 64, 64, [50000, 3, 977], bf16, 1.0,
+                                False),
+        "bf16 D128 F3": (33, 7, 128, [300, 50, 3], bf16, 1.0, False),
+        "bf16 D12 (one element a lane) F3": (16, 9, 12, [100, 3, 77], bf16,
+                                             1.0, False),
+    }
+
+
+def phase_grouped_bag_kernels(emod, device) -> dict:
+    """The grouped B5 and B6 (one launch over a group of fields) through
+    ``embedding_bag_grouped`` (dispatch's auto backend, so
+    ``GroupedEmbeddingBagFn``), at every ``group_cases`` shape, sum / mean
+    / max: the output against the plain grouped version (BAG_TOL; bf16 at
+    BF16_ATOL / BF16_RTOL), bit for bit against the stack of the F = 1
+    launches and (sum, mean) against ``ordered_bags``; B6's rows and ids
+    equal to the plain grouped version; two backward calls bit for bit,
+    their table gradients against autograd of the plain version (fp32;
+    ATOL + RTOL times each row's sum of |g| contributions, as rows sum
+    thousands of entries in another order);
+    one B5 and one B6 launch a forward and backward. Then the 16-byte and
+    the one-element paths on the same data (fp32 and bf16: a table and a g
+    one element off), strided int64 ids and lengths, and forced dedup. Returns the
+    largest |kernel - plain| of each kernel's fp32 outputs."""
+    import torch
+    from repro_torch.embeddings import collection
+    worst = {"fwd": 0.0, "coo": 0.0}
+    for i, (name, (b, l, d, vocabs, dtype, scale, one_hot)) in enumerate(
+            group_cases().items()):
+        x = group_inputs(b, l, d, vocabs, 70 + i, device, dtype, scale,
+                         one_hot)
+        tables, ids, lens, g = x["tables"], x["ids"], x["lens"], x["g"]
+        fp32 = dtype == torch.float32
+        for pooling in ("sum", "mean", "max"):
+            grads, counts = [], []
+            for _ in range(2):
+                leaves = [t.detach().requires_grad_(True) for t in tables]
+                b5, b6 = emod.fwd_launch_count, emod.coo_launch_count
+                got = emod.embedding_bag_grouped(leaves, ids, lens, pooling)
+                grads.append(torch.autograd.grad(got, leaves, g))
+                counts.append((emod.fwd_launch_count - b5,
+                               emod.coo_launch_count - b6))
+            got = got.detach()
+            plain = emod.embedding_bag_grouped_plain(tables, ids, lens,
+                                                     pooling)
+            b5 = emod.fwd_launch_count
+            single = torch.stack([emod.embedding_bag_fwd_cuda(
+                t, ids[:, j, :], lens[:, j], pooling)
+                for j, t in enumerate(tables)], 1)
+            singles = emod.fwd_launch_count - b5
+            torch.cuda.synchronize()
+            err = float((got.float() - plain.float()).abs().max())
+            if fp32:
+                worst["fwd"] = max(worst["fwd"], err)
+                fwd_ok = err <= BAG_TOL
+            else:
+                fwd_ok = got.dtype == dtype and torch.allclose(
+                    got.float(), plain.float(), atol=BF16_ATOL,
+                    rtol=BF16_RTOL)
+            same_single = torch.equal(got, single)
+            in_order = (pooling == "max"
+                        or torch.equal(got, ordered_bags(tables, ids, lens,
+                                                         pooling)))
+            repeat = all(torch.equal(a, c) for a, c in zip(*grads))
+            grad_ok, gerr = True, "-"
+            if fp32:
+                # a table row's gradient sums up to 2,048 of g's entries
+                # (8,192 ids into 4 rows), in another order than autograd
+                # of the plain version: held to ATOL + RTOL times the sum
+                # of the entries' magnitudes (the same gradient of |g|)
+                leaves = [t.detach().requires_grad_(True) for t in tables]
+                pout = emod.embedding_bag_grouped_plain(leaves, ids, lens,
+                                                        pooling)
+                want = torch.autograd.grad(pout, leaves, g,
+                                           retain_graph=True)
+                mags = torch.autograd.grad(pout, leaves, g.abs())
+                gerr = max(float((a - w).abs().max())
+                           for a, w in zip(grads[0], want))
+                grad_ok = all(bool(((a - w).abs() <= ATOL + RTOL * m).all())
+                              for a, w, m in zip(grads[0], want, mags))
+                gerr = f"{gerr:.3e}"
+                del pout, want, mags
+            coo_ok, coo = True, "-"
+            if pooling != "max":
+                cids, rows = emod.embedding_bag_grouped_coo_rows_cuda(
+                    g, ids, lens, vocabs, pooling)
+                pids, prows = emod.embedding_bag_grouped_coo_rows_plain(
+                    g, ids, lens, vocabs, pooling)
+                torch.cuda.synchronize()
+                rerr = float((rows.float() - prows.float()).abs().max())
+                if fp32:
+                    worst["coo"] = max(worst["coo"], rerr)
+                coo_ok = torch.equal(cids, pids) and torch.equal(rows, prows)
+                coo = f"{rerr:.3e} ids_equal={torch.equal(cids, pids)}"
+            want_counts = [(1, 0 if pooling == "max" else 1)] * 2
+            print(f"[grouped bags] {name} {pooling}: max|B5-plain| "
+                  f"{err:.3e}; == F=1 launches {same_single}; in slot order "
+                  f"{in_order}; table grads max|Fn-plain| {gerr} "
+                  f"bitwise_repeat={repeat}; B6 rows max|diff| {coo}; "
+                  f"launches B5/B6 {counts}, F=1 {singles}")
+            if not (fwd_ok and same_single and in_order and repeat
+                    and grad_ok and coo_ok and counts == want_counts
+                    and singles == len(tables)):
+                raise SystemExit(f"the grouped bag kernels disagree or "
+                                 f"launched wrongly at {name} {pooling}")
+            del grads, got, plain, single
+        del x, tables
+    torch.cuda.empty_cache()
+
+    # the same group on both load paths: a table and a g one element off
+    # (4 bytes in fp32, 2 in bf16) take the one-element path, their aligned
+    # copies the 16-byte one
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, device=device, dtype=t.dtype)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    # (fp32 last: the checks below reuse its inputs)
+    for dtype, scale in ((torch.bfloat16, 1.0), (torch.float32, 0.02)):
+        x = group_inputs(37, 9, 128, [300, 50, 3], 90, device, dtype, scale)
+        tables, ids, lens, g = x["tables"], x["ids"], x["lens"], x["g"]
+        shifted = [tables[0], offset(tables[1]), tables[2]]
+        for pooling in ("sum", "mean", "max"):
+            a = emod.embedding_bag_grouped_fwd_cuda(tables, ids, lens,
+                                                    pooling)
+            s = emod.embedding_bag_grouped_fwd_cuda(shifted, ids, lens,
+                                                    pooling)
+            same = torch.equal(a, s)
+            if pooling != "max":
+                ca, ra = emod.embedding_bag_grouped_coo_rows_cuda(
+                    g, ids, lens, x["vocabs"], pooling)
+                cs, rs = emod.embedding_bag_grouped_coo_rows_cuda(
+                    offset(g), ids, lens, x["vocabs"], pooling)
+                same = same and torch.equal(ca, cs) and torch.equal(ra, rs)
+            print(f"[grouped bags] {dtype} 16-byte vs one-element path "
+                  f"{pooling}: equal bit for bit {same}")
+            if not same:
+                raise SystemExit("the grouped bag kernels' load paths "
+                                 "disagree")
+
+    # ids and lengths read through their strides, int64 converted
+    wide = torch.zeros((37, 5, 18), dtype=torch.int64, device=device)
+    wide[:, 1:4, ::2] = ids.long()
+    wlens = torch.zeros((37, 5), dtype=torch.int64, device=device)
+    wlens[:, 1:4] = lens.long()
+    for pooling in ("sum", "max"):
+        a = emod.embedding_bag_grouped_fwd_cuda(tables, ids, lens, pooling)
+        s = emod.embedding_bag_grouped_fwd_cuda(
+            tables, wide[:, 1:4, ::2], wlens[:, 1:4], pooling)
+        print(f"[grouped bags] strided int64 ids and lengths {pooling}: "
+              f"equal bit for bit {torch.equal(a, s)}")
+        if not torch.equal(a, s):
+            raise SystemExit("the grouped bag kernels read strided ids "
+                             "wrongly")
+
+    # forced dedup: each field pools its own distinct rows, still one group
+    for pooling in ("sum", "mean"):
+        leaves = [t.detach().requires_grad_(True) for t in tables]
+        b5, b6 = emod.fwd_launch_count, emod.coo_launch_count
+        got = collection.bag_lookup_dense_grouped(leaves, ids, lens, pooling,
+                                                  dedup=True)
+        grads = torch.autograd.grad(got, leaves, g)
+        launched = (emod.fwd_launch_count - b5, emod.coo_launch_count - b6)
+        pleaves = [t.detach().requires_grad_(True) for t in tables]
+        want = emod.embedding_bag_grouped_plain(pleaves, ids, lens, pooling)
+        pgrads = torch.autograd.grad(want, pleaves, g, retain_graph=True)
+        mags = torch.autograd.grad(want, pleaves, g.abs())
+        torch.cuda.synchronize()
+        err = float((got - want).detach().abs().max())
+        ok = launched == (1, 1) and err <= BAG_TOL and all(
+            bool(((a - w).abs() <= ATOL + RTOL * m).all())
+            for a, w, m in zip(grads, pgrads, mags))
+        print(f"[grouped bags] dedup=always {pooling}: launches B5/B6 "
+              f"{launched}; max|out-plain| {err:.3e}; grads ok {ok}")
+        if not ok:
+            raise SystemExit(f"the dedup=always grouped bag did not run B5 "
+                             f"and B6 once, or disagrees at {pooling}")
+
+    # the raw grouped wrappers refuse a grad-requiring input, launching
+    # nothing
+    before = (emod.fwd_launch_count, emod.coo_launch_count)
+    for call in (lambda: emod.embedding_bag_grouped_fwd_cuda(
+                     [t.detach().requires_grad_(True) for t in tables], ids,
+                     lens),
+                 lambda: emod.embedding_bag_grouped_coo_rows_cuda(
+                     g.detach().requires_grad_(True), ids, lens,
+                     x["vocabs"])):
+        try:
+            call()
+        except RuntimeError as err:
+            print(f"[grouped bags] raw grouped wrapper under grad refused: "
+                  f"{err}")
+        else:
+            raise SystemExit("a raw grouped bag wrapper ran on a "
+                             "grad-requiring input")
+    if (emod.fwd_launch_count, emod.coo_launch_count) != before:
+        raise SystemExit("a refused raw grouped bag call launched its kernel")
     return worst
 
 
@@ -1762,15 +2074,20 @@ def phase_lsr_hstu_train(emod, kmod, pmod, bmod, device) -> None:
 
 def bound_bag(x, which: str) -> tuple:
     """Least time (ms) the card needs for one B5 or B6 call on these
-    inputs. B5 bytes: the table rows the valid slots read, the ids and
-    lengths, the (B, D) output; its operations one add per kept element
-    (and a divide per output). B6 bytes: g, the ids and lengths read, all
-    B·L·D rows and B·L ids written; one multiply per row element."""
+    inputs. B5 bytes: each distinct table row the valid slots read (a row
+    that repeats need not move twice), the ids and lengths, the (B, D)
+    output; its operations one add per kept element (and a divide per
+    output). B6 bytes: g, the ids and lengths read, all B·L·D rows and B·L
+    ids written; one multiply per row element."""
+    import torch
     b, l = x["ids"].shape
-    d = x["table"].shape[1]
-    kept = int(x["lens"].clamp(0, l).sum())
+    v, d = x["table"].shape
+    n = x["lens"].clamp(0, l)
+    kept = int(n.sum())
     if which == "fwd":
-        n_bytes = 4 * (kept * d + b * l + b + b * d)
+        valid = torch.arange(l, device=n.device)[None, :] < n[:, None]
+        rows = int(x["ids"].long().clamp(0, v - 1)[valid].unique().numel())
+        n_bytes = 4 * (rows * d + b * l + b + b * d)
         ops = kept * d + b * d
     else:
         n_bytes = 4 * (b * d + b * l + b + b * l * d + b * l)
@@ -1910,6 +2227,154 @@ def phase_dlrm_bag_times(emod, device, card: str) -> None:
         del tg, lib_out
     del table
     torch.cuda.empty_cache()
+
+
+def bound_group(x, which: str) -> tuple:
+    """``bound_bag`` summed over a group's fields: the least time (ms) the
+    card needs for one grouped B5 or B6 call on these inputs."""
+    n_bytes = ops = 0
+    for j, t in enumerate(x["tables"]):
+        _, _, fb, fo = bound_bag(dict(table=t, ids=x["ids"][:, j, :],
+                                      lens=x["lens"][:, j]), which)
+        n_bytes, ops = n_bytes + fb, ops + fo
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
+
+
+def labelled_device_ms(key: str, fn, iters: int) -> float:
+    """``device_ms``, naming the timed call if it fails."""
+    try:
+        return device_ms(fn, iters)
+    except SystemExit as err:
+        raise SystemExit(f"{key}: {err}") from None
+
+
+def phase_grouped_bag_times(emod, device, card: str) -> dict:
+    """The grouped B5 and B6 (sum, one-hot, D 128) for each of dlrm-mlperf's
+    sides (13 fields, vocabs capped at DLRM_CAP) at its scoring (B_RO 128 /
+    B_NRO 512) and training (2,048 / 8,192) batches, beside: their summed
+    bound; the plain grouped version; 13 launches of the F = 1 call (the
+    per-field route); 13 ``F.embedding_bag`` calls and, for B6, the
+    backward of 13 ``F.embedding_bag(..., sparse=True)`` calls, whose
+    gradient is the per-slot COO rows, B6's own function (the library
+    yardsticks); and the host-issued time of one whole ``_field_lookup``
+    under no_grad, grouped against the per-field route with its int32
+    copies. Returns each side's numbers at the training batch for the
+    kernels' JSON line, keyed by (side, "fwd" | "coo")."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.embeddings import collection
+    from repro_torch.models import dlrm
+    out = {}
+    for side, fields in (("RO", range(13)), ("NRO", range(13, 26))):
+        vocabs = dlrm_side_vocabs(side.lower())
+        gen = torch.Generator(device=device).manual_seed(63)
+        tables = [0.01 * torch.randn((v, 128), generator=gen, device=device)
+                  for v in vocabs]
+        params = {"tables": {f"t{i}": t for i, t in zip(fields, tables)}}
+        for stage, b in (("score", 128 if side == "RO" else 512),
+                         ("train", 2048 if side == "RO" else 8192)):
+            ids = torch.stack([torch.randint(0, v, (b, 1), generator=gen,
+                                             device=device,
+                                             dtype=torch.int32)
+                               for v in vocabs], 1)
+            lens = torch.ones((b, 13), dtype=torch.int32, device=device)
+            g = torch.randn((b, 13, 128), generator=gen, device=device)
+            x = dict(tables=tables, ids=ids, lens=lens)
+            fwd = lambda: emod.embedding_bag_grouped_fwd_cuda(tables, ids,
+                                                              lens)
+            fwd_plain = lambda: emod.embedding_bag_grouped_plain(tables, ids,
+                                                                 lens)
+            fwd_f1 = lambda: [emod.embedding_bag_fwd_cuda(
+                t, ids[:, j, :], lens[:, j]) for j, t in enumerate(tables)]
+            coo = lambda: emod.embedding_bag_grouped_coo_rows_cuda(
+                g, ids, lens, vocabs)
+            coo_plain = lambda: emod.embedding_bag_grouped_coo_rows_plain(
+                g, ids, lens, vocabs)
+            gs = [g[:, j, :].contiguous() for j in range(13)]
+            coo_f1 = lambda: [emod.embedding_bag_coo_rows_cuda(
+                gs[j], ids[:, j, :], lens[:, j], v)
+                for j, v in enumerate(vocabs)]
+            flat = [ids[:, j, 0].long() for j in range(13)]
+            offsets = torch.arange(b, device=device)
+            lib_fwd = lambda: [F.embedding_bag(flat[j], t, offsets,
+                                               mode="sum")
+                               for j, t in enumerate(tables)]
+            tg = [t.detach().requires_grad_(True) for t in tables]
+            lib_out = [F.embedding_bag(flat[j], t, offsets, mode="sum",
+                                       sparse=True)
+                       for j, t in enumerate(tg)]
+            lib_bwd = lambda: torch.autograd.grad(lib_out, tg, gs,
+                                                  retain_graph=True)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.stack(lib_fwd(), 1), fwd()):
+                raise SystemExit("times: F.embedding_bag disagrees with the "
+                                 "grouped B5")
+            cids, rows = coo()
+            for j, sg in enumerate(lib_bwd()):
+                if not (sg.is_sparse and torch.equal(sg._values(), rows[j])
+                        and torch.equal(sg._indices()[0],
+                                        cids[j].long())):
+                    raise SystemExit("times: F.embedding_bag's sparse "
+                                     "gradient disagrees with the grouped B6")
+            del cids, rows
+            # plain, kernel, kernel, plain; iters x launches a call stay
+            # under ~1,000 (the launch queue)
+            ms = {key: labelled_device_ms(key, fn, iters) for key, fn, iters in (
+                ("fwd_plain", fwd_plain, 6), ("fwd", fwd, 200),
+                ("fwd_again", fwd, 200), ("fwd_plain_again", fwd_plain, 6),
+                ("fwd_f1", fwd_f1, 40), ("lib_fwd", lib_fwd, 10),
+                ("coo_plain", coo_plain, 6), ("coo", coo, 200),
+                ("coo_again", coo, 200), ("coo_plain_again", coo_plain, 6),
+                ("coo_f1", coo_f1, 40))}
+            # should the sparse backward synchronise the host, it has no
+            # device time: its host-issued time is printed and the JSON
+            # line takes no library time for B6
+            try:
+                ms["lib_bwd"], lib_bwd_how = device_ms(lib_bwd, 8), "device"
+            except SystemExit:
+                ms["lib_bwd"], lib_bwd_how = None, (
+                    f"no device time: it synchronises the host; host-issued "
+                    f"{call_ms(lib_bwd, 8, warmup=2):.5f} ms")
+            for which, label, lib in (("fwd", "B5 embedding_bag_fwd_grouped",
+                                       "lib_fwd"),
+                                      ("coo", "B6 embedding_bag_bwd_coo_grouped",
+                                       "lib_bwd")):
+                bound_ms, bound_by, n_bytes, ops = bound_group(x, which)
+                print(f"[times] {card}: {label} sum dlrm {stage} {side} side "
+                      f"B{b} F13 L1 D128, device time per call: kernel "
+                      f"{ms[which]:.5f} ms (again {ms[which + '_again']:.5f}"
+                      f"), plain torch {ms[which + '_plain']:.5f} ms (again "
+                      f"{ms[which + '_plain_again']:.5f}); 13 F=1 launches "
+                      f"{ms[which + '_f1']:.5f} ms; bound {bound_ms:.5f} ms "
+                      f"({bound_by}: {n_bytes} B, {ops} FLOP at 3.35 TB/s / "
+                      f"67 TFLOP/s); library (13 calls"
+                      + (f", sparse backward: {lib_bwd_how}) "
+                         if which == "coo" else ") ")
+                      + ("-" if ms[lib] is None else f"{ms[lib]:.5f} ms"))
+                if stage == "train":
+                    out[side, which] = dict(ms=ms[which],
+                                      plain_ms=ms[which + "_plain"],
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=ms[lib])
+            with torch.no_grad():
+                new = lambda: dlrm._field_lookup(params, ids, lens, fields)
+                old = lambda: torch.stack([collection.bag_lookup_dense(
+                    t, ids[:, j, :].contiguous(), lens[:, j].contiguous())
+                    for j, t in enumerate(tables)], dim=1)
+                if not torch.equal(new(), old()):
+                    raise SystemExit("times: the grouped and per-field "
+                                     "_field_lookup disagree")
+                print(f"[times] {card}: dlrm _field_lookup {stage} {side} "
+                      f"side B{b}, host-issued call: grouped "
+                      f"{call_ms(new, 100):.5f} ms, per-field route (13 "
+                      f"bags, each after int32 copies of its ids and "
+                      f"lengths, then a stack) {call_ms(old, 20):.5f} ms")
+            del tg, lib_out, gs
+        del tables, params
+        torch.cuda.empty_cache()
+    return out
 
 
 DOT_SHAPES = {   # (B, F, D): dlrm-mlperf scoring and training, the
@@ -2093,7 +2558,8 @@ def dlrm_describe(cfg) -> str:
 def phase_dlrm_score(dmod, emod, hstu_mods, device, card: str) -> dict:
     """dlrm-mlperf scoring at the dry-run's serve_p99 shape (B_RO 128
     requests, B_NRO 512 impressions) over 16 synthetic batches through B5
-    (26 bags) and B7 (one interaction) per forward: launch counts, scores
+    (one grouped launch for each side's 13 bags) and B7 (one interaction)
+    per forward: launch counts, scores
     vs the plain dot and bag backends on the card, ROO vs impression-level
     logits, rates and peak memory."""
     import torch
@@ -2128,10 +2594,11 @@ def phase_dlrm_score(dmod, emod, hstu_mods, device, card: str) -> dict:
               f"{n_batches * b_ro / wall:.1f} requests/s; launches B7 "
               f"{launches['b7']} B5 {launches['b5']} B6 {launches['b6']} "
               f"B1-B4 {launches['hstu']}")
-        if launches["b7"] != n_batches or launches["b5"] != 26 * n_batches \
+        if launches["b7"] != n_batches or launches["b5"] != 2 * n_batches \
                 or launches["b6"] or any(launches["hstu"]):
-            raise SystemExit("dlrm score: launches are not B7 1 and B5 26 "
-                             "per forward, B1-B4 and B6 0")
+            raise SystemExit("dlrm score: launches are not B7 1 and B5 2 "
+                             "(one grouped launch a side) per forward, B1-B4 "
+                             "and B6 0")
         if any(x.shape != (b_nro,) or not bool(torch.isfinite(x).all())
                for x in logits):
             raise SystemExit("dlrm score: logits of the wrong shape or not "
@@ -2168,10 +2635,11 @@ def phase_dlrm_score(dmod, emod, hstu_mods, device, card: str) -> dict:
                 emod.fwd_launch_count - before[1])
         print(f"[dlrm score] ROO vs impression-level logits on one batch: "
               f"max|diff| {d_imp:.3e} ok={ok}; launches B7, B5 {grew}")
-        if not ok or grew != (1, 26):
+        if not ok or grew != (1, 1):
             raise SystemExit("dlrm score: ROO and impression-level logits "
                              "disagree, or the impression-level forward did "
-                             "not launch B7 once and B5 26 times")
+                             "not launch B7 once and B5 once (one group of "
+                             "26 fields)")
     peak = torch.cuda.max_memory_allocated()
     print(f"[dlrm score] {card}: {n_batches * b_nro / wall:.1f} "
           f"impressions/s, {n_batches * b_ro / wall:.1f} requests/s; peak "
@@ -2252,9 +2720,9 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
     print(f"[dlrm train] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} B1-B4 "
           f"{got[3:]}; skipped steps {trainer.skipped_steps}; history "
           f"{trainer.history}")
-    if got[:3] != (steps, 26 * steps, 26 * steps) or any(got[3:]):
+    if got[:3] != (steps, 2 * steps, 2 * steps) or any(got[3:]):
         raise SystemExit("dlrm train: launches are not B7 = steps, B5 = B6 "
-                         "= 26 x steps, B1-B4 0")
+                         "= 2 x steps (one grouped launch a side), B1-B4 0")
     if int(state["step"]) != steps or len(losses) != steps \
             or not bool(torch.isfinite(losses).all()) \
             or trainer.skipped_steps \
@@ -2355,7 +2823,8 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     del state
     torch.cuda.empty_cache()
-    return dict(launches=got[0], steps_per_s=steps / wall,
+    return dict(launches=got[0], bag_launches=got[1:3],
+                steps_per_s=steps / wall,
                 impressions_per_s=steps * b_nro / wall)
 
 
@@ -2448,6 +2917,7 @@ def main() -> int:
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
     worst_bwd = phase_bwd_kernels(kmod, pmod, bmod, device)
     worst_bag = phase_bag_kernels(emod, device)
+    worst_grouped = phase_grouped_bag_kernels(emod, device)
     worst_dot = phase_dot_kernels(dmod, device)
     pmod.reset_launch_count()
     emod.reset_launch_count()
@@ -2474,8 +2944,9 @@ def main() -> int:
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
-    bag_times = phase_bag_times(emod, device, card)
+    phase_bag_times(emod, device, card)
     phase_dlrm_bag_times(emod, device, card)
+    grouped_times = phase_grouped_bag_times(emod, device, card)
     dot_times = phase_dot_times(dmod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
@@ -2516,15 +2987,21 @@ def main() -> int:
         for name, line, key, which in (
             ("hstu_attention_bwd_dq", 108, "b2", "dq"),
             ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
-        "name": name, "route": "cuda",
+        "name": f"{name} (dlrm training, {side} side)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": f"src/repro/kernels/embedding_bag.py:{line}",
-        "launches": launches, "max_abs_err": worst_bag[which],
-        **bag_times[which]}
+        "launches": launches // 2,
+        "max_abs_err": max(worst_bag[which], worst_grouped[which]),
+        **grouped_times[side, which]}
+        # dlrm training launches each grouped kernel once a side a step
+        # (phase_dlrm_train asserts B5 = B6 = 2 x steps): half the count
+        # a side, beside that side's times
         for name, line, launches, which in (
-            ("embedding_bag_fwd", 48, lsr_serve["launches"], "fwd"),
-            ("embedding_bag_bwd_coo", 74, lsr_train["launches"]["b6"],
-             "coo"))] + [{
+            ("embedding_bag_fwd_grouped", 48,
+             dlrm_train["bag_launches"][0], "fwd"),
+            ("embedding_bag_bwd_coo_grouped", 74,
+             dlrm_train["bag_launches"][1], "coo"))
+        for side in ("RO", "NRO")] + [{
         "name": "dot_interaction_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
         "replaces": "src/repro/kernels/dot_interaction.py:22",

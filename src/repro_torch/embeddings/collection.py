@@ -5,15 +5,18 @@
   * ``row_lookup``        — (B,)  ids -> (B, D) single rows (item towers)
   * ``bag_lookup``        — JaggedTensor id lists -> (B, D) pooled bags
   * ``bag_lookup_dense``  — padded (B, L) multi-hot -> (B, D) pooled bags
+  * ``bag_lookup_dense_grouped`` — the F fields of one lookup, (B, F, L)
+                            ids -> (B, F, D), as one group
 
 All clip ids to ``[0, vocab)`` and may apply request-level id dedup
 (``dedup_gather``: each distinct id read once, duplicates expanded from the
 small gathered buffer — bit-identical to the direct gather). Policy: the
 ``emb_dedup`` knob (arg > process default > ``REPRO_TORCH_EMB_DEDUP`` >
 auto); auto never dedups, as the reference dedups only on TPU.
-``bag_lookup_dense`` always runs the embedding-bag entry point
-(kernels/embedding_bag.py, backend from ``kernels/dispatch.py``); forced
-dedup pools over the small table of distinct rows by the inverse ids.
+``bag_lookup_dense`` and ``bag_lookup_dense_grouped`` always run the
+embedding-bag entry points (kernels/embedding_bag.py, backend from
+``kernels/dispatch.py``); forced dedup pools over the small table of
+distinct rows by the inverse ids, field by field.
 
 The named collection (``TableConfig``, ``FeatureSpec``,
 ``EmbeddingCollection``) declares tables and routes features to them; so
@@ -24,7 +27,7 @@ far it builds the tables (DLRM's 26 fields are its user). Its ``lookup``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,7 +35,8 @@ from repro_torch.core.hstu import normal_init
 from repro_torch.data.jagged import JaggedTensor
 from repro_torch.embeddings.bag import bag_pool
 from repro_torch.embeddings.sparse import gather_rows
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                              embedding_bag_grouped)
 from repro_torch.scenario.knobs import UNSET, Knob
 
 DEDUP_KNOB = Knob("emb_dedup", "REPRO_TORCH_EMB_DEDUP",
@@ -104,10 +108,39 @@ def bag_lookup_dense(table: torch.Tensor, ids: torch.Tensor,
     """
     if _want_dedup(dedup):
         v = int(vocab) if vocab is not None else int(table.shape[0])
-        uids, inv = torch.unique(torch.clamp(ids.long(), 0, v - 1),
-                                 return_inverse=True)
-        table, ids = gather_rows(table, uids), inv.reshape(ids.shape)
+        table, ids = _distinct_rows(table, ids, v)
     return embedding_bag(table, ids, lengths, pooling, backend=backend)
+
+
+def _distinct_rows(table: torch.Tensor, ids: torch.Tensor,
+                   vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of the distinct clipped ids, and the ids into them."""
+    uids, inv = torch.unique(torch.clamp(ids.long(), 0, vocab - 1),
+                             return_inverse=True)
+    return gather_rows(table, uids), inv.reshape(ids.shape)
+
+
+def bag_lookup_dense_grouped(tables: Sequence[torch.Tensor],
+                             ids: torch.Tensor, lengths: torch.Tensor,
+                             pooling: str = "sum", *,
+                             dedup: Optional[bool] = None) -> torch.Tensor:
+    """The padded bags of the F fields of one lookup: ``tables[f]`` (one D
+    and dtype), ids (B, F, L) + lengths (B, F) -> (B, F, D); field f is
+    ``bag_lookup_dense(tables[f], ids[:, f], lengths[:, f])``.
+
+    Runs ``kernels/embedding_bag.embedding_bag_grouped`` (on CUDA tables one
+    B5 launch forward and one B6 launch backward for all fields; the plain
+    path on CPU ones). Forced dedup gathers each field's distinct rows
+    into a small table of its own and pools those by the inverse ids, still
+    as one group.
+    """
+    tables = list(tables)
+    if _want_dedup(dedup):
+        small = [_distinct_rows(t, ids[:, f, :], int(t.shape[0]))
+                 for f, t in enumerate(tables)]
+        tables = [t for t, _ in small]
+        ids = torch.stack([i for _, i in small], dim=1)
+    return embedding_bag_grouped(tables, ids, lengths, pooling)
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,9 @@ Embedding-bag backends have their own knob (``REPRO_TORCH_EMB_BACKEND``,
 :func:`set_default_emb_backend`, :func:`use_emb_backend`):
 
   cuda   — the hand-written CUDA kernels (kernels/embedding_bag.py):
-           ``EmbeddingBagFn``, forward B5, backward B6 then the densify;
-           CUDA tensors only
+           ``GroupedEmbeddingBagFn`` for the fields of one lookup (one
+           table is a group of one), forward B5, backward B6 then the
+           densify, one launch each way; CUDA tensors only
   torch  — take + masked reduce oracle (kernels/ref.py)
 
 Auto follows the table: ``cuda`` on a CUDA device, ``torch`` otherwise; on

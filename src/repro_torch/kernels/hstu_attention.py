@@ -155,7 +155,8 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
             f"{name}: an input requires grad under grad mode, but the "
             f"kernel's output is outside the autograd graph (the "
             f"differentiable ops are dispatch.hstu_attention, "
-            f"embedding_bag.embedding_bag and "
+            f"embedding_bag.embedding_bag, "
+            f"embedding_bag.embedding_bag_grouped and "
             f"dot_interaction.dot_interaction; the cached-prefix attention "
             f"is forward only)")
 

@@ -9,8 +9,9 @@ ROO applicability: the 13 dense features and the user-side subset of
 sparse fields are RO; item-side fields are NRO. Under ROO the bottom MLP
 and the RO lookups run at B_RO and fan out at the interaction.
 
-On the card each field's bag runs the embedding-bag kernels (B5 forward,
-B6 backward) and the interaction runs B7. Not ported yet: the sharded
+On the card the bags of a side's fields run as one group through the
+embedding-bag kernels (one B5 launch forward, one B6 launch backward) and
+the interaction runs B7. Not ported yet: the sharded
 ``plan`` / ``out_sharded`` lookups (multi-card slice) and
 ``dlrm_table_ids`` (the sparse-row slice).
 """
@@ -25,7 +26,7 @@ from repro_torch.core.fanout import fanout
 from repro_torch.embeddings.collection import (EmbeddingCollection,
                                                EmbeddingCollectionConfig,
                                                FeatureSpec, TableConfig,
-                                               bag_lookup_dense)
+                                               bag_lookup_dense_grouped)
 from repro_torch.models.interactions import dot_interaction
 from repro_torch.models.mlp import mlp_apply, mlp_flops, mlp_init
 
@@ -94,12 +95,12 @@ def dlrm_init(gen: torch.Generator, cfg: DLRMConfig, dtype=torch.float32,
 
 def _field_lookup(params: Dict, ids: torch.Tensor, lengths: torch.Tensor,
                   fields) -> torch.Tensor:
-    """ids: (B, n_fields, multi_hot) -> (B, n_fields, D): one sum bag per
-    field through the collection's padded bag (B5 / B6 on the card)."""
-    embs = [bag_lookup_dense(params["tables"][f"t{i_field}"], ids[:, j, :],
-                             lengths[:, j])
-            for j, i_field in enumerate(fields)]
-    return torch.stack(embs, dim=1)
+    """ids: (B, n_fields, multi_hot) -> (B, n_fields, D): the fields' sum
+    bags as one grouped lookup of the collection (on the card one B5 launch
+    forward and one B6 launch backward for all the fields)."""
+    return bag_lookup_dense_grouped(
+        [params["tables"][f"t{i_field}"] for i_field in fields], ids,
+        lengths)
 
 
 def dlrm_forward_from_embs(params: Dict, cfg: DLRMConfig,

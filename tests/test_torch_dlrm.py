@@ -11,8 +11,9 @@ params are carried across (``interop``) and the same
   * ``dlrm_forward_roo`` / ``_impression`` / ``_from_embs`` logits to
     1e-5, and ROO against impression-level in the port;
   * BCE loss gradients per leaf against ``jax.grad`` (1e-5), the port on
-    its plain path and through ``EmbeddingBagFn`` and ``DotInteractionFn``
-    (their CUDA forwards swapped for the plain versions);
+    its plain path and through ``GroupedEmbeddingBagFn`` and
+    ``DotInteractionFn`` (their CUDA forwards swapped for the plain
+    versions);
   * a 20-step Trainer with the scenario's mixed optimizer against the
     reference's at log_every 1 (losses to rtol 1e-5);
   * the table gradient's densify on both of its paths (a dlrm field at
@@ -262,15 +263,20 @@ def jax_loss(jcfg):
 
 
 def through_functions(monkeypatch):
-    """Route the port's bags and interaction through ``EmbeddingBagFn`` and
-    ``DotInteractionFn`` on CPU tensors, their CUDA forwards swapped for
-    the plain versions."""
-    monkeypatch.setattr(eb, "embedding_bag_fwd_cuda",
-                        lambda t, i, n, p: eb.embedding_bag_fwd_plain(
-                            t, i, n, p))
+    """Route the port's bags and interaction through
+    ``GroupedEmbeddingBagFn`` (dlrm's fields, one group a side; one table a
+    group of one field) and ``DotInteractionFn`` on CPU tensors, their CUDA
+    forwards swapped for the plain versions."""
+    monkeypatch.setattr(eb, "embedding_bag_grouped_fwd_cuda",
+                        lambda ts, i, n, p: eb.embedding_bag_grouped_plain(
+                            ts, i, n, p))
     monkeypatch.setattr(ec, "embedding_bag",
                         lambda t, i, n, p, backend=None:
-                            eb.EmbeddingBagFn.apply(t, i, n, p))
+                            eb.GroupedEmbeddingBagFn.apply(
+                                i[:, None], n[:, None], p, t).squeeze(1))
+    monkeypatch.setattr(ec, "embedding_bag_grouped",
+                        lambda ts, i, n, p, backend=None:
+                            eb.GroupedEmbeddingBagFn.apply(i, n, p, *ts))
     monkeypatch.setattr(di, "dot_interaction_cuda",
                         lambda d, s, self_interaction=False:
                             di.dot_interaction_plain(d, s, self_interaction))

@@ -7,11 +7,12 @@ zero) go through both packages:
   * the plain forward against the reference's Pallas kernel in interpret
     mode and its jnp oracle, sum / mean / max, at ``tests/test_kernels.py``'s
     shapes, to 1e-6; empty bags exactly 0; bf16 against the bf16 oracle;
-  * the COO backward (ids and rows) against the reference's
-    ``embedding_bag_coo_grad``, and its densify against the reference's
-    ``SparseRows``;
-  * ``EmbeddingBagFn`` with its CUDA forward swapped for the plain version
-    (the kernels run only on the card, in ``chip_smoke.py``): the table
+  * the COO backward (ids and rows) of a group of one field against the
+    reference's ``embedding_bag_coo_grad``, and its densify against the
+    reference's ``SparseRows``;
+  * ``GroupedEmbeddingBagFn`` at one field (what ``embedding_bag`` runs on
+    a CUDA table) with its CUDA forward swapped for the plain version (the
+    kernels run only on the card, in ``chip_smoke.py``): the table
     gradient against ``jax.grad`` through the Pallas-interpret kernel;
   * the dispatch ladder (``REPRO_TORCH_EMB_BACKEND``; the reference's
     ``REPRO_EMB_BACKEND`` never reaches the port) and the raw wrappers'
@@ -105,7 +106,9 @@ def test_coo_grad_matches_reference(pooling):
     x = bag_case(11, 200, 16, 8, 6)
     table, ids, lens, g = port(x, "table", "ids", "lens", "g")
     out = eb.embedding_bag_fwd_plain(table, ids, lens, pooling)
-    got = eb.embedding_bag_coo_grad(pooling, table, ids, lens, out, g)
+    (got,) = eb.embedding_bag_grouped_coo_grad(
+        pooling, [table], ids[:, None], lens[:, None], out[:, None],
+        g[:, None], [True])
     want = jax_coo(x, pooling)
     assert got.vocab == want.vocab == 200
     assert got.ids.dtype == torch.int32
@@ -159,12 +162,19 @@ def plain_forward(monkeypatch):
     tensors; on a CPU ``g`` its backward takes B6's plain version."""
     calls = []
 
-    def fwd(table, ids, lengths, pooling):
+    def fwd(tables, ids, lengths, pooling):
         calls.append(pooling)
-        return eb.embedding_bag_fwd_plain(table, ids, lengths, pooling)
+        return eb.embedding_bag_grouped_plain(tables, ids, lengths, pooling)
 
-    monkeypatch.setattr(eb, "embedding_bag_fwd_cuda", fwd)
+    monkeypatch.setattr(eb, "embedding_bag_grouped_fwd_cuda", fwd)
     return calls
+
+
+def one_field(table, ids, lens, pooling):
+    """``GroupedEmbeddingBagFn`` on one table, as ``embedding_bag`` runs it
+    on a CUDA table: (B, D)."""
+    return eb.GroupedEmbeddingBagFn.apply(ids[:, None], lens[:, None],
+                                          pooling, table).squeeze(1)
 
 
 @pytest.mark.parametrize("pooling", POOLINGS)
@@ -173,7 +183,7 @@ def test_function_table_grad_matches_jax_grad(plain_forward, pooling):
     w = np.random.default_rng(4).normal(size=(8, 16)).astype(np.float32)
     table, ids, lens = port(x, "table", "ids", "lens")
     table.requires_grad_(True)
-    out = eb.EmbeddingBagFn.apply(table, ids, lens, pooling)
+    out = one_field(table, ids, lens, pooling)
     (grad,) = torch.autograd.grad(torch.sum(torch.from_numpy(w) * out),
                                   [table])
     assert plain_forward == [pooling]
@@ -184,7 +194,7 @@ def test_function_table_grad_matches_jax_grad(plain_forward, pooling):
     assert grad.shape == table.shape and grad.dtype == table.dtype
     np.testing.assert_allclose(grad.numpy(), np.asarray(want), **GRAD_TOL)
     # a second backward gives the same bits (fixed-order densify)
-    out = eb.EmbeddingBagFn.apply(table, ids, lens, pooling)
+    out = one_field(table, ids, lens, pooling)
     (again,) = torch.autograd.grad(torch.sum(torch.from_numpy(w) * out),
                                    [table])
     assert torch.equal(grad, again)
@@ -194,12 +204,13 @@ def test_function_gives_no_grad_to_ids_and_lengths(plain_forward):
     x = bag_case(8, 50, 8, 4, 5)
     table, ids, lens = port(x, "table", "ids", "lens")
     table.requires_grad_(True)
-    out = eb.EmbeddingBagFn.apply(table, ids, lens, "mean")
+    out = eb.GroupedEmbeddingBagFn.apply(ids[:, None], lens[:, None], "mean",
+                                         table)
     g = torch.ones_like(out)
     with torch.no_grad():                 # as autograd runs a backward
         grads = out.grad_fn.apply(g)
-    assert len(grads) == 4 and all(a is None for a in grads[1:])
-    assert grads[0].shape == (50, 8)
+    assert len(grads) == 4 and all(a is None for a in grads[:3])
+    assert grads[3].shape == (50, 8)
 
 
 def test_dispatch_ladder(monkeypatch):

@@ -12,8 +12,8 @@ the same ``ROOBatcher`` batches of the same simulated stream:
   * LSR logits in all four modes, ROO and impression-level, to 1e-5, with
     the reference's bag on its Pallas-interpret kernel and on jnp;
   * ``lsr_loss`` gradients per leaf to 1e-4, the port's bag on its plain
-    path and through ``EmbeddingBagFn`` (CUDA forward swapped for the plain
-    version);
+    path and through ``GroupedEmbeddingBagFn`` at one field (CUDA forward
+    swapped for the plain version);
   * a 20-step ``userarch`` Trainer against the reference's at log_every 1
     (losses to rtol 1e-5);
   * the LSR ``ROOServer`` and the user-tower-cache server, scores to 1e-4.
@@ -347,15 +347,17 @@ def port_vag(mode, roo):
 
 
 def through_function(monkeypatch):
-    """Route the port's padded bags through ``EmbeddingBagFn`` on CPU
-    tensors: the collection's entry point runs the Function, with its CUDA
-    forward swapped for the plain version."""
-    monkeypatch.setattr(eb, "embedding_bag_fwd_cuda",
-                        lambda t, i, n, p: eb.embedding_bag_fwd_plain(
-                            t, i, n, p))
+    """Route the port's padded bags through ``GroupedEmbeddingBagFn`` at
+    one field on CPU tensors, as ``embedding_bag`` runs it on a CUDA table:
+    the collection's entry point runs the Function, with its CUDA forward
+    swapped for the plain version."""
+    monkeypatch.setattr(eb, "embedding_bag_grouped_fwd_cuda",
+                        lambda ts, i, n, p: eb.embedding_bag_grouped_plain(
+                            ts, i, n, p))
     monkeypatch.setattr(ec, "embedding_bag",
                         lambda t, i, n, p, backend=None:
-                            eb.EmbeddingBagFn.apply(t, i, n, p))
+                            eb.GroupedEmbeddingBagFn.apply(
+                                i[:, None], n[:, None], p, t).squeeze(1))
 
 
 @pytest.mark.parametrize("mode,roo,path", [

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.embeddings.collection import seq_lookup
 from repro_torch.embeddings.sparse import SparseRows
-from repro_torch.kernels.embedding_bag import embedding_bag_coo_grad
+from repro_torch.kernels.embedding_bag import embedding_bag_grouped_coo_grad
 from repro_torch.kernels.ref import embedding_bag_ref
 
 VOCAB, D, N_IDS, N_ROWS = 50_000, 64, 20_000, 50
@@ -88,8 +88,10 @@ def test_plain_bag_backward_bitwise_on_repeat(route):
         out = embedding_bag_ref(t, ids, lengths, "mean")
         if route == "embedding_bag_ref":
             return torch.autograd.grad(out, t, g)[0]
-        return embedding_bag_coo_grad("mean", t, ids, lengths, out.detach(),
-                                      g).to_dense()
+        (coo,) = embedding_bag_grouped_coo_grad(
+            "mean", [t], ids[:, None], lengths[:, None],
+            out.detach()[:, None], g[:, None], [True])
+        return coo.to_dense()
 
     _assert_repeat_bitwise([grad() for _ in range(3)], want)
 
