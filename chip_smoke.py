@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result):
   2. build       — nvcc builds every kernel of the paths from the sources in
                    this checkout, one nvcc per source, all started together
                    (registers / shared memory from -Xptxas -v; B2's and B3's
-                   registers and spills per D template, none at D 32)
+                   registers and spills per D template, none at D 32; B7's
+                   per dtype, row blocks and load path, none in the main
+                   path's fp32, 2 row blocks, 16-byte template)
   3. kernels     — each kernel against its plain torch version on the card,
                    reached through dispatch's auto backend: the HSTU forward
                    (B1) at the serving shape and ragged / wide / causal
@@ -64,12 +66,17 @@ Phases (any failure exits non-zero and prints no result):
                    diagonal, at the dlrm-mlperf scoring (512, 26, 128) and
                    training (8,192, 26, 128) shapes, the scenario's
                    reduced DLRM (F 4, D 16), B 1 and 37, D 24, F 1, 8, 13,
-                   40 and 63 (64 KB of shared memory); bf16 against the
-                   plain version on the same bf16 inputs; the backward
-                   through ``DotInteractionFn`` against autograd of the
-                   plain version, bitwise on repeat; the raw wrapper
-                   refuses a grad-requiring input and an unsupported shape
-                   and launches nothing
+                   40 and 63 (4 row blocks, D 256), the tiles' row-block
+                   edges (F1 16, 17, 32, 33), D 13 (4-byte loads), inputs
+                   one element off 16-byte alignment, each k split (1, 2
+                   and 4 warps a sample: B 8,192, 1,003 and 512) and a B
+                   (1,003) that is not a multiple of the samples a block;
+                   every call twice, bit for bit; bf16 against the plain
+                   version on the same bf16 inputs (also 2 bytes off, and
+                   at 4 row blocks); the backward through
+                   ``DotInteractionFn`` against autograd of the plain
+                   version, bitwise on repeat; the raw wrapper refuses a grad-requiring input
+                   and an unsupported shape and launches nothing
   7. serve       — ROOServer with random hstu-gr params (seeded
                    torch.Generator) scores 1,000 simulated requests on the
                    card through B1; launch counts, failed batches and
@@ -130,9 +137,11 @@ Phases (any failure exits non-zero and prints no result):
                    PyTorch call (F.embedding_bag and its backward), B7 at
                    the dlrm scoring and training shapes beside torch.bmm
                    + the tril index_select (two calls), and the servers'
-                   and trainers' rates; also B1 at the training shape,
-                   B4 at n_new 1, 8 and 64, and B5 / B6 at dlrm's one-hot
-                   bags (D 128, B 512 and 8,192) beside F.embedding_bag,
+                   and trainers' rates (B7's plain backward, the rest of
+                   DotInteractionFn, at the training shape too); also B1
+                   at the training shape, B4 at n_new 1, 8 and 64, and
+                   B5 / B6 at dlrm's one-hot bags (D 128, B 512 and
+                   8,192) beside F.embedding_bag,
                    and B2 / B3 also at the userarch_hstu step's shape; the
                    grouped B5 / B6 for each dlrm side at both batches
                    beside their summed bound, plain, 13 F = 1 launches and
@@ -339,19 +348,26 @@ def phase_build(kmods) -> None:
                             if dp == 32):
         raise SystemExit("the backward kernels' D 32 templates spill (the "
                          "main path's) or a template is missing")
+    dot = dot_registers("\n".join(log for _, log in built))
+    for (dtype, rb, vec), (regs, spill) in sorted(dot.items()):
+        print(f"[build] B7 {dtype} {rb} row blocks "
+              f"{'16-byte' if vec else '4-byte'} loads: {regs} registers, "
+              f"{spill} bytes spilled")
+    if len(dot) != 16 or dot.get(("fp32", 2, True), (0, 1))[1]:
+        raise SystemExit("B7's main-path template (fp32, 2 row blocks, "
+                         "16-byte loads) spills or a template is missing")
 
 
-def bwd_registers(log: str) -> dict:
-    """{(B2 | B3, padded D): (registers, spill store + load bytes)} of the
-    backward kernels' templates, from ``-Xptxas -v``."""
+def ptxas_registers(log: str, key) -> dict:
+    """{key(entry name): (registers, spill store + load bytes)} of the
+    kernels whose mangled name ``key`` maps to a key (None: skipped), from
+    ``-Xptxas -v``."""
     import re
     out, cur = {}, None
-    names = {"hstu_bwd_dq_kernel": "B2", "hstu_bwd_dkv_kernel": "B3"}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(hstu_bwd_(?:dq|dkv)_kernel)ILi(\d+)E", m.group(1))
-            cur = (names[k.group(1)], int(k.group(2))) if k else None
+            cur = key(m.group(1))
             continue
         if cur is None:
             continue
@@ -364,6 +380,31 @@ def bwd_registers(log: str) -> dict:
             out[cur] = (int(m.group(1)), out.get(cur, (None, 0))[1])
             cur = None
     return out
+
+
+def bwd_registers(log: str) -> dict:
+    """{(B2 | B3, padded D): (registers, spill bytes)} of the backward
+    kernels' templates."""
+    import re
+    names = {"hstu_bwd_dq_kernel": "B2", "hstu_bwd_dkv_kernel": "B3"}
+
+    def key(name):
+        k = re.search(r"(hstu_bwd_(?:dq|dkv)_kernel)ILi(\d+)E", name)
+        return (names[k.group(1)], int(k.group(2))) if k else None
+    return ptxas_registers(log, key)
+
+
+def dot_registers(log: str) -> dict:
+    """{(fp32 | bf16, row blocks, 16-byte loads): (registers, spill bytes)}
+    of B7's templates."""
+    import re
+
+    def key(name):
+        k = re.search(r"dot_interaction_fwd_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELb([01])E", name)
+        return (("fp32" if k.group(1) == "f" else "bf16"), int(k.group(2)),
+                k.group(3) == "1") if k else None
+    return ptxas_registers(log, key)
 
 
 def phase_kernels(kmod, device) -> float:
@@ -2388,7 +2429,15 @@ DOT_SHAPES = {   # (B, F, D): dlrm-mlperf scoring and training, the
     "F1 D128": (64, 1, 128),
     "F8 D64": (64, 8, 64),
     "F40 D128": (16, 40, 128),
-    "F63 D256 (64 KB of shared memory)": (8, 63, 256),
+    "F63 D256 (4 row blocks, the widest)": (8, 63, 256),
+    # the tiles' row-block edges: F1 16, 17, 32 and 33
+    "F1 16 D128": (300, 15, 128),
+    "F1 17 D128": (300, 16, 128),
+    "F1 32 D64": (300, 31, 64),
+    "F1 33 D64": (300, 32, 64),
+    "D13 (4-byte loads)": (300, 26, 13),
+    "B1003 (a k split of 2, not a multiple of the samples a block)":
+        (1003, 26, 128),
 }
 
 
@@ -2405,21 +2454,46 @@ def dot_inputs(shape, seed, device, dtype=None):
     return dense, sparse
 
 
+def unaligned(x):
+    """A contiguous copy of ``x`` one element off 16-byte alignment."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def phase_dot_kernels(dmod, device) -> float:
     """B7 against its plain version through dispatch's auto backend, with
-    and without the diagonal, at the DOT_SHAPES; bf16 against the plain
-    version on the same bf16 inputs; the backward of ``DotInteractionFn``
-    against autograd of the plain version; the raw wrapper's refusals.
-    Returns the largest |kernel - plain| of the fp32 outputs."""
+    and without the diagonal, at the DOT_SHAPES and on inputs one element
+    off 16-byte alignment, two calls equal bit for bit; bf16 against the
+    plain version on the same bf16 inputs; the backward of
+    ``DotInteractionFn`` against autograd of the plain version; the raw
+    wrapper's refusals. Returns the largest |kernel - plain| of the fp32
+    outputs."""
     import torch
+    split = {n: (dmod.warps_per_sample(n, 26, 128),
+                 dmod.samples_per_block(n, 26, 128))
+             for n in (8192, 1003, 512, 37)}
+    print(f"[dot kernels] (warps a sample, samples a block) at F 26, D 128: "
+          f"{split}")
+    if [ks for ks, _ in split.values()] != [1, 2, 4, 4] or \
+            1003 % split[1003][1] == 0:
+        raise SystemExit("B7's DOT_SHAPES no longer reach every k split and "
+                         "a partial block")
     worst = 0.0
-    for i, (name, shape) in enumerate(DOT_SHAPES.items()):
-        dense, sparse = dot_inputs(shape, 70 + i, device)
-        d = shape[2]
+    cases = [(name, dot_inputs(shape, 70 + i, device))
+             for i, (name, shape) in enumerate(DOT_SHAPES.items())]
+    cases.append(("B37 F26 D128, inputs 4 bytes off 16-byte alignment",
+                  tuple(unaligned(x) for x in dot_inputs(
+                      DOT_SHAPES["B37 F26 D128"], 69, device))))
+    for name, (dense, sparse) in cases:
+        d = dense.shape[1]
         for si in (False, True):
             before = dmod.launch_count
             got = dmod.dot_interaction(dense, sparse, self_interaction=si)
-            if dmod.launch_count != before + 1:
+            again = dmod.dot_interaction(dense, sparse, self_interaction=si)
+            if dmod.launch_count != before + 2:
                 raise SystemExit("dispatch auto did not launch B7 on a CUDA "
                                  "tensor")
             plain = dmod.dot_interaction_plain(dense, sparse, si)
@@ -2430,19 +2504,26 @@ def phase_dot_kernels(dmod, device) -> float:
                 err <= DOT_ATOL + DOT_RTOL * plain.abs()))
             dense_copy = torch.equal(got[:, :d], dense)
             finite = bool(torch.isfinite(got).all())
+            same = torch.equal(got, again)
             print(f"[dot kernels] {name} self={si}: out {tuple(got.shape)} "
                   f"max|B7-plain| {float(err.max()):.3e} ok={ok} "
-                  f"dense_copy_exact={dense_copy} finite={finite}")
-            if not (ok and dense_copy and finite):
+                  f"dense_copy_exact={dense_copy} finite={finite} "
+                  f"bitwise_repeat={same}")
+            if not (ok and dense_copy and finite and same):
                 raise SystemExit(f"B7 disagrees with its plain version at "
                                  f"{name} self={si}")
 
     # bf16: fp32 accumulation, one rounding of each pair; the plain version
     # rounds its fp32 Gram matrix once too, so the two differ by at most
     # about one bf16 rounding of values of size ~sqrt(D)
-    for name in ("score B512 F26 D128", "B37 F13 D24"):
+    for name, off in (("score B512 F26 D128", False),
+                      ("B37 F13 D24", False), ("B37 F26 D128", True),
+                      ("F63 D256 (4 row blocks, the widest)", False)):
         dense, sparse = dot_inputs(DOT_SHAPES[name], 80, device,
                                    torch.bfloat16)
+        if off:
+            dense, sparse = unaligned(dense), unaligned(sparse)
+            name += ", inputs 2 bytes off 16-byte alignment"
         got = dmod.dot_interaction(dense, sparse)
         want = dmod.dot_interaction_plain(dense, sparse)
         torch.cuda.synchronize()
@@ -2884,6 +2965,22 @@ def phase_dot_times(dmod, device, card: str) -> dict:
         out[key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=ms["library"])
+    # for the record: DotInteractionFn's plain backward (torch.bmm on the
+    # scattered triangle) at the training shape, the other half of its step
+    from types import SimpleNamespace
+    dense, sparse = dot_inputs(DOT_SHAPES["train B8192 F26 D128"], 101,
+                               device)
+    ctx = SimpleNamespace(saved_tensors=(dense, sparse),
+                          self_interaction=False)
+    width = dense.shape[1] + dmod.n_pairs(sparse.shape[1] + 1)
+    g = torch.randn((dense.shape[0], width),
+                    generator=torch.Generator(device=device).manual_seed(2),
+                    device=device)
+    bwd = lambda: dmod.DotInteractionFn.backward(ctx, g)
+    print(f"[times] {card}: DotInteractionFn plain backward (scatter into "
+          f"the triangle, torch.bmm, casts) train B8192 F26 D128 fp32, "
+          f"device time per call {device_ms(bwd, 8):.5f} ms, host-issued "
+          f"{call_ms(bwd, 8):.5f} ms")
     return out
 
 
@@ -3002,11 +3099,13 @@ def main() -> int:
             ("embedding_bag_bwd_coo_grouped", 74,
              dlrm_train["bag_launches"][1], "coo"))
         for side in ("RO", "NRO")] + [{
-        "name": "dot_interaction_fwd", "route": "cuda",
+        "name": f"dot_interaction_fwd (dlrm {what})", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
         "replaces": "src/repro/kernels/dot_interaction.py:22",
-        "launches": dlrm_score["launches"], "max_abs_err": worst_dot,
-        **dot_times["score"]}]}))
+        "launches": run["launches"], "max_abs_err": worst_dot,
+        **dot_times[key]}
+        for what, key, run in (("scoring", "score", dlrm_score),
+                               ("training", "train", dlrm_train))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

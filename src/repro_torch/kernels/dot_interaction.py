@@ -32,7 +32,8 @@ from repro_torch.kernels.ref import dot_interaction_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dot_interaction.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# one sample's (F1, D + 1) fp32 rows live in shared memory: at most 64 KB
+# a warp holds its share of a sample's rows in registers, up to 4 row
+# blocks of 16
 MAX_D = 256              # largest embedding width the kernel takes
 MAX_F1 = 64              # largest number of rows of T = [dense; sparse]
 
@@ -62,6 +63,10 @@ def _load():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.dot_interaction_fwd.argtypes = [vp] * 3 + [i] * 5 + [vp]
         lib.dot_interaction_fwd.restype = i
+        lib.dot_interaction_fwd_samples_per_block.argtypes = [i] * 5
+        lib.dot_interaction_fwd_samples_per_block.restype = i
+        lib.dot_interaction_fwd_warps_per_sample.argtypes = [i] * 3
+        lib.dot_interaction_fwd_warps_per_sample.restype = i
         lib.dot_interaction_error_string.argtypes = [i]
         lib.dot_interaction_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -72,6 +77,20 @@ def n_pairs(f1: int, self_interaction: bool = False) -> int:
     """Kept pairs of an (F1, F1) Gram matrix: the strict lower triangle, or
     with its diagonal."""
     return f1 * (f1 + 1) // 2 if self_interaction else f1 * (f1 - 1) // 2
+
+
+def samples_per_block(b: int, f: int, d: int, self_interaction: bool = False,
+                      dtype: torch.dtype = torch.float32) -> int:
+    """The samples a block B7 uses at this shape, as the built library
+    chooses them (builds and loads it: card only)."""
+    return _load().dot_interaction_fwd_samples_per_block(
+        b, f, d, int(self_interaction), DTYPES[dtype])
+
+
+def warps_per_sample(b: int, f: int, d: int) -> int:
+    """The warps a sample B7 uses at this shape (the k split), as the built
+    library chooses them (builds and loads it: card only)."""
+    return _load().dot_interaction_fwd_warps_per_sample(b, f, d)
 
 
 def dot_interaction_cuda(dense_out: torch.Tensor, sparse_embs: torch.Tensor,
@@ -104,9 +123,9 @@ def dot_interaction_cuda(dense_out: torch.Tensor, sparse_embs: torch.Tensor,
     b, d = dense_out.shape
     f1 = sparse_embs.shape[1] + 1
     if not 1 <= d <= MAX_D or f1 > MAX_F1:
-        raise ValueError(f"D={d}, F+1={f1}: the kernel keeps one sample's "
-                         f"rows in shared memory and takes 1 <= D <= {MAX_D} "
-                         f"and F+1 <= {MAX_F1}")
+        raise ValueError(f"D={d}, F+1={f1}: the kernel holds a sample's rows "
+                         f"in registers, up to 4 row blocks of 16, and takes "
+                         f"1 <= D <= {MAX_D} and F+1 <= {MAX_F1}")
     if b >= 2 ** 31:
         raise ValueError("too many samples for the kernel's grid")
     width = d + n_pairs(f1, self_interaction)

@@ -333,7 +333,8 @@ def test_tf32x3_products_hold_the_gate_prefix(shape, use_rab):
 
 @pytest.mark.parametrize("source", ["hstu_attention_fwd.cu",
                                     "hstu_attention_prefix_fwd.cu",
-                                    "hstu_attention_bwd.cu"])
+                                    "hstu_attention_bwd.cu",
+                                    "dot_interaction.cu"])
 def test_build_digest_covers_included_headers(tmp_path, source):
     # builds nothing: a copy of the sources, one header byte changed
     import shutil
@@ -344,12 +345,12 @@ def test_build_digest_covers_included_headers(tmp_path, source):
     assert b'#include "hstu_fwd_tile.cuh"' in src.read_bytes()
     before = kmod.source_digest(src)
     assert kmod.source_digest(src) == before
-    other = kmod.source_digest(tmp_path / "dot_interaction.cu")
+    other = kmod.source_digest(tmp_path / "embedding_bag.cu")
     header = tmp_path / "hstu_fwd_tile.cuh"
     text = bytearray(header.read_bytes())
     text[-2] ^= 1
     header.write_bytes(bytes(text))
     assert kmod.source_digest(src) != before
     # a source that does not include the header keeps its digest
-    assert kmod.source_digest(tmp_path / "dot_interaction.cu") == other
+    assert kmod.source_digest(tmp_path / "embedding_bag.cu") == other
     assert kmod.source_digest(csrc / source) == before   # the repo's copy

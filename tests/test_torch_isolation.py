@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
-``chip_smoke.py`` and not the port's kernel scripts (``scripts/hstu_*``)
-imports ``jax`` or the JAX package ``repro`` (the card's machine has
-neither). An AST scan, so imports inside functions count too.
+``chip_smoke.py`` and not the port's kernel scripts
+(``scripts/*_ablations.py``) imports ``jax`` or the JAX package ``repro``
+(the card's machine has neither). An AST scan, so imports inside
+functions count too.
 """
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-SCRIPT_FILES = sorted((ROOT / "scripts").glob("hstu_*_ablations.py"))
+SCRIPT_FILES = sorted((ROOT / "scripts").glob("*_ablations.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
