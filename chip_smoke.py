@@ -131,7 +131,22 @@ Phases (any failure exits non-zero and prints no result):
                    memory (no kill-and-restart here: phases 10 and 12
                    check that contract, and a 7 GB checkpoint would
                    dominate the phase)
- 15. times       — each kernel vs its plain version (CUDA events; device
+ 15. sparse rows — both trainers again on sparse rows
+                   (``make_sparse_value_and_grad`` + row-wise Adagrad on the
+                   touched rows, in place): roo-lsr ``userarch`` 20 steps
+                   (item_emb and user_cat_emb gathered, act_emb dense; B5 =
+                   steps + NE, B6 = steps) and dlrm-mlperf 20 steps on the
+                   dense phase's capped config and batches (B7 20, B5 = B6
+                   = 40: the grouped bags over the gathered rows and the
+                   dense tiny tables); every table of 64 rows or more gets
+                   a SparseRows of one row per declared id and no (V, D)
+                   gradient; each step's loss vs the dense tables on the
+                   plain backends and on the CPU (dlrm: at a 2**14-row cap)
+                   on the same params and batch; densified gradients vs the
+                   dense path's; a second run bit for bit (losses and
+                   params); steps/s, breakdown and (dlrm) peak memory
+                   beside the dense phase's
+ 16. times       — each kernel vs its plain version (CUDA events; device
                    time with the host run ahead, and host-issued call time)
                    beside its bound, the bag kernels also beside one
                    PyTorch call (F.embedding_bag and its backward), B7 at
@@ -147,7 +162,14 @@ Phases (any failure exits non-zero and prints no result):
                    beside their summed bound, plain, 13 F = 1 launches and
                    13 F.embedding_bag calls (for B6 the backward of 13
                    sparse=True calls: the per-slot COO rows), and one
-                   host-issued _field_lookup, grouped vs per-field
+                   host-issued _field_lookup, grouped vs per-field; the
+                   grouped B5 / B6 at the operands the sparse dlrm step
+                   hands them (gathered rows + a zero row, dense tiny
+                   tables, ids as positions) vs plain, bound and 13
+                   F.embedding_bag calls; SparseRows.to_dense of 8,192
+                   ids into dlrm's tiny tables (4, 14, 36 rows: the
+                   one-hot product) and into a 108-row table's gathered
+                   rows, beside the sorted index_put_
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -747,8 +769,12 @@ def batch_to(batch, device):
 def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
                 stop_after=None, halt_after_skips=1):
     """One Trainer run over the setup's batches (copied to ``device`` per
-    step); returns (trainer, final state, per-step losses)."""
+    step); returns (trainer, final state, per-step losses). A setup with
+    ``table_ids`` trains on sparse rows (``make_sparse_value_and_grad``),
+    calling its ``before_step(params, batch)``, if any, on each step's
+    full params under no_grad."""
     import torch
+    from repro_torch.embeddings.sparse import make_sparse_value_and_grad
     from repro_torch.train.loop import Trainer, TrainLoopConfig
     losses = []
 
@@ -756,6 +782,17 @@ def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
         loss = setup["loss"](p, b, gen)
         losses.append(loss.detach())
         return loss
+
+    vag = None
+    if "table_ids" in setup:
+        sparse_vag = make_sparse_value_and_grad(loss_fn, setup["table_ids"])
+        before = setup.get("before_step")
+
+        def vag(p, b, gen):
+            if before is not None:
+                with torch.no_grad():
+                    before(p, b)
+            return sparse_vag(p, b, gen)
 
     batches = setup["batches"]
 
@@ -768,7 +805,7 @@ def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
     trainer = Trainer(loss_fn, setup["opt"], TrainLoopConfig(
         total_steps=steps, log_every=log_every, ckpt_dir=ckpt_dir,
         ckpt_every=4, halt_after_skips=halt_after_skips), setup["init"],
-        metrics_fn=setup.get("ne"), device=device)
+        value_and_grad_fn=vag, metrics_fn=setup.get("ne"), device=device)
     state = trainer.run(batch_iter, 0, stop_after=stop_after)
     return trainer, state, torch.stack(losses).cpu()
 
@@ -885,10 +922,15 @@ def phase_train(kmod, pmod, bmod, device, card: str) -> dict:
 def step_breakdown(setup, device, state, steps=10, rounds=2) -> list:
     """Per-step time of the train step's stages, host clocks around work
     that ends in a synchronize: host batch copy, forward, backward,
-    optimizer (update + the non-finite guard)."""
+    optimizer (update + the non-finite guard). A setup with ``table_ids``
+    runs the sparse step: the gathers count to the forward, and the
+    optimizer writes the touched rows in place (the state's tables
+    change)."""
     import torch
+    from repro_torch.embeddings.sparse import sparse_forward, sparse_grads
     from repro_torch.tree import leaves, tree_map, unflatten
     opt = setup["opt"]
+    sparse = "table_ids" in setup
     out = []
     for _ in range(rounds):
         params, opt_state = state["params"], state["opt"]
@@ -900,22 +942,31 @@ def step_breakdown(setup, device, state, steps=10, rounds=2) -> list:
                              device)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-            loss = setup["loss"](unflatten(params, flat), batch, None)
+            if sparse:
+                loss, tape = sparse_forward(setup["loss"],
+                                            setup["table_ids"], params,
+                                            batch, None)
+            else:
+                flat = [p.detach().requires_grad_(True)
+                        for p in leaves(params)]
+                loss = setup["loss"](unflatten(params, flat), batch, None)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            grads = unflatten(params, [
-                torch.zeros_like(p) if g is None else g
-                for p, g in zip(flat, torch.autograd.grad(
-                    loss, flat, allow_unused=True))])
+            if sparse:
+                grads = sparse_grads(loss, tape)
+            else:
+                grads = unflatten(params, [
+                    torch.zeros_like(p) if g is None else g
+                    for p, g in zip(flat, torch.autograd.grad(
+                        loss, flat, allow_unused=True))])
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            new_p, new_s = opt.update(grads, opt_state, params)
             ok = torch.isfinite(loss)
-            params = tree_map(lambda n, o: torch.where(ok, n, o), new_p,
-                              params)
-            opt_state = tree_map(lambda n, o: torch.where(ok, n, o), new_s,
-                                 opt_state)
+            new_p, new_s = opt.update(grads, opt_state, params,
+                                      **({"ok": ok} if sparse else {}))
+            keep = lambda n, o: n if n is o else torch.where(ok, n, o)
+            params = tree_map(keep, new_p, params)
+            opt_state = tree_map(keep, new_s, opt_state)
             torch.cuda.synchronize()
             t4 = time.perf_counter()
             for key, dt in zip(acc, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
@@ -2070,12 +2121,14 @@ def phase_lsr_train(emod, kmod, pmod, bmod, device, card: str) -> dict:
     print(f"[lsr train] {card}: {steps} steps in {wall * 1e3:.1f} ms "
           f"({steps / wall:.2f} steps/s, {steps * req_per_batch / wall:.1f} "
           f"requests/s; Trainer.run incl. init and 2 NE forwards)")
-    for rnd, parts in enumerate(step_breakdown(setup, device, state)):
+    breakdown = step_breakdown(setup, device, state)
+    for rnd, parts in enumerate(breakdown):
         print(f"[lsr train] {card}: breakdown {rnd + 1} (ms per step, card "
               f"synchronised after each stage): "
               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     return dict(launches=launches, steps_per_s=steps / wall,
-                requests_per_s=steps * req_per_batch / wall)
+                requests_per_s=steps * req_per_batch / wall,
+                breakdown=breakdown)
 
 
 def phase_lsr_hstu_train(emod, kmod, pmod, bmod, device) -> None:
@@ -2111,6 +2164,182 @@ def phase_lsr_hstu_train(emod, kmod, pmod, bmod, device) -> None:
           f"max|diff| {diff:.3e} ok={ok}")
     if not ok:
         raise SystemExit("lsr hstu train: losses disagree with torch-dense")
+
+
+def at_path(tree, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def check_sparse_grads(tag: str, grads, params, table_ids) -> tuple:
+    """The sparse path's gradient rule: each declared table of at least
+    SPARSE_MIN_VOCAB rows gets a unique-id ``SparseRows`` of one row per
+    declared id, and no (V, D) gradient; the smaller ones a dense (V, D)
+    one. Returns the (sparse, dense) table paths."""
+    import torch
+    from repro_torch.embeddings.sparse import SPARSE_MIN_VOCAB, is_sparse
+    sparse, dense = [], []
+    for path, ids in table_ids.items():
+        p, g = at_path(params, path), at_path(grads, path)
+        if p.shape[0] >= SPARSE_MIN_VOCAB:
+            ok = is_sparse(g) and g.unique and tuple(g.rows.shape) == (
+                ids.numel(),) + tuple(p.shape[1:])
+            sparse.append(path)
+        else:
+            ok = isinstance(g, torch.Tensor) and g.shape == p.shape
+            dense.append(path)
+        if not ok:
+            raise SystemExit(
+                f"{tag}: the gradient of {path} ({p.shape[0]} rows, "
+                f"{ids.numel()} ids) is {type(g).__name__} "
+                f"{tuple(getattr(g, 'shape', ()))}, not the sparse path's")
+    return sparse, dense
+
+
+def sparse_vs_dense_grads(tag: str, setup, params, batch) -> tuple:
+    """Every leaf's gradient on the sparse path (``SparseRows``
+    densified) against the dense path's, on the same params and batch;
+    the gradient rule checked on the way. Returns the largest |diff| with
+    its path, and the (sparse, dense) table paths."""
+    import torch
+    from repro_torch.embeddings.sparse import (is_sparse,
+                                               make_sparse_value_and_grad)
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves
+    _, g_sparse = make_sparse_value_and_grad(
+        setup["loss"], setup["table_ids"])(params, batch, None)
+    paths = check_sparse_grads(tag, g_sparse, params,
+                               setup["table_ids"](batch))
+    _, g_dense = value_and_grad(setup["loss"])(params, batch, None)
+    worst = (0.0, ())
+    for (path, a), b in zip(flatten_with_path(g_sparse, is_leaf=is_sparse),
+                            leaves(g_dense)):
+        a = a.to_dense() if is_sparse(a) else a
+        worst = max(worst, (float((a - b).abs().max()), path))
+        if not torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL):
+            raise SystemExit(f"{tag}: the sparse path's gradient of "
+                             f"{'/'.join(path)} disagrees with the dense "
+                             f"path's: max|diff| {worst[0]:.3e}")
+    return worst, paths
+
+
+def same_run(tag: str, losses, state, again, state_again) -> None:
+    """Two runs' per-step losses and final params, bit for bit."""
+    import torch
+    from repro_torch.tree import leaves
+    same = torch.equal(losses, again) and all(
+        torch.equal(a, b) for a, b in zip(leaves(state["params"]),
+                                          leaves(state_again["params"])))
+    print(f"[{tag}] a second run: per-step losses and final params equal "
+          f"bit for bit {same}")
+    if not same:
+        raise SystemExit(f"{tag}: two runs of the sparse path differ")
+
+
+def print_beside(tag: str, card: str, sparse: dict, dense: dict) -> None:
+    print(f"[{tag}] {card}: sparse rows {sparse['steps_per_s']:.2f} "
+          f"steps/s, dense {dense['steps_per_s']:.2f} steps/s"
+          + (f"; peak memory sparse {sparse['peak'] / 2 ** 30:.2f} GiB, "
+             f"dense {dense['peak'] / 2 ** 30:.2f} GiB"
+             if "peak" in sparse else ""))
+    for rnd, (a, b) in enumerate(zip(sparse["breakdown"],
+                                     dense["breakdown"])):
+        print(f"[{tag}] {card}: breakdown {rnd + 1} (ms per step, card "
+              f"synchronised after each stage), sparse / dense: "
+              + ", ".join(f"{k} {a[k]:.3f} / {b[k]:.3f}" for k in a))
+
+
+def phase_lsr_sparse_train(emod, kmod, pmod, bmod, device, card: str,
+                           dense: dict) -> dict:
+    """roo-lsr ``userarch`` training on sparse rows, 20 steps:
+    ``item_emb`` (50,000 rows) and ``user_cat_emb`` (200) are gathered and
+    get ``SparseRows``, ``act_emb`` (4) a dense gradient; the history bag
+    still runs B5 and B6, over the gathered rows (B5 = steps + NE
+    forwards, B6 = steps, B1-B4 0); at every step the loss of the plain
+    embedding backend on the card and of the CPU, on the same full params
+    and batch; densified gradients vs the dense path after 20 steps; a
+    second run bit for bit; steps/s and the breakdown beside the dense
+    phase's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.lsr import lsr_table_ids
+    from repro_torch.tree import tree_map
+    tag = "lsr sparse train"
+    setup = lsr_train_setup(device)
+    cfg, steps = setup["cfg"], 20
+    setup["table_ids"] = lambda b: lsr_table_ids(cfg, b)
+    cpu = lsr_train_setup("cpu")
+    shadows = {"plain": [], "cpu": []}
+
+    def before(p, b):
+        with dispatch.use_emb_backend("torch"):    # the CPU's is plain too
+            shadows["plain"].append(setup["loss"](p, b, None).detach())
+            shadows["cpu"].append(cpu["loss"](
+                tree_map(lambda x: x.detach().cpu(), p), batch_to(b, "cpu"),
+                None))
+
+    print(f"[{tag}] roo-lsr mode={cfg.mode} items={cfg.n_items}; "
+          f"{len(setup['batches'])} batches of 32 requests / 192 "
+          f"impressions; {steps} steps")
+    for mod in (emod, kmod, pmod, bmod):
+        mod.reset_launch_count()
+    trainer, state, losses = run_trainer(dict(setup, before_step=before),
+                                         device, steps)
+    torch.cuda.synchronize()
+    launches = dict(b5=emod.fwd_launch_count, b6=emod.coo_launch_count,
+                    hstu=(kmod.launch_count, bmod.dq_launch_count,
+                          bmod.dkv_launch_count, pmod.launch_count))
+    n_metric = sum(1 for row in trainer.history if "ne" in row)
+    print(f"[{tag}] launches B5 {launches['b5']} B6 {launches['b6']} B1-B4 "
+          f"{launches['hstu']}; {n_metric} NE forwards; history "
+          f"{trainer.history}")
+    if launches["b5"] != steps + n_metric or launches["b6"] != steps \
+            or any(launches["hstu"]) or n_metric != steps // 10:
+        raise SystemExit(f"{tag}: launch counts are not B5 = steps + NE "
+                         f"forwards, B6 = steps, B1-B4 0")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()) \
+            or trainer.skipped_steps:
+        raise SystemExit(f"{tag}: wrong step count, a skipped step or a "
+                         f"non-finite loss")
+    for what, key in (("the plain embedding backend on the card", "plain"),
+                      ("the CPU", "cpu")):
+        other = torch.stack(shadows[key]).cpu()
+        diff = float((losses - other).abs().max())
+        ok = torch.allclose(losses, other, atol=1e-6, rtol=LOSS_TOL)
+        print(f"[{tag}] per-step losses vs {what} (dense tables) on the "
+              f"same params and batch: max|diff| {diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit(f"{tag}: losses disagree with {what}")
+    print(f"[{tag}] losses {[round(float(v), 6) for v in losses]}")
+
+    batch = setup["batches"][steps % len(setup["batches"])].to(device)
+    worst, paths = sparse_vs_dense_grads(tag, setup, state["params"], batch)
+    print(f"[{tag}] sparse tables {paths[0]}, dense {paths[1]}; gradients "
+          f"after {steps} steps, sparse (densified) vs dense path: max|diff| "
+          f"{worst[0]:.3e} (at {'/'.join(worst[1])})")
+    _, state_again, again = run_trainer(setup, device, steps)
+    same_run(tag, losses, state, again, state_again)
+    del state_again
+
+    run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state, _ = run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    req_per_batch = float(np.mean([
+        int(b.request_mask().sum()) for b in setup["batches"][:steps]]))
+    out = dict(launches=launches, steps_per_s=steps / wall,
+               requests_per_s=steps * req_per_batch / wall,
+               breakdown=step_breakdown(setup, device, state))
+    print(f"[{tag}] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * req_per_batch / wall:.1f} "
+          f"requests/s; Trainer.run incl. init and 2 NE forwards)")
+    print_beside(tag, card, out, dense)
+    return out
 
 
 def bound_bag(x, which: str) -> tuple:
@@ -2898,7 +3127,8 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
           f"({steps / wall:.2f} steps/s, {steps * b_nro / wall:.1f} "
           f"impressions/s, {steps * b_ro / wall:.1f} requests/s; "
           f"Trainer.run incl. init); peak memory {peak / 2 ** 30:.2f} GiB")
-    for rnd, parts in enumerate(step_breakdown(setup, device, state)):
+    breakdown = step_breakdown(setup, device, state)
+    for rnd, parts in enumerate(breakdown):
         print(f"[dlrm train] {card}: breakdown {rnd + 1} (ms per step, card "
               f"synchronised after each stage): "
               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
@@ -2906,7 +3136,281 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=got[0], bag_launches=got[1:3],
                 steps_per_s=steps / wall,
-                impressions_per_s=steps * b_nro / wall)
+                impressions_per_s=steps * b_nro / wall, peak=peak,
+                breakdown=breakdown)
+
+
+def dlrm_sparse_setup(cfg, b_ro, b_nro, device, init_device):
+    """``dlrm_setup`` on sparse rows: the batches' ids declared per table
+    by ``dlrm_table_ids``."""
+    from repro_torch.models.dlrm import dlrm_table_ids
+    setup = dlrm_setup(cfg, b_ro, b_nro, device, init_device)
+    return dict(setup, table_ids=lambda b: dlrm_table_ids(
+        cfg, b["ro_ids"], b["nro_ids"]))
+
+
+def record_groups(emod, fn) -> list:
+    """The (tables, ids, lengths) of every grouped B5 launch ``fn()``
+    makes: the operands the main path hands the kernel."""
+    seen = []
+    launch = emod.embedding_bag_grouped_fwd_cuda
+
+    def recording(tables, ids, lengths, pooling="sum"):
+        seen.append(([t.detach() for t in tables], ids, lengths))
+        return launch(tables, ids, lengths, pooling)
+
+    emod.embedding_bag_grouped_fwd_cuda = recording
+    try:
+        fn()
+    finally:
+        emod.embedding_bag_grouped_fwd_cuda = launch
+    return seen
+
+
+def phase_dlrm_sparse_train(dmod, emod, hstu_mods, device, card: str,
+                            dense: dict) -> dict:
+    """dlrm-mlperf training on sparse rows: ``phase_dlrm_train``'s capped
+    config, batches and optimizer, the gradient from
+    ``make_sparse_value_and_grad`` (``dlrm_table_ids``), 20 steps. Every
+    table of at least 64 rows gets a ``SparseRows`` and none a (V, D)
+    gradient; the bags still run B5 and B6 over the gathered rows and the
+    three dense tiny tables of a side as one group (B5 = B6 = 2 a step),
+    B7 once a step; at every step the loss of the dense tables through the
+    plain backends on the same params and batch, and at a 2**14-row cap
+    the CPU's; the densified gradients vs the dense path's at init and
+    after 20 steps; a second run bit for bit; steps/s, the breakdown and
+    peak memory beside the dense phase's. Returns the grouped B5 operands
+    of one step for the times."""
+    import torch
+    from repro_torch.embeddings.sparse import sparse_forward
+    from repro_torch.kernels import dispatch
+    from repro_torch.tree import tree_map
+    tag = "dlrm sparse train"
+    cfg = dlrm_config(DLRM_CAP)
+    steps, b_ro, b_nro = 20, 2048, 8192
+    setup = dlrm_sparse_setup(cfg, b_ro, b_nro, device, device)
+    print(f"[{tag}] {dlrm_describe(cfg)}; {len(setup['batches'])} batches "
+          f"of {b_ro} requests / {b_nro} impressions; {steps} steps")
+
+    def counts():
+        return (dmod.launch_count, emod.fwd_launch_count,
+                emod.coo_launch_count) + hstu_counts(*hstu_mods)
+
+    def plain_loss(p, b):
+        with dispatch.use_dot_backend("torch"), \
+                dispatch.use_emb_backend("torch"):
+            return setup["loss"](p, b, None).detach()
+
+    shadow_losses = []
+    for m in (dmod, emod) + hstu_mods:
+        m.reset_launch_count()
+    trainer, state, losses = run_trainer(dict(
+        setup, before_step=lambda p, b: shadow_losses.append(
+            plain_loss(p, b))), device, steps)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[{tag}] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} B1-B4 "
+          f"{got[3:]}; skipped steps {trainer.skipped_steps}; history "
+          f"{trainer.history}")
+    if got[:3] != (steps, 2 * steps, 2 * steps) or any(got[3:]):
+        raise SystemExit(f"{tag}: launches are not B7 = steps, B5 = B6 = "
+                         f"2 x steps (one grouped launch a side), B1-B4 0")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()) \
+            or trainer.skipped_steps:
+        raise SystemExit(f"{tag}: wrong step count, a skipped step or a "
+                         f"non-finite loss")
+    plain = torch.stack(shadow_losses).cpu()
+    diff = float((losses - plain).abs().max())
+    ok = torch.allclose(losses, plain, atol=1e-6, rtol=LOSS_TOL)
+    print(f"[{tag}] per-step losses vs the dense tables through the plain "
+          f"backends on the same params and batch: max|diff| {diff:.3e} "
+          f"ok={ok}")
+    print(f"[{tag}] losses {[round(float(v), 6) for v in losses]}")
+    if not ok:
+        raise SystemExit(f"{tag}: losses disagree with the dense tables "
+                         f"through the plain backends")
+
+    batch = batch_to(setup["batches"][steps % len(setup["batches"])], device)
+    for when, params in (("at init", setup["init"]()),
+                         (f"after {steps} steps", state["params"])):
+        worst, paths = sparse_vs_dense_grads(tag, setup, params, batch)
+        print(f"[{tag}] {len(paths[0])} sparse tables, dense {paths[1]}; "
+              f"gradients {when}, sparse (densified) vs the dense path: "
+              f"max|diff| {worst[0]:.3e} (at {'/'.join(worst[1])})")
+        del params
+    groups = record_groups(emod, lambda: sparse_forward(
+        setup["loss"], setup["table_ids"], state["params"], batch, None))
+    _, state_again, again = run_trainer(setup, device, steps)
+    same_run(tag, losses, state, again, state_again)
+    del state, state_again
+    torch.cuda.empty_cache()
+
+    small = dlrm_config(DLRM_CPU_CAP)
+    cpu_setup = dlrm_setup(small, 64, 256, "cpu", "cpu")
+    cpu_steps, cpu_losses = 10, []
+
+    def cpu_loss(p, b):
+        with dispatch.use_dot_backend("torch"), \
+                dispatch.use_emb_backend("torch"):    # what the CPU runs
+            cpu_losses.append(cpu_setup["loss"](
+                tree_map(lambda x: x.cpu(), p), batch_to(b, "cpu"), None))
+    traced = dict(dlrm_sparse_setup(small, 64, 256, device, "cpu"),
+                  before_step=cpu_loss)
+    b7 = dmod.launch_count
+    _, _, card_small = run_trainer(traced, device, cpu_steps)
+    cpu_losses = torch.stack(cpu_losses)
+    diff = float((card_small - cpu_losses).abs().max())
+    ok = torch.allclose(card_small, cpu_losses, atol=1e-6, rtol=LOSS_TOL)
+    print(f"[{tag}] {dlrm_describe(small)}; 64 requests / 256 impressions, "
+          f"{cpu_steps} steps: per-step losses vs the CPU (dense tables) on "
+          f"the same params and batch max|diff| {diff:.3e} ok={ok}; B7 "
+          f"launches {dmod.launch_count - b7}")
+    if not ok or dmod.launch_count - b7 != cpu_steps:
+        raise SystemExit(f"{tag}: the capped card run disagrees with the "
+                         f"CPU, or did not launch B7 once a step")
+
+    run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, _ = run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(launches=got[0], bag_launches=got[1:3],
+               steps_per_s=steps / wall,
+               impressions_per_s=steps * b_nro / wall,
+               peak=torch.cuda.max_memory_allocated(),
+               breakdown=step_breakdown(setup, device, state), groups=groups)
+    print(f"[{tag}] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * b_nro / wall:.1f} "
+          f"impressions/s, {steps * b_ro / wall:.1f} requests/s; "
+          f"Trainer.run incl. init)")
+    print_beside(tag, card, out, dense)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_densify_times(device, card: str) -> None:
+    """The sparse path's fixed-order sums at dlrm's shapes, each twice bit
+    for bit and against a float64 scatter: ``SparseRows.to_dense`` of 8,192
+    ids (dlrm's NRO batch) into 4, 14 and 36 rows (its tiny NRO tables:
+    the one-hot product) beside the sorted ``index_put_`` those tables
+    took before, and the gathered rows' densify of 8,192 ids into a
+    108-row table (its NRO field t24: positions into an 8,193-row
+    buffer), beside the same ``index_put_``."""
+    import torch
+    from repro_torch.embeddings.sparse import SparseRows, gather_table
+    gen = torch.Generator(device=device).manual_seed(65)
+    n, d = 8192, 128
+    rows = torch.randn((n, d), generator=gen, device=device)
+
+    def sorted_put(ids, n_rows):
+        out = rows.new_zeros((n_rows + 1, d))
+        return out.index_put_((ids.long(),), rows, accumulate=True)[:n_rows]
+
+    cases = []
+    for v in (4, 14, 36):
+        ids = torch.randint(0, v, (n,), generator=gen, device=device,
+                            dtype=torch.int32)
+        cases.append((f"tiny-vocab merge, {n} ids into {v} rows",
+                      SparseRows(ids, rows, v), ids, v))
+    ids = torch.randint(0, 108, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    pos, _ = gather_table(torch.zeros((108, d), device=device),
+                          ids).positions(ids)
+    pos = pos.to(torch.int32)
+    cases.append((f"gathered-rows densify, {n} ids into a 108-row table "
+                  f"({n + 1}-row buffer)", SparseRows(pos, rows, n + 1),
+                  pos, n + 1))
+    for label, coo, ids, n_rows in cases:
+        got = coo.to_dense()
+        want = torch.zeros((n_rows + 1, d), dtype=torch.float64,
+                           device=device).index_add_(0, ids.long(),
+                                                     rows.double())[:n_rows]
+        err = float((got.double() - want).abs().max())
+        # fp32 sums of up to 2,048 N(0, 1) rows: 1e-5 of the largest sum
+        if not torch.equal(got, coo.to_dense()) \
+                or err > 1e-5 * max(1.0, float(want.abs().max())):
+            raise SystemExit(f"densify times: {label}: two calls differ, "
+                             f"or max|diff| {err:.3e} from float64")
+        # a sort's launches x iters stay under the launch queue (~1,000)
+        ms = device_ms(coo.to_dense, 10)
+        old = device_ms(lambda: sorted_put(ids, n_rows), 10)
+        print(f"[times] {card}: {label}: SparseRows.to_dense {ms:.5f} ms "
+              f"(max|diff| from float64 {err:.3e}, bitwise on repeat), the "
+              f"sorted index_put_ {old:.5f} ms")
+
+
+def phase_sparse_bag_times(emod, device, card: str, groups) -> dict:
+    """The grouped B5 and B6 at the sparse dlrm path's shapes: the
+    operands one sparse training step hands B5 (per side, 13 fields: the
+    gathered rows + a zero row of each table of at least 64 rows, the
+    three dense tiny tables, ids as positions), held against their plain
+    versions (B5 within BAG_TOL, B6 bit for bit) and timed beside their
+    summed bound, the plain version and 13 ``F.embedding_bag`` calls (B6:
+    the backward of 13 ``sparse=True`` calls). Returns the numbers for the
+    kernels' JSON line, keyed by (side, "fwd" | "coo")."""
+    import torch
+    import torch.nn.functional as F
+    out = {}
+    for side, (tables, ids, lens) in zip(("RO", "NRO"), groups):
+        b, f, _ = ids.shape
+        vocabs = [t.shape[0] for t in tables]
+        g = torch.randn((b, f, tables[0].shape[1]), device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(66))
+        fwd = lambda: emod.embedding_bag_grouped_fwd_cuda(tables, ids, lens)
+        fwd_plain = lambda: emod.embedding_bag_grouped_plain(tables, ids,
+                                                             lens)
+        coo = lambda: emod.embedding_bag_grouped_coo_rows_cuda(g, ids, lens,
+                                                               vocabs)
+        coo_plain = lambda: emod.embedding_bag_grouped_coo_rows_plain(
+            g, ids, lens, vocabs)
+        err = float((fwd() - fwd_plain()).abs().max())
+        if err > BAG_TOL or not all(torch.equal(a, p) for a, p in
+                                    zip(coo(), coo_plain())):
+            raise SystemExit(f"sparse bag times: {side} side: B5 off plain "
+                             f"by {err:.3e} or B6 not bit for bit plain")
+        flat = [ids[:, j, 0].long() for j in range(f)]
+        offsets = torch.arange(b, device=device)
+        lib_fwd = lambda: [F.embedding_bag(flat[j], t, offsets, mode="sum")
+                           for j, t in enumerate(tables)]
+        tg = [t.detach().requires_grad_(True) for t in tables]
+        lib_out = [F.embedding_bag(flat[j], t, offsets, mode="sum",
+                                   sparse=True) for j, t in enumerate(tg)]
+        gs = [g[:, j, :].contiguous() for j in range(f)]
+        lib_bwd = lambda: torch.autograd.grad(lib_out, tg, gs,
+                                              retain_graph=True)
+        ms = {key: labelled_device_ms(key, fn, iters) for key, fn, iters in (
+            ("fwd_plain", fwd_plain, 6), ("fwd", fwd, 200),
+            ("coo", coo, 200), ("coo_plain", coo_plain, 6),
+            ("lib_fwd", lib_fwd, 10))}
+        try:
+            ms["lib_coo"] = device_ms(lib_bwd, 8)
+        except SystemExit:
+            ms["lib_coo"] = None        # it synchronises the host
+        x = dict(tables=tables, ids=ids, lens=lens)
+        for which, label in (("fwd", "B5 embedding_bag_fwd_grouped"),
+                             ("coo", "B6 embedding_bag_bwd_coo_grouped")):
+            bound_ms, bound_by, n_bytes, ops = bound_group(x, which)
+            lib = ms["lib_" + which]
+            print(f"[times] {card}: {label} sum, sparse dlrm training "
+                  f"{side} side B{b} F{f} L1 D{tables[0].shape[1]} over "
+                  f"tables of {vocabs} rows, device time per call: kernel "
+                  f"{ms[which]:.5f} ms, plain torch "
+                  f"{ms[which + '_plain']:.5f} ms; bound {bound_ms:.5f} ms "
+                  f"({bound_by}: {n_bytes} B, {ops} FLOP); library ({f} "
+                  f"calls) " + ("-" if lib is None else f"{lib:.5f} ms")
+                  + f"; max|B5 - plain| {err:.3e}")
+            out[side, which] = dict(ms=ms[which],
+                                    plain_ms=ms[which + "_plain"],
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=lib, max_abs_err=(
+                                        err if which == "fwd" else 0.0))
+        del tg, lib_out
+    return out
 
 
 def bound_dot(dense, sparse, self_interaction=False) -> tuple:
@@ -3030,6 +3534,8 @@ def main() -> int:
         raise SystemExit("hstu-gr launched a bag kernel")
     lsr_serve = phase_lsr_serve(emod, kmod, device)
     lsr_train = phase_lsr_train(emod, kmod, pmod, bmod, device, card)
+    lsr_sparse = phase_lsr_sparse_train(emod, kmod, pmod, bmod, device, card,
+                                        lsr_train)
     phase_lsr_hstu_train(emod, kmod, pmod, bmod, device)
     if dmod.launch_count:
         raise SystemExit("hstu-gr or roo-lsr launched the dot-interaction "
@@ -3038,6 +3544,8 @@ def main() -> int:
                                   card)
     dlrm_train = phase_dlrm_train(dmod, emod, (kmod, pmod, bmod), device,
                                   card)
+    dlrm_sparse = phase_dlrm_sparse_train(dmod, emod, (kmod, pmod, bmod),
+                                          device, card, dlrm_train)
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
@@ -3045,6 +3553,9 @@ def main() -> int:
     phase_dlrm_bag_times(emod, device, card)
     grouped_times = phase_grouped_bag_times(emod, device, card)
     dot_times = phase_dot_times(dmod, device, card)
+    phase_densify_times(device, card)
+    sparse_bag_times = phase_sparse_bag_times(emod, device, card,
+                                              dlrm_sparse["groups"])
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -3060,6 +3571,12 @@ def main() -> int:
           f"impressions/s, {dlrm_score['requests_per_s']:.1f} requests/s")
     print(f"[dlrm train] {card}: {dlrm_train['steps_per_s']:.2f} steps/s, "
           f"{dlrm_train['impressions_per_s']:.1f} impressions/s")
+    print(f"[lsr sparse train] {card}: {lsr_sparse['steps_per_s']:.2f} "
+          f"steps/s, {lsr_sparse['requests_per_s']:.1f} requests/s")
+    print(f"[dlrm sparse train] {card}: {dlrm_sparse['steps_per_s']:.2f} "
+          f"steps/s, {dlrm_sparse['impressions_per_s']:.1f} impressions/s; "
+          f"peak memory {dlrm_sparse['peak'] / 2 ** 30:.2f} GiB (dense "
+          f"{dlrm_train['peak'] / 2 ** 30:.2f})")
 
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
@@ -3099,13 +3616,26 @@ def main() -> int:
             ("embedding_bag_bwd_coo_grouped", 74,
              dlrm_train["bag_launches"][1], "coo"))
         for side in ("RO", "NRO")] + [{
+        "name": f"{name} (dlrm sparse training, {side} side: gathered rows)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": f"src/repro/kernels/embedding_bag.py:{line}",
+        "launches": launches // 2, **sparse_bag_times[side, which]}
+        # the sparse dlrm step also launches each grouped kernel once a side
+        for name, line, launches, which in (
+            ("embedding_bag_fwd_grouped", 48,
+             dlrm_sparse["bag_launches"][0], "fwd"),
+            ("embedding_bag_bwd_coo_grouped", 74,
+             dlrm_sparse["bag_launches"][1], "coo"))
+        for side in ("RO", "NRO")] + [{
         "name": f"dot_interaction_fwd (dlrm {what})", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
         "replaces": "src/repro/kernels/dot_interaction.py:22",
         "launches": run["launches"], "max_abs_err": worst_dot,
         **dot_times[key]}
         for what, key, run in (("scoring", "score", dlrm_score),
-                               ("training", "train", dlrm_train))]}))
+                               ("training", "train", dlrm_train),
+                               ("sparse training", "train", dlrm_sparse))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,23 +18,37 @@ embedding-bag entry points (kernels/embedding_bag.py, backend from
 ``kernels/dispatch.py``); forced dedup pools over the small table of
 distinct rows by the inverse ids, field by field.
 
+Every lookup takes a table in either form (``Table``): a dense ``(V, D)``
+tensor, or the ``embeddings.sparse.GatheredTable`` proxy of sparse-row
+training (``make_sparse_value_and_grad``), whose rows were gathered once
+for the batch (no further dedup). The gathers translate ids with
+``GatheredTable.take``. The padded bags do not fall back to a gather, as
+the reference does on its proxy: they run the same embedding-bag entry
+points over the gathered rows with a zero row appended (``padded``), the
+ids translated to positions and a miss pointed at the zero row, so on the
+card a gathered table's bag is still B5 forward and B6 backward, and a
+group that mixes gathered and dense tables is still one launch each way.
+The gradient the rows get is the densify of B6's COO rows into the small
+``(N + 1, D)`` buffer.
+
 The named collection (``TableConfig``, ``FeatureSpec``,
-``EmbeddingCollection``) declares tables and routes features to them; so
-far it builds the tables (DLRM's 26 fields are its user). Its ``lookup``,
-``lookup_keyed`` and ``request_ids``, the sharded paths and the
-``GatheredTable`` proxy are not ported yet.
+``EmbeddingCollection``) declares tables and routes features to them:
+``init``, ``lookup`` (one feature in its declared mode), ``lookup_keyed``
+(every jagged feature of a ``KeyedJagged``) and ``request_ids`` (per-table
+id sets for ``make_sparse_value_and_grad``). DLRM's 26 fields are its
+canonical user. The sharded paths are not ported yet (A9).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.hstu import normal_init
-from repro_torch.data.jagged import JaggedTensor
+from repro_torch.data.jagged import JaggedTensor, KeyedJagged
 from repro_torch.embeddings.bag import bag_pool
-from repro_torch.embeddings.sparse import gather_rows
+from repro_torch.embeddings.sparse import GatheredTable, gather_rows
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                               embedding_bag_grouped)
 from repro_torch.scenario.knobs import UNSET, Knob
@@ -42,6 +56,9 @@ from repro_torch.scenario.knobs import UNSET, Knob
 DEDUP_KNOB = Knob("emb_dedup", "REPRO_TORCH_EMB_DEDUP",
                   choices=("always", "never", "auto"), kind="policy",
                   auto=lambda: "auto")
+
+
+Table = Union[torch.Tensor, GatheredTable]
 
 
 def set_dedup_policy(policy: Optional[str]) -> None:
@@ -63,16 +80,18 @@ def dedup_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                           + tuple(rows.shape[1:]))
 
 
-def _gather(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+def _gather(table: Table, ids: torch.Tensor, vocab: int,
             dedup: Optional[bool]) -> torch.Tensor:
-    """Row gather with dedup; ids of any shape, unclipped."""
+    """Row gather with dedup and the proxy; ids of any shape, unclipped."""
     ids = torch.clamp(ids.long(), 0, vocab - 1)
+    if isinstance(table, GatheredTable):
+        return table.take(ids)          # deduplicated for the whole batch
     if _want_dedup(dedup):
         return dedup_gather(table, ids)
     return gather_rows(table, ids)
 
 
-def seq_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+def seq_lookup(table: Table, ids: torch.Tensor, *,
                vocab: Optional[int] = None,
                dedup: Optional[bool] = None) -> torch.Tensor:
     """(B, L) ids -> (B, L, D); exact ``table[clip(ids)]`` semantics."""
@@ -80,21 +99,21 @@ def seq_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     return _gather(table, ids, v, dedup)
 
 
-def row_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+def row_lookup(table: Table, ids: torch.Tensor, *,
                vocab: Optional[int] = None,
                dedup: Optional[bool] = None) -> torch.Tensor:
     """(B,) ids -> (B, D) single-row gather."""
     return seq_lookup(table, ids[:, None], vocab=vocab, dedup=dedup)[:, 0, :]
 
 
-def bag_lookup(table: torch.Tensor, ids: JaggedTensor, pooling: str = "sum",
+def bag_lookup(table: Table, ids: JaggedTensor, pooling: str = "sum",
                *, dedup: Optional[bool] = None) -> torch.Tensor:
     """Jagged id-list bag -> (B, D): (dedup-)gather, then pool."""
     emb = _gather(table, ids.values, int(table.shape[0]), dedup)
     return bag_pool(emb, ids, pooling)
 
 
-def bag_lookup_dense(table: torch.Tensor, ids: torch.Tensor,
+def bag_lookup_dense(table: Table, ids: torch.Tensor,
                      lengths: torch.Tensor, pooling: str = "sum", *,
                      vocab: Optional[int] = None,
                      dedup: Optional[bool] = None,
@@ -102,13 +121,14 @@ def bag_lookup_dense(table: torch.Tensor, ids: torch.Tensor,
     """Padded-layout bag: (B, L) ids + (B,) lengths -> (B, D).
 
     Runs ``kernels/embedding_bag.embedding_bag`` (forward B5, backward B6
-    on a CUDA table; the plain path on a CPU one). Forced dedup (arg or the
-    "always" policy) gathers each distinct clipped id's row once and pools
+    on a CUDA table; the plain path on a CPU one). A ``GatheredTable``
+    runs it over its rows and a zero row by the ids' positions
+    (``GatheredTable.padded``). Forced dedup (arg or the "always" policy)
+    gathers each distinct clipped id's row of a dense table once and pools
     that small table by the inverse ids, so it runs the same kernels.
     """
-    if _want_dedup(dedup):
-        v = int(vocab) if vocab is not None else int(table.shape[0])
-        table, ids = _distinct_rows(table, ids, v)
+    v = int(vocab) if vocab is not None else int(table.shape[0])
+    table, ids = _bag_operands(table, ids, v, dedup)
     return embedding_bag(table, ids, lengths, pooling, backend=backend)
 
 
@@ -120,7 +140,21 @@ def _distinct_rows(table: torch.Tensor, ids: torch.Tensor,
     return gather_rows(table, uids), inv.reshape(ids.shape)
 
 
-def bag_lookup_dense_grouped(tables: Sequence[torch.Tensor],
+def _bag_operands(table: Table, ids: torch.Tensor, vocab: int,
+                  dedup: Optional[bool]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The table and ids one field's bag hands the embedding-bag entry
+    points: a gathered table's rows + zero row and positions, a dense
+    table's distinct rows and inverse ids under forced dedup, else the
+    table and ids as given."""
+    if isinstance(table, GatheredTable):
+        return table.padded(ids)
+    if _want_dedup(dedup):
+        return _distinct_rows(table, ids, vocab)
+    return table, ids
+
+
+def bag_lookup_dense_grouped(tables: Sequence[Table],
                              ids: torch.Tensor, lengths: torch.Tensor,
                              pooling: str = "sum", *,
                              dedup: Optional[bool] = None) -> torch.Tensor:
@@ -130,16 +164,19 @@ def bag_lookup_dense_grouped(tables: Sequence[torch.Tensor],
 
     Runs ``kernels/embedding_bag.embedding_bag_grouped`` (on CUDA tables one
     B5 launch forward and one B6 launch backward for all fields; the plain
-    path on CPU ones). Forced dedup gathers each field's distinct rows
-    into a small table of its own and pools those by the inverse ids, still
-    as one group.
+    path on CPU ones). A ``GatheredTable`` field takes its rows and a zero
+    row, its ids their positions (``GatheredTable.padded``), in the same
+    group as the dense fields. Forced dedup gathers each dense field's
+    distinct rows into a small table of its own and pools those by the
+    inverse ids, still as one group.
     """
     tables = list(tables)
-    if _want_dedup(dedup):
-        small = [_distinct_rows(t, ids[:, f, :], int(t.shape[0]))
-                 for f, t in enumerate(tables)]
-        tables = [t for t, _ in small]
-        ids = torch.stack([i for _, i in small], dim=1)
+    if _want_dedup(dedup) or any(isinstance(t, GatheredTable)
+                                 for t in tables):
+        fields = [_bag_operands(t, ids[:, f, :], int(t.shape[0]), dedup)
+                  for f, t in enumerate(tables)]
+        tables = [t for t, _ in fields]
+        ids = torch.stack([i.to(ids.dtype) for _, i in fields], dim=1)
     return embedding_bag_grouped(tables, ids, lengths, pooling)
 
 
@@ -201,3 +238,48 @@ class EmbeddingCollection:
     def init(self, gen: torch.Generator, dtype=torch.float32,
              scale: float = 0.01, device="cuda") -> Dict[str, torch.Tensor]:
         return init_tables(gen, self.cfg, dtype, scale, device)
+
+    def lookup(self, tables: Dict[str, Table], feature: str, ids,
+               lengths: Optional[torch.Tensor] = None, *,
+               dedup: Optional[bool] = None) -> torch.Tensor:
+        """One feature's lookup in its declared mode. ``ids`` is a
+        JaggedTensor for "jagged", (B, L) [+ lengths] for "bag" / "seq",
+        (B,) for "row"."""
+        f = self.features[feature]
+        t = self.cfg.table(f.table)
+        tbl = tables[f.table]
+        if f.kind == "jagged":
+            return bag_lookup(tbl, ids, f.pooling, dedup=dedup)
+        if f.kind == "bag":
+            if lengths is None:
+                lengths = torch.full((ids.shape[0],), ids.shape[1],
+                                     dtype=torch.int32, device=ids.device)
+            return bag_lookup_dense(tbl, ids, lengths, f.pooling,
+                                    vocab=t.vocab, dedup=dedup)
+        if f.kind == "seq":
+            return seq_lookup(tbl, ids, vocab=t.vocab, dedup=dedup)
+        if f.kind == "row":
+            return row_lookup(tbl, ids, vocab=t.vocab, dedup=dedup)
+        raise ValueError(f"unknown lookup kind {f.kind!r}")
+
+    def lookup_keyed(self, tables: Dict[str, Table], kj: KeyedJagged, *,
+                     dedup: Optional[bool] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """Pooled bags for every jagged feature of a KeyedJagged bundle
+        that the collection routes."""
+        return {name: self.lookup(tables, name, kj[name], dedup=dedup)
+                for name in kj.features if name in self.features}
+
+    def request_ids(self, feature_ids: Dict[str, object],
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Per-feature ids (tensors or JaggedTensors) folded into one flat
+        id tensor per table, the ``table_ids_fn`` payload of
+        ``make_sparse_value_and_grad``. ``prefix`` locates the tables dict
+        inside the params tree (e.g. "tables/")."""
+        by_table: Dict[str, list] = {}
+        for name, ids in feature_ids.items():
+            flat = (ids.values if isinstance(ids, JaggedTensor)
+                    else ids).reshape(-1)
+            by_table.setdefault(self.features[name].table, []).append(flat)
+        return {f"{prefix}{t}": torch.cat(parts)
+                for t, parts in by_table.items()}

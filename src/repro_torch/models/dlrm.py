@@ -11,9 +11,12 @@ and the RO lookups run at B_RO and fan out at the interaction.
 
 On the card the bags of a side's fields run as one group through the
 embedding-bag kernels (one B5 launch forward, one B6 launch backward) and
-the interaction runs B7. Not ported yet: the sharded
-``plan`` / ``out_sharded`` lookups (multi-card slice) and
-``dlrm_table_ids`` (the sparse-row slice).
+the interaction runs B7. Sparse-row training declares each batch's ids
+per table with ``dlrm_table_ids`` (for
+``embeddings.sparse.make_sparse_value_and_grad``): the tables of at least
+64 rows are then gathered ``GatheredTable``s, which the grouped lookup
+takes beside the dense tiny tables, still one group a side. Not ported
+yet: the sharded ``plan`` / ``out_sharded`` lookups (multi-card slice).
 """
 from __future__ import annotations
 
@@ -97,7 +100,8 @@ def _field_lookup(params: Dict, ids: torch.Tensor, lengths: torch.Tensor,
                   fields) -> torch.Tensor:
     """ids: (B, n_fields, multi_hot) -> (B, n_fields, D): the fields' sum
     bags as one grouped lookup of the collection (on the card one B5 launch
-    forward and one B6 launch backward for all the fields)."""
+    forward and one B6 launch backward for all the fields, dense tables and
+    ``GatheredTable``s alike)."""
     return bag_lookup_dense_grouped(
         [params["tables"][f"t{i_field}"] for i_field in fields], ids,
         lengths)
@@ -149,6 +153,19 @@ def dlrm_forward_impression(params: Dict, cfg: DLRMConfig,
     embs = _field_lookup(params, ids, lengths, range(cfg.n_sparse))
     z = dot_interaction(dense_out, embs)
     return mlp_apply(params["top_mlp"], z)[:, 0]
+
+
+def dlrm_table_ids(cfg: DLRMConfig, ro_ids: torch.Tensor,
+                   nro_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-table flat id sets of one ROO batch (params-tree paths), for
+    ``embeddings.sparse.make_sparse_value_and_grad``: folded through the
+    collection's feature routing, so declaration and lookup cannot
+    drift."""
+    feats = {f"f{f}": ro_ids[:, j] for j, f in enumerate(
+        range(cfg.n_ro_fields))}
+    feats.update({f"f{f}": nro_ids[:, j] for j, f in enumerate(
+        range(cfg.n_ro_fields, cfg.n_sparse))})
+    return cfg.collection().request_ids(feats, prefix="tables/")
 
 
 def dlrm_flops_per_example(cfg: DLRMConfig) -> int:

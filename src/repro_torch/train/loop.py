@@ -19,12 +19,27 @@ Fault tolerance contract:
     (``torch.where`` on the device: no host sync per step unless
     ``halt_after_skips > 0``).
 
+Sparse-row training: ``value_and_grad_fn`` (``make_train_step`` and
+``Trainer``) replaces the default autograd ``value_and_grad``;
+``embeddings.sparse.make_sparse_value_and_grad`` plugs in here, and its
+``SparseRows`` grad leaves flow through accumulation and into the
+optimizer. With microbatches the dense part is summed in fp32 and divided
+once, and the ``SparseRows`` parts are concatenated in microbatch order
+and scaled by 1/microbatches (a COO sum is a concatenation; the
+optimizer's merge folds the duplicates), as the reference's unrolled
+accumulation does. The grad norm squares each ``SparseRows``' entries
+(``sq_sum``). When the grads hold a ``SparseRows`` the step hands the
+optimizer its finite flag (``update(..., ok=ok)``): row-wise Adagrad then
+writes the touched rows in place, guarded row by row, and the step's
+``torch.where`` guard skips the leaves that come back as the same tensors,
+so no pass over a whole table is left (``train/optim.py``'s in-place
+contract: the step consumes the state it is given).
+
 The port's generators are not JAX's PRNG, so a loss that draws random
 numbers gives other draws than the reference; everything else follows the
 reference step for step. Not ported yet: the compressed gradient exchange
 and the SPMD plan (comms, A9), the obs spans, the ``train.batch`` fault
-site and ``run()``'s ``on_checkpoint`` hook for disk loaders (A8), and
-sparse-row gradients.
+site and ``run()``'s ``on_checkpoint`` hook for disk loaders (A8).
 """
 from __future__ import annotations
 
@@ -35,6 +50,9 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.embeddings.sparse import (concat_sparse, is_sparse,
+                                           merge_sparse, split_sparse,
+                                           sq_sum)
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optim import Optimizer
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -84,46 +102,59 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
-                    microbatches: int = 1):
+                    microbatches: int = 1,
+                    value_and_grad_fn: Optional[Callable] = None):
     """Returns ``step(state, batch, base_seed, step) -> (state, metrics)``.
 
     With microbatches > 1, every tensor leaf of ``batch`` has a leading
-    microbatch axis; gradients are summed over the microbatches in fp32 and
-    divided once, as the reference's accumulation scan does, and each
-    microbatch gets its own generator. Metrics stay on the device:
-    ``loss``, ``grad_norm`` and ``skipped`` (int32 0/1).
+    microbatch axis; dense gradients are summed over the microbatches in
+    fp32 and divided once, as the reference's accumulation does,
+    ``SparseRows`` gradients concatenated and scaled (module note), and
+    each microbatch gets its own generator. ``value_and_grad_fn(params,
+    batch, gen) -> (loss, grads)`` replaces ``value_and_grad(loss_fn)``.
+    Metrics stay on the device: ``loss``, ``grad_norm`` and ``skipped``
+    (int32 0/1).
     """
-    vag = value_and_grad(loss_fn)
+    vag = value_and_grad_fn or value_and_grad(loss_fn)
 
     def step(state, batch, base: int, step_idx: int):
         params = state["params"]
         device = leaves(params)[0].device
         if microbatches > 1:
-            acc, losses = None, []
+            acc, losses, sparse_parts = None, [], []
             for i in range(microbatches):
                 mb = tree_map(lambda x, i=i: x[i], batch)
                 loss_i, g = vag(params, mb, step_generator(
                     base, step_idx, i, device=device))
-                g = tree_map(lambda x: x.float(), g)
-                acc = g if acc is None else tree_map(torch.add, acc, g)
+                dense_g, sparse_g = split_sparse(g)
+                dense_g = tree_map(lambda x: x.float(), dense_g)
+                acc = dense_g if acc is None else tree_map(torch.add, acc,
+                                                           dense_g)
+                sparse_parts.append(sparse_g)
                 losses.append(loss_i)
-            grads = tree_map(lambda g: g / microbatches, acc)
+            grads = merge_sparse(tree_map(lambda g: g / microbatches, acc),
+                                 concat_sparse(sparse_parts,
+                                               1.0 / microbatches))
             loss = torch.mean(torch.stack(losses))
         else:
             loss, grads = vag(params, batch, step_generator(
                 base, step_idx, device=device))
 
-        new_params, new_opt = opt.update(grads, state["opt"], params)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in leaves(grads)) + 1e-20)
+        g_leaves = leaves(grads, is_leaf=is_sparse)
+        gnorm = torch.sqrt(sum(sq_sum(g) for g in g_leaves) + 1e-20)
         # non-finite guard: a NaN/Inf loss or gradient must not poison the
         # parameters — keep the old params/opt for this step (the step
         # counter still advances so data alignment is unchanged) and
         # surface the skip in the metrics
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        # with SparseRows grads the optimizer writes the touched rows in
+        # place under the guard, and returns those tensors as they are
+        sparse = {"ok": ok} if any(map(is_sparse, g_leaves)) else {}
+        new_params, new_opt = opt.update(grads, state["opt"], params,
+                                         **sparse)
 
         def keep(new, old):
-            return torch.where(ok, new, old)
+            return new if new is old else torch.where(ok, new, old)
         new_state = {**state,
                      "params": tree_map(keep, new_params, params),
                      "opt": tree_map(keep, new_opt, state["opt"]),
@@ -137,6 +168,7 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
 class Trainer:
     def __init__(self, loss_fn: Callable, opt: Optimizer,
                  cfg: TrainLoopConfig, init_params_fn: Callable[[], Any], *,
+                 value_and_grad_fn: Optional[Callable] = None,
                  metrics_fn: Optional[Callable] = None, device="cuda"):
         self.opt = opt
         self.cfg = cfg
@@ -146,7 +178,8 @@ class Trainer:
         # autograd — a quality metric read 1-in-log_every times must not
         # cost a second model forward on every step
         self.metrics_fn = metrics_fn
-        self.step_fn = make_train_step(loss_fn, opt, cfg.microbatches)
+        self.step_fn = make_train_step(loss_fn, opt, cfg.microbatches,
+                                       value_and_grad_fn)
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, cfg.keep_last,
                                        meta=cfg.ckpt_meta)
                      if cfg.ckpt_dir else None)
