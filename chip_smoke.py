@@ -16,7 +16,8 @@ Phases (any failure exits non-zero and prints no result):
   3. kernels     — each kernel against its plain torch version on the card,
                    reached through dispatch's auto backend: the HSTU forward
                    (B1) at the serving shape and ragged / wide / causal
-                   shapes; the cached-prefix forward (B4) at the serving
+                   shapes, and at the two-tower user tower's (causal, S 64,
+                   B 64 and 13); the cached-prefix forward (B4) at the serving
                    shape with n_new 1, 8 and 64 and at ragged, wide and
                    extend-only shapes, and its prefix-0 case against B1
                    (bit for bit: one tile body); rab on and off, masked
@@ -171,6 +172,38 @@ Phases (any failure exits non-zero and prints no result):
                    one-hot product) and into a 108-row table's gathered
                    rows, beside the sorted index_put_
 
+ 17. other archs — after the roo-lsr phases, the remaining recsys archs at
+                   the reference scenario's registered shapes (50,000
+                   items, hist 64, 32 requests / 192 impressions a training
+                   batch, the 1,000-request stream for serving), each from
+                   seeded random params made once and shared by every run
+                   of the phase: roo-esr in "hstu" user-tower mode serves
+                   stateless (B1 = n_layers x batches) and through the
+                   user-tower cache (pass 2 all full-cache, B1 0), then
+                   trains 20 steps dense and 20 on sparse rows (B1 =
+                   n_layers x (steps + NE forwards), B2 = B3 = n_layers x
+                   steps); roo-esr in "mlp" mode trains dense and on sparse
+                   rows (B5 = steps + NE, B6 = steps; over the gathered
+                   rows on sparse rows); roo-retrieval ("hstu") serves
+                   stateless through its fan-out scores and trains dense and
+                   on sparse rows; mind and dien serve and train dense and
+                   on sparse rows, bert4rec serves and trains dense (its
+                   cloze mask from the step's generator), all three with
+                   no kernel launch. Every server's scores within 1e-4 of
+                   the plain backends on the card and of a CPU server;
+                   every step's loss against the plain backends on the
+                   card and the CPU on the same params, batch and
+                   generator state; on sparse rows the gradient rule and
+                   the densified gradients vs the dense path; a second run
+                   from the same init tree bit for bit (the Trainer leaves
+                   the caller's tree as it was); requests/s and steps/s.
+                   The times phase adds B1 at roo-esr's serving shape and
+                   B5 / B6 at the "mlp" tower's mean bag (the operands one
+                   step hands them: the dense table and the gathered rows),
+                   and the dlrm sparse phase prints its peak memory during
+                   Trainer.init_state (the state's copy of the tables) and
+                   over the steps after it, the latter gated at 8 GiB
+
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
 order (atol = rtol = 1e-5 on attention outputs and on dq, dk, dv; 1e-4 on
@@ -188,6 +221,7 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -209,6 +243,8 @@ DLRM_CAP = 2 ** 21            # rows per dlrm-mlperf table on the card
 DLRM_CPU_CAP = 2 ** 14        # rows per table in the CPU cross-check
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+SPARSE_STEPS_PEAK_GIB = 8.0   # dlrm sparse steps' peak: 7.50 GiB before
+                              # the Trainer copied its state, + 0.5
 
 
 def card_line() -> str:
@@ -429,20 +465,31 @@ def dot_registers(log: str) -> dict:
     return ptxas_registers(log, key)
 
 
-def phase_kernels(kmod, device) -> float:
+B1_SHAPES = {   # (B, H, S, Dqk, Dv, n_hist, max_rel); "causal" names: no
+               # targets (the history alone, under the causal mask)
+    "serve B64 S80": (64, 2, 80, 32, 32, 64, 64),
+    "ragged S203": (5, 3, 203, 48, 40, 150, 100),
+    "wide D128 S160": (3, 2, 160, 128, 128, 140, 128),  # > 48 KB smem
+    "causal S96": (4, 2, 96, 32, 32, 96, 64),
+}
+# the two-tower user tower (roo-esr / roo-retrieval, "hstu" mode): the
+# history alone under the causal mask, at serving's top rung and a bucket
+ESR_B1_SHAPES = {
+    "causal ESR serve B64 S64": (64, 2, 64, 32, 32, 64, 64),
+    "causal ESR bucket B13 S64": (13, 2, 64, 32, 32, 64, 64),
+}
+
+
+def phase_kernels(kmod, device, shapes=None) -> float:
     """Kernel vs plain version (and the chunked path) on the card, the
     kernel reached through the dispatch entry the model calls (auto
-    backend); returns the largest |kernel - plain|."""
+    backend), at ``shapes`` (default ``B1_SHAPES``); returns the largest
+    |kernel - plain|."""
     import torch
     from repro_torch.core.hstu import hstu_attention_chunked
     from repro_torch.core.masks import roo_spec
     from repro_torch.kernels import dispatch
-    shapes = {
-        "serve B64 S80": (64, 2, 80, 32, 32, 64, 64),
-        "ragged S203": (5, 3, 203, 48, 40, 150, 100),
-        "wide D128 S160": (3, 2, 160, 128, 128, 140, 128),  # > 48 KB smem
-        "causal S96": (4, 2, 96, 32, 32, 96, 64),
-    }
+    shapes = B1_SHAPES if shapes is None else shapes
     worst = 0.0
     for i, (name, shape) in enumerate(shapes.items()):
         x = attention_inputs(shape, seed=i, device=device)
@@ -695,9 +742,11 @@ def phase_bwd_kernels(kmod, pmod, bmod, device) -> dict:
     return worst
 
 
+@functools.lru_cache(maxsize=None)
 def train_batches(n_items: int, hist_len: int) -> list:
     """The scenario's simulated stream (800 requests, 200 users) packed
-    into 32-request / 192-impression batches on the host."""
+    into 32-request / 192-impression batches on the host (made once per
+    width; callers only read them)."""
     from repro_torch.core.joiner import RequestLevelJoiner
     from repro_torch.data.batcher import BatcherConfig, ROOBatcher
     from repro_torch.data.events import EventSimulator, EventStreamConfig
@@ -767,31 +816,45 @@ def batch_to(batch, device):
 
 
 def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
-                stop_after=None, halt_after_skips=1):
+                stop_after=None, halt_after_skips=1, peaks=None):
     """One Trainer run over the setup's batches (copied to ``device`` per
     step); returns (trainer, final state, per-step losses). A setup with
     ``table_ids`` trains on sparse rows (``make_sparse_value_and_grad``),
     calling its ``before_step(params, batch)``, if any, on each step's
-    full params under no_grad."""
+    full params under no_grad. A setup's ``shadow(params, batch, gen)``
+    runs under no_grad on each step's params (detached; the full params on
+    sparse rows) with a generator in the step's generator's state. With
+    ``peaks`` (a dict) the card's peak memory is read during
+    ``Trainer.init_state`` (``peaks["init"]``) and over the steps after it
+    (``peaks["steps"]``): the state's copy of the caller's tree shows in
+    the first alone."""
     import torch
     from repro_torch.embeddings.sparse import make_sparse_value_and_grad
     from repro_torch.train.loop import Trainer, TrainLoopConfig
+    from repro_torch.tree import tree_map
     losses = []
+    sparse = "table_ids" in setup
+    shadow = setup.get("shadow")
 
     def loss_fn(p, b, gen):
+        if shadow is not None and not sparse:
+            with torch.no_grad():
+                shadow(tree_map(lambda x: x.detach(), p), b, clone_gen(gen))
         loss = setup["loss"](p, b, gen)
         losses.append(loss.detach())
         return loss
 
     vag = None
-    if "table_ids" in setup:
+    if sparse:
         sparse_vag = make_sparse_value_and_grad(loss_fn, setup["table_ids"])
         before = setup.get("before_step")
 
         def vag(p, b, gen):
-            if before is not None:
-                with torch.no_grad():
+            with torch.no_grad():
+                if before is not None:
                     before(p, b)
+                if shadow is not None:
+                    shadow(p, b, clone_gen(gen))
             return sparse_vag(p, b, gen)
 
     batches = setup["batches"]
@@ -806,8 +869,35 @@ def run_trainer(setup, device, steps=20, log_every=10, ckpt_dir=None,
         total_steps=steps, log_every=log_every, ckpt_dir=ckpt_dir,
         ckpt_every=4, halt_after_skips=halt_after_skips), setup["init"],
         value_and_grad_fn=vag, metrics_fn=setup.get("ne"), device=device)
+    if peaks is not None:
+        init_state = trainer.init_state
+
+        def measured_init(seed=0):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state = init_state(seed)
+            torch.cuda.synchronize()
+            peaks["init"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            return state
+        trainer.init_state = measured_init
     state = trainer.run(batch_iter, 0, stop_after=stop_after)
+    if peaks is not None:
+        torch.cuda.synchronize()
+        peaks["steps"] = torch.cuda.max_memory_allocated()
     return trainer, state, torch.stack(losses).cpu()
+
+
+def clone_gen(gen):
+    """A generator in ``gen``'s state (None stays None): a shadow loss
+    draws what the step's loss draws, and the step's generator does not
+    move."""
+    import torch
+    if gen is None:
+        return None
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
 
 
 def phase_train(kmod, pmod, bmod, device, card: str) -> dict:
@@ -1322,13 +1412,18 @@ def phase_cache(kmod, pmod, device, serve) -> None:
 
 
 def phase_times(kmod, device, card: str) -> dict:
-    """B1 at the serving shape (B 64; the JSON's entry) and the hstu-gr
-    training shape (B 32), H 2, S 80, D 32, rab on, beside the plain
-    version and the bound."""
+    """B1 at the hstu-gr serving shape (B 64; the JSON's entry) and
+    training shape (B 32), H 2, S 80, D 32, and at roo-esr's serving shape
+    (B 64, S 64, causal: the JSON's ESR entry), rab on, beside the plain
+    version and the bound. Returns {"serve": ..., "esr serve": ...}."""
     out = {}
-    for key, b in (("serve", 64), ("train", 32)):
-        x = attention_inputs((b, 2, 80, 32, 32, 64, 64), seed=0,
+    for key, (b, s, n_hist) in (("serve", (64, 80, 64)),
+                                ("train", (32, 80, 64)),
+                                ("esr serve", (64, 64, 64))):
+        x = attention_inputs((b, 2, s, 32, 32, n_hist, 64), seed=0,
                              device=device)
+        if key == "esr serve":
+            x["tc"].zero_()
         args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"],
                 x["tc"], x["max_rel"])
         kernel = lambda: kmod.hstu_attention_cuda(*args)
@@ -1340,8 +1435,9 @@ def phase_times(kmod, device, card: str) -> dict:
         plain_again = device_ms(plain, iters=20)
         kernel_call, plain_call = call_ms(kernel, 200), call_ms(plain, 50)
         bound_ms, bound_by, n_bytes, ops = bound(x)
-        print(f"[times] {card}: hstu_attention_fwd ({key}) B{b} H2 S80 D32 "
-              f"rab, device time per call: kernel {ms:.5f} ms (again "
+        print(f"[times] {card}: hstu_attention_fwd ({key}) B{b} H2 S{s} "
+              f"D32 rab{' causal' if key == 'esr serve' else ''}, device "
+              f"time per call: kernel {ms:.5f} ms (again "
               f"{ms_again:.5f}), plain torch {plain_ms:.5f} ms (again "
               f"{plain_again:.5f}); bound {bound_ms:.5f} ms ({bound_by}: "
               f"{n_bytes} B, {ops} FLOP at 3.35 TB/s / 67 TFLOP/s); "
@@ -1350,7 +1446,7 @@ def phase_times(kmod, device, card: str) -> dict:
               f"{kernel_call:.5f} ms, plain torch {plain_call:.5f} ms")
         out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by)
-    return out["serve"]
+    return out
 
 
 def phase_prefix_times(pmod, device, card: str) -> dict:
@@ -1389,7 +1485,9 @@ def phase_bwd_times(bmod, device, card: str) -> dict:
     """B2 and B3 at the hstu-gr training shape (B 32, H 2, S 80, D 32, rab
     on) and at the roo-lsr ``userarch_hstu`` step's (B 32, S 64, causal
     over the history) beside the plain backward (which computes all four
-    gradients) and each kernel's bound. Returns the training shape's."""
+    gradients) and each kernel's bound. Returns the training shape's
+    under "dq" / "dkv", and each shape's under (causal, "dq" | "dkv"): the
+    causal one is also the two-tower user tower's step."""
     import torch
     shapes = {"B32 H2 S80 D32 rab": ((32, 2, 80, 32, 32, 64, 64), False),
               "userarch_hstu B32 H2 S64 causal D32 rab":
@@ -1424,6 +1522,8 @@ def phase_bwd_times(bmod, device, card: str) -> dict:
                   f"library: none")
             out.setdefault(which, dict(ms=ms[which], plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by))
+            out[causal, which] = dict(ms=ms[which], plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
         print(f"[times] {card}: plain torch backward (dq, dk, dv, drab) "
               f"{shape_name} {plain_ms:.5f} ms (again {plain_again:.5f}); "
               f"host-issued back-to-back calls: B2 {call_ms(b2, 200):.5f} "
@@ -2856,6 +2956,11 @@ def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8):
         opt=mixed_optimizer(), init=init)
 
 
+def dlrm_table_gib(cfg) -> float:
+    return sum(t.vocab for t in cfg.tables().tables) * cfg.embed_dim * 4 \
+        / 2 ** 30
+
+
 def dlrm_describe(cfg) -> str:
     n_rows = sum(t.vocab for t in cfg.tables().tables)
     return (f"dlrm-mlperf dense {cfg.n_dense} fields {cfg.n_sparse} "
@@ -3272,15 +3377,29 @@ def phase_dlrm_sparse_train(dmod, emod, hstu_mods, device, card: str,
 
     run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
     t0 = time.perf_counter()
-    _, state, _ = run_trainer(setup, device, steps, halt_after_skips=0)
+    _, state, _ = run_trainer(setup, device, steps, halt_after_skips=0,
+                              peaks=peaks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the Trainer owns its state: init_state copies the fresh tables while
+    # init()'s tree is alive, so its peak holds them twice; the steps' peak
+    # is read after it
+    print(f"[{tag}] {card}: peak memory during Trainer.init_state (the "
+          f"state's copy of init()'s {dlrm_table_gib(cfg):.2f} GiB of "
+          f"tables) {peaks['init'] / 2 ** 30:.2f} GiB")
+    print(f"[{tag}] {card}: peak memory over the {steps} steps after "
+          f"init_state {peaks['steps'] / 2 ** 30:.2f} GiB")
+    if peaks["steps"] > SPARSE_STEPS_PEAK_GIB * 2 ** 30:
+        raise SystemExit(f"{tag}: the steps' peak memory "
+                         f"{peaks['steps'] / 2 ** 30:.2f} GiB is past "
+                         f"{SPARSE_STEPS_PEAK_GIB} GiB: a full-table copy "
+                         f"survived init")
     out = dict(launches=got[0], bag_launches=got[1:3],
                steps_per_s=steps / wall,
                impressions_per_s=steps * b_nro / wall,
-               peak=torch.cuda.max_memory_allocated(),
+               peak=peaks["steps"], init_peak=peaks["init"],
                breakdown=step_breakdown(setup, device, state), groups=groups)
     print(f"[{tag}] {card}: {steps} steps in {wall * 1e3:.1f} ms "
           f"({steps / wall:.2f} steps/s, {steps * b_nro / wall:.1f} "
@@ -3320,7 +3439,6 @@ def phase_densify_times(device, card: str) -> None:
                         dtype=torch.int32)
     pos, _ = gather_table(torch.zeros((108, d), device=device),
                           ids).positions(ids)
-    pos = pos.to(torch.int32)
     cases.append((f"gathered-rows densify, {n} ids into a 108-row table "
                   f"({n + 1}-row buffer)", SparseRows(pos, rows, n + 1),
                   pos, n + 1))
@@ -3489,6 +3607,470 @@ def phase_dot_times(dmod, device, card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the other recsys archs: two-tower (roo-esr, roo-retrieval), mind, dien,
+# bert4rec
+# ---------------------------------------------------------------------------
+
+SCENARIO_ITEMS = 50000        # the scenario's ModelSpec: n_items, hist_len
+SCENARIO_HIST = 64
+
+
+def plain_backends():
+    """Scoped plain torch attention (torch-dense) and embedding-bag
+    backends: what a shadow loss runs on the card."""
+    import contextlib
+    from repro_torch.kernels import dispatch
+    stack = contextlib.ExitStack()
+    stack.enter_context(dispatch.use_backend("torch-dense"))
+    stack.enter_context(dispatch.use_emb_backend("torch"))
+    return stack
+
+
+def shared_init(init):
+    """An init that makes its tree once and hands the same tree to every
+    caller: a second Trainer run from it shows that a run leaves the
+    caller's tree as it was (the Trainer owns its state)."""
+    tree = []
+
+    def once():
+        if not tree:
+            tree.append(init())
+        return tree[0]
+    return once
+
+
+def tt_setup(device, kind="esr", hstu=True):
+    """roo-esr / roo-retrieval at ``esr_config`` / ``retrieval_config``
+    width in ``"hstu"`` or ``"mlp"`` user-tower mode (seeded random
+    params, made once), the scenario's optimizer, ESR's NE metric, the
+    train batches, ``two_tower_table_ids`` for sparse rows, and the
+    serving halves (retrieval scores: the reference scenario's
+    ``_fanout_scores``)."""
+    import torch
+    from repro_torch.configs.roo_models import esr_config, retrieval_config
+    from repro_torch.models import two_tower as tt
+    from repro_torch.train.metrics import make_ne_metrics
+    cfg = (esr_config if kind == "esr" else retrieval_config)(hstu)
+    if kind == "esr":
+        loss = lambda p, b, gen: tt.esr_loss_roo(p, cfg, b)
+        ne = make_ne_metrics(lambda p, b: (tt.esr_logits_roo(p, cfg, b),
+                                           b.labels[:, 0],
+                                           b.impression_mask()))
+        from_user = lambda p, b, u: tt.esr_logits_from_user(p, cfg, b, u)
+    else:
+        loss = lambda p, b, gen: tt.retrieval_loss_roo(p, cfg, b)
+        ne = None
+        from_user = lambda p, b, u: tt.retrieval_scores_from_user(p, cfg,
+                                                                  b, u)
+    user_fn = lambda p, b: tt.user_tower(p, cfg, b)
+    return dict(
+        cfg=cfg, batches=train_batches(cfg.n_items, cfg.hist_len), loss=loss,
+        opt=mixed_optimizer(), ne=ne,
+        init=shared_init(lambda: tt.two_tower_init(
+            torch.Generator().manual_seed(0), cfg, device=device)),
+        sparse_ids=lambda b: tt.two_tower_table_ids(cfg, b),
+        score=lambda p, b: from_user(p, b, user_fn(p, b)), user_fn=user_fn,
+        score_from_user=from_user,
+        describe=(f"{kind} user tower {cfg.user_tower_mode}"
+                  + (f" (HSTU d_model {cfg.hstu.d_model}, {cfg.hstu.n_heads}"
+                     f" heads, d_qk = d_v = {cfg.hstu.d_qk}, "
+                     f"{cfg.hstu.n_layers} layers)" if hstu else
+                     " (mean bag)")
+                  + f", user MLP {cfg.user_mlp}, item MLP {cfg.item_mlp}"
+                  + (f", ESR head {cfg.esr_mlp}" if cfg.esr_head else "")
+                  + f", items {cfg.n_items}, D {cfg.embed_dim}, hist "
+                  f"{cfg.hist_len}"))
+
+
+def recsys_setup(device, name):
+    """mind / dien / bert4rec at the reference scenario's registered shapes
+    (``MINDConfig``, ``DIENConfig(seq_len=64)``, ``BERT4RecConfig(
+    seq_len=65)``, 50,000 items), otherwise as :func:`tt_setup`.
+    BERT4Rec's loss draws its cloze mask from the step's generator; it
+    declares no tables for sparse rows."""
+    import torch
+    from repro_torch.models import bert4rec, din_dien, mind
+    from repro_torch.train.metrics import make_ne_metrics
+    ne = sparse_ids = None
+    if name == "mind":
+        cfg = mind.MINDConfig(n_items=SCENARIO_ITEMS)
+        init = mind.mind_init
+        loss = lambda p, b, gen: mind.mind_loss(p, cfg, b)
+        score = lambda p, b: mind.score_candidates_roo(p, cfg, b)
+        sparse_ids = lambda b: mind.mind_table_ids(cfg, b)
+    elif name == "dien":
+        cfg = din_dien.DIENConfig(n_items=SCENARIO_ITEMS, seq_len=64)
+        init = din_dien.dien_init
+        loss = lambda p, b, gen: din_dien.dien_loss(p, cfg, b)
+        score = lambda p, b: din_dien.dien_logits_roo(p, cfg, b)
+        sparse_ids = lambda b: din_dien.dien_table_ids(cfg, b)
+        ne = make_ne_metrics(lambda p, b: (score(p, b), b.labels[:, 0],
+                                           b.impression_mask()))
+    else:
+        cfg = bert4rec.BERT4RecConfig(n_items=SCENARIO_ITEMS, seq_len=65)
+        init = bert4rec.bert4rec_init
+        loss = lambda p, b, gen: bert4rec.bert4rec_loss(p, cfg, b, gen)
+        score = lambda p, b: bert4rec.score_candidates_roo(p, cfg, b)
+    return dict(
+        cfg=cfg, batches=train_batches(SCENARIO_ITEMS, SCENARIO_HIST),
+        loss=loss, opt=mixed_optimizer(), ne=ne, sparse_ids=sparse_ids,
+        init=shared_init(lambda: init(torch.Generator().manual_seed(0), cfg,
+                                      device=device)),
+        score=score, describe=f"{name} {cfg}")
+
+
+def all_counts(mods) -> dict:
+    """Launches of every kernel since the last reset."""
+    emod, kmod, pmod, bmod, dmod = mods
+    return dict(b1=kmod.launch_count, b2=bmod.dq_launch_count,
+                b3=bmod.dkv_launch_count, b4=pmod.launch_count,
+                b5=emod.fwd_launch_count, b6=emod.coo_launch_count,
+                b7=dmod.launch_count)
+
+
+def reset_counts(mods) -> None:
+    for mod in mods:
+        mod.reset_launch_count()
+
+
+def expected_train_launches(route: str, n_layers: int, steps: int,
+                            n_metric: int) -> dict:
+    """A run's launches: the hstu user tower B1 = n_layers x (steps + NE
+    forwards) and B2 = B3 = n_layers x steps; the mean bag B5 = steps + NE
+    forwards and B6 = steps; plain torch archs none."""
+    want = dict.fromkeys(("b1", "b2", "b3", "b4", "b5", "b6", "b7"), 0)
+    if route == "hstu":
+        want.update(b1=n_layers * (steps + n_metric), b2=n_layers * steps,
+                    b3=n_layers * steps)
+    elif route == "bag":
+        want.update(b5=steps + n_metric, b6=steps)
+    return want
+
+
+def phase_arch_train(tag, make_setup, route, mods, device, card,
+                     sparse=True, steps=20) -> dict:
+    """One arch's Trainer, ``steps`` steps dense and (``sparse``) on sparse
+    rows, from one shared init tree: the launch counts of ``route``
+    (``expected_train_launches``), no skipped step, each step's loss
+    against the plain backends on the card and against the CPU on the same
+    params, batch and generator state; on sparse rows the gradient rule
+    and the densified gradients vs the dense path's after the run; a
+    second run from the same tree bit for bit; steps/s of a third run.
+    The last mode run (sparse where there is one) also gets a per-stage
+    breakdown and the card's busy share (``busy_share``). Returns per mode
+    the launches and rates."""
+    import numpy as np
+    import torch
+    from repro_torch.tree import tree_map
+    setup, cpu = make_setup(device), make_setup("cpu")
+    n_layers = (setup["cfg"].hstu.n_layers if route == "hstu" else 0)
+    out = {}
+    print(f"[{tag}] {setup['describe']}; {len(setup['batches'])} batches "
+          f"of 32 requests / 192 impressions; {steps} steps")
+    modes = ("dense", "sparse") if sparse else ("dense",)
+    for mode in modes:
+        shadows = {"plain": [], "cpu": []}
+
+        def shadow(p, b, gen):
+            with plain_backends():
+                shadows["plain"].append(setup["loss"](p, b, clone_gen(gen)))
+            with plain_backends():      # what the CPU's auto runs too
+                shadows["cpu"].append(cpu["loss"](
+                    tree_map(lambda x: x.cpu(), p), batch_to(b, "cpu"), gen))
+        run = dict(setup, **({"table_ids": setup["sparse_ids"]}
+                             if mode == "sparse" else {}))
+        reset_counts(mods)
+        trainer, state, losses = run_trainer(dict(run, shadow=shadow),
+                                             device, steps)
+        torch.cuda.synchronize()
+        got = all_counts(mods)
+        n_metric = sum(1 for row in trainer.history if "ne" in row)
+        want = expected_train_launches(route, n_layers, steps, n_metric)
+        print(f"[{tag}] {mode}: launches {got}; {n_metric} NE forwards; "
+              f"history {trainer.history}")
+        if got != want:
+            raise SystemExit(f"{tag} {mode}: launches {got} are not {want}")
+        if int(state["step"]) != steps or len(losses) != steps \
+                or not bool(torch.isfinite(losses).all()) \
+                or trainer.skipped_steps:
+            raise SystemExit(f"{tag} {mode}: wrong step count, a skipped "
+                             f"step or a non-finite loss")
+        for what, key in (("the plain backends on the card", "plain"),
+                          ("the CPU", "cpu")):
+            other = torch.stack(shadows[key]).cpu()
+            diff = float((losses - other).abs().max())
+            ok = torch.allclose(losses, other, atol=1e-6, rtol=LOSS_TOL)
+            print(f"[{tag}] {mode}: per-step losses vs {what} on the same "
+                  f"params and batch: max|diff| {diff:.3e} ok={ok}")
+            if not ok:
+                raise SystemExit(f"{tag} {mode}: losses disagree with {what}")
+        print(f"[{tag}] {mode}: losses "
+              f"{[round(float(v), 6) for v in losses]}")
+        if mode == "sparse":
+            batch = setup["batches"][steps % len(setup["batches"])].to(device)
+            worst, paths = sparse_vs_dense_grads(tag, run, state["params"],
+                                                 batch)
+            print(f"[{tag}] sparse tables {paths[0]}, dense {paths[1]}; "
+                  f"gradients after {steps} steps, sparse (densified) vs "
+                  f"dense path: max|diff| {worst[0]:.3e} (at "
+                  f"{'/'.join(worst[1])})")
+        # from the same init tree again: the first run left it as it was
+        _, state_again, again = run_trainer(run, device, steps)
+        same_run(f"{tag} {mode}", losses, state, again, state_again)
+        del state, state_again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = run_trainer(run, device, steps, halt_after_skips=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        req_per_batch = float(np.mean([
+            int(b.request_mask().sum()) for b in setup["batches"][:steps]]))
+        out[mode] = dict(launches=got, steps_per_s=steps / wall,
+                         requests_per_s=steps * req_per_batch / wall)
+        print(f"[{tag}] {mode} {card}: {steps} steps in {wall * 1e3:.1f} ms "
+              f"({steps / wall:.2f} steps/s, "
+              f"{steps * req_per_batch / wall:.1f} requests/s; Trainer.run "
+              f"incl. init and {n_metric} NE forwards)")
+        if mode != modes[-1]:
+            continue
+        (parts,) = step_breakdown(run, device, state, steps=10, rounds=1)
+        busy = busy_share(lambda: run_trainer(run, device, 10,
+                                              halt_after_skips=0))
+        out[mode].update(breakdown=parts, busy=busy)
+        print(f"[{tag}] {mode} {card}: breakdown (ms per step, card "
+              f"synchronised after each stage): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f"; {busy_text(busy)}")
+    return out
+
+
+def busy_share(fn) -> dict:
+    """The card's busy share over ``fn()``: the summed durations of the
+    device activities (kernels, copies; one stream, so they do not
+    overlap) in a ``torch.profiler`` trace of the card alone, over the
+    wall time (host clock, ended by a synchronize) of an unprofiled run of
+    the same ``fn`` just before. Both wall times are kept, so the
+    profiler's own cost is on record; ``busy`` is None when the trace
+    shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    wall = timed()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled_wall = timed()
+    dev_s = 1e-6 * sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+    return dict(busy=dev_s / wall if dev_s > 0 else None, device_s=dev_s,
+                wall_s=wall, profiled_wall_s=profiled_wall)
+
+
+def busy_text(b: dict) -> str:
+    if b["busy"] is None:
+        return "card busy not measured (no device time in the trace)"
+    return (f"card busy {100 * b['busy']:.1f} % of a 10-step run: device "
+            f"{b['device_s'] * 1e3:.1f} ms (traced, card only) over "
+            f"{b['wall_s'] * 1e3:.1f} ms unprofiled wall "
+            f"({b['profiled_wall_s'] * 1e3:.1f} ms wall while traced)")
+
+
+def phase_arch_serve(tag, setup, route, mods, device, card,
+                     cache=False) -> dict:
+    """One arch's stateless ``ROOServer`` over the simulated stream (16
+    batches of 64 x 512): no failed batch, scores aligned and finite,
+    launches (hstu tower: B1 = n_layers x batches; none elsewhere) and
+    scores within 1e-4 of the plain backends on the card and of a CPU
+    server; with ``cache`` the user-tower cache over the stream twice
+    (pass 1: B1 = n_layers x computed batches; pass 2 all full-cache, B1
+    0, the same scores). Returns the launches and rates."""
+    import numpy as np
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.serving import ROOServer, ServeConfig
+    cfg, score, params = setup["cfg"], setup["score"], setup["init"]()
+    n_layers = cfg.hstu.n_layers if route == "hstu" else 0
+    requests = scenario_requests()
+    serve_cfg = ServeConfig(b_ro=64, b_nro=512, hist_len=SCENARIO_HIST)
+    print(f"[{tag}] {setup['describe']}; {len(requests)} requests, "
+          f"{sum(r.num_impressions for r in requests)} impressions")
+    ROOServer(params, score, serve_cfg, device=device).score_requests(
+        requests[:80])                                  # warm-up
+    server = ROOServer(params, score, serve_cfg, device=device)
+    reset_counts(mods)
+    scores, wall = serve_waves(server, [requests])
+    st = server.stats
+    got = all_counts(mods)
+    print(f"[{tag}] {len(requests)} requests in {wall * 1e3:.1f} ms "
+          f"({len(requests) / wall:.1f} requests/s), {st.n_batches} batches "
+          f"{st.buckets.snapshot()['counts']}; launches {got}")
+    if st.n_failed_batches or len(scores) != len(requests) or any(
+            s.shape != (r.num_impressions,) or not np.isfinite(s).all()
+            for r, s in zip(requests, scores)):
+        raise SystemExit(f"{tag}: a failed batch, or scores misaligned or "
+                         f"not finite")
+    want = dict.fromkeys(got, 0)
+    want["b1"] = n_layers * st.n_batches
+    if got != want:
+        raise SystemExit(f"{tag}: launches {got} are not {want}")
+    dispatch.set_default_backend("torch-dense")
+    dispatch.set_default_emb_backend("torch")
+    try:
+        plain = ROOServer(params, score, serve_cfg,
+                          device=device).score_requests(requests)
+    finally:
+        dispatch.set_default_backend(None)
+        dispatch.set_default_emb_backend(None)
+    if all_counts(mods) != got:
+        raise SystemExit(f"{tag}: the plain-backend server launched a "
+                         f"kernel")
+    d_plain = max_diff_ok(scores, plain, f"{tag} vs the plain backends")
+    cpu_params = params_from_numpy(params_to_numpy(params), "cpu")
+    cpu = ROOServer(cpu_params, score, serve_cfg,
+                    device="cpu").score_requests(requests[:48])
+    d_cpu = max_diff_ok(scores[:48], cpu, f"{tag} vs a CPU server")
+    print(f"[{tag}] max|card - plain backends| over scores {d_plain:.3e}; "
+          f"max|card - CPU| over 48 requests {d_cpu:.3e}")
+    out = dict(launches=got, requests_per_s=len(requests) / wall,
+               n_batches=st.n_batches)
+    if not cache:
+        return out
+    cached = ROOServer(
+        params, score, ServeConfig(b_ro=64, b_nro=512,
+                                   hist_len=SCENARIO_HIST,
+                                   cache_user_tower=True),
+        user_fn=setup["user_fn"], score_from_user=setup["score_from_user"],
+        device=device)
+    reset_counts(mods)
+    first, first_s = serve_waves(cached, [requests])
+    cs = cached.stats
+    batches_1, full_1, b1_1 = (cs.n_batches, cs.n_full_cache_batches,
+                               all_counts(mods)["b1"])
+    second, second_s = serve_waves(cached, [requests])
+    batches_2 = cs.n_batches - batches_1
+    full_2 = cs.n_full_cache_batches - full_1
+    b1_2 = all_counts(mods)["b1"] - b1_1
+    print(f"[{tag} cache] pass 1: {first_s * 1e3:.1f} ms "
+          f"({len(requests) / first_s:.1f} requests/s), {batches_1} "
+          f"batches, {full_1} full-cache, B1 {b1_1}; pass 2: "
+          f"{second_s * 1e3:.1f} ms ({len(requests) / second_s:.1f} "
+          f"requests/s), {batches_2} batches, {full_2} full-cache, B1 "
+          f"{b1_2}")
+    if full_2 != batches_2 or batches_2 == 0 or b1_2 \
+            or b1_1 != n_layers * (batches_1 - full_1) \
+            or cs.n_failed_batches:
+        raise SystemExit(f"{tag} cache: the second pass was not all "
+                         f"full-cache with 0 B1 launches, or pass 1 "
+                         f"launched B1 other than n_layers x computed "
+                         f"batches")
+    d_pass = max_diff_ok(second, first, f"{tag} cache pass 2 vs pass 1")
+    d_stateless = max_diff_ok(first, scores, f"{tag} cache vs stateless")
+    print(f"[{tag} cache] max|pass 2 - pass 1| {d_pass:.3e}, max|cache "
+          f"path - stateless| {d_stateless:.3e}")
+    return dict(out, cached_requests_per_s=len(requests) / second_s)
+
+
+@functools.lru_cache(maxsize=None)
+def scenario_requests() -> list:
+    """The 1,000-request serving stream at the scenario's n_items and
+    hist_len (made once)."""
+    import types
+    return make_requests(types.SimpleNamespace(n_items=SCENARIO_ITEMS,
+                                               hist_len=SCENARIO_HIST), 1000)
+
+
+def phase_tt_bag(emod, device, card) -> dict:
+    """The embedding-bag kernels at the two-tower ``"mlp"`` user tower's
+    mean bag (B_RO 32 bags of up to 64 history ids, D 64), on the operands
+    the main path hands B5, recorded from one step: the dense 50,000-row
+    item table and, on sparse rows, its gathered rows + a zero row (ids as
+    positions). B5 against plain within BAG_TOL, B6 bit for bit plain, and
+    each timed beside plain, its bound and one PyTorch call
+    (``F.embedding_bag`` mean; B6: the backward of a ``sparse=True``
+    call). Returns the numbers for the kernels' JSON line by (table,
+    "fwd" | "coo")."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.embeddings.sparse import sparse_forward
+    from repro_torch.train.loop import value_and_grad
+    setup = tt_setup(device, "esr", hstu=False)
+    params = setup["init"]()
+    batch = setup["batches"][0].to(device)
+    groups = {
+        "dense table": record_groups(emod, lambda: value_and_grad(
+            setup["loss"])(params, batch, None))[0],
+        "gathered rows": record_groups(emod, lambda: sparse_forward(
+            setup["loss"], setup["sparse_ids"], params, batch, None))[0]}
+    out = {}
+    for name, (tables, ids, lens) in groups.items():
+        b, f, l = ids.shape
+        vocabs = [t.shape[0] for t in tables]
+        g = torch.randn((b, f, tables[0].shape[1]), device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(67))
+        fwd = lambda: emod.embedding_bag_grouped_fwd_cuda(tables, ids, lens,
+                                                          "mean")
+        fwd_plain = lambda: emod.embedding_bag_grouped_plain(tables, ids,
+                                                             lens, "mean")
+        coo = lambda: emod.embedding_bag_grouped_coo_rows_cuda(
+            g, ids, lens, vocabs, "mean")
+        coo_plain = lambda: emod.embedding_bag_grouped_coo_rows_plain(
+            g, ids, lens, vocabs, "mean")
+        err = float((fwd() - fwd_plain()).abs().max())
+        same = all(torch.equal(a, p) for a, p in zip(coo(), coo_plain()))
+        again = torch.equal(fwd(), fwd())
+        print(f"[tt bag] {name}: B5 mean B{b} F{f} L{l} over {vocabs} rows: "
+              f"max|B5 - plain| {err:.3e}; B6 bit for bit plain {same}; B5 "
+              f"twice bit for bit {again}")
+        if err > BAG_TOL or not same or not again:
+            raise SystemExit(f"tt bag: {name}: B5 off plain by {err:.3e}, "
+                             f"B6 not plain, or B5 not bitwise on repeat")
+        lens_c = lens[:, 0].clamp(0, l)
+        valid = torch.arange(l, device=device)[None, :] < lens_c[:, None]
+        flat = ids[:, 0, :].long().clamp(0, vocabs[0] - 1)[valid]
+        offsets = (torch.cumsum(lens_c, 0) - lens_c).long()
+        lib_fwd = lambda: F.embedding_bag(flat, tables[0], offsets,
+                                          mode="mean")
+        tg = tables[0].detach().requires_grad_(True)
+        lib_out = F.embedding_bag(flat, tg, offsets, mode="mean",
+                                  sparse=True)
+        g0 = g[:, 0, :].contiguous()
+        lib_bwd = lambda: torch.autograd.grad(lib_out, tg, g0,
+                                              retain_graph=True)
+        ms = {key: labelled_device_ms(key, fn, iters) for key, fn, iters in (
+            ("fwd_plain", fwd_plain, 40), ("fwd", fwd, 200),
+            ("coo", coo, 200), ("coo_plain", coo_plain, 40),
+            ("lib_fwd", lib_fwd, 100))}
+        try:
+            ms["lib_coo"] = device_ms(lib_bwd, 20)
+        except SystemExit:
+            ms["lib_coo"] = None        # it synchronises the host
+        x = dict(tables=tables, ids=ids, lens=lens)
+        for which, label in (("fwd", "B5 embedding_bag_fwd_grouped"),
+                             ("coo", "B6 embedding_bag_bwd_coo_grouped")):
+            bound_ms, bound_by, n_bytes, ops = bound_group(x, which)
+            lib = ms["lib_" + which]
+            print(f"[times] {card}: {label} mean, two-tower mlp tower "
+                  f"({name}) B{b} L{l} D{tables[0].shape[1]} V{vocabs[0]}, "
+                  f"device time per call: kernel {ms[which]:.5f} ms, plain "
+                  f"torch {ms[which + '_plain']:.5f} ms; bound "
+                  f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} "
+                  f"FLOP); library " + ("-" if lib is None else
+                                        f"{lib:.5f} ms"))
+            out[name, which] = dict(
+                ms=ms[which], plain_ms=ms[which + "_plain"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                max_abs_err=err if which == "fwd" else 0.0)
+        del tg, lib_out
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3515,6 +4097,7 @@ def main() -> int:
     from repro_torch.kernels import hstu_attention_prefix as pmod
     phase_build([kmod, pmod, bmod, emod, dmod])
     worst = phase_kernels(kmod, device)
+    worst_esr = phase_kernels(kmod, device, ESR_B1_SHAPES)
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
     worst_bwd = phase_bwd_kernels(kmod, pmod, bmod, device)
     worst_bag = phase_bag_kernels(emod, device)
@@ -3540,6 +4123,29 @@ def main() -> int:
     if dmod.launch_count:
         raise SystemExit("hstu-gr or roo-lsr launched the dot-interaction "
                          "kernel")
+    mods = (emod, kmod, pmod, bmod, dmod)
+    esr_serve = phase_arch_serve("esr serve", tt_setup(device, "esr"),
+                                 "hstu", mods, device, card, cache=True)
+    esr_train = phase_arch_train("esr train", lambda d: tt_setup(d, "esr"),
+                                 "hstu", mods, device, card)
+    esr_mlp_train = phase_arch_train(
+        "esr mlp train", lambda d: tt_setup(d, "esr", hstu=False), "bag",
+        mods, device, card)
+    retrieval_serve = phase_arch_serve(
+        "retrieval serve", tt_setup(device, "retrieval"), "hstu", mods,
+        device, card)
+    retrieval_train = phase_arch_train(
+        "retrieval train", lambda d: tt_setup(d, "retrieval"), "hstu", mods,
+        device, card)
+    archs = {}
+    for name in ("mind", "dien", "bert4rec"):
+        archs[name] = (
+            phase_arch_serve(f"{name} serve", recsys_setup(device, name),
+                             "none", mods, device, card),
+            phase_arch_train(f"{name} train",
+                             lambda d, n=name: recsys_setup(d, n), "none",
+                             mods, device, card,
+                             sparse=name != "bert4rec"))
     dlrm_score = phase_dlrm_score(dmod, emod, (kmod, pmod, bmod), device,
                                   card)
     dlrm_train = phase_dlrm_train(dmod, emod, (kmod, pmod, bmod), device,
@@ -3556,6 +4162,7 @@ def main() -> int:
     phase_densify_times(device, card)
     sparse_bag_times = phase_sparse_bag_times(emod, device, card,
                                               dlrm_sparse["groups"])
+    tt_bag_times = phase_tt_bag(emod, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -3575,17 +4182,38 @@ def main() -> int:
           f"steps/s, {lsr_sparse['requests_per_s']:.1f} requests/s")
     print(f"[dlrm sparse train] {card}: {dlrm_sparse['steps_per_s']:.2f} "
           f"steps/s, {dlrm_sparse['impressions_per_s']:.1f} impressions/s; "
-          f"peak memory {dlrm_sparse['peak'] / 2 ** 30:.2f} GiB (dense "
-          f"{dlrm_train['peak'] / 2 ** 30:.2f})")
+          f"peak memory {dlrm_sparse['peak'] / 2 ** 30:.2f} GiB over the "
+          f"steps, {dlrm_sparse['init_peak'] / 2 ** 30:.2f} GiB during "
+          f"Trainer.init_state (dense {dlrm_train['peak'] / 2 ** 30:.2f})")
+    for tag, srv in (("esr serve", esr_serve),
+                     ("retrieval serve", retrieval_serve)) + tuple(
+            (f"{n} serve", a[0]) for n, a in archs.items()):
+        print(f"[{tag}] {card}: {srv['requests_per_s']:.1f} requests/s "
+              f"stateless" + (f", {srv['cached_requests_per_s']:.1f} with "
+                              f"the user-tower cache (second pass)"
+                              if "cached_requests_per_s" in srv else ""))
+    for tag, run in (("esr train", esr_train),
+                     ("esr mlp train", esr_mlp_train),
+                     ("retrieval train", retrieval_train)) + tuple(
+            (f"{n} train", a[1]) for n, a in archs.items()):
+        print(f"[{tag}] {card}: " + "; ".join(
+            f"{mode} {r['steps_per_s']:.2f} steps/s, "
+            f"{r['requests_per_s']:.1f} requests/s"
+            + (f", {busy_text(r['busy'])}" if "busy" in r else "")
+            for mode, r in run.items()))
 
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
         "replaces": "src/repro/kernels/hstu_attention.py:80",
         "launches": serve["launches"], "max_abs_err": worst,
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-        "library_ms": None}, {
+        **times["serve"], "library_ms": None}, {
+        "name": "hstu_attention_fwd (roo-esr serving: causal user tower)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:80",
+        "launches": esr_serve["launches"]["b1"], "max_abs_err": worst_esr,
+        **times["esr serve"], "library_ms": None}, {
         "name": "hstu_attention_prefix_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hstu_attention_prefix_fwd.cu",
         "replaces": "src/repro/kernels/hstu_attention.py:392",
@@ -3601,6 +4229,27 @@ def main() -> int:
         for name, line, key, which in (
             ("hstu_attention_bwd_dq", 108, "b2", "dq"),
             ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
+        "name": f"{name} (roo-esr training: causal user tower)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": esr_train["dense"]["launches"][key],
+        "max_abs_err": worst_bwd[which], **btimes[True, which],
+        "library_ms": None}
+        for name, line, key, which in (
+            ("hstu_attention_bwd_dq", 108, "b2", "dq"),
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
+        "name": f"{name} (roo-esr mlp user tower, {mode}: {table})",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": f"src/repro/kernels/embedding_bag.py:{line}",
+        "launches": esr_mlp_train[mode]["launches"][key],
+        **tt_bag_times[table, which]}
+        for name, line, key, which in (
+            ("embedding_bag_fwd_grouped", 48, "b5", "fwd"),
+            ("embedding_bag_bwd_coo_grouped", 74, "b6", "coo"))
+        for mode, table in (("dense", "dense table"),
+                            ("sparse", "gathered rows"))] + [{
         "name": f"{name} (dlrm training, {side} side)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": f"src/repro/kernels/embedding_bag.py:{line}",

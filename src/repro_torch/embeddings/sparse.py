@@ -297,9 +297,10 @@ class GatheredTable:
     def positions(self, ids: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Each id's (clipped to ``[0, vocab)``) row among the gathered
-        ones, and whether it was gathered; ids of any shape."""
+        ones, as int32 (the bag kernels' index type, so they convert
+        nothing), and whether it was gathered; ids of any shape."""
         ids = torch.clamp(ids, 0, self.vocab - 1).to(self.uids.dtype)
-        pos = torch.clamp(torch.searchsorted(self.uids, ids),
+        pos = torch.clamp(torch.searchsorted(self.uids, ids, out_int32=True),
                           max=self.uids.shape[0] - 1)
         return pos, self.uids[pos] == ids
 

@@ -33,7 +33,10 @@ optimizer its finite flag (``update(..., ok=ok)``): row-wise Adagrad then
 writes the touched rows in place, guarded row by row, and the step's
 ``torch.where`` guard skips the leaves that come back as the same tensors,
 so no pass over a whole table is left (``train/optim.py``'s in-place
-contract: the step consumes the state it is given).
+contract: the step consumes the state it is given). The ``Trainer`` owns
+its state: ``init_state`` copies the ``init_params_fn()`` tree, as the
+reference's functional update leaves the caller's tree as it was, so two
+``run()``s from one tree start from the same params.
 
 The port's generators are not JAX's PRNG, so a loss that draws random
 numbers gives other draws than the reference; everything else follows the
@@ -190,7 +193,12 @@ class Trainer:
         return tree_map(lambda t: t.to(self.device), tree)
 
     def init_state(self, seed: int = 0) -> Dict:
-        params = self._to_device(self.init_params_fn())
+        """A fresh state that owns its params: each leaf of the
+        ``init_params_fn()`` tree is copied to the device, also when it is
+        there already (``.to`` would hand the same tensor back), so the
+        sparse step's in-place row writes never reach the caller's tree."""
+        params = tree_map(lambda t: t.to(self.device, copy=True),
+                          self.init_params_fn())
         return {"params": params, "opt": self.opt.init(params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=self.device),
