@@ -203,6 +203,38 @@ Phases (any failure exits non-zero and prints no result):
                    and the dlrm sparse phase prints its peak memory during
                    Trainer.init_state (the state's copy of the tables) and
                    over the steps after it, the latter gated at 8 GiB
+ 18. scenarios   — the port driven as a user drives it, through the
+                   scenario layer (``repro_torch.scenario``): every
+                   registered scenario (and roo-lsr ``userarch``, the
+                   scenario path's bag route outside dlrm) trains 20 steps
+                   at full width through ``train_from_scenario``: the
+                   launches its model's route implies (B1-B3 for the HSTU
+                   towers, B5 / B6 for the history bag, B5 / B6 a side and
+                   B7 for dlrm-mlperf's reduced config), the checkpoint
+                   meta's scenario hash, each step's loss against the
+                   plain backends on the same params, the plain-backend
+                   spec's first loss, runs two and three bit for bit, and
+                   the ``train.sparse_emb`` twin (not bert4rec: its first
+                   loss equal to the dense run's); the seven servable archs
+                   serve the spec's stream through
+                   ``ScoringEngine.from_scenario`` on the trained params
+                   (launches, scores vs the plain-backend spec, the
+                   user-tower cache where the adapter splits, incremental
+                   serving for hstu-gr through B4); ``python -m
+                   repro_torch.launch.train`` runs as a subprocess on the
+                   card for roo-lsr and dlrm-mlperf, flags against the
+                   ``--config`` of its own ``--dump-config``, checkpoints
+                   bit for bit; obs: an hstu-gr serve-and-train run under
+                   ``obs.mode=trace`` with a telemetry file (the engine's
+                   and the trainer's spans, the report over the JSONL),
+                   ``device_trace`` around five steps holding B1-B3's
+                   kernel events, requests/s with obs off / metrics /
+                   trace; faults: a seeded ``engine.score`` plan resolves
+                   exactly the fired batches' requests to ScoreError and
+                   leaves every other score bit for bit, and poisoned
+                   batches (``train.batch:nan``) skip exactly 2 steps; the
+                   times phase adds B5 / B6 / B7 at the operands of the
+                   dlrm-mlperf scenario's training step
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -221,6 +253,7 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -2334,7 +2367,7 @@ def same_run(tag: str, losses, state, again, state_again) -> None:
     print(f"[{tag}] a second run: per-step losses and final params equal "
           f"bit for bit {same}")
     if not same:
-        raise SystemExit(f"{tag}: two runs of the sparse path differ")
+        raise SystemExit(f"{tag}: two runs differ")
 
 
 def print_beside(tag: str, card: str, sparse: dict, dense: dict) -> None:
@@ -2935,6 +2968,14 @@ def dlrm_roo_args(b):
             b["nro_len"], b["seg"])
 
 
+def dlrm_spec(seed: int, b_ro: int, b_nro: int):
+    """The dlrm-mlperf scenario with these data seed and batch sizes: what
+    ``synthetic_dlrm_batches`` reads its draws' seed and shapes from."""
+    from repro_torch.configs.registry import scenario
+    return scenario("dlrm-mlperf", {"data.seed": seed, "batcher.b_ro": b_ro,
+                                    "batcher.b_nro": b_nro})
+
+
 def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8):
     """dlrm-mlperf training: the scenario's optimizer and BCE loss on
     ``synthetic_dlrm_batches`` (made on the host, copied per step); params
@@ -2948,8 +2989,8 @@ def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8):
         return dlrm_init(torch.Generator(device=init_device).manual_seed(0),
                          cfg, device=device)
     return dict(
-        cfg=cfg, batches=synthetic_dlrm_batches(seed, b_ro, b_nro, cfg,
-                                                n_batches, device="cpu"),
+        cfg=cfg, batches=synthetic_dlrm_batches(
+            dlrm_spec(seed, b_ro, b_nro), cfg, n_batches, device="cpu"),
         loss=lambda p, b, gen: bce(dlrm_forward_roo(p, cfg,
                                                     *dlrm_roo_args(b)),
                                    b["y"]),
@@ -2987,8 +3028,8 @@ def phase_dlrm_score(dmod, emod, hstu_mods, device, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params = dlrm_init(torch.Generator(device=device).manual_seed(0), cfg,
                        device=device)
-    batches = synthetic_dlrm_batches(0, b_ro, b_nro, cfg, n_batches,
-                                     device=device)
+    batches = synthetic_dlrm_batches(dlrm_spec(0, b_ro, b_nro), cfg,
+                                     n_batches, device=device)
     score = lambda b: dlrm_forward_roo(params, cfg, *dlrm_roo_args(b))
     print(f"[dlrm score] {dlrm_describe(cfg)}; {n_batches} batches of "
           f"{b_ro} requests / {b_nro} impressions")
@@ -4071,6 +4112,770 @@ def phase_tt_bag(emod, device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the scenario layer's entry points: train_from_scenario,
+# ScoringEngine.from_scenario, the launcher, obs and fault injection
+# ---------------------------------------------------------------------------
+
+SCENARIO_STEPS = 20
+# every registered scenario, and roo-lsr's userarch variant: the scenario
+# path's route to the bag kernels outside dlrm (the default variant,
+# userarch_hstu, encodes the history with HSTU)
+SCENARIO_RUNS = (("roo-lsr", None), ("roo-lsr", "userarch"),
+                 ("roo-esr", None), ("roo-retrieval", None),
+                 ("hstu-gr", None), ("dien", None), ("mind", None),
+                 ("bert4rec", None), ("dlrm-mlperf", None))
+PLAIN_KNOBS = {"knobs.attn_backend": "torch-dense",
+               "knobs.emb_backend": "torch"}
+ENGINE_SPANS = ("engine.flush", "engine.bucket", "engine.score",
+                "engine.admit", "engine.reassemble")
+TRAIN_SPANS = ("train.step", "train.data", "train.compute", "train.log",
+               "train.checkpoint")
+KERNEL_NAMES = ("hstu_fwd_kernel", "hstu_bwd_dq_kernel",
+                "hstu_bwd_dkv_kernel")
+
+
+@contextlib.contextmanager
+def spec_scope(dot_backend=None):
+    """A spec's ``apply()`` installs its knobs as process defaults (the
+    backends, the fault plan, the obs mode); every port knob's state is
+    put back when the block ends. ``dot_backend`` scopes B7's ladder,
+    which has no spec field."""
+    import repro_torch.embeddings.collection  # noqa: F401 (its knob)
+    import repro_torch.obs.log  # noqa: F401 (its knob)
+    import repro_torch.reliability.faults  # noqa: F401 (its knob)
+    from repro_torch.kernels import dispatch
+    from repro_torch.scenario import knobs
+    saved = {name: k.snapshot() for name, k in knobs.REGISTRY.items()}
+    try:
+        with dispatch.use_dot_backend(dot_backend):
+            yield
+    finally:
+        for name, state in saved.items():
+            knobs.REGISTRY[name].restore(state)
+
+
+def build_dir() -> Path:
+    """The checkout's ``build/`` (gitignored): checkpoints, traces and
+    telemetry of the scenario phases go under it."""
+    path = ROOT / "build"
+    path.mkdir(exist_ok=True)
+    return path
+
+
+def scenario_spec(arch, variant=None, extra=None):
+    """The registered scenario at full width, 20 steps logged every step
+    (each step's loss, and NE where the arch has it), one checkpoint."""
+    from repro_torch.configs.registry import scenario
+    over = {"train.steps": SCENARIO_STEPS, "train.log_every": 1,
+            "train.ckpt_every": SCENARIO_STEPS}
+    if variant:
+        over["model.variant"] = variant
+    over.update(extra or {})
+    return scenario(arch, over)
+
+
+def scenario_tag(spec) -> str:
+    return spec.model.arch + (f" {spec.model.variant}"
+                              if spec.model.variant else "")
+
+
+def scenario_route(spec) -> tuple:
+    """(route, HSTU layers) of a spec's model, read from the port's
+    configs: "hstu" (B1-B3) for hstu-gr, the two-tower "hstu" user tower
+    and roo-lsr's userarch_hstu history encoder; "bag" (B5/B6) for
+    roo-lsr's baseline / userarch history bag; "dlrm" (B5/B6 a side, B7);
+    "none" for mind, dien and bert4rec."""
+    from repro_torch.configs import roo_models as rm
+    from repro_torch.models.lsr import _hstu_cfg
+    arch = spec.model.arch
+    if arch == "dlrm-mlperf":
+        return "dlrm", 0
+    if arch == "roo-lsr":
+        cfg = rm.lsr_config(spec.model.variant or "userarch_hstu")
+        if cfg.mode == "userarch_hstu":
+            return "hstu", _hstu_cfg(cfg).n_layers
+        if cfg.mode in ("baseline", "userarch"):
+            return "bag", 0
+        raise SystemExit(f"scenario: no launch rule for lsr {cfg.mode}")
+    if arch in ("roo-esr", "roo-retrieval"):
+        cfg = rm.esr_config() if arch == "roo-esr" else rm.retrieval_config()
+        return ("hstu", cfg.hstu.n_layers) if cfg.user_tower_mode == "hstu" \
+            else ("bag", 0)
+    if arch == "hstu-gr":
+        return "hstu", rm.gr_config(spec.model.hist_len,
+                                    spec.model.m_targets).hstu.n_layers
+    return "none", 0
+
+
+def scenario_train_launches(spec, steps: int, n_metric: int) -> dict:
+    """A scenario run's launches: ``expected_train_launches`` for the HSTU
+    and bag routes; dlrm's ROO forward launches B5 once a side and B7 once,
+    its backward B6 once a side."""
+    route, n_layers = scenario_route(spec)
+    if route != "dlrm":
+        return expected_train_launches(route, n_layers, steps, n_metric)
+    want = expected_train_launches("none", 0, steps, n_metric)
+    want.update(b5=2 * (steps + n_metric), b6=2 * steps,
+                b7=steps + n_metric)
+    return want
+
+
+def scenario_serve_launches(spec, n_scored: int) -> dict:
+    """Launches of ``n_scored`` batches through the model's forward: B1 a
+    layer (HSTU), B5 once (the history bag)."""
+    route, n_layers = scenario_route(spec)
+    want = expected_train_launches("none", 0, 0, 0)
+    if route == "hstu":
+        want["b1"] = n_layers * n_scored
+    elif route == "bag":
+        want["b5"] = n_scored
+    return want
+
+
+def train_run(spec, mods, device, ckpt_dir=None, dot_backend=None,
+              telemetry_path=None):
+    """One ``train_from_scenario`` run (knobs put back after): the
+    trainer, its state, each logged step's loss and the launches."""
+    import torch
+    from repro_torch.scenario.build import train_from_scenario
+    reset_counts(mods)
+    with spec_scope(dot_backend):
+        trainer, state = train_from_scenario(
+            spec, ckpt_dir=ckpt_dir, prints=False, device=device,
+            telemetry_path=telemetry_path)
+        torch.cuda.synchronize()
+    losses = torch.tensor([row["loss"] for row in trainer.history],
+                          dtype=torch.float64)
+    return trainer, state, losses, all_counts(mods)
+
+
+def shadow_run(spec, device):
+    """The spec's run again, through ``_train_from_scenario``'s ``bundle``
+    seam with ``build_model``'s bundle (the same params) whose loss is
+    shadowed at each step by the same loss on the plain backends, on the
+    same params, batch and generator state, outside autograd. Returns the
+    trainer, the state, each step's loss (logged) and the shadow's."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.scenario import build
+    from repro_torch.tree import tree_map
+    shadows = []
+    with spec_scope():
+        spec.validate()
+        build.refuse_unported(spec, training=True)
+        spec.apply()
+        bundle = build.build_model(spec, torch.Generator().manual_seed(0),
+                                   device=device)
+        loss = bundle.loss_fn
+
+        def shadowed(p, b, gen):
+            with torch.no_grad(), plain_backends(), \
+                    dispatch.use_dot_backend("torch"):
+                shadows.append(loss(tree_map(lambda x: x.detach(), p), b,
+                                    clone_gen(gen)).detach())
+            return loss(p, b, gen)
+        trainer, state = build._train_from_scenario(
+            spec, ckpt_dir=None, rng_seed=0, prints=False, device=device,
+            bundle=bundle._replace(loss_fn=shadowed))
+        torch.cuda.synchronize()
+    losses = torch.tensor([row["loss"] for row in trainer.history],
+                          dtype=torch.float64)
+    return trainer, state, losses, torch.stack(shadows).double().cpu()
+
+
+def phase_scenario_train(mods, device, card: str) -> dict:
+    """Each registered scenario (and roo-lsr ``userarch``) trained through
+    ``train_from_scenario`` at full width for 20 steps, logged every step:
+    the launches its route implies, no skipped step, finite losses, the
+    checkpoint meta's scenario name and hash. Then: the run again with
+    each step's loss shadowed by the same loss on the plain backends
+    (torch-dense attention, torch bags, B7's scoped torch rung) on the
+    same params (``shadow_run``): losses and final params bit for bit the
+    first run's, the plain losses within rtol 1e-5; the same spec on the
+    plain backends (no launch) for 2 steps: its first loss, on the same
+    init params and batch, within rtol 1e-5 (from there the runs part, as
+    free-running trajectories do: printed, not gated); a third run logged
+    at steps 10 and 20 (its steps/s the rate), bit for bit in those
+    losses and the final params; and for the archs that declare tables
+    the ``train.sparse_emb`` twin, its launches and its first step's loss
+    equal to the dense run's. Returns per run the launches, the rate and
+    the trained params (for the serving phase)."""
+    import tempfile
+    import torch
+    out = {}
+    for arch, variant in SCENARIO_RUNS:
+        spec = scenario_spec(arch, variant)
+        tag = f"scenario train {scenario_tag(spec)}"
+        with tempfile.TemporaryDirectory(dir=str(build_dir())) as tmp:
+            trainer, state, losses, got = train_run(spec, mods, device,
+                                                    ckpt_dir=tmp)
+            meta = json.loads((Path(tmp) / f"step_{SCENARIO_STEPS:012d}"
+                               / "meta.json").read_text())
+        n_metric = sum(1 for row in trainer.history if "ne" in row)
+        want = scenario_train_launches(spec, SCENARIO_STEPS, n_metric)
+        print(f"[{tag}] spec {spec.content_hash()}: {spec.model}, batcher "
+              f"{spec.batcher.b_ro} / {spec.batcher.b_nro}, data "
+              f"{spec.data.source} {spec.data.n_requests} requests; "
+              f"launches {got}; {n_metric} NE forwards; checkpoint meta "
+              f"{meta.get('scenario')} {meta.get('scenario_hash')}; losses "
+              f"{[round(float(v), 6) for v in losses]}")
+        if got != want:
+            raise SystemExit(f"{tag}: launches {got} are not {want}")
+        if int(state["step"]) != SCENARIO_STEPS \
+                or len(losses) != SCENARIO_STEPS \
+                or not bool(torch.isfinite(losses).all()) \
+                or trainer.skipped_steps:
+            raise SystemExit(f"{tag}: wrong step count, a skipped step or a "
+                             f"non-finite loss")
+        if meta.get("scenario") != spec.name \
+                or meta.get("scenario_hash") != spec.content_hash():
+            raise SystemExit(f"{tag}: checkpoint meta {meta} does not carry "
+                             f"the spec's name and hash")
+
+        _, twin_state, twin, shadow = shadow_run(spec, device)
+        same_run(f"{tag} with a plain-backend shadow", losses, state, twin,
+                 twin_state)
+        diff = float((losses - shadow).abs().max())
+        ok = torch.allclose(losses, shadow, atol=1e-6, rtol=LOSS_TOL)
+        print(f"[{tag}] each step's loss vs the plain backends on the same "
+              f"params: max|diff| {diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit(f"{tag}: the losses disagree with the plain "
+                             f"backends")
+        del twin_state
+
+        _, _, plain, plain_got = train_run(
+            spec.with_overrides(dict(PLAIN_KNOBS, **{"train.steps": 2})),
+            mods, device, dot_backend="torch")
+        first = abs(float(plain[0]) - float(losses[0]))
+        print(f"[{tag}] the spec on the plain backends: launches "
+              f"{plain_got}; first loss vs the kernels' {first:.3e} (same "
+              f"init params and batch), second "
+              f"{abs(float(plain[1]) - float(losses[1])):.3e} "
+              f"(after one step of each: not gated)")
+        if any(plain_got.values()) or not torch.allclose(
+                plain[:1], losses[:1], atol=1e-6, rtol=LOSS_TOL):
+            raise SystemExit(f"{tag}: the plain-backend spec launched a "
+                             f"kernel, or its first loss disagrees")
+
+        rate_spec = spec.with_overrides({"train.log_every": 10})
+        again, state_again, logged, _ = train_run(rate_spec, mods, device)
+        same_run(f"{tag} logged at steps 10 and 20", losses[[9, 19]], state,
+                 logged, state_again)
+        rate = again.history[-1]["steps_per_s"]
+        print(f"[{tag}] {card}: {rate:.2f} steps/s (the third run, "
+              f"Trainer.run's own clock: the 20 steps and 2 logging reads, "
+              f"NE included)")
+        out[arch, variant] = dict(launches=got, steps_per_s=rate,
+                                  params=state["params"], spec=spec)
+        del state_again
+
+        if arch == "bert4rec":         # the cloze head is dense by design
+            continue
+        sparse = spec.with_overrides({"train.sparse_emb": True})
+        s_trainer, _, s_losses, s_got = train_run(sparse, mods, device)
+        s_want = scenario_train_launches(
+            sparse, SCENARIO_STEPS,
+            sum(1 for row in s_trainer.history if "ne" in row))
+        print(f"[{tag}] train.sparse_emb: launches {s_got}; first step's "
+              f"loss {float(s_losses[0])!r} vs dense {float(losses[0])!r}; "
+              f"last {float(s_losses[-1]):.6f} vs dense "
+              f"{float(losses[-1]):.6f}")
+        if s_got != s_want or float(s_losses[0]) != float(losses[0]) \
+                or not bool(torch.isfinite(s_losses).all()) \
+                or s_trainer.skipped_steps:
+            raise SystemExit(f"{tag}: sparse twin: launches {s_got} (want "
+                             f"{s_want}), or its first loss is not the "
+                             f"dense run's, or a loss is not finite")
+        out[arch, variant]["sparse_launches"] = s_got
+    return out
+
+
+def serve_pass(engine, requests, mods):
+    """One pass of ``requests`` through ``engine``: scores, wall seconds,
+    the launches and the batches scored in it."""
+    n0 = engine.stats.n_batches
+    reset_counts(mods)
+    scores, wall = serve_waves(engine, [requests])
+    return scores, wall, all_counts(mods), engine.stats.n_batches - n0
+
+
+def check_served(tag, requests, scores, engine) -> None:
+    import numpy as np
+    if engine.stats.n_failed_batches or len(scores) != len(requests) or any(
+            s.shape[0] != r.num_impressions or not np.isfinite(s).all()
+            for r, s in zip(requests, scores)):
+        raise SystemExit(f"{tag}: a failed batch, or scores misaligned or "
+                         f"not finite")
+
+
+def phase_scenario_serve(mods, device, card: str, trained: dict) -> dict:
+    """Each servable scenario through ``ScoringEngine.from_scenario`` on its
+    trained params over the spec's own ``build_samples`` stream (800
+    requests): the launches of its route a scored batch, aligned finite
+    scores within 1e-4 of the same spec on the plain backends (no
+    launch); ``serve.cache_user_tower`` where the adapter splits (pass 2
+    all full-cache, no launch; scores vs stateless); for hstu-gr
+    ``serve.incremental`` (B4 = layers x incremental batches, B1 0; scores
+    vs stateless). Returns requests/s per run and the launches."""
+    from repro_torch.scenario.build import build_samples
+    from repro_torch.serve.engine import ScoringEngine
+    out = {}
+    for (arch, variant), run in trained.items():
+        if arch == "dlrm-mlperf":
+            continue
+        spec = run["spec"]
+        tag = f"scenario serve {scenario_tag(spec)}"
+        requests = build_samples(spec)
+        route, n_layers = scenario_route(spec)
+        with spec_scope():
+            ScoringEngine.from_scenario(spec, params=run["params"],
+                                        device=device).score_requests(
+                requests[:80])                            # warm-up
+            engine = ScoringEngine.from_scenario(spec, params=run["params"],
+                                                 device=device)
+            scores, wall, got, n = serve_pass(engine, requests, mods)
+        check_served(tag, requests, scores, engine)
+        want = scenario_serve_launches(spec, n)
+        print(f"[{tag}] {len(requests)} requests in {wall * 1e3:.1f} ms "
+              f"({len(requests) / wall:.1f} requests/s, {card}), {n} "
+              f"batches {engine.stats.buckets.snapshot()['counts']}; "
+              f"launches {got}")
+        if got != want:
+            raise SystemExit(f"{tag}: launches {got} are not {want}")
+        with spec_scope("torch"):
+            plain_engine = ScoringEngine.from_scenario(
+                spec.with_overrides(PLAIN_KNOBS), params=run["params"],
+                device=device)
+            plain, _, plain_got, _ = serve_pass(plain_engine, requests, mods)
+        d_plain = max_diff_ok(scores, plain, f"{tag} vs the plain backends")
+        if any(plain_got.values()):
+            raise SystemExit(f"{tag}: the plain-backend engine launched "
+                             f"{plain_got}")
+        row = dict(requests_per_s=len(requests) / wall, launches=got)
+        msg = f"max|card - plain backends| {d_plain:.3e}"
+        if engine.adapter.supports_user_cache:
+            with spec_scope():
+                cached = ScoringEngine.from_scenario(
+                    spec.with_overrides({"serve.cache_user_tower": True}),
+                    params=run["params"], device=device)
+                first, _, got_1, n_1 = serve_pass(cached, requests, mods)
+                full_1 = cached.stats.n_full_cache_batches
+                second, wall_2, got_2, n_2 = serve_pass(cached, requests,
+                                                        mods)
+            full_2 = cached.stats.n_full_cache_batches - full_1
+            d_cache = max_diff_ok(second, scores, f"{tag} cache vs stateless")
+            max_diff_ok(first, scores, f"{tag} cache pass 1 vs stateless")
+            # the towers' cache holds the encoded user side, hstu-gr's the
+            # embedded history only: its encoder (B1) runs on every batch
+            encodes = arch == "hstu-gr"
+            want_1 = scenario_serve_launches(spec, n_1 if encodes
+                                             else n_1 - full_1)
+            want_2 = scenario_serve_launches(spec, n_2 if encodes else 0)
+            if got_1 != want_1 or full_2 != n_2 or got_2 != want_2:
+                raise SystemExit(f"{tag}: cache pass 1 launched {got_1} "
+                                 f"(want {want_1}), or pass 2 was not all "
+                                 f"full-cache ({full_2} / {n_2}) with "
+                                 f"{want_2} launches ({got_2})")
+            row["cached_requests_per_s"] = len(requests) / wall_2
+            msg += (f"; cache: pass 2 {full_2} / {n_2} full-cache, "
+                    f"{len(requests) / wall_2:.1f} requests/s, max|cache - "
+                    f"stateless| {d_cache:.3e}")
+        if engine.adapter.supports_incremental:
+            with spec_scope():
+                inc = ScoringEngine.from_scenario(
+                    spec.with_overrides({"serve.incremental": True}),
+                    params=run["params"], device=device)
+                inc_scores, inc_wall, inc_got, _ = serve_pass(inc, requests,
+                                                              mods)
+            n_inc = inc.stats.n_incremental_batches
+            d_inc = max_diff_ok(inc_scores, scores,
+                                f"{tag} incremental vs stateless")
+            inc_want = scenario_serve_launches(spec, 0)
+            inc_want["b4"] = n_layers * n_inc
+            hits = inc.state_store.stats.hits
+            if inc_got != inc_want or not n_inc or not hits:
+                raise SystemExit(f"{tag}: incremental launches {inc_got} "
+                                 f"are not {inc_want}, or no state hit")
+            row.update(incremental_requests_per_s=len(requests) / inc_wall,
+                       b4=inc_got["b4"])
+            msg += (f"; incremental: {n_inc} batches, {hits} state hits, "
+                    f"launches {inc_got}, {len(requests) / inc_wall:.1f} "
+                    f"requests/s, max|incremental - stateless| {d_inc:.3e}")
+        print(f"[{tag}] {msg}")
+        out[arch, variant] = row
+    return out
+
+
+def launcher(argv, env, out_path):
+    """Start ``python -m repro_torch.launch.train`` with ``argv`` (on the
+    card: no --device), its output to ``out_path``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        cwd=str(ROOT), env=env, stdout=open(out_path, "w"),
+        stderr=subprocess.STDOUT)
+
+
+def npz_payload(path):
+    import numpy as np
+    with np.load(path) as data:
+        return {k: (data[k].dtype.str, data[k].shape, data[k].tobytes())
+                for k in data.files}
+
+
+def phase_launcher(card: str) -> None:
+    """``python -m repro_torch.launch.train`` as a subprocess on the card
+    (its default device) for roo-lsr and dlrm-mlperf: ``--arch X --steps
+    20`` against ``--config`` of its own ``--dump-config`` (written in this
+    process: it touches no card), the four runs started together; the checkpoints' arrays bit for bit, equal meta
+    digests and scenario hashes, and each run's printed line naming
+    device=cuda."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import main as dump_config
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    tmp = Path(tempfile.mkdtemp(prefix="launcher_", dir=str(build_dir())))
+    procs = {}
+    try:
+        for arch in ("roo-lsr", "dlrm-mlperf"):
+            flags = ["--arch", arch, "--steps", str(SCENARIO_STEPS), "--set",
+                     f"train.ckpt_every={SCENARIO_STEPS}"]
+            cfg = tmp / f"{arch}.json"
+            dump_config(flags + ["--dump-config", str(cfg)])
+            for how, argv in (("flags", flags),
+                              ("config", ["--config", str(cfg)])):
+                ckpt = tmp / f"{arch}_{how}"
+                procs[arch, how] = (launcher(
+                    argv + ["--ckpt-dir", str(ckpt)], env,
+                    tmp / f"{arch}_{how}.log"), ckpt)
+        for (arch, how), (proc, _) in procs.items():
+            if proc.wait(timeout=600):
+                raise SystemExit(f"launcher: {arch} {how} exited "
+                                 f"{proc.returncode}: "
+                                 + (tmp / f"{arch}_{how}.log").read_text())
+        for arch in ("roo-lsr", "dlrm-mlperf"):
+            step = f"step_{SCENARIO_STEPS:012d}"
+            runs = {how: procs[arch, how][1] / step
+                    for how in ("flags", "config")}
+            metas = {how: json.loads((d / "meta.json").read_text())
+                     for how, d in runs.items()}
+            lines = {how: [line for line in (
+                tmp / f"{arch}_{how}.log").read_text().splitlines()
+                if "train-done" in line][-1] for how in runs}
+            same = (npz_payload(runs["flags"] / "arrays.npz")
+                    == npz_payload(runs["config"] / "arrays.npz"))
+            meta_same = (metas["flags"]["digests"]
+                         == metas["config"]["digests"]
+                         and metas["flags"]["scenario_hash"]
+                         == metas["config"]["scenario_hash"])
+            print(f"[launcher] {arch} {card}: flags: {lines['flags']}")
+            print(f"[launcher] {arch} {card}: config: {lines['config']}")
+            print(f"[launcher] {arch}: checkpoints bit for bit {same}, meta "
+                  f"digests and scenario hash equal {meta_same}")
+            if not same or not meta_same or any(
+                    "device=cuda" not in line for line in lines.values()):
+                raise SystemExit(f"launcher: {arch}: the flag and --config "
+                                 f"runs differ, or did not run on the card")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_obs(mods, device, card: str) -> dict:
+    """obs on the card, hstu-gr: one serve-and-train run under
+    ``obs.mode=trace`` with a telemetry file; the Chrome trace holds the
+    ``engine.*`` and ``train.*`` spans, ``repro_torch.obs.report``
+    summarizes the JSONL, and ``device_trace`` around five steps holds
+    CUDA kernel events of B1-B3. Then one stream served with obs off, in
+    metrics and in trace mode, twice each in turns: requests/s of each."""
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.scenario.build import build_samples
+    from repro_torch.serve.engine import ScoringEngine
+    spec = scenario_spec("hstu-gr", extra={"obs.mode": "trace",
+                                           "train.log_every": 5,
+                                           "train.ckpt_every": 10,
+                                           "train.steps": 10})
+    requests = build_samples(spec)[:200]
+    tmp = Path(tempfile.mkdtemp(prefix="obs_", dir=str(build_dir())))
+    try:
+        tel = tmp / "telemetry.jsonl"
+        obs_trace.get_tracer().clear()
+        emitter = obs_export.TelemetryEmitter(
+            str(tel), scenario_hash=spec.content_hash())
+        with spec_scope():
+            obs_export.install(emitter)
+            try:
+                engine = ScoringEngine.from_scenario(spec, device=device)
+                engine.score_requests(requests)
+            finally:
+                obs_export.install(None)
+                emitter.close(final_source="serve.final")
+            trainer, _, _, _ = train_run(spec, mods, device,
+                                         ckpt_dir=str(tmp / "ckpt"),
+                                         telemetry_path=str(tel))
+        n_events = obs_trace.get_tracer().save(str(tmp / "trace.json"))
+        names = {e["name"] for e in json.loads(
+            (tmp / "trace.json").read_text())["traceEvents"]}
+        missing = [n for n in ENGINE_SPANS + TRAIN_SPANS if n not in names]
+        summary = io.StringIO()
+        report.summarize(report.load_lines(str(tel)), out=summary)
+        text = summary.getvalue()
+        sources = [x["source"] for x in report.load_lines(str(tel))]
+        print(f"[obs] trace: {n_events} events, spans "
+              f"{sorted(n for n in names if '.' in n)}; telemetry lines "
+              f"{sources}")
+        print("[obs] report:\n" + "\n".join(
+            "    " + line for line in text.splitlines()))
+        if missing or "span.train.step" not in text \
+                or "span.engine.score" not in text \
+                or "serve.flush" not in sources or "train.log" not in sources:
+            raise SystemExit(f"obs: spans {missing} missing from the trace, "
+                             f"or the report / telemetry lacks the engine "
+                             f"or the trainer")
+
+        five = spec.with_overrides({"obs.mode": "off", "train.steps": 5,
+                                    "train.log_every": 5})
+        with obs_trace.device_trace(str(tmp / "device")) as path:
+            train_run(five, mods, device)
+        if path is None:
+            raise SystemExit("obs: device_trace did not start the profiler")
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(k in n for n in kernels) for k in KERNEL_NAMES}
+        print(f"[obs] device_trace over 5 steps: {len(kernels)} kernel "
+              f"events; the port's kernels {found}")
+        if not all(found.values()):
+            raise SystemExit(f"obs: the device trace lacks a port kernel "
+                             f"({found})")
+    finally:
+        obs_trace.get_tracer().clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rates = {}
+    for mode in ("off", "metrics", "trace", "trace", "metrics", "off"):
+        run = spec.with_overrides({"obs.mode": mode})
+        with spec_scope():
+            engine = ScoringEngine.from_scenario(run, device=device)
+            engine.score_requests(requests)                    # warm-up
+            _, wall = serve_waves(engine, [requests])
+        rates.setdefault(mode, []).append(len(requests) / wall)
+        obs_trace.get_tracer().clear()
+    print(f"[obs] {card}: hstu-gr, {len(requests)} requests, requests/s by "
+          f"obs mode (in the order off, metrics, trace, trace, metrics, "
+          f"off; each engine warmed up on the stream first): "
+          + ", ".join(f"{m} " + " / ".join(f"{r:.1f}" for r in v)
+                      for m, v in rates.items()))
+    return rates
+
+
+def phase_faults(mods, device, card: str) -> None:
+    """Fault injection on the card. A served hstu-gr stream under
+    ``seed=7;engine.score:error@0.25`` (breaker off, trace on): the
+    batches whose ``engine.score`` visit fires (replayed from a fresh plan
+    on the same string) are exactly those whose requests resolve to
+    ``ScoreError``, and every other score equals the fault-free run's bit
+    for bit. A training run under ``train.batch:nan@0.2x2`` with
+    ``train.halt_after_skips=5`` (roo-lsr) skips exactly 2 steps and ends
+    finite."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.reliability import FaultPlan
+    from repro_torch.scenario.build import build_samples
+    from repro_torch.serve.engine import ScoreError, ScoringEngine
+    from repro_torch.tree import leaves
+    text = "seed=7;engine.score:error@0.25"
+    spec = scenario_spec("hstu-gr", extra={"serve.breaker_threshold": 0,
+                                           "obs.mode": "trace"})
+    requests = build_samples(spec)
+    params = None
+    runs = {}
+    for name, over in (("clean", {}), ("faulty", {"knobs.faults": text})):
+        obs_trace.get_tracer().clear()
+        with spec_scope():
+            engine = ScoringEngine.from_scenario(
+                spec.with_overrides(over), params=params, device=device)
+            params = engine.params
+            runs[name] = (engine.score_requests(requests),
+                          obs_trace.get_tracer().events(), engine.stats)
+    obs_trace.get_tracer().clear()
+    scores, events, stats = runs["faulty"]
+    admits = [e["args"]["trace_id"] for e in events
+              if e["name"] == "engine.admit"]
+    index = {tid: i for i, tid in enumerate(admits)}
+    batches = [[index[t] for t in e["args"]["trace_ids"]]
+               for e in events if e["name"] == "engine.score"]
+    replay = FaultPlan.parse(text)
+    fired = [replay.fire("engine.score") is not None for _ in batches]
+    want_failed = sorted(i for b, f in zip(batches, fired) if f for i in b)
+    failed = sorted(i for i, s in enumerate(scores)
+                    if isinstance(s, ScoreError))
+    clean = runs["clean"][0]
+    same = all(np.array_equal(s, clean[i]) for i, s in enumerate(scores)
+               if not isinstance(s, ScoreError))
+    print(f"[faults] served {len(requests)} requests in {len(batches)} "
+          f"batches under {text!r}: {sum(fired)} fired visits, "
+          f"{stats.n_failed_batches} failed batches, {len(failed)} requests "
+          f"resolved to ScoreError (the fired batches' requests: "
+          f"{failed == want_failed}); every other score bit for bit the "
+          f"fault-free run's {same}")
+    if failed != want_failed or not failed or not same \
+            or stats.n_failed_batches != sum(fired):
+        raise SystemExit("faults: the failed requests are not exactly the "
+                         "fired batches', or a surviving score changed")
+
+    # roo-lsr: its loss reads ro_dense, the batch's first float leaf
+    nan_plan = "train.batch:nan@0.2x2"
+    nan = scenario_spec("roo-lsr", extra={
+        "knobs.faults": nan_plan, "train.halt_after_skips": 5,
+        "train.log_every": 10})
+    replay = FaultPlan.parse(nan_plan)
+    fires = [i + 1 for i in range(SCENARIO_STEPS)
+             if replay.fire("train.batch") is not None]
+    trainer, state, _, _ = train_run(nan, mods, device)
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in leaves(state["params"]))
+    print(f"[faults] roo-lsr training under {nan_plan!r} (fires at steps "
+          f"{fires}): skipped_steps {trainer.skipped_steps}, params finite "
+          f"{finite}, history {trainer.history}")
+    if trainer.skipped_steps != 2 or not finite \
+            or int(state["step"]) != SCENARIO_STEPS:
+        raise SystemExit("faults: the poisoned run did not skip exactly 2 "
+                         "steps and end finite")
+
+
+def record_dot(dmod, fn) -> list:
+    """The (dense, sparse) operands of every B7 launch ``fn()`` makes."""
+    seen = []
+    launch = dmod.dot_interaction_cuda
+
+    def recording(dense, sparse, *a, **k):
+        seen.append((dense.detach(), sparse.detach()))
+        return launch(dense, sparse, *a, **k)
+
+    dmod.dot_interaction_cuda = recording
+    try:
+        fn()
+    finally:
+        dmod.dot_interaction_cuda = launch
+    return seen
+
+
+def phase_scenario_times(emod, dmod, device, card: str, trained) -> dict:
+    """B5 / B6 (each side's group) and B7 at the operands the dlrm-mlperf
+    scenario's training step hands them (recorded from one step on the
+    trained params: 2 fields a side, multi-hot 2, D 16, B 8 / 32), held
+    against their plain versions (B5 within BAG_TOL, B6 bit for bit, B7 at
+    DOT_ATOL / DOT_RTOL) and timed beside the bound, the plain version and
+    one library call a field (``F.embedding_bag``; B6: the backward of
+    ``sparse=True`` calls; B7: none, as ``phase_dot_times`` says). Returns
+    the numbers for the kernels' JSON line by (side, "fwd" | "coo") and
+    "dot"."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.scenario.build import build_model, synthetic_dlrm_batches
+    from repro_torch.train.loop import value_and_grad
+    run = trained["dlrm-mlperf", None]
+    spec = run["spec"]
+    bundle = build_model(spec, torch.Generator().manual_seed(0),
+                         device=device)
+    batch = synthetic_dlrm_batches(spec, bundle.cfg, n_batches=1,
+                                   device=device)[0]
+    step = lambda: value_and_grad(bundle.loss_fn)(run["params"], batch, None)
+    dots = []
+    groups = record_groups(emod, lambda: dots.extend(record_dot(dmod, step)))
+    out = {}
+    for side, (tables, ids, lens) in zip(("RO", "NRO"), groups):
+        b, f, l = ids.shape
+        vocabs = [t.shape[0] for t in tables]
+        g = torch.randn((b, f, tables[0].shape[1]), device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(68))
+        fwd = lambda: emod.embedding_bag_grouped_fwd_cuda(tables, ids, lens)
+        fwd_plain = lambda: emod.embedding_bag_grouped_plain(tables, ids,
+                                                             lens)
+        coo = lambda: emod.embedding_bag_grouped_coo_rows_cuda(g, ids, lens,
+                                                               vocabs)
+        coo_plain = lambda: emod.embedding_bag_grouped_coo_rows_plain(
+            g, ids, lens, vocabs)
+        err = float((fwd() - fwd_plain()).abs().max())
+        if err > BAG_TOL or not all(torch.equal(a, p) for a, p in
+                                    zip(coo(), coo_plain())):
+            raise SystemExit(f"scenario times: {side} side: B5 off plain "
+                             f"by {err:.3e} or B6 not bit for bit plain")
+        offsets = [(torch.cumsum(lens[:, j], 0) - lens[:, j]).long()
+                   for j in range(f)]
+        valid = [torch.arange(l, device=device)[None, :] < lens[:, j, None]
+                 for j in range(f)]
+        flat = [ids[:, j, :].long()[valid[j]] for j in range(f)]
+        lib_fwd = lambda: [F.embedding_bag(flat[j], t, offsets[j],
+                                           mode="sum")
+                           for j, t in enumerate(tables)]
+        tg = [t.detach().requires_grad_(True) for t in tables]
+        lib_out = [F.embedding_bag(flat[j], t, offsets[j], mode="sum",
+                                   sparse=True) for j, t in enumerate(tg)]
+        gs = [g[:, j, :].contiguous() for j in range(f)]
+        lib_bwd = lambda: torch.autograd.grad(lib_out, tg, gs,
+                                              retain_graph=True)
+        ms = {key: labelled_device_ms(key, fn, iters) for key, fn, iters in (
+            ("fwd_plain", fwd_plain, 20), ("fwd", fwd, 200),
+            ("coo", coo, 200), ("coo_plain", coo_plain, 20),
+            ("lib_fwd", lib_fwd, 50))}
+        try:
+            ms["lib_coo"] = device_ms(lib_bwd, 20)
+        except SystemExit:
+            ms["lib_coo"] = None        # it synchronises the host
+        x = dict(tables=tables, ids=ids, lens=lens)
+        for which, label in (("fwd", "B5 embedding_bag_fwd_grouped"),
+                             ("coo", "B6 embedding_bag_bwd_coo_grouped")):
+            bound_ms, bound_by, n_bytes, ops = bound_group(x, which)
+            lib = ms["lib_" + which]
+            print(f"[times] {card}: {label} sum, scenario dlrm-mlperf "
+                  f"training {side} side B{b} F{f} L{l} "
+                  f"D{tables[0].shape[1]} over tables of {vocabs} rows, "
+                  f"device time per call: kernel {ms[which]:.5f} ms, plain "
+                  f"torch {ms[which + '_plain']:.5f} ms; bound "
+                  f"{bound_ms:.3e} ms ({bound_by}: {n_bytes} B, {ops} "
+                  f"FLOP); library ({f} calls) "
+                  + ("-" if lib is None else f"{lib:.5f} ms")
+                  + f"; max|B5 - plain| {err:.3e}")
+            out[side, which] = dict(ms=ms[which],
+                                    plain_ms=ms[which + "_plain"],
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=lib, max_abs_err=(
+                                        err if which == "fwd" else 0.0))
+        del tg, lib_out
+    dense, sparse = dots[0]
+    kernel = lambda: dmod.dot_interaction_cuda(dense, sparse)
+    plain = lambda: dmod.dot_interaction_plain(dense, sparse)
+    err = float((kernel() - plain()).abs().max())
+    if not torch.allclose(kernel(), plain(), atol=DOT_ATOL, rtol=DOT_RTOL):
+        raise SystemExit(f"scenario times: B7 off plain by {err:.3e}")
+    ms = {k: device_ms(fn, iters) for k, fn, iters in (
+        ("plain", plain, 40), ("kernel", kernel, 200))}
+    bound_ms, bound_by, n_bytes, ops = bound_dot(dense, sparse)
+    print(f"[times] {card}: B7 dot_interaction_fwd scenario dlrm-mlperf "
+          f"training B{sparse.shape[0]} F{sparse.shape[1]} "
+          f"D{sparse.shape[2]} fp32, device time per call: kernel "
+          f"{ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms; bound "
+          f"{bound_ms:.3e} ms ({bound_by}: {n_bytes} B, {ops} FLOP); "
+          f"max|B7 - plain| {err:.3e}; library: none (phase_dot_times)")
+    out["dot"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                      max_abs_err=err)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4163,6 +4968,13 @@ def main() -> int:
     sparse_bag_times = phase_sparse_bag_times(emod, device, card,
                                               dlrm_sparse["groups"])
     tt_bag_times = phase_tt_bag(emod, device, card)
+    # the scenario layer's entry points (each run's counts reset before it)
+    scen_train = phase_scenario_train(mods, device, card)
+    scen_serve = phase_scenario_serve(mods, device, card, scen_train)
+    phase_launcher(card)
+    obs_rates = phase_obs(mods, device, card)
+    phase_faults(mods, device, card)
+    scen_times = phase_scenario_times(emod, dmod, device, card, scen_train)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -4202,6 +5014,22 @@ def main() -> int:
             + (f", {busy_text(r['busy'])}" if "busy" in r else "")
             for mode, r in run.items()))
 
+    for (arch, variant), run in scen_train.items():
+        srv = scen_serve.get((arch, variant), {})
+        print(f"[scenario {arch}{' ' + variant if variant else ''}] {card}: "
+              f"training {run['steps_per_s']:.2f} steps/s"
+              + "".join(f", {what} {srv[key]:.1f} requests/s"
+                        for what, key in (
+                            ("serving", "requests_per_s"),
+                            ("cache pass 2", "cached_requests_per_s"),
+                            ("incremental", "incremental_requests_per_s"))
+                        if key in srv))
+    print(f"[obs] {card}: hstu-gr serving requests/s by obs mode "
+          + ", ".join(f"{m} " + " / ".join(f"{r:.1f}" for r in v)
+                      for m, v in obs_rates.items()))
+
+    gr_train = scen_train["hstu-gr", None]["launches"]
+    scen_dlrm = scen_train["dlrm-mlperf", None]["launches"]
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
@@ -4284,7 +5112,45 @@ def main() -> int:
         **dot_times[key]}
         for what, key, run in (("scoring", "score", dlrm_score),
                                ("training", "train", dlrm_train),
-                               ("sparse training", "train", dlrm_sparse))]}))
+                               ("sparse training", "train", dlrm_sparse))]
+        + [{
+        "name": "hstu_attention_fwd (scenario hstu-gr training)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:80",
+        "launches": gr_train["b1"], "max_abs_err": worst,
+        **times["train"], "library_ms": None}] + [{
+        "name": f"{name} (scenario hstu-gr training)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": gr_train[key], "max_abs_err": worst_bwd[which],
+        **btimes[which], "library_ms": None}
+        for name, line, key, which in (
+            ("hstu_attention_bwd_dq", 108, "b2", "dq"),
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
+        "name": "hstu_attention_prefix_fwd (scenario hstu-gr incremental "
+                "serving; times at n_new 8)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_prefix_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:392",
+        "launches": scen_serve["hstu-gr", None]["b4"],
+        "max_abs_err": worst_prefix, "ms": ptimes["ms"],
+        "plain_ms": ptimes["plain_ms"], "bound_ms": ptimes["bound_ms"],
+        "bound_by": ptimes["bound_by"], "library_ms": None}] + [{
+        "name": f"{name} (scenario dlrm-mlperf training, {side} side)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": f"src/repro/kernels/embedding_bag.py:{line}",
+        "launches": scen_dlrm[key] // 2, **scen_times[side, which]}
+        # one grouped launch a side a forward / backward
+        for name, line, key, which in (
+            ("embedding_bag_fwd_grouped", 48, "b5", "fwd"),
+            ("embedding_bag_bwd_coo_grouped", 74, "b6", "coo"))
+        for side in ("RO", "NRO")] + [{
+        "name": "dot_interaction_fwd (scenario dlrm-mlperf training)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+        "replaces": "src/repro/kernels/dot_interaction.py:22",
+        "launches": scen_dlrm["b7"], **scen_times["dot"]}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

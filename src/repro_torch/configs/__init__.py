@@ -1,1 +1,1 @@
-"""Model configs (torch port of ``repro/configs``): hstu-gr so far."""
+"""Model configs and the arch registry (torch port of ``repro/configs``)."""

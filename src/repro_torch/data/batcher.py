@@ -10,10 +10,11 @@ numpy, then moves each packed batch to the requested device in one step:
     aligned with each request's ``item_ids`` — and counts impressions
     dropped by truncation.
 
-The impression-level packing (``impression_batches``), the obs counter
-mirror and the reference's multi-shard options (``n_shards``,
-``local_segment_ids``) are not ported yet: they wait for a slice that
-shards a batch across cards.
+Dropped impressions are always counted in the ungated
+``batcher.impressions_dropped`` obs counter. The impression-level packing
+(``impression_batches``) and the reference's multi-shard options
+(``n_shards``, ``local_segment_ids``) are not ported yet: they wait for a
+slice that shards a batch across cards.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from repro_torch.core.joiner import ROOSample
 from repro_torch.core.roo_batch import ROOBatch
 from repro_torch.data.jagged import JaggedTensor, KeyedJagged
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -138,13 +140,19 @@ class ROOBatcher:
                 n_imps += n_imp
             batch, plan = self._pack(reqs)
             self.stats.update(plan)
-            if plan.dropped_impressions and not self._trunc_warned:
-                self._trunc_warned = True
-                warnings.warn(
-                    f"ROOBatcher: dropped {plan.dropped_impressions} "
-                    f"impression(s) from {plan.truncated_requests} "
-                    f"truncated request(s) — b_nro={cfg.b_nro} is smaller "
-                    f"than the request", stacklevel=2)
+            if plan.dropped_impressions:
+                # always counted (ungated: data loss must never be silent);
+                # warned once per batcher
+                obs_metrics.counter(
+                    "batcher.impressions_dropped",
+                    gated=False).inc(plan.dropped_impressions)
+                if not self._trunc_warned:
+                    self._trunc_warned = True
+                    warnings.warn(
+                        f"ROOBatcher: dropped {plan.dropped_impressions} "
+                        f"impression(s) from {plan.truncated_requests} "
+                        f"truncated request(s) — b_nro={cfg.b_nro} is "
+                        f"smaller than the request", stacklevel=2)
             yield batch, plan
 
     def _pack(self, reqs: List[Tuple[int, ROOSample]]

@@ -1,41 +1,314 @@
-"""Builders from a scenario to runnable pieces (torch port of part of
-``repro/scenario/build.py``).
+"""ScenarioSpec -> running objects: the one construction path (torch port
+of ``repro/scenario/build.py``).
 
-So far only :func:`synthetic_dlrm_batches`, the dlrm-mlperf data source.
-The ``ScenarioSpec`` layer and the model bundles come with the config
-slice; until then the caller passes the seed and batch sizes that the
-reference reads from the spec, and writes the loss itself, as the
-reference's bundle does: ``bce(dlrm_forward_roo(p, cfg, b["ro_dense"],
-b["ro_ids"], b["ro_len"], b["nro_ids"], b["nro_len"], b["seg"]), b["y"])``
-with ``train/metrics.bce``.
+Every consumer — ``launch/train.py``, ``ScoringEngine.from_scenario``,
+``scenario/smoke.py`` — builds stream, batcher, model, Trainer and engine
+through THESE functions, so a spec-driven run and a flag-driven run are
+bit-identical by construction (the flags merely edit the spec).
+
+Entry points run on ``device`` (``"cuda"`` unless the caller asks for the
+CPU). Parameters are drawn from a CPU ``torch.Generator`` seeded with
+``rng_seed`` and then moved, so the card and the CPU start from the same
+values; the Trainer's base seed is ``rng_seed`` too.
+
+What the port cannot run yet is refused with a
+:class:`ScenarioValidationError` that names the slice bringing it, never
+ignored: ``data.source="disk"`` (the shard pipeline, ROADMAP A8b),
+``train.mesh`` and the ``comms_*`` knobs (SPMD and the compressed
+exchange, A9), and ``train.microbatches > 1``, which no scenario data
+source feeds (the reference's would hand the accumulation unstacked
+batches). ``cursor_fingerprint`` comes with A8b's shard manifest.
+
+Also home of the provenance plumbing the spec hash rides:
+:func:`shard_provenance` / :func:`provenance_matches` (the manifest
+fields the disk pipeline will stamp and gate reuse on) and
+:func:`ckpt_meta` (``scenario`` / ``scenario_hash`` in every checkpoint's
+``meta.json``).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+import os
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.registry import SCENARIO_ARCHS
+from repro_torch.scenario.spec import (COMMS_KNOBS, ScenarioSpec,
+                                       ScenarioValidationError)
+from repro_torch.serve.adapter import ServeAdapter
 
-def synthetic_dlrm_batches(seed: int, b_ro: int, b_nro: int, cfg,
-                           n_batches: int = 4,
+
+class ModelBundle(NamedTuple):
+    """Everything a trainer/server needs for one arch, built from a spec."""
+    arch: str
+    cfg: Any
+    params: Any
+    loss_fn: Callable                        # (params, batch, gen) -> loss
+    vag_fn: Optional[Callable]               # sparse value_and_grad (or None)
+    metrics_fn: Optional[Callable]
+    serve: Optional[ServeAdapter]            # None: arch is not ROO-servable
+
+
+# ---------------------------------------------------------------------------
+# What the port cannot run yet
+# ---------------------------------------------------------------------------
+
+def refuse_unported(spec: ScenarioSpec, training: bool) -> None:
+    """Raise, naming the slice, for a spec the port cannot run yet: the
+    ``comms_*`` knobs (A9) always, and for training ``train.mesh`` (A9),
+    ``data.source="disk"`` (A8b) and ``train.microbatches > 1`` (no
+    scenario data source stacks microbatches, in the reference either)."""
+    def bad(msg):
+        raise ScenarioValidationError(f"scenario {spec.name!r}: {msg}")
+
+    comms = [k for k in COMMS_KNOBS if getattr(spec.knobs, k) is not None]
+    if comms:
+        bad(f"knobs {', '.join(comms)} set: the compressed sparse-embedding "
+            f"exchange is not ported yet (ROADMAP A9)")
+    if not training:
+        return
+    if spec.train.mesh:
+        bad(f"train.mesh {spec.train.mesh!r}: SPMD training over a device "
+            f"mesh is not ported yet (ROADMAP A9)")
+    if spec.data.source == "disk":
+        bad("data.source='disk': the shard storage and disk pipeline are "
+            "not ported yet (ROADMAP A8b); use data.source='memory'")
+    if spec.train.microbatches > 1:
+        bad(f"train.microbatches={spec.train.microbatches}: accumulation "
+            f"needs batches with a leading microbatch axis, and the memory "
+            f"and synthetic sources yield one batch a step")
+
+
+# ---------------------------------------------------------------------------
+# Data + batcher sections
+# ---------------------------------------------------------------------------
+
+def build_stream_cfg(spec: ScenarioSpec):
+    from repro_torch.data.events import EventStreamConfig
+    d = spec.data
+    return EventStreamConfig(
+        n_users=d.n_users, n_items=spec.stream_n_items(),
+        n_requests=d.n_requests, product=d.product,
+        hist_init_max=d.hist_init_max, seed=d.seed,
+        late_fraction=d.late_fraction)
+
+
+def build_batcher_cfg(spec: ScenarioSpec):
+    from repro_torch.data.batcher import BatcherConfig
+    return BatcherConfig(b_ro=spec.batcher.b_ro, b_nro=spec.batcher.b_nro,
+                         hist_len=spec.batcher.hist_len)
+
+
+def build_samples(spec: ScenarioSpec) -> List:
+    """Deterministic in-memory ROO samples for the spec's event stream."""
+    from repro_torch.core.joiner import RequestLevelJoiner
+    from repro_torch.data.events import EventSimulator
+    return RequestLevelJoiner().join(
+        list(EventSimulator(build_stream_cfg(spec)).stream()))
+
+
+# ---------------------------------------------------------------------------
+# Provenance
+# ---------------------------------------------------------------------------
+
+def shard_provenance(spec: ScenarioSpec) -> dict:
+    """Manifest provenance for shards built from ``spec``. ``data_hash``
+    is the reuse gate; the rest is for humans debugging a directory."""
+    return {"scenario": spec.name,
+            "scenario_hash": spec.content_hash(),
+            "data_hash": spec.data_hash(),
+            "stream": dataclasses.asdict(build_stream_cfg(spec)),
+            "label_wait_s": spec.data.label_wait_s,
+            "requests_per_shard": spec.data.requests_per_shard}
+
+
+def provenance_matches(stored: dict, spec: ScenarioSpec) -> bool:
+    """Whether an existing shard directory holds this spec's data. New
+    manifests compare by ``data_hash``; pre-scenario manifests (no hash)
+    compare the legacy provenance fields."""
+    if "data_hash" in stored:
+        return stored["data_hash"] == spec.data_hash()
+    want = shard_provenance(spec)
+    legacy = {k: want[k] for k in ("stream", "label_wait_s",
+                                   "requests_per_shard")}
+    return stored == legacy
+
+
+def ckpt_meta(spec: ScenarioSpec) -> dict:
+    return {"scenario": spec.name, "scenario_hash": spec.content_hash()}
+
+
+# ---------------------------------------------------------------------------
+# Models (params + loss + sparse vag + metrics + serving halves)
+# ---------------------------------------------------------------------------
+
+def _ne_metrics(logits_fn):
+    from repro_torch.train.metrics import make_ne_metrics
+    return make_ne_metrics(logits_fn)
+
+
+def build_model(spec: ScenarioSpec, gen: torch.Generator,
+                sparse: bool = False, device="cuda") -> ModelBundle:
+    """Params (drawn from ``gen``, placed on ``device``), loss and serving
+    halves for ``spec.model``. ``loss_fn(params, batch, gen)`` takes the
+    step's generator (only BERT4Rec's cloze mask draws from it)."""
+    from repro_torch.configs import roo_models as rm
+    from repro_torch.embeddings.sparse import make_sparse_value_and_grad
+
+    arch, m = spec.model.arch, spec.model
+    if arch not in SCENARIO_ARCHS:
+        raise ScenarioValidationError(
+            f"scenario {spec.name!r}: model.arch {arch!r} is not a recsys "
+            f"scenario arch; expected one of {SCENARIO_ARCHS} (the LM and "
+            f"MACE archs are not ported yet: ROADMAP A10)")
+
+    def sparse_vag(loss, table_ids_fn):
+        return (make_sparse_value_and_grad(loss, table_ids_fn)
+                if sparse else None)
+
+    if arch == "roo-lsr":
+        from repro_torch.models.lsr import (lsr_init, lsr_logits_from_user,
+                                            lsr_logits_roo, lsr_loss,
+                                            lsr_table_ids, lsr_user_repr)
+        cfg = dataclasses.replace(rm.lsr_config(m.variant or "userarch_hstu"),
+                                  n_items=m.n_items)
+        loss = lambda p, b, g: lsr_loss(p, cfg, b)
+        return ModelBundle(
+            arch, cfg, lsr_init(gen, cfg, device=device), loss,
+            sparse_vag(loss, lambda b: lsr_table_ids(cfg, b)),
+            _ne_metrics(lambda p, b: (lsr_logits_roo(p, cfg, b)[:, 0],
+                                      b.labels[:, 0], b.impression_mask())),
+            ServeAdapter(
+                score=lambda p, b: lsr_logits_roo(p, cfg, b),
+                user_repr=lambda p, b: lsr_user_repr(p, cfg, b),
+                score_from_user=lambda p, b, u: lsr_logits_from_user(
+                    p, cfg, b, u)))
+    if arch in ("roo-esr", "roo-retrieval"):
+        from repro_torch.models import two_tower as tt
+        esr = arch == "roo-esr"
+        cfg = dataclasses.replace(
+            rm.esr_config() if esr else rm.retrieval_config(),
+            n_items=m.n_items)
+        if esr:
+            loss = lambda p, b, g: tt.esr_loss_roo(p, cfg, b)
+            metrics = _ne_metrics(lambda p, b: (
+                tt.esr_logits_roo(p, cfg, b), b.labels[:, 0],
+                b.impression_mask()))
+            from_user = lambda p, b, u: tt.esr_logits_from_user(p, cfg, b, u)
+        else:
+            loss = lambda p, b, g: tt.retrieval_loss_roo(p, cfg, b)
+            metrics = None
+            # the reference scenario's ``_fanout_scores``
+            from_user = lambda p, b, u: tt.retrieval_scores_from_user(
+                p, cfg, b, u)
+        return ModelBundle(
+            arch, cfg, tt.two_tower_init(gen, cfg, device=device), loss,
+            sparse_vag(loss, lambda b: tt.two_tower_table_ids(cfg, b)),
+            metrics,
+            ServeAdapter(
+                score=lambda p, b: from_user(p, b, tt.user_tower(p, cfg, b)),
+                user_repr=lambda p, b: tt.user_tower(p, cfg, b),
+                score_from_user=from_user))
+    if arch == "hstu-gr":
+        from repro_torch.models import gr
+        cfg = dataclasses.replace(
+            rm.gr_config(hist_len=m.hist_len, m_targets=m.m_targets),
+            n_items=m.n_items)
+        loss = lambda p, b, g: gr.gr_ranking_loss(p, cfg, b)
+        return ModelBundle(
+            arch, cfg, gr.gr_init(gen, cfg, device=device), loss,
+            sparse_vag(loss, lambda b: gr.gr_table_ids(cfg, b)),
+            _ne_metrics(lambda p, b: (gr.gr_ranking_logits(p, cfg, b)[:, 0],
+                                      b.labels[:, 0], b.impression_mask())),
+            ServeAdapter(
+                score=lambda p, b: gr.gr_ranking_logits(p, cfg, b),
+                user_repr=lambda p, b: gr.gr_history_repr(p, cfg, b),
+                score_from_user=lambda p, b, h:
+                    gr.gr_ranking_logits_from_history(p, cfg, b, h),
+                init_user_state=lambda: gr.gr_state_init(cfg, device=device),
+                extend_user_state=lambda p, b, s, *, n_new:
+                    gr.gr_extend_user_state(p, cfg, b, s, n_new=n_new),
+                score_from_state=lambda p, b, s, *, n_new:
+                    gr.gr_score_from_state(p, cfg, b, s, n_new=n_new),
+                state_hist_len=cfg.hist_len))
+    if arch == "mind":
+        from repro_torch.models import mind
+        cfg = mind.MINDConfig(n_items=m.n_items)
+        loss = lambda p, b, g: mind.mind_loss(p, cfg, b)
+        return ModelBundle(
+            arch, cfg, mind.mind_init(gen, cfg, device=device), loss,
+            sparse_vag(loss, lambda b: mind.mind_table_ids(cfg, b)), None,
+            ServeAdapter(score=lambda p, b: mind.score_candidates_roo(
+                p, cfg, b)))
+    if arch == "bert4rec":
+        from repro_torch.models import bert4rec
+        if sparse:
+            raise ScenarioValidationError(
+                "bert4rec's cloze head is a full softmax over item_emb — "
+                "dense by construction; drop train.sparse_emb")
+        cfg = bert4rec.BERT4RecConfig(n_items=m.n_items,
+                                      seq_len=m.seq_len or 65)
+        return ModelBundle(
+            arch, cfg, bert4rec.bert4rec_init(gen, cfg, device=device),
+            lambda p, b, g: bert4rec.bert4rec_loss(p, cfg, b, g), None, None,
+            ServeAdapter(score=lambda p, b: bert4rec.score_candidates_roo(
+                p, cfg, b)))
+    if arch == "dien":
+        from repro_torch.models import din_dien
+        cfg = din_dien.DIENConfig(n_items=m.n_items, seq_len=m.seq_len or 64)
+        loss = lambda p, b, g: din_dien.dien_loss(p, cfg, b)
+        return ModelBundle(
+            arch, cfg, din_dien.dien_init(gen, cfg, device=device), loss,
+            sparse_vag(loss, lambda b: din_dien.dien_table_ids(cfg, b)),
+            _ne_metrics(lambda p, b: (din_dien.dien_logits_roo(p, cfg, b),
+                                      b.labels[:, 0], b.impression_mask())),
+            ServeAdapter(score=lambda p, b: din_dien.dien_logits_roo(
+                p, cfg, b)))
+    # dlrm-mlperf: MLPerf-shaped at the reference scenario's reduced scale
+    # (four tables of at most 512 rows). Field-dict batches, not ROOBatch,
+    # so it is synthetic-data-only and not servable through the ROO engine.
+    from repro_torch.models.dlrm import (DLRMConfig, dlrm_forward_roo,
+                                         dlrm_init, dlrm_table_ids)
+    from repro_torch.train.metrics import bce
+    ed = m.embed_dim or 16
+    cfg = DLRMConfig(n_dense=4, embed_dim=ed, bot_mlp=(4, 32, ed),
+                     top_mlp=(64, 32, 1), vocabs=(512, 256, 64, 32),
+                     n_ro_fields=2, multi_hot=2)
+
+    def loss(p, b, g):
+        logits = dlrm_forward_roo(p, cfg, b["ro_dense"], b["ro_ids"],
+                                  b["ro_len"], b["nro_ids"], b["nro_len"],
+                                  b["seg"])
+        return bce(logits, b["y"])
+
+    return ModelBundle(
+        arch, cfg, dlrm_init(gen, cfg, device=device), loss,
+        sparse_vag(loss, lambda b: dlrm_table_ids(cfg, b["ro_ids"],
+                                                  b["nro_ids"])),
+        None, None)
+
+
+def synthetic_dlrm_batches(spec: ScenarioSpec, cfg, n_batches: int = 4,
                            device="cuda") -> List[Dict[str, torch.Tensor]]:
     """Deterministic field-dict batches for dlrm-mlperf (its MLPerf input
     format predates the ROO schema; the stream simulator doesn't emit it).
 
-    The same ``np.random.RandomState(seed)`` draws in the same order as the
-    reference's ``synthetic_dlrm_batches(spec, cfg, n_batches)`` with
-    ``spec.data.seed = seed`` and ``spec.batcher.b_ro / b_nro``, so both
+    The same ``np.random.RandomState(spec.data.seed)`` draws in the same
+    order as the reference's, at ``spec.batcher.b_ro / b_nro``, so both
     give the same bytes. Each batch: ``ro_dense (B_RO, n_dense)`` fp32,
     ``ro_ids (B_RO, n_ro, mh)`` and ``nro_ids (B_NRO, n_nro, mh)`` int32
     below each field's (unpadded) vocab, full lengths, ``seg`` (B_NRO,)
     giving each request B_NRO / B_RO impressions, labels ``y`` (B_NRO,)
     with a 0.3 positive rate; all on ``device``.
     """
+    r = np.random.RandomState(spec.data.seed)
+    b_ro, b_nro = spec.batcher.b_ro, spec.batcher.b_nro
     if b_nro % b_ro:
-        raise ValueError(f"dlrm synthetic batches need b_nro ({b_nro}) "
-                         f"divisible by b_ro ({b_ro})")
-    r = np.random.RandomState(seed)
+        raise ScenarioValidationError(
+            f"scenario {spec.name!r}: dlrm synthetic batches need "
+            f"batcher.b_nro divisible by batcher.b_ro")
     mh, n_ro = cfg.multi_hot, cfg.n_ro_fields
     n_nro = cfg.n_sparse - n_ro
     out = []
@@ -56,3 +329,200 @@ def synthetic_dlrm_batches(seed: int, b_ro: int, b_nro: int, cfg,
         out.append({k: torch.from_numpy(v).to(device)
                     for k, v in batch.items()})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training: the whole recsys path, spec in -> (trainer, final state) out
+# ---------------------------------------------------------------------------
+
+def train_from_scenario(spec: ScenarioSpec, *, ckpt_dir: Optional[str] = None,
+                        rng_seed: int = 0, prints: bool = True,
+                        telemetry_path: Optional[str] = None,
+                        device="cuda"):
+    """Run the spec's training end to end; returns ``(trainer, state)``.
+
+    ``ckpt_dir`` / ``telemetry_path`` are runtime locations, deliberately
+    NOT part of the spec (a spec hash must be machine-portable).
+    ``telemetry_path`` (or ``obs.export`` in the spec, which defaults the
+    file to ``<ckpt_dir>/telemetry.jsonl``) installs a JSONL telemetry
+    emitter for the duration of the run. Raises
+    :class:`ScenarioValidationError` on config conflicts and on what the
+    port cannot run yet (the CLI turns those into exit messages).
+    """
+    spec.validate()
+    refuse_unported(spec, training=True)
+    spec.apply()
+    emitter = _install_emitter(spec, telemetry_path, ckpt_dir)
+    try:
+        return _train_from_scenario(spec, ckpt_dir=ckpt_dir,
+                                    rng_seed=rng_seed, prints=prints,
+                                    device=device)
+    finally:
+        if emitter is not None:
+            from repro_torch.obs import export as obs_export
+            obs_export.install(None)
+            emitter.close(final_source="train.final")
+
+
+def _install_emitter(spec: ScenarioSpec, telemetry_path: Optional[str],
+                     ckpt_dir: Optional[str]):
+    if not (spec.obs.export or telemetry_path):
+        return None
+    from repro_torch.obs import export as obs_export
+    if telemetry_path is None:
+        if not ckpt_dir:
+            raise ScenarioValidationError(
+                "obs.export needs somewhere to write: pass --obs-export "
+                "PATH or a --ckpt-dir (defaults to "
+                "<ckpt_dir>/telemetry.jsonl)")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        telemetry_path = os.path.join(ckpt_dir, "telemetry.jsonl")
+    emitter = obs_export.TelemetryEmitter(
+        telemetry_path, every_s=spec.obs.export_every_s,
+        scenario_hash=spec.content_hash())
+    obs_export.install(emitter)
+    return emitter
+
+
+def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
+                         device, bundle: Optional[ModelBundle] = None):
+    """The run itself, on a spec already validated and applied. ``bundle``
+    replaces ``build_model``'s (a seam for tests that carry another
+    package's parameters in)."""
+    from repro_torch.obs.log import get_logger
+    from repro_torch.reliability import faults as _faults
+    log = get_logger("scenario", enabled=prints)
+    _plan = _faults.active_plan()
+    if _plan is not None:
+        # fault injection is never silent: a chaos run announces itself
+        log.info("fault-injection-active", plan=_plan.to_env())
+
+    arch, tr = spec.model.arch, spec.train
+    if bundle is None:
+        bundle = build_model(spec, torch.Generator().manual_seed(rng_seed),
+                             sparse=tr.sparse_emb, device=device)
+    if tr.sparse_emb and bundle.vag_fn is None:
+        raise ScenarioValidationError(
+            f"{arch} has no table_ids declaration; train.sparse_emb "
+            f"unsupported")
+
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+    from repro_torch.train.optim import (adam, default_is_embedding,
+                                         make_mixed, rowwise_adagrad)
+    opt = make_mixed(adam(tr.lr_dense), rowwise_adagrad(tr.lr_emb),
+                     default_is_embedding)
+    trainer = Trainer(
+        bundle.loss_fn, opt,
+        TrainLoopConfig(total_steps=tr.steps, log_every=tr.log_every,
+                        ckpt_dir=ckpt_dir, ckpt_every=tr.ckpt_every,
+                        keep_last=tr.keep_last, microbatches=tr.microbatches,
+                        halt_after_skips=tr.halt_after_skips,
+                        ckpt_meta=ckpt_meta(spec)),
+        lambda: bundle.params, value_and_grad_fn=bundle.vag_fn,
+        metrics_fn=bundle.metrics_fn, device=device)
+
+    if spec.data.source == "synthetic" or arch == "dlrm-mlperf":
+        if arch != "dlrm-mlperf":
+            raise ScenarioValidationError(
+                f"data.source='synthetic' is the dlrm-mlperf field-batch "
+                f"path; {arch} trains from the event stream "
+                f"(data.source memory)")
+        if spec.data.source != "synthetic":
+            raise ScenarioValidationError(
+                "dlrm-mlperf consumes MLPerf field-dict batches, not ROO "
+                "samples — set data.source='synthetic'")
+        batches = synthetic_dlrm_batches(spec, bundle.cfg, device=device)
+    else:
+        from repro_torch.data.batcher import ROOBatcher
+        batches = list(ROOBatcher(build_batcher_cfg(spec), device=device)
+                       .batches(build_samples(spec)))
+    state = trainer.run(_cycling_iter_fn(batches), rng_seed)
+    if trainer.skipped_steps:
+        log.info("steps-skipped", n=trainer.skipped_steps)
+    return trainer, state
+
+
+def _cycling_iter_fn(batches):
+    def batch_iter(start):
+        def gen():
+            i = start
+            while True:
+                yield batches[i % len(batches)]
+                i += 1
+        return gen()
+    return batch_iter
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def engine_from_scenario(spec: ScenarioSpec, params=None, rng_seed: int = 0,
+                         clock=None, device="cuda"):
+    """ScoringEngine for the spec's model (the ``from_scenario`` core), on
+    ``device``.
+
+    ``params=None`` initializes fresh parameters from ``rng_seed`` —
+    handy for benchmarks; production passes trained params.
+    """
+    import time as _time
+
+    from repro_torch.serve.bucketing import BucketLadder
+    from repro_torch.serve.engine import EnginePolicy, ScoringEngine
+    from repro_torch.serve.user_cache import UserStateStore, UserTowerCache
+
+    spec.validate()
+    refuse_unported(spec, training=False)
+    spec.apply()
+    bundle = build_model(spec, torch.Generator().manual_seed(rng_seed),
+                         device=device)
+    if bundle.serve is None:
+        raise ScenarioValidationError(
+            f"scenario {spec.name!r}: {spec.model.arch} is not servable "
+            f"through the ROO engine (field-dict batches, no ROO forward)")
+    sv = spec.serve
+    policy = EnginePolicy(max_requests=sv.max_requests,
+                          max_impressions=sv.max_impressions,
+                          max_delay_ms=sv.max_delay_ms,
+                          hist_len=spec.batcher.hist_len,
+                          breaker_threshold=sv.breaker_threshold,
+                          breaker_cooldown_s=sv.breaker_cooldown_s)
+    ladder = (BucketLadder.geometric(
+                  min_b_ro=min(4, sv.max_requests),
+                  min_b_nro=min(32, sv.max_impressions),
+                  max_b_ro=sv.max_requests, max_b_nro=sv.max_impressions)
+              if sv.bucketed else
+              BucketLadder.fixed(sv.max_requests, sv.max_impressions))
+    adapter = bundle.serve
+    cache = None
+    state_store = None
+    if sv.cache_user_tower:
+        if not adapter.supports_user_cache:
+            raise ScenarioValidationError(
+                f"scenario {spec.name!r}: serve.cache_user_tower needs "
+                f"split user/score entry points; {spec.model.arch} has a "
+                f"fused forward only")
+        cache = UserTowerCache(sv.cache_capacity)
+    if sv.incremental:
+        if not adapter.supports_incremental:
+            raise ScenarioValidationError(
+                f"scenario {spec.name!r}: serve.incremental needs the "
+                f"stateful adapter hooks (init_user_state/score_from_state);"
+                f" {spec.model.arch} serves statelessly")
+        if adapter.state_hist_len != spec.batcher.hist_len:
+            raise ScenarioValidationError(
+                f"scenario {spec.name!r}: serve.incremental needs the "
+                f"model's state window to equal the batcher window "
+                f"(model.hist_len {adapter.state_hist_len} != "
+                f"batcher.hist_len {spec.batcher.hist_len}); otherwise "
+                f"'prefix of the served history' is ill-defined")
+        state_store = UserStateStore(sv.state_capacity)
+    return ScoringEngine(
+        params if params is not None else bundle.params,
+        policy=policy, ladder=ladder, adapter=adapter,
+        user_fn=adapter.user_repr if cache is not None else None,
+        score_from_user=(adapter.score_from_user
+                         if cache is not None else None),
+        cache=cache, state_store=state_store,
+        attn_backend=spec.knobs.attn_backend, device=device,
+        clock=clock if clock is not None else _time.monotonic)

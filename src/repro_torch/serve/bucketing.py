@@ -1,6 +1,5 @@
 """Shape-bucketed batching for serving — a copy of
-``repro/serve/bucketing.py`` (framework-free), without the single-shape
-``fixed`` ladder, which nothing in the port uses.
+``repro/serve/bucketing.py`` (framework-free).
 
 The engine rounds every flush up to a rung of a fixed *bucket ladder*, so
 the model only ever sees ``len(ladder)`` batch shapes. In the JAX package
@@ -9,7 +8,8 @@ launch shapes and keeps batch shapes identical across the two packages.
 
 The ladder is geometric (both dims double per rung), so padding waste is
 bounded by ~2x while the number of shapes stays logarithmic in the max
-batch size.
+batch size. ``fixed`` is the single-shape ladder (``serve.bucketed=false``
+in a scenario, ``ServeConfig(bucketed=False)``).
 """
 from __future__ import annotations
 
@@ -47,6 +47,11 @@ class BucketLadder:
             b_ro = min(2 * b_ro, max_b_ro)
             b_nro = min(2 * b_nro, max_b_nro)
         return cls(tuple(rungs))
+
+    @classmethod
+    def fixed(cls, b_ro: int, b_nro: int) -> "BucketLadder":
+        """Single-shape ladder: every flush is padded to (b_ro, b_nro)."""
+        return cls((BucketSpec(b_ro, b_nro),))
 
     @property
     def max_rung(self) -> BucketSpec:

@@ -27,8 +27,15 @@ back to the host as numpy arrays. User states and cached user-tower rows
 live on the host as numpy; per batch, each state leaf is stacked and copied
 to the card once, and copied back once.
 
-Not ported yet: the ``obs`` spans/counters and the ``faults.maybe_fail``
-injection site (ROADMAP A8).
+Observability (``repro_torch.obs``) mirrors the reference: the engine
+registers its ``snapshot`` as ``serve.engine``; in ``metrics`` mode each
+online request's submit-to-result time lands in ``engine.request_ms``; in
+``trace`` mode every admitted request gets a trace id that rides the
+``engine.admit`` / ``engine.reassemble`` instants and the ``engine.flush``
+> ``engine.bucket`` / ``engine.score`` spans. Each flush offers a telemetry
+line (``serve.flush``). The ``engine.score`` fault site raises inside the
+isolation boundary. ``ScoringEngine.from_scenario`` builds an engine from a
+``ScenarioSpec`` (scenario/build.py).
 """
 from __future__ import annotations
 
@@ -44,6 +51,10 @@ import torch
 from repro_torch.core.joiner import ROOSample
 from repro_torch.data.batcher import BatchPlan, BatcherConfig, ROOBatcher
 from repro_torch.kernels.dispatch import use_backend
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.reliability import faults
 from repro_torch.serve.adapter import ServeAdapter
 from repro_torch.serve.bucketing import BucketLadder, BucketStats
 from repro_torch.serve.user_cache import (StateProbe, UserStateStore,
@@ -213,6 +224,8 @@ class ScoringEngine:
         self._oldest_ts: Optional[float] = None
         self._next_ticket = 0
         self._results: Dict[int, np.ndarray] = {}
+        self._submit_ts: Dict[int, float] = {}
+        obs_metrics.register_stats("serve.engine", self)
         # trailing score dims ((,) single-task, (n_tasks,) multi-task) from
         # the last scored batch — shapes empty results of zero-impression
         # requests
@@ -220,6 +233,19 @@ class ScoringEngine:
         # circuit breaker: consecutive batch failures + open-until deadline
         self._breaker_failures = 0
         self._breaker_open_until: Optional[float] = None
+
+    @classmethod
+    def from_scenario(cls, spec, params=None, rng_seed: int = 0,
+                      clock: Optional[Callable[[], float]] = None,
+                      device="cuda") -> "ScoringEngine":
+        """Build an engine from a ScenarioSpec: the serve section sets the
+        admission policy, ladder and stores, the knobs section pins the
+        attention backend, and the arch's serving adapter
+        (scenario/build.py) supplies the model halves. ``params=None``
+        initializes fresh parameters from ``rng_seed``."""
+        from repro_torch.scenario.build import engine_from_scenario
+        return engine_from_scenario(spec, params=params, rng_seed=rng_seed,
+                                    clock=clock, device=device)
 
     @property
     def params(self):
@@ -244,8 +270,8 @@ class ScoringEngine:
         return self._param_epoch
 
     def snapshot(self) -> dict:
-        """Whole-engine view: scoring counters, cache effectiveness,
-        breaker state — one consistent read."""
+        """Whole-engine view for ``obs.snapshot()``: scoring counters,
+        cache effectiveness, breaker state — one consistent read."""
         out = {"stats": self.stats.snapshot(),
                "pending_requests": len(self._pending),
                "param_epoch": self._param_epoch,
@@ -266,6 +292,8 @@ class ScoringEngine:
             self._oldest_ts = self.clock()
         self._pending.append((ticket, request))
         self._pending_imps += request.num_impressions
+        if obs_metrics.metrics_enabled():
+            self._submit_ts[ticket] = self.clock()
         return ticket
 
     def poll(self, now: Optional[float] = None) -> bool:
@@ -299,6 +327,10 @@ class ScoringEngine:
         self._pending_imps, self._oldest_ts = 0, None
         for ticket, scores in self._score_keyed(pending):
             self._results[ticket] = scores
+            t0 = self._submit_ts.pop(ticket, None)
+            if t0 is not None:
+                obs_metrics.histogram("engine.request_ms").observe(
+                    (self.clock() - t0) * 1e3)
 
     # ---- bulk front end ------------------------------------------------------
     def score_stream(self, requests: Iterable[ROOSample]
@@ -321,6 +353,8 @@ class ScoringEngine:
         """Split oversize requests, group into bucket-shaped flushes, score,
         reassemble per original key. Yields each key exactly once."""
         top = self.ladder.max_rung
+        tracing = obs_trace.tracing_enabled()
+        trace_ids: Dict[Hashable, int] = {}
         parts_needed: Dict[Hashable, int] = {}
         parts_got: Dict[Hashable, List[np.ndarray]] = {}
         group: List[Tuple[Hashable, ROOSample]] = []
@@ -335,6 +369,10 @@ class ScoringEngine:
                 got.append(piece)
                 if len(got) == parts_needed[key]:
                     del parts_got[key], parts_needed[key]
+                    if tracing:
+                        obs_trace.instant("engine.reassemble",
+                                          trace_id=trace_ids.pop(key, None),
+                                          parts=len(got))
                     errs = [p for p in got if isinstance(p, ScoreError)]
                     if errs:
                         # one bad piece poisons the request: a partial
@@ -360,6 +398,10 @@ class ScoringEngine:
             if sample.num_impressions == 0:
                 deferred_empty.append(key)
                 continue
+            if tracing:
+                trace_ids[key] = obs_trace.new_trace_id()
+                obs_trace.instant("engine.admit", trace_id=trace_ids[key],
+                                  impressions=sample.num_impressions)
             parts = split_oversize(sample, top.b_nro)
             parts_needed[key] = len(parts)
             if len(parts) > 1:
@@ -368,54 +410,68 @@ class ScoringEngine:
                 n = part.num_impressions
                 if group and (len(group) + 1 > top.b_ro
                               or group_imps + n > top.b_nro):
-                    yield from reassemble(self._score_group(group))
+                    yield from reassemble(
+                        self._score_group(group, trace_ids))
                     yield from flush_empty()
                     group, group_imps = [], 0
                 group.append((key, part))
                 group_imps += n
         if group:
-            yield from reassemble(self._score_group(group))
+            yield from reassemble(self._score_group(group, trace_ids))
         yield from flush_empty()
         if parts_needed:
             raise RuntimeError("engine bug: unreassembled request parts")
 
-    def _score_group(self, group: List[Tuple[Hashable, ROOSample]]
+    def _score_group(self, group: List[Tuple[Hashable, ROOSample]],
+                     trace_ids: Dict[Hashable, int]
                      ) -> Iterator[Tuple[Hashable, np.ndarray]]:
         """Score one flush-group at its bucket shape; yields (key, piece)
         for every request part via the batch plan's slot mapping."""
         n_imps = sum(s.num_impressions for _, s in group)
-        bucket = self.ladder.select(len(group), n_imps)
-        self.stats.record_bucket(bucket)
-        batcher = ROOBatcher(BatcherConfig(
-            b_ro=bucket.b_ro, b_nro=bucket.b_nro,
-            hist_len=self.policy.hist_len), device=self.device)
-        samples = [s for _, s in group]
-        for batch, plan in batcher.batches_with_plan(samples):
-            if self._breaker_sheds():
+        with obs_trace.span("engine.flush", requests=len(group),
+                            impressions=n_imps):
+            with obs_trace.span("engine.bucket") as bspan:
+                bucket = self.ladder.select(len(group), n_imps)
+                bspan.set(b_ro=bucket.b_ro, b_nro=bucket.b_nro)
+                self.stats.record_bucket(bucket)
+                batcher = ROOBatcher(BatcherConfig(
+                    b_ro=bucket.b_ro, b_nro=bucket.b_nro,
+                    hist_len=self.policy.hist_len), device=self.device)
+                samples = [s for _, s in group]
+                plans = list(batcher.batches_with_plan(samples))
+            for batch, plan in plans:
+                if self._breaker_sheds():
+                    for p in plan.requests:
+                        yield (group[p.request_index][0],
+                               ScoreError("shed: circuit breaker open",
+                                          shed=True))
+                    continue
+                tids = {trace_ids.get(group[p.request_index][0])
+                        for p in plan.requests} - {None}
+                span = obs_trace.span("engine.score",
+                                      rows=len(plan.requests),
+                                      trace_ids=sorted(tids))
+                try:
+                    with span:
+                        scores = self._score_batch(batch, samples, plan)
+                except Exception as e:   # isolation boundary: batch != engine
+                    self._breaker_record_failure()
+                    self.stats.inc("n_failed_batches")
+                    for p in plan.requests:
+                        yield (group[p.request_index][0],
+                               ScoreError(f"scoring failed: {e!r}"))
+                    continue
+                self._breaker_failures = 0
+                self._breaker_open_until = None
+                self.stats.inc("n_batches")
                 for p in plan.requests:
+                    if p.n_dropped:
+                        raise RuntimeError(
+                            "engine invariant violated: truncation inside a "
+                            f"bucket-shaped batch ({p.n_dropped} dropped)")
                     yield (group[p.request_index][0],
-                           ScoreError("shed: circuit breaker open",
-                                      shed=True))
-                continue
-            try:
-                scores = self._score_batch(batch, samples, plan)
-            except Exception as e:   # isolation boundary: batch != engine
-                self._breaker_record_failure()
-                self.stats.inc("n_failed_batches")
-                for p in plan.requests:
-                    yield (group[p.request_index][0],
-                           ScoreError(f"scoring failed: {e!r}"))
-                continue
-            self._breaker_failures = 0
-            self._breaker_open_until = None
-            self.stats.inc("n_batches")
-            for p in plan.requests:
-                if p.n_dropped:
-                    raise RuntimeError(
-                        "engine invariant violated: truncation inside a "
-                        f"bucket-shaped batch ({p.n_dropped} dropped)")
-                yield (group[p.request_index][0],
-                       scores[p.slot_start:p.slot_start + p.n_packed])
+                           scores[p.slot_start:p.slot_start + p.n_packed])
+        obs_export.maybe_emit("serve.flush")
 
     # ---- circuit breaker -----------------------------------------------------
     def _breaker_sheds(self) -> bool:
@@ -440,6 +496,7 @@ class ScoringEngine:
 
     def _score_batch(self, batch, samples: List[ROOSample],
                      plan: BatchPlan) -> np.ndarray:
+        faults.maybe_fail("engine.score")   # injected forward failure
         with use_backend(self.attn_backend), torch.inference_mode():
             scores = self._score_batch_device(batch, samples, plan)
         out = scores.detach().to("cpu").numpy()

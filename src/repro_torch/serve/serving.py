@@ -8,9 +8,8 @@ zero-impression request); oversize requests are split across batches and
 reassembled. Flushes are shape-bucketed (serve/bucketing.py). With split
 model entry points the user tower is memoized across repeat requests
 (``cache_user_tower``; serve/user_cache.py). Incremental user-state serving
-is the engine's ``state_store`` (serve/engine.py).
-
-The reference's single-shape ``bucketed=False`` option is not ported.
+is the engine's ``state_store`` (serve/engine.py). ``bucketed=False``
+pads every flush to the one shape (b_ro, b_nro).
 """
 from __future__ import annotations
 
@@ -36,6 +35,7 @@ class ServeConfig:
     # HSTU attention backend for inference (kernels/dispatch.py); None =
     # auto (the CUDA kernel on the card, torch-chunked on the CPU)
     attn_backend: Optional[str] = None
+    bucketed: bool = True          # shape ladder vs a single fixed shape
     max_delay_ms: float = 2.0      # online admission deadline
     cache_user_tower: bool = False # needs user_fn + score_from_user
     cache_capacity: int = 4096
@@ -62,9 +62,11 @@ class ROOServer:
                               max_impressions=cfg.b_nro,
                               max_delay_ms=cfg.max_delay_ms,
                               hist_len=cfg.hist_len)
-        ladder = BucketLadder.geometric(
-            min_b_ro=min(4, cfg.b_ro), min_b_nro=min(32, cfg.b_nro),
-            max_b_ro=cfg.b_ro, max_b_nro=cfg.b_nro)
+        ladder = (BucketLadder.geometric(
+                      min_b_ro=min(4, cfg.b_ro), min_b_nro=min(32, cfg.b_nro),
+                      max_b_ro=cfg.b_ro, max_b_nro=cfg.b_nro)
+                  if cfg.bucketed else
+                  BucketLadder.fixed(cfg.b_ro, cfg.b_nro))
         cache = (UserTowerCache(cfg.cache_capacity)
                  if cfg.cache_user_tower else None)
         self.engine = ScoringEngine(

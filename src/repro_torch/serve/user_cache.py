@@ -17,9 +17,9 @@ often than it changes, so memoize it across requests.
 
 Both stores version entries by **param epoch**: the engine bumps the epoch
 on every weight swap and calls :meth:`invalidate_epoch`, so rows computed
-under old parameters can never be served under new ones. The reference's
-mirror of their counters into its observability registry waits for the
-port's ``obs`` (ROADMAP A8); ``snapshot()`` gives the same dict.
+under old parameters can never be served under new ones. Both mirror their
+hit/miss/eviction counters into ``repro_torch.obs`` (``register_stats``), so
+one ``obs.snapshot()`` covers cache effectiveness beside the engine's.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.joiner import ROOSample
+from repro_torch.obs import metrics as obs_metrics
 
 CacheKey = Tuple[int, bytes]
 
@@ -91,6 +92,7 @@ class UserTowerCache:
         self._data: "OrderedDict[Tuple[CacheKey, int], np.ndarray]" = \
             OrderedDict()
         self.stats = CacheStats()
+        obs_metrics.register_stats("serve.user_cache", self)
 
     def __len__(self) -> int:
         return len(self._data)
@@ -139,7 +141,7 @@ class UserTowerCache:
         self._data.clear()
 
     def snapshot(self) -> dict:
-        """Size + capacity + hit/miss/eviction counters."""
+        """obs mirror: size + capacity + hit/miss/eviction counters."""
         return {"size": len(self._data), "capacity": self.capacity,
                 **self.stats.snapshot()}
 
@@ -195,6 +197,7 @@ class UserStateStore:
         self.capacity = capacity
         self._data: "OrderedDict[int, _StateEntry]" = OrderedDict()
         self.stats = StateStats()
+        obs_metrics.register_stats("serve.user_state", self)
 
     def __len__(self) -> int:
         return len(self._data)
@@ -261,6 +264,7 @@ class UserStateStore:
         self._data.clear()
 
     def snapshot(self) -> dict:
-        """Size + capacity + hit/miss/eviction/mismatch counters."""
+        """obs mirror: size + capacity + hit/miss/eviction/mismatch
+        counters."""
         return {"size": len(self._data), "capacity": self.capacity,
                 **self.stats.snapshot()}

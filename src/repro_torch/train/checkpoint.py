@@ -14,8 +14,12 @@
 A state is a tree of tensors (``repro_torch.tree``). Leaves are numbered in
 the reference's flatten order and saved as numpy arrays (``arrays.npz``);
 the tree's shape goes to ``structure.json``. Restore returns CPU tensors.
-Not ported yet: the sharded-leaf manifest and elastic reshard (they come
-with multi-card training) and the ``ckpt.write`` fault site.
+The ``ckpt.write`` fault site mirrors the reference's: ``torn`` stops the
+writer between the payload and the commit (the ``.tmp`` dir stays, no
+``meta.json``), ``corrupt`` flips a byte of the committed ``arrays.npz``
+so that only digest verification catches it. Not ported yet: the
+sharded-leaf manifest and elastic reshard (they come with multi-card
+training).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.reliability import faults
 from repro_torch.tree import leaves, unflatten
 
 
@@ -106,6 +111,12 @@ class CheckpointManager:
             np.savez(buf, **host)
             put("arrays.npz", buf.getvalue())
             put("structure.json", structure)
+            spec = faults.fire("ckpt.write")
+            if spec is not None and spec.kind == "torn":
+                # simulated kill between payload write and commit: the
+                # .tmp dir stays behind, meta.json is never written, and
+                # all_steps() never reports this step
+                return
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump({**self.meta, "step": step, "ts": time.time(),
                            "n_arrays": len(flat), "digests": digests}, f)
@@ -113,6 +124,14 @@ class CheckpointManager:
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.rename(tmp, final)          # atomic commit
+            if spec is not None and spec.kind == "corrupt":
+                # bit rot after commit: flip a byte in the committed
+                # payload so only digest verification can catch it
+                apath = os.path.join(final, "arrays.npz")
+                with open(apath, "rb") as f:
+                    blob = f.read()
+                with open(apath, "wb") as f:
+                    f.write(faults.corrupt_bytes("ckpt.write", blob, spec))
             self._gc()
 
         if blocking:

@@ -41,8 +41,17 @@ reference's functional update leaves the caller's tree as it was, so two
 The port's generators are not JAX's PRNG, so a loss that draws random
 numbers gives other draws than the reference; everything else follows the
 reference step for step. Not ported yet: the compressed gradient exchange
-and the SPMD plan (comms, A9), the obs spans, the ``train.batch`` fault
-site and ``run()``'s ``on_checkpoint`` hook for disk loaders (A8).
+and the SPMD plan (comms, A9).
+
+Observability and faults mirror the reference: the Trainer registers its
+``snapshot`` as ``train``; in ``trace`` mode each step is a ``train.step``
+span over ``train.data`` (the next batch), ``train.compute`` (the step's
+dispatch only: no span synchronizes the card), and at logging and
+checkpoint steps ``train.log`` / ``train.checkpoint``; each logging step
+offers a telemetry line (``train.log``). The ``train.batch`` fault site
+(kind ``nan``) fills the batch's first float leaf with NaNs on its device,
+which the non-finite guard then skips. ``run(on_checkpoint=)`` is called
+with the step at every checkpoint save.
 """
 from __future__ import annotations
 
@@ -56,6 +65,10 @@ import torch
 from repro_torch.embeddings.sparse import (concat_sparse, is_sparse,
                                            merge_sparse, split_sparse,
                                            sq_sum)
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.reliability import faults
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optim import Optimizer
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -64,6 +77,17 @@ from repro_torch.tree import leaves, tree_map, unflatten
 class NonFiniteLossError(RuntimeError):
     """Raised when ``halt_after_skips`` consecutive steps produced a
     non-finite loss/gradient — the run is diverging, not glitching."""
+
+
+def _poison_batch(batch):
+    """Replace the first float leaf (flatten order) with NaNs on its device
+    (``train.batch`` nan fault); no value is read back."""
+    flat = leaves(batch)
+    for i, leaf in enumerate(flat):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            flat[i] = torch.full_like(leaf, float("nan"))
+            break
+    return unflatten(batch, flat)
 
 
 @dataclasses.dataclass
@@ -188,6 +212,16 @@ class Trainer:
                      if cfg.ckpt_dir else None)
         self.history: list = []
         self.skipped_steps = 0   # non-finite steps the guard neutralized
+        self._last_step = 0
+        obs_metrics.register_stats("train", self)
+
+    def snapshot(self) -> dict:
+        """Trainer view for ``obs.snapshot()``: progress + the guard's
+        skip count + the latest logged metrics row."""
+        return {"last_step": self._last_step,
+                "total_steps": self.cfg.total_steps,
+                "skipped_steps": self.skipped_steps,
+                "last_log": dict(self.history[-1]) if self.history else None}
 
     def _to_device(self, tree):
         return tree_map(lambda t: t.to(self.device), tree)
@@ -205,10 +239,13 @@ class Trainer:
                 "rng": torch.tensor(int(seed), dtype=torch.int64)}
 
     def run(self, batch_iter_fn: Callable[[int], Iterator], seed: int = 0,
-            stop_after: Optional[int] = None) -> Dict:
+            stop_after: Optional[int] = None,
+            on_checkpoint: Optional[Callable[[int], None]] = None) -> Dict:
         """batch_iter_fn(start_step) must yield batches from that step on
         (the deterministic-skip contract). ``seed`` is the base seed of a
-        fresh run; a restored run keeps its checkpointed one."""
+        fresh run; a restored run keeps its checkpointed one.
+        ``on_checkpoint(step)`` fires at every checkpoint save so data
+        sources can persist their resume cursor for exactly that step."""
         state = None
         start = 0
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
@@ -225,38 +262,60 @@ class Trainer:
         t0 = time.monotonic()
         consecutive_skips = 0
         for step in range(start, self.cfg.total_steps):
-            batch = next(it)
-            state, metrics = self.step_fn(state, batch, base, step)
-            if self.cfg.halt_after_skips > 0:
-                if int(metrics["skipped"]):
-                    consecutive_skips += 1
-                    self.skipped_steps += 1
-                    if consecutive_skips >= self.cfg.halt_after_skips:
-                        raise NonFiniteLossError(
-                            f"{consecutive_skips} consecutive non-finite "
-                            f"steps ending at step {step + 1} — halting "
-                            f"instead of spinning on a diverged run")
-                else:
-                    consecutive_skips = 0
-            if (step + 1) % self.cfg.log_every == 0:
-                rate = (step + 1 - start) / max(time.monotonic() - t0, 1e-9)
-                row = {"step": step + 1, "loss": float(metrics["loss"]),
-                       "steps_per_s": rate}
-                row.update({k: float(v) for k, v in metrics.items()
-                            if k not in row})
-                if self.metrics_fn is not None:
-                    mb = (tree_map(lambda x: x[0], batch)
-                          if self.cfg.microbatches > 1 else batch)
-                    with torch.no_grad():
-                        extra = self.metrics_fn(
-                            state["params"], mb,
-                            step_generator(base, step, device=self.device))
-                    row.update({k: float(v) for k, v in extra.items()})
-                self.history.append(row)
-            if self.ckpt is not None and (step + 1) % self.cfg.ckpt_every == 0:
-                self.ckpt.save(step + 1, state, blocking=False)
-            if stop_after is not None and (step + 1 - start) >= stop_after:
-                break   # simulated preemption (tests)
+            with obs_trace.span("train.step", step=step + 1):
+                with obs_trace.span("train.data", step=step + 1):
+                    batch = next(it)
+                    spec = faults.fire("train.batch")
+                    if spec is not None and spec.kind == "nan":
+                        batch = _poison_batch(batch)
+                # dispatch only: the card's work overlaps the next data span
+                # and is drained by the read inside the train.log span
+                with obs_trace.span("train.compute", step=step + 1):
+                    state, metrics = self.step_fn(state, batch, base, step)
+                self._last_step = step + 1
+                if self.cfg.halt_after_skips > 0:
+                    if int(metrics["skipped"]):
+                        consecutive_skips += 1
+                        self.skipped_steps += 1
+                        if consecutive_skips >= self.cfg.halt_after_skips:
+                            raise NonFiniteLossError(
+                                f"{consecutive_skips} consecutive non-finite "
+                                f"steps ending at step {step + 1} — halting "
+                                f"instead of spinning on a diverged run")
+                    else:
+                        consecutive_skips = 0
+                if (step + 1) % self.cfg.log_every == 0:
+                    with obs_trace.span("train.log", step=step + 1):
+                        self.history.append(self._log_row(
+                            state, metrics, batch, base, step, start, t0))
+                    obs_export.maybe_emit("train.log")
+                if (self.ckpt is not None
+                        and (step + 1) % self.cfg.ckpt_every == 0):
+                    with obs_trace.span("train.checkpoint", step=step + 1):
+                        self.ckpt.save(step + 1, state, blocking=False)
+                        if on_checkpoint is not None:
+                            on_checkpoint(step + 1)
+                if stop_after is not None and (step + 1 - start) >= stop_after:
+                    break   # simulated preemption (tests)
         if self.ckpt is not None:
             self.ckpt.wait()
         return state
+
+    def _log_row(self, state, metrics, batch, base: int, step: int,
+                 start: int, t0: float) -> Dict[str, float]:
+        """One history row: the step's metrics read back to the host, the
+        rate since the run started and, with a ``metrics_fn``, its extra
+        metrics (no autograd) on the step's first microbatch."""
+        rate = (step + 1 - start) / max(time.monotonic() - t0, 1e-9)
+        row = {"step": step + 1, "loss": float(metrics["loss"]),
+               "steps_per_s": rate}
+        row.update({k: float(v) for k, v in metrics.items() if k not in row})
+        if self.metrics_fn is not None:
+            mb = (tree_map(lambda x: x[0], batch)
+                  if self.cfg.microbatches > 1 else batch)
+            with torch.no_grad():
+                extra = self.metrics_fn(
+                    state["params"], mb,
+                    step_generator(base, step, device=self.device))
+            row.update({k: float(v) for k, v in extra.items()})
+        return row

@@ -41,6 +41,7 @@ from repro.scenario.spec import (BatcherSpec, DataSpec, ModelSpec,
 from repro.train import loop as jax_loop
 from repro.train import optim as jax_optim
 from repro_torch import tree
+from repro_torch.configs.registry import scenario as port_scenario
 from repro_torch.embeddings import collection as ec
 from repro_torch.embeddings.sparse import FIXED_ORDER_MAX_IDS, SparseRows
 from repro_torch.interop import params_from_numpy, params_to_numpy
@@ -73,6 +74,12 @@ def np_(x):
         else np.asarray(x)
 
 
+def port_spec():
+    return port_scenario("dlrm-mlperf", {"batcher.b_ro": B_RO,
+                                         "batcher.b_nro": B_NRO,
+                                         "data.seed": SEED})
+
+
 def jax_spec():
     return ScenarioSpec("dlrm", ModelSpec(arch="dlrm-mlperf"),
                         batcher=BatcherSpec(b_ro=B_RO, b_nro=B_NRO),
@@ -86,7 +93,7 @@ def setup(request):
     cfg, jcfg = cfgs(request.param)
     jp = jax_dlrm.dlrm_init(jax.random.PRNGKey(0), jcfg)
     pp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    pb = synthetic_dlrm_batches(SEED, B_RO, B_NRO, cfg, n_batches=4,
+    pb = synthetic_dlrm_batches(port_spec(), cfg, n_batches=4,
                                 device="cpu")
     jb = jax_batches(jax_spec(), jcfg, n_batches=4)
     return dict(name=request.param, cfg=cfg, jcfg=jcfg, pp=pp, jp=jp, pb=pb,
@@ -203,7 +210,9 @@ def test_synthetic_batches_bit_equal(setup):
             np.testing.assert_array_equal(np_(pb[k]), np.asarray(jb[k]),
                                           err_msg=k)
     with pytest.raises(ValueError, match="divisible"):
-        synthetic_dlrm_batches(0, 3, 8, setup["cfg"], device="cpu")
+        synthetic_dlrm_batches(port_scenario(
+            "dlrm-mlperf", {"batcher.b_ro": 3, "batcher.b_nro": 8}),
+            setup["cfg"], device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -319,8 +319,12 @@ def test_dlrm_runs_one_group_a_side(plain_launches, monkeypatch):
                           bot_mlp=(13, 32, 16), top_mlp=(64, 32, 1))
     params = dlrm.dlrm_init(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
+    from repro_torch.configs.registry import scenario
     from repro_torch.scenario.build import synthetic_dlrm_batches
-    b = synthetic_dlrm_batches(3, 8, 32, cfg, n_batches=1, device="cpu")[0]
+    b = synthetic_dlrm_batches(
+        scenario("dlrm-mlperf", {"data.seed": 3, "batcher.b_ro": 8,
+                                 "batcher.b_nro": 32}),
+        cfg, n_batches=1, device="cpu")[0]
     widths = []
 
     def grouped(ts, i, n, pooling="sum", backend=None):
