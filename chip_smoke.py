@@ -235,6 +235,25 @@ Phases (any failure exits non-zero and prints no result):
                    batches (``train.batch:nan``) skip exactly 2 steps; the
                    times phase adds B5 / B6 / B7 at the operands of the
                    dlrm-mlperf scenario's training step
+ 19. disk        — ``data.source="disk"`` through ``train_from_scenario``:
+                   hstu-gr (B1-B3) and roo-lsr ``userarch`` (B5 / B6) at
+                   full width, 60 steps (two epoch boundaries of the
+                   800-request stream's ~25 batches of 32 / 192, 4 shards
+                   in a ``tempfile.mkdtemp()`` directory), a checkpoint
+                   and a cursor every 20: the shards built, reused
+                   untouched and refused for another ``data.seed``; the
+                   route's launches; prefetch off bit for bit prefetch on;
+                   a run killed after step 30 resumed from 20 with a fresh
+                   loader, bit for bit the uninterrupted run; each step's
+                   loss against the plain backends on the same params;
+                   the four pipeline fault sites (``prefetch.io`` retried
+                   bit for bit, ``prefetch.stall`` restarting one producer
+                   under a 1.5 s watchdog, a byte flipped on disk and a
+                   ``shard.read`` corruption each quarantining exactly its
+                   shard, a ``shard.write`` kill's torn ``.tmp`` swept);
+                   steps/s from memory, disk with and without prefetch in
+                   turns, the pipeline's span times, queue depth and peak
+                   memory; the stream's ROO and impression-level bytes
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -4234,7 +4253,7 @@ def scenario_serve_launches(spec, n_scored: int) -> dict:
 
 
 def train_run(spec, mods, device, ckpt_dir=None, dot_backend=None,
-              telemetry_path=None):
+              telemetry_path=None, shard_dir=None, prints=False):
     """One ``train_from_scenario`` run (knobs put back after): the
     trainer, its state, each logged step's loss and the launches."""
     import torch
@@ -4242,15 +4261,15 @@ def train_run(spec, mods, device, ckpt_dir=None, dot_backend=None,
     reset_counts(mods)
     with spec_scope(dot_backend):
         trainer, state = train_from_scenario(
-            spec, ckpt_dir=ckpt_dir, prints=False, device=device,
-            telemetry_path=telemetry_path)
+            spec, ckpt_dir=ckpt_dir, prints=prints, device=device,
+            telemetry_path=telemetry_path, shard_dir=shard_dir)
         torch.cuda.synchronize()
     losses = torch.tensor([row["loss"] for row in trainer.history],
                           dtype=torch.float64)
     return trainer, state, losses, all_counts(mods)
 
 
-def shadow_run(spec, device):
+def shadow_run(spec, device, shard_dir=None):
     """The spec's run again, through ``_train_from_scenario``'s ``bundle``
     seam with ``build_model``'s bundle (the same params) whose loss is
     shadowed at each step by the same loss on the plain backends, on the
@@ -4277,7 +4296,7 @@ def shadow_run(spec, device):
             return loss(p, b, gen)
         trainer, state = build._train_from_scenario(
             spec, ckpt_dir=None, rng_seed=0, prints=False, device=device,
-            bundle=bundle._replace(loss_fn=shadowed))
+            shard_dir=shard_dir, bundle=bundle._replace(loss_fn=shadowed))
         torch.cuda.synchronize()
     losses = torch.tensor([row["loss"] for row in trainer.history],
                           dtype=torch.float64)
@@ -4754,6 +4773,388 @@ def phase_faults(mods, device, card: str) -> None:
                          "steps and end finite")
 
 
+DISK_STEPS = 60               # two epoch boundaries of the ~25-batch stream
+DISK_CKPT_EVERY = 20
+DISK_KILL = 30                # the killed run's last step; its last commit: 20
+DISK_RUNS = (("hstu-gr", None), ("roo-lsr", "userarch"))
+PIPELINE_SPANS = ("pipeline.read", "pipeline.decode", "pipeline.pack",
+                  "pipeline.device_put", "train.data", "train.step")
+
+
+def disk_spec(arch, variant=None, extra=None):
+    """The registered scenario at full width on ``data.source="disk"``:
+    the DataSpec default stream (800 requests from 200 users, 256 a
+    shard: 4 shards), 60 steps logged every step, a checkpoint every
+    20."""
+    over = {"data.source": "disk", "train.steps": DISK_STEPS,
+            "train.ckpt_every": DISK_CKPT_EVERY}
+    over.update(extra or {})
+    return scenario_spec(arch, variant, over)
+
+
+def logged_losses(trainer):
+    import torch
+    return torch.tensor([row["loss"] for row in trainer.history],
+                        dtype=torch.float64)
+
+
+def params_equal(a, b) -> bool:
+    import torch
+    from repro_torch.tree import leaves
+    return all(torch.equal(x, y) for x, y in zip(leaves(a["params"]),
+                                                 leaves(b["params"])))
+
+
+def shard_files(shard_dir) -> dict:
+    """name -> (bytes, mtime) of each file of a shard directory."""
+    return {p.name: (p.read_bytes(), p.stat().st_mtime_ns)
+            for p in sorted(Path(shard_dir).iterdir()) if p.is_file()}
+
+
+def prefetch_threads() -> list:
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("roo-prefetch-") and t.is_alive()]
+
+
+def disk_arch(arch, variant, mods, device, root: Path) -> dict:
+    """One arch trained from shards through ``train_from_scenario``: the
+    shards built, then reused (their files untouched) and refused for a
+    spec of other data; the launches of its route; prefetch off bit for
+    bit the prefetching run; a run killed after step 30 (last commit at
+    20) and resumed with a fresh loader ending bit for bit at the
+    uninterrupted run's losses and params; each step's loss against the
+    plain backends on the same params."""
+    import torch
+    from repro_torch.scenario.build import train_from_scenario
+    from repro_torch.scenario.spec import ScenarioValidationError
+    spec = disk_spec(arch, variant)
+    tag = f"disk {scenario_tag(spec)}"
+    shards = str(root / "shards")
+    full = root / "full"
+    trainer, state, losses, got = train_run(
+        spec, mods, device, ckpt_dir=str(full), shard_dir=shards)
+    built = shard_files(shards)
+    manifest = json.loads(built["manifest.json"][0])
+    n_metric = sum(1 for row in trainer.history if "ne" in row)
+    want = scenario_train_launches(spec, DISK_STEPS, n_metric)
+    cursors = sorted(p.name for p in (full / "cursors").iterdir())
+    n_req = sum(s["n_requests"] for s in manifest["shards"])
+    print(f"[{tag}] spec {spec.content_hash()}: {len(manifest['shards'])} "
+          f"shards of {[s['n_requests'] for s in manifest['shards']]} "
+          f"requests ({n_req} joined of {spec.data.n_requests} simulated), "
+          f"{sum(s['n_bytes'] for s in manifest['shards'])} B; "
+          f"{DISK_STEPS} steps; launches {got}; {n_metric} NE forwards; "
+          f"cursors {cursors}; losses at 1, 20, 40, 60 "
+          f"{[round(float(losses[i]), 6) for i in (0, 19, 39, 59)]}")
+    if got != want:
+        raise SystemExit(f"{tag}: launches {got} are not {want}")
+    if int(state["step"]) != DISK_STEPS or len(losses) != DISK_STEPS \
+            or not bool(torch.isfinite(losses).all()) \
+            or trainer.skipped_steps or n_req != spec.data.n_requests:
+        raise SystemExit(f"{tag}: wrong step count, a skipped step, a "
+                         f"non-finite loss or a lost request")
+    if cursors != [f"cursor_{s:012d}.json" for s in (20, 40, 60)]:
+        raise SystemExit(f"{tag}: the cursors saved are {cursors}")
+
+    off = spec.with_overrides({"data.prefetch": False})
+    _, off_state, off_losses, off_got = train_run(off, mods, device,
+                                                  shard_dir=shards)
+    reused = shard_files(shards) == built
+    print(f"[{tag}] prefetch off: launches {off_got}; the shards reused "
+          f"with every file untouched {reused}")
+    same_run(f"{tag} prefetch off vs on", losses, state, off_losses,
+             off_state)
+    if off_got != want or not reused:
+        raise SystemExit(f"{tag}: the prefetch-off run launched otherwise, "
+                         f"or the shards were rebuilt")
+
+    other = spec.with_overrides({"data.seed": 1})
+    try:
+        with spec_scope():
+            train_from_scenario(other, shard_dir=shards, prints=False,
+                                device=device)
+        refused = ""
+    except ScenarioValidationError as e:
+        refused = str(e).splitlines()[0]
+    print(f"[{tag}] a spec with data.seed 1 on the same directory: "
+          f"{refused or 'NOT refused'}")
+    if "different settings" not in refused:
+        raise SystemExit(f"{tag}: shards of other data were not refused")
+
+    kill = root / "kill"
+    train_run(spec.with_overrides({"train.steps": DISK_KILL}), mods, device,
+              ckpt_dir=str(kill), shard_dir=shards)
+    saved = sorted(p.name for p in kill.iterdir() if p.name != "cursors")
+    saved_cursors = sorted(p.name for p in (kill / "cursors").iterdir())
+    resumed, res_state, res_losses, _ = train_run(
+        spec, mods, device, ckpt_dir=str(kill), shard_dir=shards)
+    same = (torch.equal(res_losses, losses[DISK_CKPT_EVERY:])
+            and params_equal(state, res_state))
+    print(f"[{tag}] killed after step {DISK_KILL} (checkpoints {saved}, "
+          f"cursors {saved_cursors}), resumed with a fresh loader: steps "
+          f"{resumed.history[0]['step']}-{resumed.history[-1]['step']}'s "
+          f"losses and the final params bit for bit the uninterrupted "
+          f"run's {same}")
+    if saved != [f"step_{DISK_CKPT_EVERY:012d}"] \
+            or saved_cursors != [f"cursor_{DISK_CKPT_EVERY:012d}.json"] \
+            or int(res_state["step"]) != DISK_STEPS or not same:
+        raise SystemExit(f"{tag}: the resumed run does not end at the "
+                         f"uninterrupted run's losses and params")
+
+    _, twin_state, twin, shadow = shadow_run(spec, device, shard_dir=shards)
+    same_run(f"{tag} with a plain-backend shadow", losses, state, twin,
+             twin_state)
+    diff = float((losses - shadow).abs().max())
+    ok = torch.allclose(losses, shadow, atol=1e-6, rtol=LOSS_TOL)
+    print(f"[{tag}] each step's loss vs the plain backends on the same "
+          f"params: max|diff| {diff:.3e} ok={ok}")
+    if not ok or prefetch_threads():
+        raise SystemExit(f"{tag}: the losses disagree with the plain "
+                         f"backends, or a prefetch thread outlived its run")
+    return dict(spec=spec, launches=got, losses=losses, state=state,
+                shards=shards, manifest=manifest)
+
+
+def disk_faults(mods, device, root: Path, run: dict) -> None:
+    """The disk pipeline's four fault sites on the card (hstu-gr): seeded
+    ``prefetch.io`` errors retried with the run bit for bit the fault-free
+    one; a ``prefetch.stall`` restarting exactly one producer under a
+    1.5 s watchdog, the stream bit for bit the synchronous one; a byte
+    flipped in one shard file on disk, and a ``shard.read`` corruption,
+    each quarantining exactly its shard while the run finishes; a
+    ``shard.write`` kill leaving a torn ``.tmp`` that the next build
+    sweeps, its shards then byte for byte the clean build's."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from repro_torch.pipeline import PrefetchLoader, ShardDataset
+    from repro_torch.reliability import FaultPlan, InjectedFault, use_plan
+    from repro_torch.scenario.build import build_batcher_cfg
+    from repro_torch.tree import leaves
+    spec, shards = run["spec"], run["shards"]
+
+    text = "seed=5;prefetch.io:error@0.5x3"
+    plan = FaultPlan.parse(text)
+    with use_plan(plan):
+        _, io_state, io_losses, _ = train_run(spec, mods, device,
+                                              shard_dir=shards)
+    print(f"[disk faults] {text!r}: {plan.stats.fires} fires in "
+          f"{plan.stats.visits} visits")
+    same_run("disk faults prefetch.io retried", run["losses"], run["state"],
+             io_losses, io_state)
+    if plan.stats.fires.get("prefetch.io") != 3:
+        raise SystemExit("disk faults: prefetch.io did not fire 3 times")
+
+    def stream(**kw):
+        with PrefetchLoader(ShardDataset(shards, build_batcher_cfg(spec)),
+                            epochs=1, device=device, **kw) as loader:
+            return list(loader.batches()), loader.stats.snapshot()
+    clean, _ = stream(prefetch=False)
+    text = "seed=5;prefetch.stall:stall@0.2x1"
+    plan = FaultPlan.parse(text)
+    t0 = time.perf_counter()
+    with use_plan(plan):
+        stalled, stats = stream(prefetch=True, stall_timeout_s=1.5)
+    wall = time.perf_counter() - t0
+    same = len(stalled) == len(clean) and all(
+        c1.to_json() == c2.to_json() and all(
+            torch.equal(x, y) for x, y in zip(leaves(b1), leaves(b2)))
+        for (b1, c1), (b2, c2) in zip(stalled, clean))
+    print(f"[disk faults] {text!r}, watchdog 1.5 s: {plan.stats.fires} "
+          f"fires, loader {stats}, {len(stalled)} batches in {wall:.2f} s, "
+          f"bit for bit the synchronous stream {same}; prefetch threads "
+          f"alive after close {prefetch_threads()}")
+    if stats["producer_restarts"] != 1 or not same or prefetch_threads():
+        raise SystemExit("disk faults: the stall did not restart exactly one "
+                         "producer with the stream bit for bit, or a thread "
+                         "outlived the loader")
+
+    def quarantined(shard_dir, plan=None, tag=""):
+        log = io.StringIO()
+        with use_plan(plan), contextlib.redirect_stdout(log):
+            trainer, state, losses, _ = train_run(
+                spec.with_overrides({"train.log_every": 20}), mods, device,
+                shard_dir=shard_dir, prints=True)
+        lines = [x for x in log.getvalue().splitlines()
+                 if "shards-quarantined" in x]
+        finite = bool(torch.isfinite(losses).all())
+        print(f"[disk faults] {tag}: {int(state['step'])} steps, losses "
+              f"finite {finite}; log {lines}")
+        if int(state["step"]) != DISK_STEPS or not finite or len(lines) != 1:
+            raise SystemExit(f"disk faults: {tag}: the run did not finish, "
+                             f"or quarantined nothing")
+        return lines[0]
+    flip = root / "flipped"
+    flip.mkdir()
+    for name in ("manifest.json", *(s["filename"]
+                                    for s in run["manifest"]["shards"])):
+        shutil.copy(Path(shards) / name, flip / name)
+    victim = run["manifest"]["shards"][1]["filename"]
+    blob = bytearray((flip / victim).read_bytes())
+    blob[len(blob) - 16] ^= 0xFF
+    (flip / victim).write_bytes(bytes(blob))
+    line = quarantined(str(flip), tag=f"one byte flipped in {victim} on "
+                                      f"disk")
+    if f"files=['{victim}'" not in line or any(
+            s["filename"] in line for s in run["manifest"]["shards"]
+            if s["filename"] != victim):
+        raise SystemExit(f"disk faults: not exactly {victim} quarantined")
+    text = "seed=5;shard.read:corrupt@1x1"
+    line = quarantined(shards, FaultPlan.parse(text), tag=repr(text))
+    first = run["manifest"]["shards"][0]["filename"]
+    if f"n=1 files=['{first}']" not in line:
+        raise SystemExit(f"disk faults: {text!r} did not quarantine exactly "
+                         f"{first} once")
+
+    torn = root / "torn"
+    short = spec.with_overrides({"train.steps": 5})
+    plan = FaultPlan.parse("shard.write:torn@1x1")
+    try:
+        with use_plan(plan):
+            train_run(short, mods, device, shard_dir=str(torn))
+        killed = False
+    except InjectedFault:
+        killed = True
+    left = sorted(p.name for p in torn.iterdir())
+    _, state, _, _ = train_run(short, mods, device, shard_dir=str(torn))
+    after = shard_files(torn)
+    clean = shard_files(shards)
+    same = sorted(after) == sorted(clean) and all(
+        after[k][0] == clean[k][0] for k in after if k.endswith(".roos"))
+    print(f"[disk faults] 'shard.write:torn@1x1': writer killed {killed}, "
+          f"left {left}; the next build swept it: files {sorted(after)}, "
+          f"byte for byte the clean build's {same}; "
+          f"{int(state['step'])} steps")
+    if not killed or left != ["shard_000000.roos.tmp"] or not same \
+            or any(k.endswith(".tmp") for k in after):
+        raise SystemExit("disk faults: the torn write was not left behind "
+                         "and swept")
+
+
+def disk_rates(mods, device, card: str) -> dict:
+    """Steps/s (the Trainer's clock, logged at 20, 40 and 60) of each
+    DISK_RUNS arch from the memory source, from disk with prefetch and
+    from disk without it, in turns (memory, prefetch, sync, sync,
+    prefetch, memory), with the peak memory of each run; then one
+    prefetching and one synchronous run under ``obs.mode=trace``: the
+    mean ms of the pipeline's spans and of ``train.data`` (the step's wait
+    for its batch), and the queue-depth gauge."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    out = {}
+    for arch, variant in DISK_RUNS:
+        tag = f"disk {arch}{' ' + variant if variant else ''}"
+        shards = tempfile.mkdtemp(prefix="roo_rates_")
+        specs = {
+            "memory": scenario_spec(arch, variant, {
+                "train.steps": DISK_STEPS, "train.log_every": 20}),
+            "prefetch": disk_spec(arch, variant, {"train.log_every": 20}),
+            "sync": disk_spec(arch, variant, {"train.log_every": 20,
+                                              "data.prefetch": False})}
+        train_run(specs["prefetch"], mods, device, shard_dir=shards)  # build
+        rates, peaks = {}, {}
+        for how in ("memory", "prefetch", "sync", "sync", "prefetch",
+                    "memory"):
+            torch.cuda.reset_peak_memory_stats()
+            trainer, _, _, _ = train_run(specs[how], mods, device,
+                                         shard_dir=shards)
+            rates.setdefault(how, []).append(
+                trainer.history[-1]["steps_per_s"])
+            peaks.setdefault(how, []).append(torch.cuda.max_memory_allocated())
+        spans = {}
+        for how in ("sync", "prefetch"):
+            obs_trace.get_tracer().clear()
+            train_run(specs[how].with_overrides({"obs.mode": "trace"}), mods,
+                      device, shard_dir=shards)
+            events = obs_trace.get_tracer().events()
+            spans[how] = {name: [e["dur"] / 1e3 for e in events
+                                 if e["name"] == name]
+                          for name in PIPELINE_SPANS}
+        # set at each batch the prefetching consumer takes (the last run)
+        depth = obs_metrics.gauge("pipeline.queue_depth").value()
+        obs_trace.get_tracer().clear()
+        print(f"[{tag}] {card}: steps/s (Trainer.run's clock over "
+              f"{DISK_STEPS} steps, in the order memory, prefetch, sync, "
+              f"sync, prefetch, memory): "
+              + "; ".join(f"{how} " + " / ".join(f"{r:.2f}" for r in v)
+                          for how, v in rates.items())
+              + "; peak memory GiB "
+              + "; ".join(f"{how} " + " / ".join(f"{p / 2 ** 30:.3f}"
+                                                 for p in v)
+                          for how, v in peaks.items()))
+        for how, sp in spans.items():
+            print(f"[{tag}] {card}: {how}, obs.mode=trace: mean ms (count) "
+                  + ", ".join(
+                      f"{name} {sum(v) / max(len(v), 1):.3f} ({len(v)})"
+                      for name, v in sp.items())
+                  + (f"; pipeline.queue_depth gauge at the last batch "
+                     f"{depth}" if how == "prefetch" else ""))
+        out[arch, variant] = dict(rates=rates, peaks=peaks, spans=spans,
+                                  queue_depth=depth)
+        shutil.rmtree(shards, ignore_errors=True)
+    return out
+
+
+def disk_storage(spec) -> dict:
+    """The stream's storage on the host: the ROO and impression-level
+    table bytes (the byte accounting of ``data/storage.py``), Table 4's
+    ratio from ``sample_volume_increase``, and the shard codec's real
+    bytes under both schemas."""
+    from repro_torch.core.joiner import expand_roo_samples
+    from repro_torch.data import storage
+    from repro_torch.data.events import EventSimulator
+    from repro_torch.pipeline import OnlineJoinConfig, WatermarkJoiner
+    from repro_torch.scenario.build import build_stream_cfg
+    samples = WatermarkJoiner(OnlineJoinConfig(
+        label_wait_s=spec.data.label_wait_s)).join(
+        EventSimulator(build_stream_cfg(spec)).stream())
+    imps = expand_roo_samples(samples)
+    roo = storage.encode_roo_table(samples)["total"]
+    imp = storage.encode_impression_table(imps)["total"]
+    ratio = storage.sample_volume_increase(imps, samples)
+    roo_shard = len(storage.encode_roo_shard(samples))
+    imp_shard = len(storage.encode_impression_shard(imps))
+    print(f"[disk storage] {len(samples)} requests, {len(imps)} impressions "
+          f"(host bytes, zlib): ROO table {roo} B, impression table {imp} B; "
+          f"{ratio}; shard codec: ROO {roo_shard} B, impression "
+          f"{imp_shard} B ({imp_shard / roo_shard:.3f}x)")
+    if len(samples) != spec.data.n_requests or roo >= imp:
+        raise SystemExit("disk storage: requests lost in the join, or the "
+                         "ROO table is not the smaller")
+    return dict(roo=roo, imp=imp, ratio=ratio)
+
+
+def phase_disk(mods, device, card: str) -> dict:
+    """``data.source="disk"`` on the card: hstu-gr (B1-B3) and roo-lsr
+    ``userarch`` (B5/B6) trained from shards in a ``tempfile.mkdtemp()``
+    directory (``disk_arch``), the four fault sites (``disk_faults``), the
+    rates of the three sources (``disk_rates``) and the stream's storage
+    (``disk_storage``). Every prefetch thread is joined at the end."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="roo_disk_"))
+    try:
+        out = {}
+        for arch, variant in DISK_RUNS:
+            sub = root / arch
+            sub.mkdir()
+            out[arch, variant] = disk_arch(arch, variant, mods, device, sub)
+        disk_faults(mods, device, root, out["hstu-gr", None])
+        out["rates"] = disk_rates(mods, device, card)
+        out["storage"] = disk_storage(out["hstu-gr", None]["spec"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if prefetch_threads():
+        raise SystemExit(f"disk: prefetch threads {prefetch_threads()} "
+                         f"outlived the phase")
+    return out
+
+
 def record_dot(dmod, fn) -> list:
     """The (dense, sparse) operands of every B7 launch ``fn()`` makes."""
     seen = []
@@ -4960,7 +5361,7 @@ def main() -> int:
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
-    phase_bag_times(emod, device, card)
+    bag_times = phase_bag_times(emod, device, card)
     phase_dlrm_bag_times(emod, device, card)
     grouped_times = phase_grouped_bag_times(emod, device, card)
     dot_times = phase_dot_times(dmod, device, card)
@@ -4974,6 +5375,7 @@ def main() -> int:
     phase_launcher(card)
     obs_rates = phase_obs(mods, device, card)
     phase_faults(mods, device, card)
+    disk = phase_disk(mods, device, card)
     scen_times = phase_scenario_times(emod, dmod, device, card, scen_train)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
@@ -5027,9 +5429,16 @@ def main() -> int:
     print(f"[obs] {card}: hstu-gr serving requests/s by obs mode "
           + ", ".join(f"{m} " + " / ".join(f"{r:.1f}" for r in v)
                       for m, v in obs_rates.items()))
+    for (arch, variant), run in disk["rates"].items():
+        print(f"[disk {arch}{' ' + variant if variant else ''}] {card}: "
+              f"training steps/s " + ", ".join(
+                  f"{how} " + " / ".join(f"{r:.2f}" for r in v)
+                  for how, v in run["rates"].items()))
 
     gr_train = scen_train["hstu-gr", None]["launches"]
     scen_dlrm = scen_train["dlrm-mlperf", None]["launches"]
+    disk_gr = disk["hstu-gr", None]["launches"]
+    disk_lsr = disk["roo-lsr", "userarch"]["launches"]
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
@@ -5150,7 +5559,31 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
         "replaces": "src/repro/kernels/dot_interaction.py:22",
-        "launches": scen_dlrm["b7"], **scen_times["dot"]}]}))
+        "launches": scen_dlrm["b7"], **scen_times["dot"]}] + [{
+        "name": "hstu_attention_fwd (hstu-gr training from disk shards)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:80",
+        "launches": disk_gr["b1"], "max_abs_err": worst,
+        **times["train"], "library_ms": None}] + [{
+        "name": f"{name} (hstu-gr training from disk shards)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": disk_gr[key], "max_abs_err": worst_bwd[which],
+        **btimes[which], "library_ms": None}
+        for name, line, key, which in (
+            ("hstu_attention_bwd_dq", 108, "b2", "dq"),
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
+        "name": f"{name} (roo-lsr userarch training from disk shards)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": f"src/repro/kernels/embedding_bag.py:{line}",
+        "launches": disk_lsr[key], "max_abs_err": worst_bag[which],
+        **bag_times[which]}
+        for name, line, key, which in (
+            ("embedding_bag_fwd_grouped", 48, "b5", "fwd"),
+            ("embedding_bag_bwd_coo_grouped", 74, "b6", "coo"))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ becomes ``repro_torch/core/hstu.py``) and never imports ``jax`` or
 
 Ported so far: the eight recsys archs (hstu-gr, roo-lsr, roo-esr,
 roo-retrieval, dlrm-mlperf, MIND, DIEN, BERT4Rec), trained dense or on
-sparse rows and served stateless, through the user-tower cache or (hstu-gr)
-incrementally, all built from one declarative spec:
+sparse rows, from memory or from on-disk shards, and served stateless,
+through the user-tower cache or (hstu-gr) incrementally, all built from
+one declarative spec:
   scenario/        the knob ladder; ``ScenarioSpec`` (the reference's
                    schema and hashes), ``build`` (models, Trainer, engine,
                    ``synthetic_dlrm_batches``), ``smoke``
@@ -18,14 +19,19 @@ incrementally, all built from one declarative spec:
   reliability/     seeded fault injection
   core/            masks (incl. the cached-prefix spec), HSTU layer and its
                    prefix variant, ROO batch, sequence packing (incl. the
-                   per-impression baseline), joiner, fanout, LCE/UserArch,
-                   the impression-level expansion
+                   per-impression baseline), the request- and
+                   impression-level joiners and the ROO expansion, fanout,
+                   LCE/UserArch, the impression-level expansion
   kernels/         hand-written CUDA kernels: HSTU forward, backward and
                    cached-prefix forward, embedding-bag forward and COO
                    backward (grouped over a lookup's fields), the DLRM dot
                    interaction; their plain torch versions and the backend
                    dispatch
-  data/            jagged tensors, event simulation, ROO batcher
+  data/            jagged tensors, event simulation, ROO batcher, the
+                   ROOSHRD shard codec and Table 4's byte accounting
+  pipeline/        online watermark join, shard files and manifests, the
+                   prefetching loader (retry, stall watchdog, quarantine)
+                   and cursor resume
   embeddings/      local lookups (seq / row / jagged and padded bags, dedup
                    gather, grouped bags), bag pooling, sparse rows
                    (``SparseRows``, ``GatheredTable``, the sparse

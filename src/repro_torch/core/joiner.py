@@ -1,14 +1,18 @@
-"""Request-level event-feature joiner (the paper's Algorithm 1) — a
-numpy-only copy of ``repro/core/joiner.py``, so the same event stream gives
-the same samples.
+"""Event-feature joiners: impression-level (baseline) vs request-level
+(ROO, the paper's Algorithm 1) — a numpy-only copy of
+``repro/core/joiner.py``, so the same event stream gives the same samples.
 
+Request level:
   * join records keyed by (user_id, current request_id);
   * the join window closes on (a) the user issuing a NEW request id,
     (b) an engagement-count threshold, (c) a fixed-time timeout;
   * one copy of RO features per record; NRO features + labels per impression.
 
-The impression-level baseline joiner and the ROO expansion adapter are not
-ported yet.
+Impression level (the established practice the paper replaces): one
+sample per impression, RO features duplicated into each. Both joiners
+consume the same time-ordered event stream; ``expand_roo_samples`` turns
+ROO samples back into impression samples (paper App. C). The storage
+accounting (``data/storage.py``) compares the two schemas' bytes.
 """
 from __future__ import annotations
 
@@ -18,6 +22,21 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.data.events import ConversionEvent, ImpressionEvent
+
+
+@dataclasses.dataclass
+class ImpressionSample:
+    """Impression-level training sample (paper Table 1)."""
+    request_id: int
+    user_id: int
+    item_id: int
+    labels: Dict[str, float]
+    ro_dense: np.ndarray
+    ro_idlist: List[int]
+    history_ids: List[int]
+    history_actions: List[int]
+    item_dense: np.ndarray
+    item_idlist: List[int]
 
 
 @dataclasses.dataclass
@@ -155,3 +174,61 @@ class RequestLevelJoiner:
             out.extend(self.process(ev))
         out.extend(self.finalize())
         return out
+
+
+class ImpressionLevelJoiner:
+    """Baseline joiner: one sample per impression, RO features duplicated."""
+
+    def __init__(self, join_window_s: float = 960.0,
+                 label_keys: Tuple[str, ...] = ("click", "view_sec")):
+        self.join_window_s = join_window_s
+        self.label_keys = label_keys
+        self._open: Dict[Tuple[int, int],
+                         Tuple[float, ImpressionEvent, Dict[str, float]]] = {}
+
+    def _close(self, key: Tuple[int, int],
+               out: List[ImpressionSample]) -> None:
+        _, imp, labels = self._open.pop(key)
+        out.append(ImpressionSample(
+            request_id=imp.request_id, user_id=imp.user_id,
+            item_id=imp.item_id,
+            labels={k: float(labels.get(k, 0.0)) for k in self.label_keys},
+            ro_dense=imp.ro_dense, ro_idlist=imp.ro_idlist,
+            history_ids=imp.history_ids,
+            history_actions=imp.history_actions,
+            item_dense=imp.item_dense, item_idlist=imp.item_idlist))
+
+    def join(self, events: Iterable) -> List[ImpressionSample]:
+        out: List[ImpressionSample] = []
+        for ev in events:
+            ts = ev.ts
+            for key in [k for k, (t0, _, _) in self._open.items()
+                        if ts - t0 >= self.join_window_s]:
+                self._close(key, out)
+            if isinstance(ev, ImpressionEvent):
+                key = (ev.request_id, ev.item_id)
+                if key not in self._open:
+                    self._open[key] = (ts, ev, {})
+            elif isinstance(ev, ConversionEvent):
+                key = (ev.request_id, ev.item_id)
+                if key in self._open:
+                    _, _, labels = self._open[key]
+                    for k, v in ev.labels.items():
+                        labels[k] = max(labels.get(k, 0.0), float(v))
+        for key in list(self._open):
+            self._close(key, out)
+        return out
+
+
+def expand_roo_samples(samples: List[ROOSample]) -> List[ImpressionSample]:
+    """Host-side ROO expansion (paper App. C): ROO -> impression samples."""
+    out: List[ImpressionSample] = []
+    for s in samples:
+        for j, item in enumerate(s.item_ids):
+            out.append(ImpressionSample(
+                request_id=s.request_id, user_id=s.user_id, item_id=item,
+                labels=s.labels[j], ro_dense=s.ro_dense,
+                ro_idlist=s.ro_idlist, history_ids=s.history_ids,
+                history_actions=s.history_actions,
+                item_dense=s.item_dense[j], item_idlist=s.item_idlist[j]))
+    return out

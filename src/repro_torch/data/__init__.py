@@ -1,2 +1,2 @@
-"""Jagged tensors, event simulation and the ROO batcher (torch port of
-``repro/data``)."""
+"""Jagged tensors, event simulation, the ROO batcher and the shard codec
+(torch port of ``repro/data``)."""

@@ -11,14 +11,19 @@ overrides. Construction happens in ``repro_torch.scenario.build``, the
 same code path the tests and the smoke runner use, which is what makes a
 spec-driven run bit-identical to its flag-driven equivalent.
 
-Runs on the card unless ``--device cpu`` is passed. Not ported yet, and
+Runs on the card unless ``--device cpu`` is passed. ``--data disk`` trains
+from on-disk ROO shards in ``--shard-dir`` (built from the spec's event
+stream on the first run, reused after), through the prefetching loader,
+resuming from the cursor saved beside each checkpoint. Not ported yet, and
 refused with a message naming the slice: the LM and MACE archs (ROADMAP
-A10), ``--mesh`` and the ``--comms-*`` flags (A9), ``--data disk`` (A8b).
+A10), ``--mesh`` and the ``--comms-*`` flags (A9).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch roo-lsr --steps 200
   PYTHONPATH=src python -m repro_torch.launch.train --arch roo-lsr \\
       --config myrun.json --set train.steps=500 --set knobs.emb_dedup=always
+  PYTHONPATH=src python -m repro_torch.launch.train --arch roo-lsr \\
+      --steps 200 --data disk --shard-dir shards --ckpt-dir ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch dien --steps 20 \\
       --device cpu
 """
@@ -82,15 +87,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--comms-block", type=int, default=None,
                     help="int8 scale-block width (not ported yet: A9)")
     ap.add_argument("--data", default=None, choices=("memory", "disk"),
-                    help="recsys data path: in-memory batches (default); "
-                         "disk, the shard pipeline, is not ported yet "
-                         "(ROADMAP A8b)")
+                    help="recsys data path: in-memory batches (default) or "
+                         "the disk-backed shard pipeline with prefetch + "
+                         "cursor resume")
+    ap.add_argument("--shard-dir", default=None,
+                    help="shard directory for --data disk (required "
+                         "there; reused if its manifest was built from the "
+                         "same data settings, refused if not)")
     ap.add_argument("--requests-per-shard", type=int, default=None)
-    ap.add_argument("--strict-shards", action="store_true")
+    ap.add_argument("--strict-shards", action="store_true",
+                    help="raise on corrupt shards instead of quarantining "
+                         "them (data-validation runs)")
     ap.add_argument("--halt-after-skips", type=int, default=None,
                     help="halt after N consecutive non-finite training "
                          "steps (0 = keep skipping silently)")
-    ap.add_argument("--no-prefetch", action="store_true")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="disable the background prefetch thread "
+                         "(synchronous shard reads; benchmarking aid)")
     ap.add_argument("--label-wait", type=float, default=None,
                     help="online-join label wait window (seconds)")
     ap.add_argument("--late-fraction", type=float, default=None,
@@ -181,8 +194,8 @@ def main(argv=None):
             return None
         t0 = time.time()
         trainer, state = train_from_scenario(
-            spec, ckpt_dir=args.ckpt_dir, telemetry_path=args.obs_export,
-            device=args.device)
+            spec, ckpt_dir=args.ckpt_dir, shard_dir=args.shard_dir,
+            telemetry_path=args.obs_export, device=args.device)
     except ScenarioValidationError as e:
         raise SystemExit(str(e))
     dt = time.time() - t0

@@ -10,19 +10,20 @@ visit. The same plan and the same call sequence fire the same faults, in
 this package and in the reference alike: each site draws from
 ``np.random.SeedSequence([seed, crc32(site)])``.
 
-The parser accepts all seven sites of the reference. Wired in the port:
+The seven sites of the reference, all wired in the port:
 
+    shard.read      read_shard()          error | corrupt (bit-flip)
+    shard.write     ShardWriter._flush    torn  (killed between tmp+rename)
+    prefetch.io     PrefetchLoader reads  error (transient, retried)
+    prefetch.stall  PrefetchLoader reads  stall (producer hangs; watchdog)
     ckpt.write      CheckpointManager     torn | corrupt (bit-flip on disk)
     engine.score    ScoringEngine         error (scorer raises)
     train.batch     Trainer.run           nan   (poison batch floats)
 
-(``shard.read``, ``shard.write``, ``prefetch.io`` and ``prefetch.stall``
-belong to the disk pipeline, which the port does not have yet.)
-
 A plan is built explicitly (tests) or from the ``REPRO_TORCH_FAULTS`` env
 var (the reference's ``REPRO_FAULTS`` never reaches the port)::
 
-    REPRO_TORCH_FAULTS="seed=7;engine.score:error@0.3x5"
+    REPRO_TORCH_FAULTS="seed=7;shard.read:corrupt@0.05;engine.score:error@0.3x5"
 
 grammar: ``seed=<int>`` (optional, default 0) and one or more
 ``<site>:<kind>@<p>[x<max_fires>]`` clauses, ``;``/``,`` separated.

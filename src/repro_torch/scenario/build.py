@@ -11,23 +11,33 @@ CPU). Parameters are drawn from a CPU ``torch.Generator`` seeded with
 ``rng_seed`` and then moved, so the card and the CPU start from the same
 values; the Trainer's base seed is ``rng_seed`` too.
 
+Three data sources: ``memory`` (the event stream joined and packed in
+memory), ``synthetic`` (dlrm-mlperf's field batches) and ``disk``: the
+stream joined online (``WatermarkJoiner``), written as CRC-checked ROO
+shards into ``shard_dir`` (or reused from there when its manifest's
+provenance matches the spec), and streamed into the Trainer by the
+prefetching loader, which places batches on ``device`` and resumes from a
+cursor under ``<ckpt_dir or shard_dir>/cursors``.
+
 What the port cannot run yet is refused with a
 :class:`ScenarioValidationError` that names the slice bringing it, never
-ignored: ``data.source="disk"`` (the shard pipeline, ROADMAP A8b),
-``train.mesh`` and the ``comms_*`` knobs (SPMD and the compressed
-exchange, A9), and ``train.microbatches > 1``, which no scenario data
-source feeds (the reference's would hand the accumulation unstacked
-batches). ``cursor_fingerprint`` comes with A8b's shard manifest.
+ignored: ``train.mesh`` and the ``comms_*`` knobs (SPMD and the
+compressed exchange, A9), and ``train.microbatches > 1``, which no
+scenario data source feeds (the reference's would hand the accumulation
+unstacked batches).
 
 Also home of the provenance plumbing the spec hash rides:
-:func:`shard_provenance` / :func:`provenance_matches` (the manifest
-fields the disk pipeline will stamp and gate reuse on) and
+:func:`shard_provenance` / :func:`provenance_matches` (what a shard
+writer stamps into its manifest and what reuse is gated on),
+:func:`cursor_fingerprint` (what resume cursors are keyed on) and
 :func:`ckpt_meta` (``scenario`` / ``scenario_hash`` in every checkpoint's
 ``meta.json``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -57,9 +67,9 @@ class ModelBundle(NamedTuple):
 
 def refuse_unported(spec: ScenarioSpec, training: bool) -> None:
     """Raise, naming the slice, for a spec the port cannot run yet: the
-    ``comms_*`` knobs (A9) always, and for training ``train.mesh`` (A9),
-    ``data.source="disk"`` (A8b) and ``train.microbatches > 1`` (no
-    scenario data source stacks microbatches, in the reference either)."""
+    ``comms_*`` knobs (A9) always, and for training ``train.mesh`` (A9)
+    and ``train.microbatches > 1`` (no scenario data source stacks
+    microbatches, in the reference either)."""
     def bad(msg):
         raise ScenarioValidationError(f"scenario {spec.name!r}: {msg}")
 
@@ -72,9 +82,6 @@ def refuse_unported(spec: ScenarioSpec, training: bool) -> None:
     if spec.train.mesh:
         bad(f"train.mesh {spec.train.mesh!r}: SPMD training over a device "
             f"mesh is not ported yet (ROADMAP A9)")
-    if spec.data.source == "disk":
-        bad("data.source='disk': the shard storage and disk pipeline are "
-            "not ported yet (ROADMAP A8b); use data.source='memory'")
     if spec.train.microbatches > 1:
         bad(f"train.microbatches={spec.train.microbatches}: accumulation "
             f"needs batches with a leading microbatch axis, and the memory "
@@ -134,6 +141,16 @@ def provenance_matches(stored: dict, spec: ScenarioSpec) -> bool:
     legacy = {k: want[k] for k in ("stream", "label_wait_s",
                                    "requests_per_shard")}
     return stored == legacy
+
+
+def cursor_fingerprint(spec: ScenarioSpec, manifest) -> str:
+    """What a resume cursor is valid against: the spec's data/batcher
+    sections plus the manifest's shard index. Train-section edits (more
+    steps, different ckpt cadence) keep the fingerprint stable."""
+    shards = [[s.filename, s.n_bytes, s.n_requests, s.n_impressions]
+              for s in manifest.shards]
+    blob = json.dumps([spec.data_hash(), shards], sort_keys=True)
+    return hashlib.sha1(blob.encode("utf-8")).hexdigest()[:16]
 
 
 def ckpt_meta(spec: ScenarioSpec) -> dict:
@@ -336,13 +353,15 @@ def synthetic_dlrm_batches(spec: ScenarioSpec, cfg, n_batches: int = 4,
 # ---------------------------------------------------------------------------
 
 def train_from_scenario(spec: ScenarioSpec, *, ckpt_dir: Optional[str] = None,
-                        rng_seed: int = 0, prints: bool = True,
+                        shard_dir: Optional[str] = None, rng_seed: int = 0,
+                        prints: bool = True,
                         telemetry_path: Optional[str] = None,
                         device="cuda"):
     """Run the spec's training end to end; returns ``(trainer, state)``.
 
-    ``ckpt_dir`` / ``telemetry_path`` are runtime locations, deliberately
-    NOT part of the spec (a spec hash must be machine-portable).
+    ``ckpt_dir`` / ``shard_dir`` / ``telemetry_path`` are runtime
+    locations, deliberately NOT part of the spec (a spec hash must be
+    machine-portable); ``shard_dir`` is required by ``data.source="disk"``.
     ``telemetry_path`` (or ``obs.export`` in the spec, which defaults the
     file to ``<ckpt_dir>/telemetry.jsonl``) installs a JSONL telemetry
     emitter for the duration of the run. Raises
@@ -355,8 +374,8 @@ def train_from_scenario(spec: ScenarioSpec, *, ckpt_dir: Optional[str] = None,
     emitter = _install_emitter(spec, telemetry_path, ckpt_dir)
     try:
         return _train_from_scenario(spec, ckpt_dir=ckpt_dir,
-                                    rng_seed=rng_seed, prints=prints,
-                                    device=device)
+                                    shard_dir=shard_dir, rng_seed=rng_seed,
+                                    prints=prints, device=device)
     finally:
         if emitter is not None:
             from repro_torch.obs import export as obs_export
@@ -385,7 +404,8 @@ def _install_emitter(spec: ScenarioSpec, telemetry_path: Optional[str],
 
 
 def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
-                         device, bundle: Optional[ModelBundle] = None):
+                         device, shard_dir: Optional[str] = None,
+                         bundle: Optional[ModelBundle] = None):
     """The run itself, on a spec already validated and applied. ``bundle``
     replaces ``build_model``'s (a seam for tests that carry another
     package's parameters in)."""
@@ -398,6 +418,9 @@ def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
         log.info("fault-injection-active", plan=_plan.to_env())
 
     arch, tr = spec.model.arch, spec.train
+    if spec.data.source == "disk" and not shard_dir:
+        raise ScenarioValidationError(
+            "data.source='disk' needs a shard_dir (--shard-dir)")
     if bundle is None:
         bundle = build_model(spec, torch.Generator().manual_seed(rng_seed),
                              sparse=tr.sparse_emb, device=device)
@@ -426,17 +449,21 @@ def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
             raise ScenarioValidationError(
                 f"data.source='synthetic' is the dlrm-mlperf field-batch "
                 f"path; {arch} trains from the event stream "
-                f"(data.source memory)")
+                f"(data.source memory|disk)")
         if spec.data.source != "synthetic":
             raise ScenarioValidationError(
                 "dlrm-mlperf consumes MLPerf field-dict batches, not ROO "
                 "samples — set data.source='synthetic'")
         batches = synthetic_dlrm_batches(spec, bundle.cfg, device=device)
+        state = trainer.run(_cycling_iter_fn(batches), rng_seed)
+    elif spec.data.source == "disk":
+        state = _train_disk(spec, trainer, rng_seed, shard_dir=shard_dir,
+                            ckpt_dir=ckpt_dir, device=device, log=log)
     else:
         from repro_torch.data.batcher import ROOBatcher
         batches = list(ROOBatcher(build_batcher_cfg(spec), device=device)
                        .batches(build_samples(spec)))
-    state = trainer.run(_cycling_iter_fn(batches), rng_seed)
+        state = trainer.run(_cycling_iter_fn(batches), rng_seed)
     if trainer.skipped_steps:
         log.info("steps-skipped", n=trainer.skipped_steps)
     return trainer, state
@@ -451,6 +478,66 @@ def _cycling_iter_fn(batches):
                 i += 1
         return gen()
     return batch_iter
+
+
+def build_shards(spec: ScenarioSpec, shard_dir: str, log=None):
+    """The spec's shards in ``shard_dir``: reused when the directory's
+    manifest was built from this spec's data (``provenance_matches``),
+    else joined online from the event stream and written. A manifest of
+    other data is refused, never overwritten. Returns the manifest."""
+    from repro_torch.pipeline import (OnlineJoinConfig, WatermarkJoiner,
+                                      load_manifest, write_samples)
+    provenance = shard_provenance(spec)
+    try:
+        manifest = load_manifest(shard_dir)
+    except FileNotFoundError:
+        from repro_torch.data.events import EventSimulator
+        joiner = WatermarkJoiner(OnlineJoinConfig(
+            label_wait_s=spec.data.label_wait_s))
+        samples = joiner.join(
+            EventSimulator(build_stream_cfg(spec)).stream())
+        manifest = write_samples(
+            shard_dir, samples,
+            requests_per_shard=spec.data.requests_per_shard,
+            provenance=provenance)
+        st = joiner.stats
+        if log is not None:
+            log.info("shards-built", requests=st.requests_emitted,
+                     label_completeness=round(st.label_completeness, 3),
+                     mean_close_lag_s=round(st.mean_close_lag_s, 1),
+                     shards=len(manifest.shards),
+                     mb=round(manifest.n_bytes / 1e6, 2))
+        return manifest
+    if not provenance_matches(manifest.provenance, spec):
+        raise ScenarioValidationError(
+            f"[pipeline] {shard_dir} holds shards built with different "
+            f"settings:\n  stored:    {manifest.provenance}\n"
+            f"  requested: {provenance}\n"
+            f"Pick another --shard-dir or delete the old one.")
+    if log is not None:
+        log.info("shards-reused", n=len(manifest.shards), dir=shard_dir)
+    return manifest
+
+
+def _train_disk(spec, trainer, rng_seed, *, shard_dir, ckpt_dir, device,
+                log):
+    """Disk pipeline: (re)build shards, wire cursor resume, run. The
+    loader's threads are joined before this returns, also on an error."""
+    from repro_torch.pipeline import make_data_source
+    manifest = build_shards(spec, shard_dir, log)
+    cursor_dir = os.path.join(ckpt_dir or shard_dir, "cursors")
+    source = make_data_source(shard_dir, build_batcher_cfg(spec), cursor_dir,
+                              prefetch=spec.data.prefetch, device=device,
+                              strict=spec.data.strict_shards,
+                              fingerprint=cursor_fingerprint(spec, manifest))
+    with source:                       # join producer threads on exit
+        state = trainer.run(source.batch_iter_fn, rng_seed,
+                            on_checkpoint=source.on_checkpoint)
+    ds_stats = source.loader.dataset.stats
+    if ds_stats.shards_quarantined:
+        log.info("shards-quarantined", n=ds_stats.shards_quarantined,
+                 files=ds_stats.quarantined_files)
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,10 @@ def test_port_has_modules():
             "scenario/build.py", "scenario/spec.py", "scenario/smoke.py",
             "configs/registry.py", "launch/train.py", "obs/metrics.py",
             "obs/log.py", "obs/trace.py", "obs/export.py", "obs/report.py",
-            "obs/__init__.py", "reliability/faults.py"} <= names
+            "obs/__init__.py", "reliability/faults.py",
+            "core/joiner.py", "data/storage.py", "pipeline/__init__.py",
+            "pipeline/shards.py", "pipeline/joiner.py",
+            "pipeline/prefetch.py", "pipeline/resume.py"} <= names
 
 
 @pytest.mark.parametrize(

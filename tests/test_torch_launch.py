@@ -4,10 +4,11 @@ and smoke runner (``python -m repro_torch.scenario.smoke``) on the CPU
 one (dlrm-mlperf), ``--dump-config`` / ``--config`` replay bit for bit,
 fewer steps than ``log_every`` (the run says that none was logged),
 ``--obs`` / ``--trace-out`` / ``--obs-export`` with the report reading the
-JSONL, fault injection announced, and the flags the port cannot run yet
-refused with the slice that brings them.
+JSONL, fault injection announced, ``--data disk --shard-dir``, and the
+flags the port cannot run yet refused with the slice that brings them.
 """
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -79,11 +80,30 @@ def test_obs_trace_and_export(tmp_path, capsys):
     (["--arch", "starcoder2-15b"], "A10"),
     (["--arch", "mace"], "A10"),
     (["--arch", "roo-lsr", "--mesh", "2x4"], "A9"),
-    (["--arch", "roo-lsr", "--comms-compress", "int8"], "A9"),
-    (["--arch", "roo-lsr", "--data", "disk"], "A8b")])
+    (["--arch", "roo-lsr", "--comms-compress", "int8"], "A9")])
 def test_unported_flags_name_their_slice(argv, slice_):
     with pytest.raises(SystemExit, match=slice_):
         main(argv + ["--device", "cpu"])
+
+
+def test_data_disk_runs(tmp_path, capsys):
+    """``--data disk --shard-dir D`` trains from shards (built on the first
+    run, reused on the second, without the prefetch thread there);
+    without ``--shard-dir`` it exits naming the flag."""
+    shards = str(tmp_path / "shards")
+    argv = ["--arch", "hstu-gr", "--steps", "2", "--data", "disk",
+            "--shard-dir", shards, "--requests-per-shard", "20",
+            "--device", "cpu"] + SMALL
+    trainer, state = main(argv)
+    assert int(state["step"]) == 2
+    out = capsys.readouterr().out
+    assert "shards-built" in out and "train-done" in out
+    assert sorted(os.listdir(shards)) == ["cursors", "manifest.json"] + [
+        f"shard_{i:06d}.roos" for i in range(2)]
+    main(argv + ["--no-prefetch", "--strict-shards"])
+    assert "shards-reused" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="shard-dir"):
+        main(["--arch", "hstu-gr", "--data", "disk", "--device", "cpu"])
 
 
 def test_reference_backend_names_refused():

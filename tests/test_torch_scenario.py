@@ -17,8 +17,9 @@
     ``engine_from_scenario`` scores on the same requests;
   * the flag-driven and the ``--config`` launcher runs bit for bit inside
     the port;
-  * what the port cannot run yet (disk, mesh, comms, the LM / MACE / cell
-    archs) raises, naming its slice.
+  * what the port cannot run yet (mesh, comms, the LM / MACE / cell
+    archs) raises, naming its slice; the disk source runs (and without a
+    ``shard_dir`` is refused).
 
 The reference runs on its CPU auto backends (``jnp-chunked`` attention,
 ``jnp`` bags); the port on its (``torch-chunked``, ``torch``). Sizes are
@@ -520,7 +521,7 @@ def test_flag_vs_config_bit_identical(arch, tmp_path, one_thread):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("overrides,slice_", [
-    ({"data.source": "disk"}, "A8b"),
+    ({"data.source": "disk"}, "needs a shard_dir"),
     ({"train.mesh": "2x4"}, "A9"),
     ({"knobs.comms_compress": "int8"}, "A9"),
     ({"knobs.comms_overlap": "on"}, "A9"),
@@ -530,6 +531,23 @@ def test_unported_specs_raise_naming_the_slice(overrides, slice_):
     spec = scenario("roo-lsr", overrides)
     with pytest.raises(ScenarioValidationError, match=slice_):
         build.train_from_scenario(spec, prints=False, device="cpu")
+
+
+def test_disk_source_runs(tmp_path, one_thread):
+    """``data.source="disk"`` (ported with the shard pipeline) trains:
+    shards built in ``shard_dir``, the cursor saved beside the checkpoint,
+    the losses those of the memory source's stream joined online."""
+    spec = scenario("roo-lsr", dict(SMALL, **{
+        "data.source": "disk", "train.steps": 2, "train.log_every": 1,
+        "train.ckpt_every": 2, "model.variant": "userarch"}))
+    trainer, state = build.train_from_scenario(
+        spec, shard_dir=str(tmp_path / "shards"),
+        ckpt_dir=str(tmp_path / "ckpt"), prints=False, device="cpu")
+    assert int(state["step"]) == 2 and len(trainer.history) == 2
+    assert os.listdir(tmp_path / "ckpt" / "cursors") == [
+        "cursor_000000000002.json"]
+    assert "manifest.json" in os.listdir(tmp_path / "shards")
+    assert all(np.isfinite(row["loss"]) for row in trainer.history)
 
 
 def test_unported_engine_knobs_and_archs_raise():
