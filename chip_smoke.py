@@ -5277,6 +5277,287 @@ def phase_scenario_times(emod, dmod, device, card: str, trained) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 20. SPMD training over a device mesh (A9)
+# ---------------------------------------------------------------------------
+
+SPMD_COLLECTIVES = ("all_reduce", "all_reduce async_op",
+                    "all_gather_into_tensor", "reduce_scatter_tensor")
+SPMD_DLRM_BATCHES = 4         # dlrm scoring batches under the 1x2 plan
+SPMD_SLICE = (512, 26, 64)    # B7 on one model rank's D slice (B, F, D/2)
+
+
+def spmd_probe(rank: int) -> dict:
+    """Each collective the port's SPMD path issues, once over the world on
+    CUDA tensors of the card (gloo): what it returned. A wrong value
+    raises here; the caller fails the phase on a missing one."""
+    import torch
+    import torch.distributed as dist
+    x = torch.full((4, 8), float(rank + 1), device="cuda")
+    got = {}
+    y = x.clone()
+    dist.all_reduce(y)
+    got["all_reduce"] = float(y[0, 0])
+    y = x.clone()
+    dist.all_reduce(y, async_op=True).wait()
+    got["all_reduce async_op"] = float(y[0, 0])
+    o = torch.empty((8, 8), device="cuda")
+    dist.all_gather_into_tensor(o, x)
+    got["all_gather_into_tensor"] = float(o[4, 0])
+    o = torch.empty((2, 8), device="cuda")
+    dist.reduce_scatter_tensor(o, x)
+    got["reduce_scatter_tensor"] = float(o[0, 0])
+    want = {"all_reduce": 3.0, "all_reduce async_op": 3.0,
+            "all_gather_into_tensor": 2.0, "reduce_scatter_tensor": 3.0}
+    if got != want:
+        raise RuntimeError(f"gloo collectives on CUDA tensors: {got}, "
+                           f"want {want}")
+    return got
+
+
+def spmd_rank(rank: int, out_dir: str) -> None:
+    """One of the two gloo ranks sharing the card (mesh 1 x 2): the probe,
+    hstu-gr and roo-lsr ``userarch_hstu`` 20 steps each through
+    ``train_from_scenario(train.mesh="1x2")``, hstu-gr again under int8 +
+    error feedback, and the dlrm-mlperf scoring forward under the 1 x 2
+    plan at its published widths (each rank's B5 / B7 launches). Writes
+    its results as JSON; the parent checks them."""
+    import torch
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.distributed.sharding import plan_for_mesh
+    from repro_torch.interop import params_onto_plan
+    from repro_torch.kernels import dot_interaction as dmod
+    from repro_torch.kernels import embedding_bag as emod
+    from repro_torch.kernels import hstu_attention as kmod
+    from repro_torch.kernels import hstu_attention_bwd as bmod
+    from repro_torch.kernels import hstu_attention_prefix as pmod
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.models.dlrm import dlrm_forward_roo, dlrm_init
+    from repro_torch.scenario.build import synthetic_dlrm_batches
+    mods = (emod, kmod, pmod, bmod, dmod)
+    res = {"probe": spmd_probe(rank)}
+    for key, arch, variant, extra in (
+            ("gr", "hstu-gr", None, {}),
+            ("lsr", "roo-lsr", "userarch_hstu", {}),
+            ("gr_int8", "hstu-gr", None, {"knobs.comms_compress": "int8"})):
+        spec = scenario_spec(arch, variant, dict(extra, **{
+            "train.mesh": "1x2"}))
+        t0 = time.perf_counter()
+        trainer, state, losses, counts = train_run(spec, mods, "cuda")
+        res[key] = dict(losses=losses.tolist(), counts=counts,
+                        rows=int(state["params"]["item_emb"].shape[0]),
+                        seconds=time.perf_counter() - t0,
+                        skipped=trainer.skipped_steps)
+    # dlrm-mlperf scoring under the plan: the unsharded forward on the
+    # same params first, then the tables cut to this rank's row blocks
+    cfg = dlrm_config(DLRM_CAP)
+    plan = plan_for_mesh(make_mesh_from_spec("1x2"))
+    batches = synthetic_dlrm_batches(dlrm_spec(0, 128, 512), cfg,
+                                     SPMD_DLRM_BATCHES, device="cuda")
+    with torch.no_grad():
+        params = dlrm_init(torch.Generator("cuda").manual_seed(0), cfg,
+                           device="cuda")
+        want = [dlrm_forward_roo(params, cfg, *dlrm_roo_args(b))
+                for b in batches]
+        local, _ = params_onto_plan(params, plan, "cuda")
+        del params
+        torch.cuda.empty_cache()
+        reset_counts(mods)
+        got = [dlrm_forward_roo(local, cfg, *dlrm_roo_args(b), plan=plan)
+               for b in batches]
+        torch.cuda.synchronize()
+    res["dlrm"] = dict(
+        counts=all_counts(mods),
+        max_abs_err=max(float((g - w).abs().max())
+                        for g, w in zip(got, want)),
+        finite=all(bool(torch.isfinite(g).all()) for g in got),
+        sharded=[name for name in sorted(local["tables"])
+                 if local["tables"][name].shape[0]
+                 < cfg.tables().table(name).vocab])
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def spmd_slice_times(dmod, device, card: str) -> dict:
+    """B7 at one model rank's D slice of the dlrm scoring shape beside the
+    whole width (same call), its plain version, its bound and the
+    bmm + index_select yardstick."""
+    import torch
+    # the reduced dlrm scenario's slice (D 16 over 2 ranks) too
+    dense, sparse = dot_inputs((32, 4, 8), 99, device)
+    err = float((dmod.dot_interaction_cuda(dense, sparse)
+                 - dmod.dot_interaction_plain(dense, sparse)).abs().max())
+    print(f"[spmd] B7 at the reduced dlrm scenario's D-8 slice (32, 4, 8): "
+          f"max |kernel - plain| {err:.3e}")
+    if err > DOT_ATOL:
+        raise SystemExit("spmd: B7 at D 8 off its plain version")
+    out = {}
+    for key, shape in (("slice", SPMD_SLICE), ("full", (512, 26, 128))):
+        dense, sparse = dot_inputs(shape, 100, device)
+        f1 = sparse.shape[1] + 1
+        t = torch.cat([dense[:, None, :], sparse], dim=1)
+        i, j = torch.tril_indices(f1, f1, offset=-1, device=device)
+        flat = i * f1 + j
+        kernel = lambda: dmod.dot_interaction_cuda(dense, sparse)
+        plain = lambda: dmod.dot_interaction_plain(dense, sparse)
+        lib = lambda: torch.bmm(t, t.transpose(1, 2)).flatten(1).index_select(
+            1, flat)
+        err = float((kernel() - plain()).abs().max())
+        if err > DOT_ATOL + DOT_RTOL * float(plain().abs().max()):
+            raise SystemExit(f"spmd: B7 at {shape} off its plain version by "
+                             f"{err}")
+        ms = {k: device_ms(fn, iters) for k, fn, iters in (
+            ("plain", plain, 40), ("kernel", kernel, 200),
+            ("again", kernel, 200), ("library", lib, 100))}
+        bound_ms, bound_by, n_bytes, ops = bound_dot(dense, sparse)
+        print(f"[spmd] {card}: B7 (B, F, D) = {shape} fp32, device time per "
+              f"call: kernel {ms['kernel']:.5f} ms (again {ms['again']:.5f}),"
+              f" plain {ms['plain']:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {ops} FLOP), bmm + index_select "
+              f"{ms['library']:.5f} ms; max |kernel - plain| {err:.3e}")
+        out[key] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=ms["library"], max_abs_err=err)
+    return out
+
+
+def phase_spmd(mods, device, card: str) -> dict:
+    """Phase 20: SPMD training over a mesh. NCCL at world 1 (mesh 1 x 1)
+    in this process through ``train_from_scenario`` and, in a subprocess,
+    through ``--mesh 1x1``: hstu-gr at its published widths, 20 steps,
+    losses within rtol 1e-5 of the same params without a mesh, the same
+    B1-B3 launches, the item table's seq-lookup exchange in
+    ``distributed.comms``. Then two gloo ranks share the card (mesh
+    1 x 2, ``spmd_rank``): the collectives probed on CUDA tensors, hstu-gr
+    and roo-lsr ``userarch_hstu`` within rtol 2e-4 of the world-1 runs
+    with each rank's table a V/2 row block, int8 + error feedback within
+    the reference's bounds, the dlrm-mlperf scoring forward under the plan
+    within 1e-4 of the unsharded one (B7 on the D-64 slice). Returns the
+    launches and B7's slice times for the kernels line."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import comms
+    from repro_torch.launch.hostdevices import spawn
+    emod, kmod, pmod, bmod, dmod = mods
+    tmp = Path(tempfile.mkdtemp(prefix="spmd_", dir=str(build_dir())))
+    launch = None
+    try:
+        gr, lsr = scenario_spec("hstu-gr"), scenario_spec("roo-lsr",
+                                                          "userarch_hstu")
+        mesh_spec = scenario_spec("hstu-gr", extra={"train.mesh": "1x1"})
+        lsr_tr, _, lsr_base, _ = train_run(lsr, mods, device)
+        # in turns: no mesh, 1x1, 1x1, no mesh (the rates' spread)
+        base_tr, _, base, base_counts = train_run(gr, mods, device)
+        comms.STATS.reset()
+        mesh_tr, mesh_state, meshed, mesh_counts = train_run(mesh_spec, mods,
+                                                             device)
+        again = [train_run(spec, mods, device)[0]
+                 for spec in (mesh_spec, gr)]
+        sites = comms.STATS.snapshot()["sites"]
+        seq = sites.get(f"lookup:seq:V{SCENARIO_ITEMS}xB32x"
+                        f"L{SCENARIO_HIST}xD64")
+        rel = float(((meshed - base).abs() / base.abs()).max())
+        rates = {"no mesh": [tr.history[-1]["steps_per_s"]
+                             for tr in (base_tr, again[1])],
+                 "1x1": [tr.history[-1]["steps_per_s"]
+                         for tr in (mesh_tr, again[0])]}
+        print(f"[spmd] {card}: hstu-gr 20 steps, NCCL world 1 (mesh 1x1) vs "
+              f"no mesh: max rel loss diff {rel:.3e}; launches {mesh_counts} "
+              f"vs {base_counts}; item_emb rows "
+              f"{mesh_state['params']['item_emb'].shape[0]}; steps/s in "
+              f"turns (no mesh, 1x1, 1x1, no mesh) {rates['no mesh'][0]:.2f},"
+              f" {rates['1x1'][0]:.2f}, {rates['1x1'][1]:.2f}, "
+              f"{rates['no mesh'][1]:.2f} (the plan route costs "
+              f"{sum(rates['no mesh']) / sum(rates['1x1']):.3f}x); exchange "
+              f"sites {sorted(sites)}; seq site {seq}")
+        if rel > 1e-5 or any(mesh_counts[k] != base_counts[k]
+                             for k in ("b1", "b2", "b3")) or seq is None \
+                or seq["f32_bytes"] != 32 * SCENARIO_HIST * 64 * 4 \
+                or mesh_tr.skipped_steps:
+            raise SystemExit("spmd: the 1x1 mesh run is off the no-mesh run "
+                             "or its exchange record")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        # --mesh 1x1 through the launcher, beside the gloo ranks
+        launch = launcher(["--arch", "hstu-gr", "--steps",
+                           str(SCENARIO_STEPS), "--mesh", "1x1", "--set",
+                           "train.log_every=1"],
+                          dict(os.environ, PYTHONPATH=str(SRC)),
+                          tmp / "launcher.log")
+        # two gloo ranks on the card
+        t0 = time.perf_counter()
+        spawn(spmd_rank, 2, args=(str(tmp),), backend="gloo",
+              timeout_s=900)
+        print(f"[spmd] {card}: 2 gloo ranks on one card (mesh 1x2): "
+              f"{time.perf_counter() - t0:.1f} s for the spawn, the probe, "
+              f"3 x 20 steps and the dlrm forward")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        print(f"[spmd] gloo collectives on CUDA tensors: "
+              f"{sorted(ranks[0]['probe'])} all take them")
+        for r, res in enumerate(ranks):
+            for key, want in (("gr", base), ("lsr", lsr_base)):
+                got = torch.tensor(res[key]["losses"], dtype=torch.float64)
+                d = float(((got - want).abs()
+                           / (2e-4 * want.abs() + 1e-6)).max())
+                print(f"[spmd] rank {r} {key} 1x2 (gloo-on-one-card, "
+                      f"{res[key]['seconds']:.1f} s): launches "
+                      f"{res[key]['counts']}; item_emb rows "
+                      f"{res[key]['rows']}; losses vs world 1: worst "
+                      f"{d:.3f} of rtol 2e-4 + atol 1e-6")
+                if d > 1 or res[key]["rows"] != SCENARIO_ITEMS // 2 or \
+                        res[key]["skipped"]:
+                    raise SystemExit(f"spmd: rank {r} {key} off")
+            for k in ("b1", "b2", "b3"):
+                if res["gr"]["counts"][k] != base_counts[k]:
+                    raise SystemExit(f"spmd: rank {r} gr {k} launches")
+            none = torch.tensor(res["gr"]["losses"], dtype=torch.float64)
+            int8 = torch.tensor(res["gr_int8"]["losses"],
+                                dtype=torch.float64)
+            early = float(((int8[:10] - none[:10]).abs()
+                           / (5e-2 * none[:10].abs() + 5e-3)).max())
+            mean = abs(float(int8.mean() - none.mean())) / float(none.mean())
+            print(f"[spmd] rank {r} hstu-gr int8 + EF vs none: first 10 "
+                  f"steps worst {early:.3f} of rtol 5e-2 + atol 5e-3, mean "
+                  f"{mean:.3e} (bound 2e-2)")
+            if early > 1 or mean > 2e-2:
+                raise SystemExit(f"spmd: rank {r} int8 + EF out of bounds")
+            dl = res["dlrm"]
+            print(f"[spmd] rank {r} dlrm-mlperf scoring under the 1x2 plan "
+                  f"({SPMD_DLRM_BATCHES} batches of 128 / 512, 2**21 cap): "
+                  f"max |scores - unsharded| {dl['max_abs_err']:.3e}, "
+                  f"launches {dl['counts']}, row-sharded tables "
+                  f"{len(dl['sharded'])} of 26")
+            if not dl["finite"] or dl["max_abs_err"] > LOGIT_TOL or \
+                    dl["counts"]["b7"] != SPMD_DLRM_BATCHES or \
+                    dl["counts"]["b5"] != 2 * SPMD_DLRM_BATCHES:
+                raise SystemExit(f"spmd: rank {r} dlrm forward off")
+        if launch.wait(timeout=900):
+            raise SystemExit("spmd: --mesh 1x1 exited "
+                             + (tmp / "launcher.log").read_text())
+        line = [x for x in (tmp / "launcher.log").read_text().splitlines()
+                if "train-done" in x][-1]
+        print(f"[spmd] {card}: --mesh 1x1: {line}")
+        if "device=cuda" not in line or \
+                f"loss={round(float(meshed[-1]), 4)}" not in line:
+            raise SystemExit("spmd: --mesh 1x1 did not finish as the "
+                             "in-process 1x1 run")
+        times = spmd_slice_times(dmod, device, card)
+    finally:
+        if launch is not None and launch.poll() is None:
+            launch.kill()
+            launch.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(mesh_counts=mesh_counts, times=times,
+                dlrm_b7=ranks[0]["dlrm"]["counts"]["b7"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5377,6 +5658,7 @@ def main() -> int:
     phase_faults(mods, device, card)
     disk = phase_disk(mods, device, card)
     scen_times = phase_scenario_times(emod, dmod, device, card, scen_train)
+    spmd_run = phase_spmd(mods, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -5583,7 +5865,28 @@ def main() -> int:
         **bag_times[which]}
         for name, line, key, which in (
             ("embedding_bag_fwd_grouped", 48, "b5", "fwd"),
-            ("embedding_bag_bwd_coo_grouped", 74, "b6", "coo"))]}))
+            ("embedding_bag_bwd_coo_grouped", 74, "b6", "coo"))] + [{
+        "name": "hstu_attention_fwd (hstu-gr training under a 1x1 NCCL "
+                "mesh)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:80",
+        "launches": spmd_run["mesh_counts"]["b1"], "max_abs_err": worst,
+        **times["train"], "library_ms": None}] + [{
+        "name": f"{name} (hstu-gr training under a 1x1 NCCL mesh)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": spmd_run["mesh_counts"][key],
+        "max_abs_err": worst_bwd[which], **btimes[which], "library_ms": None}
+        for name, line, key, which in (
+            ("hstu_attention_bwd_dq", 108, "b2", "dq"),
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))] + [{
+        "name": "dot_interaction_fwd (dlrm scoring under a 1x2 plan: one "
+                "model rank's D-64 slice)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+        "replaces": "src/repro/kernels/dot_interaction.py:22",
+        "launches": spmd_run["dlrm_b7"],
+        **spmd_run["times"]["slice"]}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

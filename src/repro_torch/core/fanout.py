@@ -5,8 +5,13 @@ In impression-level training every user-side activation exists ``B_NRO``
 times. Under ROO the user side is computed once per request (``B_RO``
 rows) and fanned out to its impressions exactly once, at the interaction
 point. The fanout is a gather by ``segment_ids``. Its transpose (``fanin_sum``,
-``fanin_mean``) waits for a caller, and the shard-local ``fanout_local``
-for the multi-card slice (A9).
+``fanin_mean``) waits for a caller.
+
+Under an SPMD plan both leading dims are split over the batch axes and
+the batcher's request locality keeps every impression on its request's
+block, so the gather never crosses ranks: ``fanout_local`` is the fanout of
+this rank's block by its local segment ids (the reference spells it with
+``shard_map``; here each rank already holds only its block).
 """
 from __future__ import annotations
 
@@ -23,3 +28,11 @@ def fanout(x_ro: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
     valid = segment_ids < b_ro
     return out * valid.reshape((-1,) + (1,) * (out.dim() - 1)).to(out.dtype)
 
+
+
+def fanout_local(x_ro: torch.Tensor, segment_ids: torch.Tensor,
+                 plan=None) -> torch.Tensor:
+    """Shard-local fanout: ``x_ro`` is this rank's (B_RO / n, ...) block
+    and ``segment_ids`` its block's local ids (in [0, B_RO / n], padding
+    == B_RO / n; ``spmd.place_batch`` rebases them)."""
+    return fanout(x_ro, segment_ids)

@@ -3,8 +3,14 @@
 Packs a list of ROOSamples into fixed-shape ``ROOBatch``es on the host in
 numpy, then moves each packed batch to the requested device in one step:
   * ``B_RO`` request rows, ``B_NRO`` impression slots (static capacities);
-  * requests are packed greedily, in order, onto one device; every
-    request's impressions take contiguous slots;
+  * requests are packed greedily, in order, shard by shard: with
+    ``n_shards`` data shards each shard's block of B_RO / n rows and
+    B_NRO / n slots is filled in turn, so when a batch is split over the
+    data ranks every request's impressions sit in its request's block (the
+    request-locality ``fanout_local`` and ``spmd.place_batch`` rely on);
+    every request's impressions take contiguous slots;
+  * ``segment_ids`` are global (default) or shard-local
+    (``local_segment_ids``: padding is the local B_RO / n);
   * ``batches_with_plan`` also yields a ``BatchPlan`` mapping every input
     request to its (row, slot range) — what serving needs to return scores
     aligned with each request's ``item_ids`` — and counts impressions
@@ -12,9 +18,7 @@ numpy, then moves each packed batch to the requested device in one step:
 
 Dropped impressions are always counted in the ungated
 ``batcher.impressions_dropped`` obs counter. The impression-level packing
-(``impression_batches``) and the reference's multi-shard options
-(``n_shards``, ``local_segment_ids``) are not ported yet: they wait for a
-slice that shards a batch across cards.
+(``impression_batches``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ class BatcherConfig:
     hist_len: int = 64
     ro_idlist_capacity: int = 1024
     item_idlist_capacity: int = 4096
+    n_shards: int = 1              # data shards; leading dims divisible by it
+    local_segment_ids: bool = False
     label_keys: Sequence[str] = ("click", "view_sec")
 
 
@@ -103,10 +109,13 @@ def _pad_seq(rows: List[List[int]], n: int, width: int):
 
 
 class ROOBatcher:
-    """Greedy packer: fills each batch's request/impression capacity; every
-    batch lands on ``device``."""
+    """Greedy shard-aware packer: fills each shard's request / impression
+    quota; every batch lands on ``device``."""
 
     def __init__(self, cfg: BatcherConfig, device="cuda"):
+        if cfg.b_ro % cfg.n_shards or cfg.b_nro % cfg.n_shards:
+            raise ValueError(f"b_ro={cfg.b_ro} and b_nro={cfg.b_nro} must be "
+                             f"divisible by n_shards={cfg.n_shards}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.stats = BatcherStats()   # accumulated over the most recent call
@@ -122,23 +131,27 @@ class ROOBatcher:
         """Yield (batch, plan); the plan maps every admitted request to its
         (row, slot range) and records impressions dropped by truncation."""
         cfg = self.cfg
+        per_shard_ro = cfg.b_ro // cfg.n_shards
+        per_shard_nro = cfg.b_nro // cfg.n_shards
         queue = list(enumerate(samples))
         self.stats = BatcherStats()
         while queue:
-            reqs: List[Tuple[int, ROOSample]] = []
-            n_imps = 0
-            while queue and len(reqs) < cfg.b_ro:
-                idx, s = queue[0]
-                # clamped to the capacity, so an over-size request is always
-                # admitted into an empty batch (and truncated by _pack, which
-                # the plan records)
-                n_imp = min(s.num_impressions, cfg.b_nro)
-                if n_imps + n_imp > cfg.b_nro:
-                    break
-                queue.pop(0)
-                reqs.append((idx, s))
-                n_imps += n_imp
-            batch, plan = self._pack(reqs)
+            shard_reqs: List[List[Tuple[int, ROOSample]]] = [
+                [] for _ in range(cfg.n_shards)]
+            for reqs in shard_reqs:
+                n_imps = 0
+                while queue and len(reqs) < per_shard_ro:
+                    idx, s = queue[0]
+                    # clamped to the shard quota, so an over-size request is
+                    # always admitted into an empty shard (and truncated by
+                    # _pack, which the plan records)
+                    n_imp = min(s.num_impressions, per_shard_nro)
+                    if n_imps + n_imp > per_shard_nro:
+                        break
+                    queue.pop(0)
+                    reqs.append((idx, s))
+                    n_imps += n_imp
+            batch, plan = self._pack(shard_reqs)
             self.stats.update(plan)
             if plan.dropped_impressions:
                 # always counted (ungated: data loss must never be silent);
@@ -151,13 +164,16 @@ class ROOBatcher:
                     warnings.warn(
                         f"ROOBatcher: dropped {plan.dropped_impressions} "
                         f"impression(s) from {plan.truncated_requests} "
-                        f"truncated request(s) — b_nro={cfg.b_nro} is "
-                        f"smaller than the request", stacklevel=2)
+                        f"truncated request(s) — b_nro={cfg.b_nro} "
+                        f"(per-shard {per_shard_nro}) is smaller than the "
+                        f"request", stacklevel=2)
             yield batch, plan
 
-    def _pack(self, reqs: List[Tuple[int, ROOSample]]
+    def _pack(self, shard_reqs: List[List[Tuple[int, ROOSample]]]
               ) -> Tuple[ROOBatch, BatchPlan]:
         cfg = self.cfg
+        per_shard_ro = cfg.b_ro // cfg.n_shards
+        per_shard_nro = cfg.b_nro // cfg.n_shards
         ro_dense_rows, ro_idlists, hists, acts = [], [], [], []
         num_imp = np.zeros((cfg.b_ro,), np.int32)
         seg = np.full((cfg.b_nro,), cfg.b_ro, np.int32)
@@ -166,27 +182,33 @@ class ROOBatcher:
         item_ids = np.zeros((cfg.b_nro,), np.int32)
         labels = np.zeros((cfg.b_nro, len(cfg.label_keys)), np.float32)
 
-        fill = 0
         packed: List[PackedRequest] = []
-        for row, (idx, s) in enumerate(reqs):
-            ro_dense_rows.append((row, s.ro_dense))
-            ro_idlists.append((row, s.ro_idlist))
-            hists.append((row, s.history_ids))
-            acts.append((row, s.history_actions))
-            n = min(s.num_impressions, cfg.b_nro - fill)
-            num_imp[row] = n
-            packed.append(PackedRequest(
-                request_index=idx, row=row, slot_start=fill, n_packed=n,
-                n_total=s.num_impressions))
-            for k in range(n):
-                slot = fill + k
-                seg[slot] = row
-                item_ids[slot] = s.item_ids[k]
-                nro_dense_rows.append((slot, s.item_dense[k]))
-                nro_idlists.append((slot, s.item_idlist[k]))
-                labels[slot] = [s.labels[k].get(key, 0.0)
-                                for key in cfg.label_keys]
-            fill += n
+        for shard, reqs in enumerate(shard_reqs):
+            fill = shard * per_shard_nro
+            for j, (idx, s) in enumerate(reqs):
+                row = shard * per_shard_ro + j
+                ro_dense_rows.append((row, s.ro_dense))
+                ro_idlists.append((row, s.ro_idlist))
+                hists.append((row, s.history_ids))
+                acts.append((row, s.history_actions))
+                n = min(s.num_impressions,
+                        (shard + 1) * per_shard_nro - fill)
+                num_imp[row] = n
+                packed.append(PackedRequest(
+                    request_index=idx, row=row, slot_start=fill, n_packed=n,
+                    n_total=s.num_impressions))
+                for k in range(n):
+                    slot = fill + k
+                    seg[slot] = j if cfg.local_segment_ids else row
+                    item_ids[slot] = s.item_ids[k]
+                    nro_dense_rows.append((slot, s.item_dense[k]))
+                    nro_idlists.append((slot, s.item_idlist[k]))
+                    labels[slot] = [s.labels[k].get(key, 0.0)
+                                    for key in cfg.label_keys]
+                fill += n
+        if cfg.local_segment_ids:
+            # padding marker becomes the local b_ro
+            seg = np.where(seg == cfg.b_ro, per_shard_ro, seg)
 
         # densify RO side
         n_ro_dense = ro_dense_rows[0][1].shape[-1] if ro_dense_rows else 1

@@ -1,0 +1,302 @@
+"""SPMD state and batch placement: the executable half of a
+``ShardingPlan`` (torch port of ``repro/distributed/spmd.py``).
+
+  * :func:`param_spec` — path + shape -> spec, the single rule params,
+    optimizer state and the ``comms_ef`` residuals go through (ported to
+    the letter: a spec equals the reference's after
+    ``sharding.normalize_spec``);
+  * :func:`state_shardings` — the state's tree of specs; :func:`place_state`
+    realizes it: each rank keeps its row block of every leaf whose dim 0
+    is split over ``model`` (tables, their row-wise Adagrad accumulators,
+    the residuals). Dense leaves stay whole (their FSDP / TP specs are
+    recorded, not realized: ROADMAP A9b);
+  * :func:`batch_spec` / :func:`place_batch` / :func:`make_batch_placer` /
+    :func:`make_batch_sharding_fn` — each batch leaf's batch dim cut to
+    this rank's data block; ``JaggedTensor``s stay whole, as the
+    reference keeps them replicated (the jagged lookup sums the whole
+    batch and keeps its own rows). A cut ``ROOBatch`` gets its
+    ``segment_ids`` rebased to the block: ``seg - k * B_RO / n``, padding
+    ``B_RO`` -> ``B_RO / n`` (the batcher's request locality puts every
+    impression on its request's block; the ids it emits are global,
+    ``local_segment_ids=False``);
+  * :func:`data_sum` / :func:`model_sum` — a value summed over the batch
+    axes or ``model`` (``collectives.all_reduce_sum``: identity backward).
+
+Everything is the identity under a disabled plan (or None).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.data.jagged import JaggedTensor
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import ShardingPlan, Spec
+from repro_torch.train.optim import default_is_embedding
+from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten
+
+# tables with fewer rows than this stay replicated: sharding a 4-row action
+# vocab over the model ranks buys nothing and costs a collective
+SHARD_MIN_ROWS = 64
+
+
+def _axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def _enabled(plan: Optional[ShardingPlan]) -> bool:
+    return plan is not None and plan.enabled
+
+
+def data_shard_count(plan: Optional[ShardingPlan]) -> int:
+    """Number of batch shards the plan splits leading dims into (1 when
+    disabled) — batch sizes and the batcher's n_shards must divide it."""
+    if not _enabled(plan):
+        return 1
+    return _axis_size(plan.mesh, plan.batch_axes)
+
+
+def model_shard_count(plan: Optional[ShardingPlan]) -> int:
+    if not _enabled(plan) or plan.model_axis is None:
+        return 1
+    return plan.mesh.shape[plan.model_axis]
+
+
+def data_index(plan: ShardingPlan) -> int:
+    """This rank's batch block (mixed radix over the batch axes)."""
+    idx = 0
+    for a in plan.batch_axes:
+        idx = idx * plan.mesh.shape[a] + plan.mesh.coord(a)
+    return idx
+
+
+def model_index(plan: ShardingPlan) -> int:
+    return plan.mesh.coord(plan.model_axis)
+
+
+def batch_groups(plan: ShardingPlan) -> List:
+    return [plan.mesh.group(a) for a in plan.batch_axes]
+
+
+def model_group(plan: ShardingPlan):
+    return plan.mesh.group(plan.model_axis)
+
+
+def table_is_sharded(plan: Optional[ShardingPlan], vocab: int) -> bool:
+    """True when the plan row-shards a table of this vocab over ``model``.
+
+    The same predicate gates (a) the table's param / opt-state placement
+    and (b) routing its lookups through ``embeddings/sharded.py``.
+    """
+    return (_enabled(plan) and plan.model_axis is not None
+            and vocab >= SHARD_MIN_ROWS
+            and vocab % plan.mesh.shape[plan.model_axis] == 0)
+
+
+def param_spec(path: Tuple[str, ...], shape: Tuple[int, ...],
+               plan: ShardingPlan,
+               is_embedding: Callable = default_is_embedding) -> Spec:
+    """Spec of one state leaf.
+
+    * embedding tables (path matches the optimizer's embedding predicate):
+      rows over ``model``; their 1-D row-wise accumulators follow;
+    * the ``comms_ef`` residuals shard like the table they compensate,
+      whatever the caller's predicate;
+    * dense >= 2-D params: dim 0 over the fsdp axes, the last dim over
+      ``model`` (each only when divisible);
+    * everything else (biases, scalars, seeds): replicated, ``()``.
+    """
+    if not plan.enabled or len(shape) == 0:
+        return ()
+    mesh = plan.mesh
+    if (path and "comms_ef" in path[0]) or is_embedding(path):
+        if table_is_sharded(plan, shape[0]):
+            return (plan.model_axis,) + (None,) * (len(shape) - 1)
+        return ()
+    if len(shape) < 2:
+        return ()
+    entries: list = [None] * len(shape)
+    n_fsdp = _axis_size(mesh, plan.fsdp_axis)
+    if n_fsdp > 1 and shape[0] % n_fsdp == 0:
+        entries[0] = plan.fsdp_axis
+    if plan.model_axis is not None:
+        n_model = mesh.shape[plan.model_axis]
+        if n_model > 1 and shape[-1] % n_model == 0:
+            entries[-1] = plan.model_axis
+    return tuple(entries)
+
+
+def is_spec(x) -> bool:
+    """A spec tuple (axis names, tuples of them, None), not a tree node."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def state_shardings(state: Any, plan: Optional[ShardingPlan],
+                    is_embedding: Callable = default_is_embedding) -> Any:
+    """Tree of specs congruent with ``state`` (global shapes), or None when
+    the plan is disabled. Walk it with ``is_leaf=spmd.is_spec``."""
+    if not _enabled(plan):
+        return None
+    flat = flatten_with_path(state)
+    return unflatten(state, [param_spec(path, tuple(leaf.shape), plan,
+                                        is_embedding)
+                             for path, leaf in flat])
+
+
+def rows_sharded(spec: Spec, plan: ShardingPlan) -> bool:
+    """Whether a leaf of this spec is held as its row block (dim 0 over
+    ``model``): the only split the port realizes."""
+    return bool(spec) and spec[0] == plan.model_axis
+
+
+def local_block(x: torch.Tensor, spec: Spec,
+                plan: ShardingPlan) -> torch.Tensor:
+    """This rank's part of a global leaf: its row block (a copy, so the
+    whole leaf can be freed) for a row-sharded spec, else the leaf."""
+    if not rows_sharded(spec, plan):
+        return x
+    n, k = model_shard_count(plan), model_index(plan)
+    rows = x.shape[0] // n
+    return x[k * rows:(k + 1) * rows].clone()
+
+
+def global_leaf(x: torch.Tensor, spec: Spec,
+                plan: ShardingPlan) -> torch.Tensor:
+    """The whole leaf from every model rank's block (all ranks of the
+    model group call it); other leaves as they are."""
+    if not rows_sharded(spec, plan):
+        return x
+    return coll.gather_rows_front(x, model_group(plan),
+                                  model_shard_count(plan))
+
+
+def place_state(state: Any, plan: Optional[ShardingPlan],
+                is_embedding: Callable = default_is_embedding,
+                specs: Any = None) -> Any:
+    """Each leaf of a global ``state`` cut to this rank's part (identity
+    when disabled). ``specs`` defaults to ``state_shardings(state)``."""
+    if not _enabled(plan):
+        return state
+    if specs is None:
+        specs = state_shardings(state, plan, is_embedding)
+    return unflatten(state, [local_block(x, s, plan) for x, s in zip(
+        leaves(state), leaves(specs, is_leaf=is_spec))])
+
+
+def gather_state(state: Any, specs: Any, plan: Optional[ShardingPlan]) -> Any:
+    """The global state from every rank's part (collective over
+    ``model``; identity when disabled)."""
+    if not _enabled(plan):
+        return state
+    return unflatten(state, [global_leaf(x, s, plan) for x, s in zip(
+        leaves(state), leaves(specs, is_leaf=is_spec))])
+
+
+# ---------------------------------------------------------------------------
+# Batch placement
+# ---------------------------------------------------------------------------
+
+def batch_spec(shape: Tuple[int, ...], plan: ShardingPlan,
+               batch_dim: int = 0) -> Spec:
+    """Split a batch leaf's ``batch_dim`` over the batch axes when
+    divisible; leaves with other batch dims stay whole. With grad
+    accumulation the leading dim is the microbatch axis: pass
+    ``batch_dim=1``."""
+    if not plan.enabled or len(shape) <= batch_dim:
+        return ()
+    n = _axis_size(plan.mesh, plan.batch_axes)
+    if n > 1 and shape[batch_dim] > 0 and shape[batch_dim] % n == 0:
+        entries = [None] * len(shape)
+        entries[batch_dim] = plan.batch_axes
+        return tuple(entries)
+    return ()
+
+
+def _is_jagged(x) -> bool:
+    return isinstance(x, JaggedTensor)
+
+
+def place_batch(batch: Any, plan: Optional[ShardingPlan],
+                batch_dim: int = 0) -> Any:
+    """This rank's block of a global batch (module note); the leaves stay
+    on their device. Identity when disabled."""
+    from repro_torch.core.roo_batch import ROOBatch
+    if not _enabled(plan):
+        return batch
+    n, k = data_shard_count(plan), data_index(plan)
+
+    def cut(x):
+        if _is_jagged(x) or not batch_spec(tuple(x.shape), plan, batch_dim):
+            return x
+        m = x.shape[batch_dim] // n
+        return x.narrow(batch_dim, k * m, m).contiguous()
+
+    out = tree_map(cut, batch, is_leaf=_is_jagged)
+    if isinstance(batch, ROOBatch) and n > 1:
+        b = batch.ro_dense.shape[batch_dim]
+        m = b // n
+        seg = out.segment_ids
+        out = dataclasses.replace(out, segment_ids=torch.where(
+            seg >= b, torch.full_like(seg, m), seg - k * m))
+    return out
+
+
+def make_batch_placer(plan: Optional[ShardingPlan],
+                      batch_dim: int = 0) -> Callable[[Any], Any]:
+    """batch -> this rank's block (the identity when disabled)."""
+    if not _enabled(plan):
+        return lambda batch: batch
+    return lambda batch: place_batch(batch, plan, batch_dim)
+
+
+def make_batch_sharding_fn(plan: Optional[ShardingPlan],
+                           batch_dim: int = 0
+                           ) -> Optional[Callable[[Any], Any]]:
+    """The ``PrefetchLoader(sharding=...)`` callable: the loader's thread
+    cuts each host batch to this rank's block before the copy (None when
+    the plan is disabled)."""
+    if not _enabled(plan):
+        return None
+    return lambda batch: place_batch(batch, plan, batch_dim)
+
+
+# ---------------------------------------------------------------------------
+# Sums over an axis (autograd: identity backward)
+# ---------------------------------------------------------------------------
+
+def data_sum(x: torch.Tensor, plan: Optional[ShardingPlan]) -> torch.Tensor:
+    """``x`` summed over the batch axes: what GSPMD makes of the
+    reference's ``jnp.sum`` over a batch-sharded array."""
+    if not _enabled(plan):
+        return x
+    return coll.all_reduce_sum(x, batch_groups(plan))
+
+
+def model_sum(x: torch.Tensor, plan: Optional[ShardingPlan]) -> torch.Tensor:
+    if not _enabled(plan):
+        return x
+    return coll.all_reduce_sum(x, [model_group(plan)])
+
+
+def gather_batch(x: torch.Tensor,
+                 plan: Optional[ShardingPlan]) -> torch.Tensor:
+    """The whole batch's ``x`` from every data block, in block order (an
+    all-gather over the batch axes; no gradient). Identity when the plan
+    does not split the batch."""
+    if data_shard_count(plan) == 1:
+        return x
+    for a in reversed(plan.batch_axes):     # data, then pod: block order
+        x = coll.gather_rows_front(x, plan.mesh.group(a), plan.mesh.shape[a])
+    return x

@@ -36,7 +36,22 @@ The named collection (``TableConfig``, ``FeatureSpec``,
 ``init``, ``lookup`` (one feature in its declared mode), ``lookup_keyed``
 (every jagged feature of a ``KeyedJagged``) and ``request_ids`` (per-table
 id sets for ``make_sparse_value_and_grad``). DLRM's 26 fields are its
-canonical user. The sharded paths are not ported yet (A9).
+canonical user.
+
+Under an SPMD ``plan`` (``distributed/sharding.py``) a table the plan
+row-shards (``spmd.table_is_sharded`` of its global ``vocab``, which the
+caller passes: the tensor is this rank's row block) routes through the
+explicit collectives of ``embeddings/sharded.py``: seq / row lookups and
+padded bags sum a local partial over ``model``, a jagged bag sums the
+whole batch's partial and keeps this rank's rows, and a padded bag that
+declares ``out_sharded=True`` takes the reduce-scatter and returns this
+rank's D / n_model chunk (a replicated table's bag is sliced to the same
+chunk). Ids are clipped before the shard split (the partial zeroes an
+out-of-range id, the local path clips it). Dedup composes with the sum:
+the distinct ids go through the sharded gather and expand locally; a
+compressed wire (``comms_compress``) forces that route, so only a
+request's distinct rows ride the quantized exchange. ``max`` pooling
+cannot be assembled from partials and is refused on a sharded table.
 """
 from __future__ import annotations
 
@@ -91,33 +106,86 @@ def _gather(table: Table, ids: torch.Tensor, vocab: int,
     return gather_rows(table, ids)
 
 
+def _vocab_of(table: Table, vocab: Optional[int], plan) -> int:
+    if vocab is not None:
+        return int(vocab)
+    if plan is not None and plan.enabled:
+        raise ValueError("a lookup under an SPMD plan needs the table's "
+                         "global vocab (the tensor may be a row block)")
+    return int(table.shape[0])
+
+
+def _plan_shards(table: Table, vocab: int, plan) -> bool:
+    if plan is None or isinstance(table, GatheredTable):
+        return False
+    from repro_torch.distributed.spmd import table_is_sharded
+    return table_is_sharded(plan, vocab)
+
+
+def _compress_active() -> bool:
+    from repro_torch.distributed import comms
+    return comms.compress_mode() != "none"
+
+
+def _data_block(out: torch.Tensor, plan) -> torch.Tensor:
+    """This rank's rows of a whole-batch output (a jagged bag's)."""
+    from repro_torch.distributed import spmd
+    n = spmd.data_shard_count(plan)
+    if n == 1:
+        return out
+    m = out.shape[0] // n
+    k = spmd.data_index(plan)
+    return out[k * m:(k + 1) * m]
+
+
 def seq_lookup(table: Table, ids: torch.Tensor, *,
-               vocab: Optional[int] = None,
+               vocab: Optional[int] = None, plan=None,
                dedup: Optional[bool] = None) -> torch.Tensor:
     """(B, L) ids -> (B, L, D); exact ``table[clip(ids)]`` semantics."""
-    v = int(vocab) if vocab is not None else int(table.shape[0])
+    v = _vocab_of(table, vocab, plan)
+    if _plan_shards(table, v, plan):
+        from repro_torch.embeddings.sharded import sharded_seq_lookup
+        clipped = torch.clamp(ids.long(), 0, v - 1)
+        if _want_dedup(dedup) or _compress_active():
+            uids, inv = torch.unique(clipped.reshape(-1), return_inverse=True)
+            rows = sharded_seq_lookup(table, uids, plan=plan, vocab=v,
+                                      stats_shape=tuple(clipped.shape),
+                                      stats_dedup=True)
+            return gather_rows(rows, inv).reshape(
+                tuple(ids.shape) + tuple(rows.shape[1:]))
+        return sharded_seq_lookup(table, clipped, plan=plan, vocab=v)
     return _gather(table, ids, v, dedup)
 
 
 def row_lookup(table: Table, ids: torch.Tensor, *,
-               vocab: Optional[int] = None,
+               vocab: Optional[int] = None, plan=None,
                dedup: Optional[bool] = None) -> torch.Tensor:
     """(B,) ids -> (B, D) single-row gather."""
-    return seq_lookup(table, ids[:, None], vocab=vocab, dedup=dedup)[:, 0, :]
+    return seq_lookup(table, ids[:, None], vocab=vocab, plan=plan,
+                      dedup=dedup)[:, 0, :]
 
 
 def bag_lookup(table: Table, ids: JaggedTensor, pooling: str = "sum",
-               *, dedup: Optional[bool] = None) -> torch.Tensor:
-    """Jagged id-list bag -> (B, D): (dedup-)gather, then pool."""
-    emb = _gather(table, ids.values, int(table.shape[0]), dedup)
-    return bag_pool(emb, ids, pooling)
+               *, vocab: Optional[int] = None, plan=None,
+               dedup: Optional[bool] = None) -> torch.Tensor:
+    """Jagged id-list bag -> (B, D): (dedup-)gather, then pool. Under a
+    plan the ids are the whole batch's and the output this rank's rows."""
+    v = _vocab_of(table, vocab, plan)
+    if pooling in ("sum", "mean") and _plan_shards(table, v, plan):
+        from repro_torch.embeddings.sharded import sharded_jagged_bag_lookup
+        return sharded_jagged_bag_lookup(table, ids, plan=plan, vocab=v,
+                                         pooling=pooling)
+    emb = _gather(table, ids.values, v, dedup)
+    out = bag_pool(emb, ids, pooling)
+    return _data_block(out, plan) if plan is not None else out
 
 
 def bag_lookup_dense(table: Table, ids: torch.Tensor,
                      lengths: torch.Tensor, pooling: str = "sum", *,
-                     vocab: Optional[int] = None,
+                     vocab: Optional[int] = None, plan=None,
                      dedup: Optional[bool] = None,
-                     backend: Optional[str] = None) -> torch.Tensor:
+                     backend: Optional[str] = None,
+                     out_sharded: Optional[bool] = None) -> torch.Tensor:
     """Padded-layout bag: (B, L) ids + (B,) lengths -> (B, D).
 
     Runs ``kernels/embedding_bag.embedding_bag`` (forward B5, backward B6
@@ -126,10 +194,42 @@ def bag_lookup_dense(table: Table, ids: torch.Tensor,
     (``GatheredTable.padded``). Forced dedup (arg or the "always" policy)
     gathers each distinct clipped id's row of a dense table once and pools
     that small table by the inverse ids, so it runs the same kernels.
+    Under a plan a sharded table takes ``embeddings/sharded.py``'s bag
+    (module note); ``out_sharded=True`` returns this rank's D / n_model
+    chunk when the model ranks divide D.
     """
-    v = int(vocab) if vocab is not None else int(table.shape[0])
+    v = _vocab_of(table, vocab, plan)
+    chunked = bool(out_sharded) and _chunks_d(table, plan)
+    if _plan_shards(table, v, plan):
+        from repro_torch.embeddings import sharded
+        if pooling not in ("sum", "mean"):
+            raise ValueError(f"{pooling} pooling cannot be assembled from "
+                             f"a row-sharded table's partial bags")
+        clipped = torch.clamp(ids.long(), 0, v - 1)
+        if chunked:
+            return sharded.sharded_bag_lookup_rs(
+                table, clipped, lengths, plan=plan, vocab=v, pooling=pooling)
+        return sharded.sharded_bag_lookup(table, clipped, lengths, plan=plan,
+                                          vocab=v, pooling=pooling)
     table, ids = _bag_operands(table, ids, v, dedup)
-    return embedding_bag(table, ids, lengths, pooling, backend=backend)
+    out = embedding_bag(table, ids, lengths, pooling, backend=backend)
+    return _model_chunk(out, plan) if chunked else out
+
+
+def _chunks_d(table: Table, plan) -> bool:
+    """Whether an ``out_sharded`` lookup returns D / n_model chunks."""
+    from repro_torch.distributed import spmd
+    n = spmd.model_shard_count(plan)
+    return n > 1 and int(table.shape[-1]) % n == 0
+
+
+def _model_chunk(out: torch.Tensor, plan) -> torch.Tensor:
+    """This rank's D chunk of a replicated output (backward: gather)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import spmd
+    return coll.slice_cols(out, spmd.model_group(plan),
+                           spmd.model_shard_count(plan),
+                           spmd.model_index(plan))
 
 
 def _distinct_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -240,7 +340,7 @@ class EmbeddingCollection:
         return init_tables(gen, self.cfg, dtype, scale, device)
 
     def lookup(self, tables: Dict[str, Table], feature: str, ids,
-               lengths: Optional[torch.Tensor] = None, *,
+               lengths: Optional[torch.Tensor] = None, *, plan=None,
                dedup: Optional[bool] = None) -> torch.Tensor:
         """One feature's lookup in its declared mode. ``ids`` is a
         JaggedTensor for "jagged", (B, L) [+ lengths] for "bag" / "seq",
@@ -249,25 +349,29 @@ class EmbeddingCollection:
         t = self.cfg.table(f.table)
         tbl = tables[f.table]
         if f.kind == "jagged":
-            return bag_lookup(tbl, ids, f.pooling, dedup=dedup)
+            return bag_lookup(tbl, ids, f.pooling, vocab=t.vocab, plan=plan,
+                              dedup=dedup)
         if f.kind == "bag":
             if lengths is None:
                 lengths = torch.full((ids.shape[0],), ids.shape[1],
                                      dtype=torch.int32, device=ids.device)
             return bag_lookup_dense(tbl, ids, lengths, f.pooling,
-                                    vocab=t.vocab, dedup=dedup)
+                                    vocab=t.vocab, plan=plan, dedup=dedup)
         if f.kind == "seq":
-            return seq_lookup(tbl, ids, vocab=t.vocab, dedup=dedup)
+            return seq_lookup(tbl, ids, vocab=t.vocab, plan=plan,
+                              dedup=dedup)
         if f.kind == "row":
-            return row_lookup(tbl, ids, vocab=t.vocab, dedup=dedup)
+            return row_lookup(tbl, ids, vocab=t.vocab, plan=plan,
+                              dedup=dedup)
         raise ValueError(f"unknown lookup kind {f.kind!r}")
 
     def lookup_keyed(self, tables: Dict[str, Table], kj: KeyedJagged, *,
-                     dedup: Optional[bool] = None
+                     plan=None, dedup: Optional[bool] = None
                      ) -> Dict[str, torch.Tensor]:
         """Pooled bags for every jagged feature of a KeyedJagged bundle
         that the collection routes."""
-        return {name: self.lookup(tables, name, kj[name], dedup=dedup)
+        return {name: self.lookup(tables, name, kj[name], plan=plan,
+                                  dedup=dedup)
                 for name in kj.features if name in self.features}
 
     def request_ids(self, feature_ids: Dict[str, object],

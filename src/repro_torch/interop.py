@@ -7,7 +7,9 @@ reference's params converts the leaves to numpy first (e.g.
 Incremental-serving user states (``GRUserState``: k, v, length) cross the
 same way, field by field, and so do training states ``{params, opt, step}``
 (the optimizers keep the reference's state layout). A state's ``rng`` does
-not cross: the two packages' generators differ.
+not cross: the two packages' generators differ. Under an SPMD plan
+:func:`params_onto_plan` cuts a whole tree to this rank's blocks (tables
+to their row block) and :func:`params_off_plan` gathers them back.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.models.gr import GRUserState
+from repro_torch.tree import leaves, tree_map
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
@@ -68,3 +72,21 @@ def train_state_to_numpy(state: dict) -> dict:
     """The port's ``{params, opt, step}`` -> the same tree of numpy
     arrays."""
     return {k: params_to_numpy(state[k]) for k in TRAIN_STATE_KEYS}
+
+
+def params_onto_plan(tree: Any, plan, device="cuda"):
+    """A whole tree of numpy arrays (e.g. the reference's params) or of
+    tensors -> (this rank's tree of tensors on ``device``, the tree's
+    specs under ``plan``; None without a plan). A tensor tree already on
+    ``device`` is not copied before it is cut."""
+    specs = spmd.state_shardings(tree, plan)
+    if not isinstance(leaves(tree)[0], torch.Tensor):
+        tree = params_from_numpy(tree, device)
+    return (spmd.place_state(tree_map(lambda t: t.to(device), tree), plan,
+                             specs=specs), specs)
+
+
+def params_off_plan(params: Any, specs: Any, plan) -> Any:
+    """Every rank's blocks -> the whole tree of numpy arrays (a collective
+    over ``model``: every rank of the model group calls it)."""
+    return params_to_numpy(spmd.gather_state(params, specs, plan))

@@ -14,9 +14,16 @@ spec-driven run bit-identical to its flag-driven equivalent.
 Runs on the card unless ``--device cpu`` is passed. ``--data disk`` trains
 from on-disk ROO shards in ``--shard-dir`` (built from the spec's event
 stream on the first run, reused after), through the prefetching loader,
-resuming from the cursor saved beside each checkpoint. Not ported yet, and
-refused with a message naming the slice: the LM and MACE archs (ROADMAP
-A10), ``--mesh`` and the ``--comms-*`` flags (A9).
+resuming from the cursor saved beside each checkpoint.
+
+``--mesh DATAxMODEL`` (or ``PODxDATAxMODEL``) trains hstu-gr / roo-lsr
+SPMD, one process per rank (``repro_torch.distributed``), with
+``--comms-compress`` / ``--comms-overlap`` / ``--comms-block`` for the
+exchange. On the CPU the launcher spawns the mesh's gloo ranks itself; on
+the card run one rank a card (``torchrun --nproc-per-node N``, NCCL), or
+``--mesh 1x1`` in this process: a mesh larger than the visible cards is
+refused. Not ported yet, and refused with a message naming the slice:
+the LM and MACE archs (ROADMAP A10).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch roo-lsr --steps 200
@@ -26,11 +33,17 @@ Examples:
       --steps 200 --data disk --shard-dir shards --ckpt-dir ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch dien --steps 20 \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hstu-gr \\
+      --steps 20 --mesh 2x2 --device cpu --comms-compress int8
 """
 from __future__ import annotations
 
 import argparse
+import math
+import sys
 import time
+
+import torch
 
 from repro_torch.obs.log import get_logger
 
@@ -80,12 +93,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="request-level id dedup before embedding lookups")
     ap.add_argument("--comms-compress", default=None,
                     choices=("none", "bf16", "int8"),
-                    help="sharded-embedding wire compression (not ported "
-                         "yet: ROADMAP A9)")
+                    help="wire compression for the sharded-embedding "
+                         "exchange (int8 = per-block scales + an error-"
+                         "feedback residual)")
     ap.add_argument("--comms-overlap", default=None, choices=("on", "off"),
-                    help="lookup/compute overlap (not ported yet: A9)")
+                    help="overlap the gradient reductions of grad-accum "
+                         "microbatches with the next one's compute")
     ap.add_argument("--comms-block", type=int, default=None,
-                    help="int8 scale-block width (not ported yet: A9)")
+                    help="int8 scale-block width for --comms-compress "
+                         "(default 128)")
     ap.add_argument("--data", default=None, choices=("memory", "disk"),
                     help="recsys data path: in-memory batches (default) or "
                          "the disk-backed shard pipeline with prefetch + "
@@ -109,7 +125,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--late-fraction", type=float, default=None,
                     help="fraction of conversions given a heavy-tail delay")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="SPMD over a device mesh (not ported yet: A9)")
+                    help="train SPMD over a mesh, e.g. 2x2 (or PODxDATAx"
+                         "MODEL): hstu-gr / roo-lsr. On the CPU the "
+                         "launcher spawns the gloo ranks; on the card one "
+                         "rank a card (torchrun), NCCL")
     # observability
     ap.add_argument("--obs", default=None,
                     choices=("off", "metrics", "trace"),
@@ -183,7 +202,7 @@ def main(argv=None):
         raise SystemExit(f"--arch {args.arch}: the LM and MACE archs are not "
                          f"ported yet (ROADMAP A10)")
 
-    from repro_torch.scenario.build import train_from_scenario
+    from repro_torch.scenario.build import check_mesh, train_from_scenario
     from repro_torch.scenario.spec import ScenarioValidationError
     try:
         spec = resolve_spec(args)
@@ -192,6 +211,16 @@ def main(argv=None):
             log.info("config-dumped", scenario=spec.name,
                      hash=spec.content_hash(), path=args.dump_config)
             return None
+        if spec.train.mesh:
+            check_mesh(spec)
+            if _spawns_ranks(spec.train.mesh, args.device):
+                from repro_torch.launch.hostdevices import spawn
+                from repro_torch.launch.mesh import parse_mesh_spec
+                dims, _ = parse_mesh_spec(spec.train.mesh)
+                spawn(_rank_main, math.prod(dims), backend="gloo",
+                      args=(list(argv) if argv is not None
+                            else sys.argv[1:],))
+                return None
         t0 = time.time()
         trainer, state = train_from_scenario(
             spec, ckpt_dir=args.ckpt_dir, shard_dir=args.shard_dir,
@@ -199,6 +228,9 @@ def main(argv=None):
     except ScenarioValidationError as e:
         raise SystemExit(str(e))
     dt = time.time() - t0
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return trainer, state          # rank 0 reports the run
     # history only fills every log_every steps; a short run may log none
     last = trainer.history[-1] if trainer.history else {}
     kv = {k: round(last[k], 4) for k in ("loss", "ne") if k in last}
@@ -212,6 +244,24 @@ def main(argv=None):
         n = obs_trace.get_tracer().save(args.trace_out)
         log.info("trace-saved", path=args.trace_out, events=n)
     return trainer, state
+
+
+def _spawns_ranks(mesh: str, device) -> bool:
+    """Whether this process spawns the mesh's gloo ranks itself: on the
+    CPU, when it is not a rank of a world already (torchrun's, or one it
+    spawned)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.hostdevices import TORCHRUN_VARS
+    return (torch.device(device).type == "cpu" and not dist.is_initialized()
+            and not all(v in os.environ for v in TORCHRUN_VARS))
+
+
+def _rank_main(rank: int, argv) -> None:
+    """One spawned rank: the same command, inside the world."""
+    main(argv)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,18 @@ the interaction runs B7. Sparse-row training declares each batch's ids
 per table with ``dlrm_table_ids`` (for
 ``embeddings.sparse.make_sparse_value_and_grad``): the tables of at least
 64 rows are then gathered ``GatheredTable``s, which the grouped lookup
-takes beside the dense tiny tables, still one group a side. Not ported
-yet: the sharded ``plan`` / ``out_sharded`` lookups (multi-card slice).
+takes beside the dense tiny tables, still one group a side.
+
+Under an SPMD ``plan`` (the reference's ``out_sharded=True`` route) each
+model rank works on a D / n_model slice: the tables the plan row-shards
+take the reduce-scatter bag (one collective a side for all of them), the
+replicated tables (vocab < 64 or not divisible) stay one grouped B5
+launch and the rank takes its D slice of their output, as of the bottom
+MLP's. B7 then runs on the slices: its pairs are a partial lower triangle
+of T·Tᵀ, linear in the D split, which one sum over ``model`` completes
+(the dense output itself comes from the replicated bottom MLP). When the
+model ranks do not divide D, sharded tables take the all-reduce bag and
+everything stays at full width.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.fanout import fanout
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import spmd
 from repro_torch.embeddings.collection import (EmbeddingCollection,
                                                EmbeddingCollectionConfig,
                                                FeatureSpec, TableConfig,
@@ -96,50 +108,104 @@ def dlrm_init(gen: torch.Generator, cfg: DLRMConfig, dtype=torch.float32,
     }
 
 
+def _sliced(cfg: DLRMConfig, plan) -> bool:
+    """Whether the plan puts each model rank on a D / n_model slice."""
+    n = spmd.model_shard_count(plan)
+    return n > 1 and cfg.embed_dim % n == 0
+
+
 def _field_lookup(params: Dict, ids: torch.Tensor, lengths: torch.Tensor,
-                  fields) -> torch.Tensor:
+                  fields, *, cfg: DLRMConfig = None,
+                  plan=None) -> torch.Tensor:
     """ids: (B, n_fields, multi_hot) -> (B, n_fields, D): the fields' sum
     bags as one grouped lookup of the collection (on the card one B5 launch
     forward and one B6 launch backward for all the fields, dense tables and
-    ``GatheredTable``s alike)."""
-    return bag_lookup_dense_grouped(
-        [params["tables"][f"t{i_field}"] for i_field in fields], ids,
-        lengths)
+    ``GatheredTable``s alike). Under a plan (module note; ``cfg`` names the
+    fields' vocabs) -> (B, n_fields, D / n_model) when the plan slices D."""
+    fields = list(fields)
+    tables = [params["tables"][f"t{i}"] for i in fields]
+    if plan is None or not plan.enabled:
+        return bag_lookup_dense_grouped(tables, ids, lengths)
+    from repro_torch.embeddings import sharded
+    vocabs = [cfg.padded_vocab(cfg.vocabs[i]) for i in fields]
+    shard_f = [j for j, v in enumerate(vocabs)
+               if spmd.table_is_sharded(plan, v)]
+    repl_f = [j for j in range(len(fields)) if j not in shard_f]
+    sliced = _sliced(cfg, plan)
+    parts = []
+    if shard_f:
+        sel = torch.tensor(shard_f, device=ids.device)
+        clipped = torch.stack([torch.clamp(ids[:, j].long(), 0, vocabs[j] - 1)
+                               for j in shard_f], dim=1)
+        if sliced:
+            parts.append(sharded.sharded_bags_rs(
+                [tables[j] for j in shard_f], clipped, lengths[:, sel],
+                plan=plan, vocabs=[vocabs[j] for j in shard_f]))
+        else:
+            parts.append(torch.stack([sharded.sharded_bag_lookup(
+                tables[j], clipped[:, i], lengths[:, j], plan=plan,
+                vocab=vocabs[j]) for i, j in enumerate(shard_f)], dim=1))
+    if repl_f:
+        sel = torch.tensor(repl_f, device=ids.device)
+        full = bag_lookup_dense_grouped([tables[j] for j in repl_f],
+                                        ids[:, sel], lengths[:, sel])
+        parts.append(coll.slice_cols(full, spmd.model_group(plan),
+                                     spmd.model_shard_count(plan),
+                                     spmd.model_index(plan))
+                     if sliced else full)
+    order = torch.tensor([(shard_f + repl_f).index(j)
+                          for j in range(len(fields))], device=ids.device)
+    return torch.cat(parts, dim=1).index_select(1, order)
 
 
 def dlrm_forward_from_embs(params: Dict, cfg: DLRMConfig,
                            ro_dense: torch.Tensor, ro_embs: torch.Tensor,
                            nro_embs: torch.Tensor,
-                           segment_ids: torch.Tensor) -> torch.Tensor:
+                           segment_ids: torch.Tensor,
+                           plan=None) -> torch.Tensor:
     """Interaction + MLPs given already-gathered embeddings.
 
-    ro_embs: (B_RO, n_ro_fields, D); nro_embs: (B_NRO, n_nro_fields, D).
-    Split out so a sparse-update training path can differentiate w.r.t.
-    the gathered rows instead of the full tables.
+    ro_embs: (B_RO, n_ro_fields, D); nro_embs: (B_NRO, n_nro_fields, D)
+    (D / n_model slices under a plan that slices D). Split out so a
+    sparse-update training path can differentiate w.r.t. the gathered
+    rows instead of the full tables.
     """
     dense_out = mlp_apply(params["bot_mlp"], ro_dense)            # (B_RO, D)
-    ro_pack = torch.cat([dense_out[:, None, :], ro_embs], dim=1)
-    ro_at_nro = fanout(ro_pack, segment_ids)                      # one fanout
+    if not _sliced(cfg, plan):
+        ro_pack = torch.cat([dense_out[:, None, :], ro_embs], dim=1)
+        ro_at_nro = fanout(ro_pack, segment_ids)                  # one fanout
+        sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
+        z = dot_interaction(ro_at_nro[:, 0, :], sparse)
+        return mlp_apply(params["top_mlp"], z)[:, 0]
+    n = spmd.model_shard_count(plan)
+    dense_slice = coll.slice_cols(dense_out, spmd.model_group(plan), n,
+                                  spmd.model_index(plan))
+    ro_pack = torch.cat([dense_slice[:, None, :], ro_embs], dim=1)
+    ro_at_nro = fanout(ro_pack, segment_ids)
     sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
-    z = dot_interaction(ro_at_nro[:, 0, :], sparse)
+    # B7 on the D slice: its pairs are this slice's part of T·Tᵀ
+    part = dot_interaction(ro_at_nro[:, 0, :], sparse)
+    pairs = spmd.model_sum(part[:, cfg.embed_dim // n:], plan)
+    z = torch.cat([fanout(dense_out, segment_ids), pairs], dim=1)
     return mlp_apply(params["top_mlp"], z)[:, 0]
 
 
 def dlrm_forward_roo(params: Dict, cfg: DLRMConfig, ro_dense: torch.Tensor,
                      ro_ids: torch.Tensor, ro_lengths: torch.Tensor,
                      nro_ids: torch.Tensor, nro_lengths: torch.Tensor,
-                     segment_ids: torch.Tensor) -> torch.Tensor:
+                     segment_ids: torch.Tensor, plan=None) -> torch.Tensor:
     """ROO path: user side at B_RO, fanned out once.
 
     ro_dense: (B_RO, n_dense); ro_ids: (B_RO, n_ro_fields, mh);
     nro_ids: (B_NRO, n_nro_fields, mh). Returns (B_NRO,) logits.
     """
     ro_embs = _field_lookup(params, ro_ids, ro_lengths,
-                            range(cfg.n_ro_fields))
+                            range(cfg.n_ro_fields), cfg=cfg, plan=plan)
     nro_embs = _field_lookup(params, nro_ids, nro_lengths,
-                             range(cfg.n_ro_fields, cfg.n_sparse))
+                             range(cfg.n_ro_fields, cfg.n_sparse), cfg=cfg,
+                             plan=plan)
     return dlrm_forward_from_embs(params, cfg, ro_dense, ro_embs, nro_embs,
-                                  segment_ids)
+                                  segment_ids, plan)
 
 
 def dlrm_forward_impression(params: Dict, cfg: DLRMConfig,

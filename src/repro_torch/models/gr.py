@@ -16,6 +16,15 @@ gradient comes from the backward kernels (kernels/hstu_attention_bwd.py).
 The per-user state functions (``GRUserState``, ``gr_score_from_state``,
 ``gr_extend_user_state``) serve the same ranking incrementally from a
 per-user K/V cache (forward only).
+
+Every function takes the reference's ``plan=`` (``distributed/
+sharding.py``): under an SPMD plan the item table is this rank's row
+block and its lookups run through the collection's sharded route (one
+B_RO-sized sum over ``model`` for the history), the batch is this rank's
+data block, and each loss's batch sums are summed over the batch axes
+(``spmd.data_sum``), which is what GSPMD makes of the reference's
+``jnp.sum``. The retrieval loss's in-batch candidates are the whole
+batch's: their ids are gathered over the batch axes first.
 """
 from __future__ import annotations
 
@@ -31,8 +40,10 @@ from repro_torch.core.roo_batch import ROOBatch
 from repro_torch.core.sequence import (ROOSequenceConfig, encode_roo,
                                        gather_targets_to_ro,
                                        scatter_targets_to_nro)
+from repro_torch.distributed import spmd
 from repro_torch.embeddings import collection as ec
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.train.metrics import bce_terms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,24 +71,25 @@ def gr_init(gen: torch.Generator, cfg: GRConfig, dtype=torch.float32,
     }
 
 
-def gr_history_repr(params: Dict, cfg: GRConfig,
-                    batch: ROOBatch) -> torch.Tensor:
+def gr_history_repr(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                    plan=None) -> torch.Tensor:
     """Request-only half of GR ranking: embedded (item+action) history,
     (B_RO, hist_len, d)."""
     ids = batch.history_ids[:, :cfg.hist_len]
     acts = batch.history_actions[:, :cfg.hist_len]
-    e = ec.seq_lookup(params["item_emb"], ids, vocab=cfg.n_items)
+    # item table row-sharded under a plan: one B_RO-sized sum over model
+    e = ec.seq_lookup(params["item_emb"], ids, vocab=cfg.n_items, plan=plan)
     a = ec.seq_lookup(params["act_emb"], acts, vocab=4)
     return e + a
 
 
 def gr_ranking_logits_from_history(params: Dict, cfg: GRConfig,
-                                   batch: ROOBatch,
-                                   hist: torch.Tensor) -> torch.Tensor:
+                                   batch: ROOBatch, hist: torch.Tensor,
+                                   plan=None) -> torch.Tensor:
     """GR ranking logits given a precomputed history embedding."""
     lengths = torch.clamp(batch.history_lengths, max=cfg.hist_len)
     tgt_nro = ec.row_lookup(params["item_emb"], batch.item_ids,
-                            vocab=cfg.n_items)
+                            vocab=cfg.n_items, plan=plan)
     tgt_ro = gather_targets_to_ro(tgt_nro, batch, cfg.m_targets)
     enc = encode_roo({"hstu": params["hstu"]}, cfg.seq_cfg(), hist, lengths,
                      tgt_ro, batch.num_impressions)          # (B_RO, m, d)
@@ -85,12 +97,13 @@ def gr_ranking_logits_from_history(params: Dict, cfg: GRConfig,
     return mlp_apply(params["task_head"], feats)
 
 
-def gr_ranking_logits(params: Dict, cfg: GRConfig,
-                      batch: ROOBatch) -> torch.Tensor:
+def gr_ranking_logits(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                      plan=None) -> torch.Tensor:
     """ROO ranking: encode [history | m targets] once per request;
     (B_NRO, n_tasks) logits."""
     return gr_ranking_logits_from_history(
-        params, cfg, batch, gr_history_repr(params, cfg, batch))
+        params, cfg, batch, gr_history_repr(params, cfg, batch, plan=plan),
+        plan=plan)
 
 
 class GRUserState(NamedTuple):
@@ -120,7 +133,7 @@ def gr_state_init(cfg: GRConfig, dtype=torch.float32,
 
 
 def _gr_new_event_emb(params: Dict, cfg: GRConfig, batch: ROOBatch,
-                      prefix: torch.Tensor, n_new: int
+                      prefix: torch.Tensor, n_new: int, plan=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed the n_new not-yet-cached history events of each request (row r
     of request b is history slot ``prefix[b] + r``). Returns
@@ -135,13 +148,13 @@ def _gr_new_event_emb(params: Dict, cfg: GRConfig, batch: ROOBatch,
     ridx = torch.clamp(prefix[:, None].long() + rows[None, :],
                        max=ids.shape[1] - 1)
     e = ec.seq_lookup(params["item_emb"], torch.gather(ids, 1, ridx),
-                      vocab=cfg.n_items)
+                      vocab=cfg.n_items, plan=plan)
     a = ec.seq_lookup(params["act_emb"], torch.gather(acts, 1, ridx), vocab=4)
     return e + a, new_counts
 
 
 def gr_score_from_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
-                        state: GRUserState, *, n_new: int
+                        state: GRUserState, *, n_new: int, plan=None
                         ) -> Tuple[torch.Tensor, GRUserState]:
     """Incremental GR ranking: score the request's targets by attending
     [new events | targets] against the per-user K/V cache.
@@ -154,9 +167,10 @@ def gr_score_from_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
     ``(logits (B_NRO, n_tasks), new_state)``.
     """
     prefix = state.length.to(torch.int32)
-    emb, new_counts = _gr_new_event_emb(params, cfg, batch, prefix, n_new)
+    emb, new_counts = _gr_new_event_emb(params, cfg, batch, prefix, n_new,
+                                        plan=plan)
     tgt_nro = ec.row_lookup(params["item_emb"], batch.item_ids,
-                            vocab=cfg.n_items)
+                            vocab=cfg.n_items, plan=plan)
     tgt_ro = gather_targets_to_ro(tgt_nro, batch, cfg.m_targets)
     x = torch.cat([emb, tgt_ro], dim=1)             # (B_RO, n_new + m, d)
     spec = prefix_spec(prefix, new_counts, batch.num_impressions,
@@ -170,13 +184,15 @@ def gr_score_from_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
 
 
 def gr_extend_user_state(params: Dict, cfg: GRConfig, batch: ROOBatch,
-                         state: GRUserState, *, n_new: int) -> GRUserState:
+                         state: GRUserState, *, n_new: int,
+                         plan=None) -> GRUserState:
     """Extend the per-user K/V cache with the request's new events without
     scoring any targets (prewarm / write-only traffic). The 1/n scale stays
     pinned to ``hist_len + m_targets``, so the resulting cache equals the
     one :func:`gr_score_from_state` would have produced."""
     prefix = state.length.to(torch.int32)
-    emb, new_counts = _gr_new_event_emb(params, cfg, batch, prefix, n_new)
+    emb, new_counts = _gr_new_event_emb(params, cfg, batch, prefix, n_new,
+                                        plan=plan)
     spec = prefix_spec(prefix, new_counts, torch.zeros_like(new_counts),
                        cfg.hist_len, n_new)
     scale_len = cfg.hist_len + cfg.m_targets
@@ -195,28 +211,27 @@ def gr_table_ids(cfg: GRConfig, batch: ROOBatch) -> Dict:
             "act_emb": batch.history_actions[:, :cfg.hist_len].reshape(-1)}
 
 
-def gr_ranking_loss(params: Dict, cfg: GRConfig,
-                    batch: ROOBatch) -> torch.Tensor:
+def gr_ranking_loss(params: Dict, cfg: GRConfig, batch: ROOBatch,
+                    plan=None) -> torch.Tensor:
     """Mean BCE over the real impressions and the n_tasks heads (task 0:
     label 0; task 1: label 1 > 0)."""
-    logits = gr_ranking_logits(params, cfg, batch)
+    logits = gr_ranking_logits(params, cfg, batch, plan=plan)
     labels = batch.labels
     y = torch.stack([labels[:, 0],
                      (labels[:, min(1, labels.shape[1] - 1)] > 0
                       ).to(logits.dtype)], -1)[:, :cfg.n_tasks]
     w = batch.impression_mask().to(logits.dtype)[:, None]
-    bce = torch.clamp(logits, min=0) - logits * y + \
-        torch.log1p(torch.exp(-torch.abs(logits)))
-    return torch.sum(bce * w) / torch.clamp(torch.sum(w) * cfg.n_tasks,
-                                            min=1.0)
+    bce = bce_terms(logits, y)
+    return spmd.data_sum(torch.sum(bce * w), plan) / torch.clamp(
+        spmd.data_sum(torch.sum(w), plan) * cfg.n_tasks, min=1.0)
 
 
 def gr_retrieval_loss(params: Dict, cfg: GRConfig, batch: ROOBatch,
-                      temperature: float = 0.05) -> torch.Tensor:
+                      temperature: float = 0.05, plan=None) -> torch.Tensor:
     """Autoregressive next-item prediction over the history (RO-only) plus
     in-batch candidate softmax — the GR retrieval objective. The encoder
     runs under a causal mask (n_hist == S, no target slots)."""
-    hist = gr_history_repr(params, cfg, batch)
+    hist = gr_history_repr(params, cfg, batch, plan=plan)
     lengths = torch.clamp(batch.history_lengths, max=cfg.hist_len)
     spec = causal_spec(lengths, cfg.hist_len)
     enc = hstu_apply(params["hstu"], cfg.hstu, hist, spec)   # (B_RO, n, d)
@@ -226,12 +241,15 @@ def gr_retrieval_loss(params: Dict, cfg: GRConfig, batch: ROOBatch,
     valid = (torch.arange(cfg.hist_len - 1, device=q.device)[None]
              < (lengths - 1)[:, None])
     # sampled softmax against the in-batch item candidates
-    cand = ec.row_lookup(params["item_emb"], batch.item_ids,
-                         vocab=cfg.n_items)
+    cand = ec.row_lookup(params["item_emb"],
+                         spmd.gather_batch(batch.item_ids, plan),
+                         vocab=cfg.n_items, plan=plan)
     logits = torch.einsum("bnd,cd->bnc", q, cand) / temperature
-    tgt_emb = ec.seq_lookup(params["item_emb"], nxt, vocab=cfg.n_items)
+    tgt_emb = ec.seq_lookup(params["item_emb"], nxt, vocab=cfg.n_items,
+                            plan=plan)
     pos = torch.sum(q * tgt_emb, dim=-1) / temperature      # (B_RO, n-1)
     lse = torch.logaddexp(torch.logsumexp(logits, dim=-1), pos)
     nll = lse - pos
     w = valid.to(nll.dtype)
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return spmd.data_sum(torch.sum(nll * w), plan) / torch.clamp(
+        spmd.data_sum(torch.sum(w), plan), min=1.0)

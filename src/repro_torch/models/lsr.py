@@ -19,8 +19,13 @@ item table (``collection.bag_lookup_dense``): on the card the embedding-bag
 kernel, forward B5 and backward B6. ``userarch_hstu`` and ``hstu_ranking``
 encode the history with HSTU instead (B1–B3 on the card) and never reach
 the bag kernel. Every embedding read routes through
-``embeddings/collection.py``; the sharded ``plan`` of the reference waits
-for the multi-card slice (A9).
+``embeddings/collection.py``. Under the reference's ``plan=`` (an SPMD
+``ShardingPlan``) the item and user-category tables are this rank's row
+blocks, read through the collection's sharded routes (each a B_RO-sized
+sum over ``model`` on the user side), the batch is this rank's data block,
+and the loss's batch sums are summed over the batch axes
+(``spmd.data_sum``). The impression-level forward takes no plan, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -40,9 +45,11 @@ from repro_torch.core.sequence import (ROOSequenceConfig,
                                        gather_targets_to_ro,
                                        roo_sequence_init,
                                        scatter_targets_to_nro)
+from repro_torch.distributed import spmd
 from repro_torch.embeddings import collection as ec
 from repro_torch.models.interactions import dcnv2_apply, dcnv2_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.train.metrics import bce_terms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,19 +122,21 @@ def lsr_init(gen: torch.Generator, cfg: LSRConfig, dtype=torch.float32,
 
 
 def _user_side(params: Dict, cfg: LSRConfig, batch: ROOBatch,
-               cats_override: Optional[torch.Tensor] = None) -> torch.Tensor:
+               cats_override: Optional[torch.Tensor] = None,
+               plan=None) -> torch.Tensor:
     """All RO computation -> (B_RO, user_width). Runs at B_RO under ROO."""
     dense = mlp_apply(params["dense_proj"], batch.ro_dense)          # (B_RO,d)
     if cats_override is not None:
         cats = cats_override
     elif batch.ro_sparse is not None:
         cats = ec.bag_lookup(params["user_cat_emb"],
-                             batch.ro_sparse["user_ids"], pooling="mean")
+                             batch.ro_sparse["user_ids"], pooling="mean",
+                             vocab=cfg.n_user_cats, plan=plan)
     else:
         cats = torch.zeros_like(dense)
     if cfg.mode in ("userarch_hstu", "hstu_ranking"):
         hist_emb = ec.seq_lookup(params["item_emb"], batch.history_ids,
-                                 vocab=cfg.n_items)
+                                 vocab=cfg.n_items, plan=plan)
         act = ec.seq_lookup(params["act_emb"], batch.history_actions, vocab=4)
         spec = causal_spec(batch.history_lengths, cfg.hist_len)
         enc = hstu_apply(params["hstu"], _hstu_cfg(cfg), hist_emb + act, spec)
@@ -138,7 +147,7 @@ def _user_side(params: Dict, cfg: LSRConfig, batch: ROOBatch,
     else:
         hist = ec.bag_lookup_dense(params["item_emb"], batch.history_ids,
                                    batch.history_lengths, pooling="mean",
-                                   vocab=cfg.n_items)
+                                   vocab=cfg.n_items, plan=plan)
     feats = torch.stack([dense, cats, hist], dim=1)                  # (B_RO,3,d)
     if "lce" in params:
         out = lce_apply(params["lce"], feats.transpose(1, 2))
@@ -146,35 +155,35 @@ def _user_side(params: Dict, cfg: LSRConfig, batch: ROOBatch,
     return feats.reshape(feats.shape[0], -1)
 
 
-def _item_side(params: Dict, cfg: LSRConfig,
-               batch: ROOBatch) -> torch.Tensor:
+def _item_side(params: Dict, cfg: LSRConfig, batch: ROOBatch,
+               plan=None) -> torch.Tensor:
     emb = ec.row_lookup(params["item_emb"], batch.item_ids,
-                        vocab=cfg.n_items)
+                        vocab=cfg.n_items, plan=plan)
     dense = mlp_apply(params["item_dense_proj"], batch.nro_dense)
     return torch.cat([emb, dense], dim=-1)                           # (B_NRO,2d)
 
 
-def lsr_user_repr(params: Dict, cfg: LSRConfig,
-                  batch: ROOBatch) -> torch.Tensor:
+def lsr_user_repr(params: Dict, cfg: LSRConfig, batch: ROOBatch,
+                  plan=None) -> torch.Tensor:
     """Request-only half of the LSR forward: (B_RO, user_width). Split out
     so serving can run it once per unique request and memoize the result
     across repeat candidates (serve/user_cache.py)."""
-    return _user_side(params, cfg, batch)
+    return _user_side(params, cfg, batch, plan=plan)
 
 
 def lsr_logits_from_user(params: Dict, cfg: LSRConfig, batch: ROOBatch,
-                         user: torch.Tensor) -> torch.Tensor:
+                         user: torch.Tensor, plan=None) -> torch.Tensor:
     """NRO half of the LSR forward, given a precomputed (B_RO, user_width)
     RO representation (from ``lsr_user_repr`` or a serving cache)."""
     user_at_nro = fanout(user, batch.segment_ids)
-    item = _item_side(params, cfg, batch)
+    item = _item_side(params, cfg, batch, plan=plan)
     if cfg.mode == "hstu_ranking":
         # ROO sequential targets: encode [history | m targets] once/request
         hist_emb = ec.seq_lookup(params["item_emb"], batch.history_ids,
-                                 vocab=cfg.n_items)
+                                 vocab=cfg.n_items, plan=plan)
         act = ec.seq_lookup(params["act_emb"], batch.history_actions, vocab=4)
         tgt_nro = ec.row_lookup(params["item_emb"], batch.item_ids,
-                                vocab=cfg.n_items)
+                                vocab=cfg.n_items, plan=plan)
         tgt_ro = gather_targets_to_ro(tgt_nro, batch, cfg.m_targets)
         seq_cfg = ROOSequenceConfig(_hstu_cfg(cfg), cfg.hist_len,
                                     cfg.m_targets)
@@ -187,11 +196,12 @@ def lsr_logits_from_user(params: Dict, cfg: LSRConfig, batch: ROOBatch,
     return mlp_apply(params["top_mlp"], x)
 
 
-def lsr_logits_roo(params: Dict, cfg: LSRConfig,
-                   batch: ROOBatch) -> torch.Tensor:
+def lsr_logits_roo(params: Dict, cfg: LSRConfig, batch: ROOBatch,
+                   plan=None) -> torch.Tensor:
     """(B_NRO, n_tasks) multi-task logits, ROO path."""
     return lsr_logits_from_user(params, cfg, batch,
-                                lsr_user_repr(params, cfg, batch))
+                                lsr_user_repr(params, cfg, batch, plan=plan),
+                                plan=plan)
 
 
 def lsr_logits_impression(params: Dict, cfg: LSRConfig,
@@ -248,11 +258,11 @@ def lsr_table_ids(cfg: LSRConfig, batch: ROOBatch) -> Dict[str, torch.Tensor]:
 
 
 def lsr_loss(params: Dict, cfg: LSRConfig, batch: ROOBatch,
-             roo: bool = True) -> torch.Tensor:
+             roo: bool = True, plan=None) -> torch.Tensor:
     """Mean BCE over the real impressions and the two task heads (task 0:
     label 0; task 1: label 1 > 0), on the ROO or the impression-level
     forward."""
-    logits = (lsr_logits_roo(params, cfg, batch) if roo
+    logits = (lsr_logits_roo(params, cfg, batch, plan=plan) if roo
               else lsr_logits_impression(params, cfg, batch))
     y = batch.labels[:, :cfg.n_tasks]
     if y.shape[1] < cfg.n_tasks:
@@ -261,7 +271,6 @@ def lsr_loss(params: Dict, cfg: LSRConfig, batch: ROOBatch,
     y = torch.stack([y[:, 0], (y[:, min(1, y.shape[1] - 1)] > 0).to(y.dtype)],
                     -1)
     w = batch.impression_mask().to(logits.dtype)[:, None]
-    bce = torch.clamp(logits, min=0) - logits * y + \
-        torch.log1p(torch.exp(-torch.abs(logits)))
-    return torch.sum(bce * w) / torch.clamp(torch.sum(w) * cfg.n_tasks,
-                                            min=1.0)
+    bce = bce_terms(logits, y)
+    return spmd.data_sum(torch.sum(bce * w), plan) / torch.clamp(
+        spmd.data_sum(torch.sum(w), plan) * cfg.n_tasks, min=1.0)

@@ -27,8 +27,10 @@ it is still queued on the card. Copying on the consumer's stream instead
 needs no ``record_stream`` but puts the pin and the copy's launch back on
 the training thread, which is what the loader exists to take off it. With
 ``prefetch=False`` the calling thread copies on its current stream.
-``sharding`` (the reference's SPMD placement) comes with ROADMAP A9 and is
-refused by name.
+Under an SPMD plan ``sharding`` (``spmd.make_batch_sharding_fn(plan)``)
+cuts each host batch to this rank's block (its data rows, rebased
+``segment_ids``) before the copy, so each rank's thread copies only its
+own block.
 
 Determinism / resume: shards are read in manifest order; each shard is
 packed independently by a fresh ``ROOBatcher``; so the batch stream is a
@@ -247,10 +249,6 @@ class PrefetchLoader:
                  retry_backoff_max_s: float = 2.0,
                  stall_timeout_s: Optional[float] = 300.0,
                  retry_seed: int = 0, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "PrefetchLoader(sharding=...): placing batches on a device "
-                "mesh is not ported yet (ROADMAP A9); pass device=")
         if prefetch_depth < 1:
             raise ValueError(f"prefetch_depth must be >= 1, got "
                              f"{prefetch_depth}")
@@ -259,6 +257,7 @@ class PrefetchLoader:
         self.prefetch_depth = prefetch_depth
         self.epochs = epochs          # None = cycle forever (training)
         self.device = torch.device(device)
+        self.sharding = sharding      # host batch -> this rank's block
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
         self.retry_backoff_max_s = retry_backoff_max_s
@@ -295,6 +294,8 @@ class PrefetchLoader:
         the stream is synchronized before returning; without one, on the
         calling thread's current stream."""
         with obs_trace.span("pipeline.device_put"):
+            if self.sharding is not None:
+                batch = self.sharding(batch)
             if stream is None or self.device.type != "cuda":
                 return batch.to(self.device)
             with torch.cuda.stream(stream):

@@ -33,19 +33,10 @@ from repro_torch.pipeline.prefetch import (Cursor, PrefetchLoader,
                                           ShardDataset)
 
 
-# The reference's BatcherConfig carries two fields for packing a batch
-# across data shards that the port's does not have yet (ROADMAP A9). A
-# one-card stream is their defaults, and the fingerprint hashes the
-# reference's field set with those values, so both packages give a stream
-# the same fingerprint.
-_UNSHARDED_BATCHER_FIELDS = {"n_shards": 1, "local_segment_ids": False}
-
-
 def dataset_fingerprint(dataset: ShardDataset) -> str:
     """Hash of (BatcherConfig, manifest shard index): a cursor is only
     meaningful against the exact batch stream it was saved from."""
-    cfg = {**_UNSHARDED_BATCHER_FIELDS,
-           **dataclasses.asdict(dataset.batcher_cfg)}
+    cfg = dataclasses.asdict(dataset.batcher_cfg)
     shards = [[s.filename, s.n_bytes, s.n_requests, s.n_impressions]
               for s in dataset.manifest.shards]
     blob = json.dumps([cfg, shards], sort_keys=True, default=str)
@@ -168,8 +159,8 @@ def make_data_source(shard_dir: str, batcher_cfg, cursor_dir: str,
     """Convenience: shard dir + batcher config -> ready-to-run data source.
 
     ``device`` is forwarded to PrefetchLoader, whose thread places batches
-    there (the reference's ``sharding``, an SPMD mesh placement, comes
-    with ROADMAP A9: PrefetchLoader refuses it). ``strict`` turns
+    there (``sharding=``, in ``loader_kwargs``, first cuts each to this
+    rank's block under an SPMD plan). ``strict`` turns
     corrupt-shard quarantine into a hard error; ``fingerprint`` keys the
     cursor store (scenario provenance hash) instead of the legacy dataset
     hash; remaining keyword args reach PrefetchLoader (retry/backoff/

@@ -19,12 +19,17 @@ provenance matches the spec), and streamed into the Trainer by the
 prefetching loader, which places batches on ``device`` and resumes from a
 cursor under ``<ckpt_dir or shard_dir>/cursors``.
 
-What the port cannot run yet is refused with a
-:class:`ScenarioValidationError` that names the slice bringing it, never
-ignored: ``train.mesh`` and the ``comms_*`` knobs (SPMD and the
-compressed exchange, A9), and ``train.microbatches > 1``, which no
-scenario data source feeds (the reference's would hand the accumulation
-unstacked batches).
+``train.mesh`` trains ``PLAN_ARCHS`` (hstu-gr, roo-lsr: the losses that
+route lookups through a sharding plan) SPMD, one process per rank
+(``distributed/``, ``launch/mesh.py``): the mesh comes from the world the
+process is in (the launcher spawns gloo ranks on the CPU; on the card
+NCCL, a rank a card, or a world of one), each rank trains on its data
+block of every batch (packed shard by shard, ``batcher.n_shards``) with
+its row blocks of the tables, and only rank 0 logs. Other archs, sparse
+rows under a mesh and batches the data shards do not divide are refused
+with the reference's reasons. ``train.microbatches > 1`` is refused: no
+scenario data source feeds it (the reference's would hand the
+accumulation unstacked batches).
 
 Also home of the provenance plumbing the spec hash rides:
 :func:`shard_provenance` / :func:`provenance_matches` (what a shard
@@ -45,9 +50,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import SCENARIO_ARCHS
-from repro_torch.scenario.spec import (COMMS_KNOBS, ScenarioSpec,
-                                       ScenarioValidationError)
+from repro_torch.scenario.spec import ScenarioSpec, ScenarioValidationError
 from repro_torch.serve.adapter import ServeAdapter
+
+# archs whose losses route embedding lookups through a sharding plan —
+# the only ones that may train under --mesh / train.mesh
+PLAN_ARCHS = ("roo-lsr", "hstu-gr")
 
 
 class ModelBundle(NamedTuple):
@@ -66,26 +74,15 @@ class ModelBundle(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def refuse_unported(spec: ScenarioSpec, training: bool) -> None:
-    """Raise, naming the slice, for a spec the port cannot run yet: the
-    ``comms_*`` knobs (A9) always, and for training ``train.mesh`` (A9)
-    and ``train.microbatches > 1`` (no scenario data source stacks
-    microbatches, in the reference either)."""
-    def bad(msg):
-        raise ScenarioValidationError(f"scenario {spec.name!r}: {msg}")
-
-    comms = [k for k in COMMS_KNOBS if getattr(spec.knobs, k) is not None]
-    if comms:
-        bad(f"knobs {', '.join(comms)} set: the compressed sparse-embedding "
-            f"exchange is not ported yet (ROADMAP A9)")
-    if not training:
-        return
-    if spec.train.mesh:
-        bad(f"train.mesh {spec.train.mesh!r}: SPMD training over a device "
-            f"mesh is not ported yet (ROADMAP A9)")
-    if spec.train.microbatches > 1:
-        bad(f"train.microbatches={spec.train.microbatches}: accumulation "
-            f"needs batches with a leading microbatch axis, and the memory "
-            f"and synthetic sources yield one batch a step")
+    """Raise for a spec the port cannot run: ``train.microbatches > 1``
+    (no scenario data source stacks microbatches, in the reference
+    either)."""
+    if training and spec.train.microbatches > 1:
+        raise ScenarioValidationError(
+            f"scenario {spec.name!r}: train.microbatches="
+            f"{spec.train.microbatches}: accumulation needs batches with a "
+            f"leading microbatch axis, and the memory and synthetic sources "
+            f"yield one batch a step")
 
 
 # ---------------------------------------------------------------------------
@@ -102,10 +99,10 @@ def build_stream_cfg(spec: ScenarioSpec):
         late_fraction=d.late_fraction)
 
 
-def build_batcher_cfg(spec: ScenarioSpec):
+def build_batcher_cfg(spec: ScenarioSpec, n_shards: int = 1):
     from repro_torch.data.batcher import BatcherConfig
     return BatcherConfig(b_ro=spec.batcher.b_ro, b_nro=spec.batcher.b_nro,
-                         hist_len=spec.batcher.hist_len)
+                         hist_len=spec.batcher.hist_len, n_shards=n_shards)
 
 
 def build_samples(spec: ScenarioSpec) -> List:
@@ -161,16 +158,19 @@ def ckpt_meta(spec: ScenarioSpec) -> dict:
 # Models (params + loss + sparse vag + metrics + serving halves)
 # ---------------------------------------------------------------------------
 
-def _ne_metrics(logits_fn):
+def _ne_metrics(logits_fn, plan=None):
     from repro_torch.train.metrics import make_ne_metrics
-    return make_ne_metrics(logits_fn)
+    return make_ne_metrics(logits_fn, plan)
 
 
 def build_model(spec: ScenarioSpec, gen: torch.Generator,
-                sparse: bool = False, device="cuda") -> ModelBundle:
+                sparse: bool = False, device="cuda",
+                plan=None) -> ModelBundle:
     """Params (drawn from ``gen``, placed on ``device``), loss and serving
     halves for ``spec.model``. ``loss_fn(params, batch, gen)`` takes the
-    step's generator (only BERT4Rec's cloze mask draws from it)."""
+    step's generator (only BERT4Rec's cloze mask draws from it). Under an
+    SPMD ``plan`` (``PLAN_ARCHS`` only) the loss and the NE metric route
+    through it; the params stay global (the Trainer places them)."""
     from repro_torch.configs import roo_models as rm
     from repro_torch.embeddings.sparse import make_sparse_value_and_grad
 
@@ -191,12 +191,13 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
                                             lsr_table_ids, lsr_user_repr)
         cfg = dataclasses.replace(rm.lsr_config(m.variant or "userarch_hstu"),
                                   n_items=m.n_items)
-        loss = lambda p, b, g: lsr_loss(p, cfg, b)
+        loss = lambda p, b, g: lsr_loss(p, cfg, b, plan=plan)
         return ModelBundle(
             arch, cfg, lsr_init(gen, cfg, device=device), loss,
             sparse_vag(loss, lambda b: lsr_table_ids(cfg, b)),
-            _ne_metrics(lambda p, b: (lsr_logits_roo(p, cfg, b)[:, 0],
-                                      b.labels[:, 0], b.impression_mask())),
+            _ne_metrics(lambda p, b: (
+                lsr_logits_roo(p, cfg, b, plan=plan)[:, 0], b.labels[:, 0],
+                b.impression_mask()), plan),
             ServeAdapter(
                 score=lambda p, b: lsr_logits_roo(p, cfg, b),
                 user_repr=lambda p, b: lsr_user_repr(p, cfg, b),
@@ -233,12 +234,13 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
         cfg = dataclasses.replace(
             rm.gr_config(hist_len=m.hist_len, m_targets=m.m_targets),
             n_items=m.n_items)
-        loss = lambda p, b, g: gr.gr_ranking_loss(p, cfg, b)
+        loss = lambda p, b, g: gr.gr_ranking_loss(p, cfg, b, plan=plan)
         return ModelBundle(
             arch, cfg, gr.gr_init(gen, cfg, device=device), loss,
             sparse_vag(loss, lambda b: gr.gr_table_ids(cfg, b)),
-            _ne_metrics(lambda p, b: (gr.gr_ranking_logits(p, cfg, b)[:, 0],
-                                      b.labels[:, 0], b.impression_mask())),
+            _ne_metrics(lambda p, b: (
+                gr.gr_ranking_logits(p, cfg, b, plan=plan)[:, 0],
+                b.labels[:, 0], b.impression_mask()), plan),
             ServeAdapter(
                 score=lambda p, b: gr.gr_ranking_logits(p, cfg, b),
                 user_repr=lambda p, b: gr.gr_history_repr(p, cfg, b),
@@ -411,23 +413,31 @@ def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
     package's parameters in)."""
     from repro_torch.obs.log import get_logger
     from repro_torch.reliability import faults as _faults
-    log = get_logger("scenario", enabled=prints)
-    _plan = _faults.active_plan()
-    if _plan is not None:
-        # fault injection is never silent: a chaos run announces itself
-        log.info("fault-injection-active", plan=_plan.to_env())
-
     arch, tr = spec.model.arch, spec.train
+    plan = _plan_from_spec(spec, device) if tr.mesh else None
+    if plan is not None:
+        import torch.distributed as dist
+        prints = prints and dist.get_rank() == 0   # one rank logs
+    log = get_logger("scenario", enabled=prints)
+    if plan is not None:
+        log.info("mesh", axes=plan.mesh.shape, devices=plan.mesh.size)
+    _fplan = _faults.active_plan()
+    if _fplan is not None:
+        # fault injection is never silent: a chaos run announces itself
+        log.info("fault-injection-active", plan=_fplan.to_env())
+
     if spec.data.source == "disk" and not shard_dir:
         raise ScenarioValidationError(
             "data.source='disk' needs a shard_dir (--shard-dir)")
     if bundle is None:
         bundle = build_model(spec, torch.Generator().manual_seed(rng_seed),
-                             sparse=tr.sparse_emb, device=device)
+                             sparse=tr.sparse_emb, device=device, plan=plan)
     if tr.sparse_emb and bundle.vag_fn is None:
         raise ScenarioValidationError(
             f"{arch} has no table_ids declaration; train.sparse_emb "
             f"unsupported")
+    from repro_torch.distributed.spmd import data_shard_count
+    batcher_cfg = build_batcher_cfg(spec, n_shards=data_shard_count(plan))
 
     from repro_torch.train.loop import Trainer, TrainLoopConfig
     from repro_torch.train.optim import (adam, default_is_embedding,
@@ -442,7 +452,7 @@ def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
                         halt_after_skips=tr.halt_after_skips,
                         ckpt_meta=ckpt_meta(spec)),
         lambda: bundle.params, value_and_grad_fn=bundle.vag_fn,
-        metrics_fn=bundle.metrics_fn, device=device)
+        metrics_fn=bundle.metrics_fn, device=device, plan=plan)
 
     if spec.data.source == "synthetic" or arch == "dlrm-mlperf":
         if arch != "dlrm-mlperf":
@@ -457,16 +467,68 @@ def _train_from_scenario(spec: ScenarioSpec, *, ckpt_dir, rng_seed, prints,
         batches = synthetic_dlrm_batches(spec, bundle.cfg, device=device)
         state = trainer.run(_cycling_iter_fn(batches), rng_seed)
     elif spec.data.source == "disk":
-        state = _train_disk(spec, trainer, rng_seed, shard_dir=shard_dir,
-                            ckpt_dir=ckpt_dir, device=device, log=log)
-    else:
+        state = _train_disk(spec, trainer, rng_seed, batcher_cfg, plan,
+                            shard_dir=shard_dir, ckpt_dir=ckpt_dir,
+                            device=device, log=log)
+    elif plan is None:
         from repro_torch.data.batcher import ROOBatcher
-        batches = list(ROOBatcher(build_batcher_cfg(spec), device=device)
+        batches = list(ROOBatcher(batcher_cfg, device=device)
                        .batches(build_samples(spec)))
+        state = trainer.run(_cycling_iter_fn(batches), rng_seed)
+    else:
+        # each rank packs the whole batch on the host and keeps its block
+        from repro_torch.data.batcher import ROOBatcher
+        from repro_torch.distributed.spmd import place_batch
+        batches = [place_batch(b, plan).to(device) for b in ROOBatcher(
+            batcher_cfg, device="cpu").batches(build_samples(spec))]
         state = trainer.run(_cycling_iter_fn(batches), rng_seed)
     if trainer.skipped_steps:
         log.info("steps-skipped", n=trainer.skipped_steps)
     return trainer, state
+
+
+def check_mesh(spec: ScenarioSpec) -> int:
+    """The reference's refusals of a ``train.mesh`` spec: archs outside
+    ``PLAN_ARCHS``, sparse rows, batches the data shards do not divide.
+    Returns the number of data shards."""
+    from repro_torch.launch.mesh import parse_mesh_spec
+    arch = spec.model.arch
+    if arch not in PLAN_ARCHS:
+        # only archs whose loss threads the plan into sharded lookups may
+        # run under a mesh
+        raise ScenarioValidationError(
+            f"train.mesh supports {', '.join(PLAN_ARCHS)} (their losses "
+            f"route lookups through the sharding plan); {arch} would "
+            f"train slower sharded than replicated")
+    if spec.train.sparse_emb:
+        # the GatheredTable proxy gathers rows locally, bypassing the
+        # collectives a row-sharded table needs: one regime per run
+        raise ScenarioValidationError(
+            "train.sparse_emb and train.mesh are mutually exclusive: sparse "
+            "row grads assume locally-addressable tables")
+    dims, _ = parse_mesh_spec(spec.train.mesh)
+    n_data = 1
+    for d in dims[:-1]:
+        n_data *= d
+    if spec.batcher.b_ro % n_data or spec.batcher.b_nro % n_data:
+        raise ScenarioValidationError(
+            f"batcher.b_ro/b_nro must be divisible by the mesh's "
+            f"{n_data} data shard(s)")
+    return n_data
+
+
+def _plan_from_spec(spec: ScenarioSpec, device):
+    """The SPMD plan ``train.mesh`` asks for (after :func:`check_mesh`),
+    over the world this process is in."""
+    check_mesh(spec)
+    from repro_torch.distributed.sharding import plan_for_mesh
+    from repro_torch.launch.hostdevices import default_backend
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    try:
+        mesh = make_mesh_from_spec(spec.train.mesh, default_backend(device))
+    except RuntimeError as e:
+        raise ScenarioValidationError(str(e)) from None
+    return plan_for_mesh(mesh)
 
 
 def _cycling_iter_fn(batches):
@@ -519,22 +581,35 @@ def build_shards(spec: ScenarioSpec, shard_dir: str, log=None):
     return manifest
 
 
-def _train_disk(spec, trainer, rng_seed, *, shard_dir, ckpt_dir, device,
-                log):
+def _train_disk(spec, trainer, rng_seed, batcher_cfg, plan, *, shard_dir,
+                ckpt_dir, device, log):
     """Disk pipeline: (re)build shards, wire cursor resume, run. The
-    loader's threads are joined before this returns, also on an error."""
+    loader's threads are joined before this returns, also on an error.
+    Under a plan rank 0 builds the shards (the others wait at a barrier),
+    each rank's loader thread cuts its block off every batch, and rank 0
+    alone writes the cursors."""
+    from repro_torch.distributed.spmd import make_batch_sharding_fn
     from repro_torch.pipeline import make_data_source
-    manifest = build_shards(spec, shard_dir, log)
+    rank0 = True
+    if plan is not None:
+        import torch.distributed as dist
+        rank0 = dist.get_rank() == 0
+        if rank0:
+            build_shards(spec, shard_dir, log)
+        dist.barrier()
+    manifest = build_shards(spec, shard_dir, log if rank0 else None)
     cursor_dir = os.path.join(ckpt_dir or shard_dir, "cursors")
-    source = make_data_source(shard_dir, build_batcher_cfg(spec), cursor_dir,
+    source = make_data_source(shard_dir, batcher_cfg, cursor_dir,
                               prefetch=spec.data.prefetch, device=device,
                               strict=spec.data.strict_shards,
-                              fingerprint=cursor_fingerprint(spec, manifest))
+                              fingerprint=cursor_fingerprint(spec, manifest),
+                              sharding=make_batch_sharding_fn(plan))
     with source:                       # join producer threads on exit
         state = trainer.run(source.batch_iter_fn, rng_seed,
-                            on_checkpoint=source.on_checkpoint)
+                            on_checkpoint=(source.on_checkpoint if rank0
+                                           else None))
     ds_stats = source.loader.dataset.stats
-    if ds_stats.shards_quarantined:
+    if rank0 and ds_stats.shards_quarantined:
         log.info("shards-quarantined", n=ds_stats.shards_quarantined,
                  files=ds_stats.quarantined_files)
     return state

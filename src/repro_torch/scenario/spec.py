@@ -18,8 +18,8 @@ loads in the other. What differs is what the values are checked against:
     ``emb_backend``: ``cuda | torch``), so a spec that pins a reference-only
     backend such as ``pallas`` is rejected, naming the port's choices;
   * the ``comms_*`` knobs validate against the reference's choices, copied
-    here; the port cannot run them yet (ROADMAP A9, ``scenario/build.py``
-    says so), and ``apply()`` installs none of them;
+    here (so a bare spec round-trip stays standard library only), and
+    ``apply()`` installs them on ``distributed/comms.py``'s knobs;
   * ``faults`` parses with the port's ``reliability.faults``, ``obs.mode``
     against the port's ``obs`` modes.
 
@@ -154,12 +154,12 @@ class ObsSpec:
     verbosity: Optional[int] = None     # 0=errors 1=progress 2=debug
 
 
-# the comms group's choices, copied from the reference's comms knobs
-# (repro/distributed/comms.py); the port has no comms layer yet (A9)
+# the comms group's choices (distributed/comms.py), copied so validate()
+# imports nothing
 COMMS_COMPRESS_MODES = ("none", "bf16", "int8")
 COMMS_OVERLAP_MODES = ("on", "off")
-# the knobs apply() installs on the port's ladder, and the comms group,
-# which it cannot install (scenario/build.py refuses a spec that sets it)
+# the backend knobs apply() installs on the port's ladder, and the comms
+# group it installs on distributed/comms.py's knobs
 LADDER_KNOBS = ("attn_backend", "emb_backend", "emb_dedup")
 COMMS_KNOBS = ("comms_compress", "comms_overlap", "comms_block")
 
@@ -437,14 +437,13 @@ class ScenarioSpec:
 
     # -- runtime knob installation ---------------------------------------------
     def apply(self) -> "ScenarioSpec":
-        """Install the spec's backend knobs as the process defaults on the
-        port's ladder (spec beats env, per-call args beat the spec), the
-        fault plan when one is named, and the obs mode and verbosity.
-        The ``comms_*`` knobs are not installed: the port has no comms
-        layer yet, and ``scenario/build.py`` refuses a spec that sets
-        them. Returns self."""
-        if any(getattr(self.knobs, k) is not None for k in LADDER_KNOBS):
-            for kname, knob in _ladder_knobs().items():
+        """Install the spec's backend and comms knobs as the process
+        defaults on the port's ladder (spec beats env, per-call args beat
+        the spec), the fault plan when one is named, and the obs mode and
+        verbosity. Returns self."""
+        if any(getattr(self.knobs, k) is not None
+               for k in LADDER_KNOBS + COMMS_KNOBS):
+            for kname, knob in _ladder_knobs(comms=True).items():
                 val = getattr(self.knobs, kname)
                 if val is not None:
                     knob.set_default(val)
@@ -460,13 +459,19 @@ class ScenarioSpec:
         return self
 
 
-def _ladder_knobs() -> Dict[str, Any]:
-    """The port's backend knobs by spec field name (imports the modules
-    that register them)."""
+def _ladder_knobs(comms: bool = False) -> Dict[str, Any]:
+    """The port's backend knobs by spec field name, and with ``comms`` the
+    comms group's (imports the modules that register them)."""
     from repro_torch.embeddings.collection import DEDUP_KNOB
     from repro_torch.kernels.dispatch import ATTN_KNOB, EMB_KNOB
-    return {"attn_backend": ATTN_KNOB, "emb_backend": EMB_KNOB,
-            "emb_dedup": DEDUP_KNOB}
+    knobs = {"attn_backend": ATTN_KNOB, "emb_backend": EMB_KNOB,
+             "emb_dedup": DEDUP_KNOB}
+    if comms:
+        from repro_torch.distributed import comms as _comms
+        knobs.update(comms_compress=_comms.COMPRESS_KNOB,
+                     comms_overlap=_comms.OVERLAP_KNOB,
+                     comms_block=_comms.BLOCK_KNOB)
+    return knobs
 
 
 def parse_set_args(pairs) -> Dict[str, str]:

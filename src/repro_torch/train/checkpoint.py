@@ -17,9 +17,22 @@ the tree's shape goes to ``structure.json``. Restore returns CPU tensors.
 The ``ckpt.write`` fault site mirrors the reference's: ``torn`` stops the
 writer between the payload and the commit (the ``.tmp`` dir stays, no
 ``meta.json``), ``corrupt`` flips a byte of the committed ``arrays.npz``
-so that only digest verification catches it. Not ported yet: the
-sharded-leaf manifest and elastic reshard (they come with multi-card
-training).
+so that only digest verification catches it.
+
+**Sharded states** (``save(..., plan=, specs=)`` under an SPMD plan). The
+ranks of the first data block gather each row-sharded leaf's blocks over
+``model``, and rank 0 writes the reference's sharded layout: a leaf with a
+spec gets a ``sharding.json`` entry (global shape, dtype, spec, shards)
+and one ``a{i}.s{k}`` array a row block (a leaf held whole: one shard of
+the whole extent), the rest ``a{i}``; ``treedef.pkl`` holds the tree as
+the reference's ``jax`` (0.9) pickles a ``PyTreeDef``, written opcode by
+opcode here without importing it. So the reference's
+``CheckpointManager.restore()`` reassembles a port checkpoint on one
+device. ``restore`` reassembles the global tree; ``saved_specs`` reads
+the specs back; ``restore_sharded(plan)`` cuts each leaf whose saved spec
+splits rows over ``model`` to this rank's block of the (possibly other)
+mesh (a leaf the new mesh does not divide stays whole);
+``restore_resharded(specs, plan)`` cuts by an explicit spec tree.
 """
 from __future__ import annotations
 
@@ -37,6 +50,14 @@ import torch
 
 from repro_torch.reliability import faults
 from repro_torch.tree import leaves, unflatten
+
+# pickle opcodes of protocol 4 (``pickletools``), for treedef.pkl
+_PROTO, _STOP, _MARK, _NONE = b"\x80\x04", b".", b"(", b"N"
+_TUPLE, _TUPLE2, _EMPTY_TUPLE = b"t", b"\x86", b")"
+_EMPTY_LIST, _APPENDS = b"]", b"e"
+_STACK_GLOBAL, _NEWOBJ, _BUILD = b"\x93", b"\x81", b"b"
+# the reference's PyTreeDef node kinds
+_LEAF, _NONE_NODE, _TUPLE_NODE, _LIST_NODE, _DICT_NODE = 0, 1, 2, 4, 5
 
 
 class CheckpointCorruptionError(ValueError):
@@ -65,6 +86,100 @@ def _from_skeleton(sk: Any) -> Any:
     return None
 
 
+def _pkl_str(text: str) -> bytes:
+    raw = text.encode("utf-8")
+    if len(raw) < 256:
+        return b"\x8c" + bytes([len(raw)]) + raw       # SHORT_BINUNICODE
+    return b"X" + len(raw).to_bytes(4, "little") + raw  # BINUNICODE
+
+
+def _pkl_int(v: int) -> bytes:
+    if 0 <= v < 256:
+        return b"K" + bytes([v])                        # BININT1
+    return b"J" + int(v).to_bytes(4, "little", signed=True)   # BININT
+
+
+def _treedef_nodes(tree: Any, out: list) -> tuple:
+    """Post-order node records of ``tree`` as the reference's PyTreeDef
+    state holds them: (kind, arity, node data, None, leaves, nodes)."""
+    if tree is None:
+        out.append((_NONE_NODE, 0, None, 0, 1))
+        return 0, 1
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        kids = [tree[k] for k in keys]
+        kind, data = _DICT_NODE, keys
+    elif isinstance(tree, (list, tuple)):
+        kids = list(tree)
+        kind = _LIST_NODE if isinstance(tree, list) else _TUPLE_NODE
+        data = None
+    else:
+        out.append((_LEAF, 0, None, 1, 1))
+        return 1, 1
+    n_leaves, n_nodes = 0, 1
+    for child in kids:
+        nl, nn = _treedef_nodes(child, out)
+        n_leaves += nl
+        n_nodes += nn
+    out.append((kind, len(kids), data, n_leaves, n_nodes))
+    return n_leaves, n_nodes
+
+
+def jax_treedef_pickle(tree: Any) -> bytes:
+    """The bytes ``pickle.dumps(jax.tree_util.tree_structure(tree))``
+    unpickles from under the reference's jax, for a tree of dicts (str
+    keys), lists, tuples, None and leaves."""
+    nodes: list = []
+    _treedef_nodes(tree, nodes)
+    body = b""
+    for kind, arity, data, n_leaves, n_nodes in nodes:
+        if data is None:
+            data_b = _NONE
+        else:
+            data_b = _EMPTY_LIST + (_MARK + b"".join(map(_pkl_str, data))
+                                    + _APPENDS if data else b"")
+        body += (_MARK + _pkl_int(kind) + _pkl_int(arity) + data_b + _NONE
+                 + _pkl_int(n_leaves) + _pkl_int(n_nodes) + _TUPLE)
+    return (_PROTO + _pkl_str("jaxlib._jax.pytree") + _pkl_str("PyTreeDef")
+            + _STACK_GLOBAL + _EMPTY_TUPLE + _NEWOBJ
+            + _pkl_str("jax._src.tree_util") + _pkl_str("default_registry")
+            + _STACK_GLOBAL + _EMPTY_LIST + _MARK + body + _APPENDS
+            + _TUPLE2 + _BUILD + _STOP)
+
+
+def _spec_to_json(spec) -> Optional[list]:
+    """A spec tuple -> JSON ([axis | [axes...] | null, ...])."""
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _host(x) -> np.ndarray:
+    return (x.detach().to("cpu").numpy().copy()
+            if isinstance(x, torch.Tensor) else np.asarray(x))
+
+
+def _sharded_payload(flat: list, spec_leaves: list, n_model: int):
+    """(arrays, manifest) of the reference's sharded layout for global
+    leaves and their specs (module note)."""
+    host: Dict[str, np.ndarray] = {}
+    manifest: Dict[str, dict] = {}
+    for i, (x, spec) in enumerate(zip(flat, spec_leaves)):
+        arr = _host(x)
+        if not any(e is not None for e in spec):
+            host[f"a{i}"] = arr
+            continue
+        blocks = n_model if spec[0] == "model" else 1
+        rows = arr.shape[0] // blocks
+        shards = []
+        for k in range(blocks):
+            key = f"a{i}.s{k}"
+            host[key] = arr[k * rows:(k + 1) * rows]
+            shards.append({"key": key, "index": [[k * rows, (k + 1) * rows]]
+                           + [[0, d] for d in arr.shape[1:]]})
+        manifest[str(i)] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
+                            "spec": _spec_to_json(spec), "shards": shards}
+    return host, manifest
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3,
                  meta: Optional[Dict[str, Any]] = None):
@@ -89,13 +204,30 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:012d}")
 
-    def save(self, step: int, state: Any, blocking: bool = True) -> None:
-        # snapshot to host memory synchronously, write async
-        flat = leaves(state)
-        host = {f"a{i}": (x.detach().to("cpu").numpy().copy()
-                          if isinstance(x, torch.Tensor) else np.asarray(x))
-                for i, x in enumerate(flat)}
+    def save(self, step: int, state: Any, blocking: bool = True,
+             plan=None, specs: Any = None) -> None:
+        """Snapshot ``state`` to host memory synchronously and write it
+        (async unless ``blocking``). Under an enabled ``plan`` every rank
+        calls it with its part and the state's ``specs``; rank 0 writes."""
+        sharded_manifest: Dict[str, dict] = {}
+        if plan is not None and plan.enabled:
+            import torch.distributed as dist
+
+            from repro_torch.distributed import spmd
+            if spmd.data_index(plan) != 0:
+                return
+            state = spmd.gather_state(state, specs, plan)
+            if dist.get_rank() != 0:
+                return
+            flat = leaves(state)
+            host, sharded_manifest = _sharded_payload(
+                flat, leaves(specs, is_leaf=spmd.is_spec),
+                spmd.model_shard_count(plan))
+        else:
+            flat = leaves(state)
+            host = {f"a{i}": _host(x) for i, x in enumerate(flat)}
         structure = json.dumps(_skeleton(state)).encode("utf-8")
+        treedef = jax_treedef_pickle(state) if sharded_manifest else None
 
         def _write():
             tmp = self._path(step) + ".tmp"
@@ -111,6 +243,10 @@ class CheckpointManager:
             np.savez(buf, **host)
             put("arrays.npz", buf.getvalue())
             put("structure.json", structure)
+            if sharded_manifest:
+                put("treedef.pkl", treedef)
+                put("sharding.json",
+                    json.dumps(sharded_manifest).encode("utf-8"))
             spec = faults.fire("ckpt.write")
             if spec is not None and spec.kind == "torn":
                 # simulated kill between payload write and commit: the
@@ -119,7 +255,10 @@ class CheckpointManager:
                 return
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump({**self.meta, "step": step, "ts": time.time(),
-                           "n_arrays": len(flat), "digests": digests}, f)
+                           "n_arrays": len(flat),
+                           **({"n_sharded": len(sharded_manifest)}
+                              if sharded_manifest else {}),
+                           "digests": digests}, f)
             final = self._path(step)
             if os.path.exists(final):
                 shutil.rmtree(final)
@@ -210,7 +349,61 @@ class CheckpointManager:
         path = self._path(step)
         with open(os.path.join(path, "structure.json")) as f:
             like = _from_skeleton(json.load(f))
+        manifest = self._load_manifest(path)
+        n = len(leaves(like))
+        flat = []
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            flat = [torch.from_numpy(np.array(data[f"a{i}"]))
-                    for i in range(len(data.files))]
+            for i in range(n):
+                entry = manifest.get(str(i))
+                if entry is None:
+                    flat.append(torch.from_numpy(np.array(data[f"a{i}"])))
+                    continue
+                out = np.empty(tuple(entry["shape"]),
+                               dtype=np.dtype(entry["dtype"]))
+                for sh in entry["shards"]:
+                    out[tuple(slice(a, b) for a, b in sh["index"])] = \
+                        data[sh["key"]]
+                flat.append(torch.from_numpy(out))
         return unflatten(like, flat)
+
+    def _load_manifest(self, path: str) -> Dict[str, dict]:
+        mpath = os.path.join(path, "sharding.json")
+        if not os.path.exists(mpath):
+            return {}
+        with open(mpath) as f:
+            return json.load(f)
+
+    def saved_specs(self, step: Optional[int] = None) -> Dict[int, list]:
+        """leaf index -> JSON spec for the leaves a sharded save recorded
+        a spec for."""
+        step = step if step is not None else self.latest_valid_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+        manifest = self._load_manifest(self._path(step))
+        return {int(i): e["spec"] for i, e in manifest.items()}
+
+    def restore_sharded(self, plan, step: Optional[int] = None) -> Any:
+        """Restore onto ``plan``'s mesh (possibly of another shape than
+        the one saved from): each leaf whose saved spec splits its rows
+        over ``model`` is cut to this rank's block when the new model
+        ranks divide it, every other leaf whole."""
+        from repro_torch.distributed import spmd
+        state = self.restore(step)
+        specs = self.saved_specs(step)
+        n = spmd.model_shard_count(plan)
+        flat = leaves(state)
+        cut = []
+        for i, x in enumerate(flat):
+            spec = tuple(specs.get(i) or ())
+            if spec and spec[0] == "model" and x.shape[0] % n == 0:
+                cut.append(spmd.local_block(x, spec, plan))
+            else:
+                cut.append(x)
+        return unflatten(state, cut)
+
+    def restore_resharded(self, specs: Any, plan,
+                          step: Optional[int] = None) -> Any:
+        """Restore, then cut by an explicit spec tree congruent with the
+        saved state (``spmd.state_shardings`` of it, say)."""
+        from repro_torch.distributed import spmd
+        return spmd.place_state(self.restore(step), plan, specs=specs)

@@ -40,8 +40,26 @@ reference's functional update leaves the caller's tree as it was, so two
 
 The port's generators are not JAX's PRNG, so a loss that draws random
 numbers gives other draws than the reference; everything else follows the
-reference step for step. Not ported yet: the compressed gradient exchange
-and the SPMD plan (comms, A9).
+reference step for step.
+
+SPMD (``plan=``, ``distributed/``): one process per rank. The Trainer
+places its state with ``spmd.place_state`` (each table, its row-wise
+accumulator and its ``comms_ef`` residual as this rank's row block; dense
+leaves whole) and builds the step with the state's specs. The batch
+iterator yields this rank's block (``spmd.place_batch``, or the loader's
+``sharding=``). The loss sums its batch reductions over the batch axes
+(so each rank's loss is the global one and its gradient its own block's
+part); after backward the step sums every gradient over the batch axes in
+one flat all-reduce, and the grad norm adds the row-sharded leaves'
+squares over ``model`` once, so the non-finite guard is the same on
+every rank. With ``comms_compress`` on and a ``state["comms_ef"]`` the
+table gradients go through error feedback (``comms.ef_compress_step``)
+before the optimizer, with or without a plan (the reference's
+single-process simulation of the exchange); ``comms_overlap=on`` with
+microbatches issues each microbatch's reduction asynchronously and waits
+once before the optimizer. Checkpoints under a plan gather the row blocks
+over ``model`` and rank 0 writes the reference's sharded layout
+(``train/checkpoint.py``).
 
 Observability and faults mirror the reference: the Trainer registers its
 ``snapshot`` as ``train``; in ``trace`` mode each step is a ``train.step``
@@ -62,6 +80,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import comms as _comms
 from repro_torch.embeddings.sparse import (concat_sparse, is_sparse,
                                            merge_sparse, split_sparse,
                                            sq_sum)
@@ -130,7 +149,8 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
                     microbatches: int = 1,
-                    value_and_grad_fn: Optional[Callable] = None):
+                    value_and_grad_fn: Optional[Callable] = None,
+                    plan=None, state_shardings=None):
     """Returns ``step(state, batch, base_seed, step) -> (state, metrics)``.
 
     With microbatches > 1, every tensor leaf of ``batch`` has a leading
@@ -141,24 +161,62 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     batch, gen) -> (loss, grads)`` replaces ``value_and_grad(loss_fn)``.
     Metrics stay on the device: ``loss``, ``grad_norm`` and ``skipped``
     (int32 0/1).
+
+    With an enabled ``plan`` and the state's spec tree
+    (``spmd.state_shardings`` of the global state) the step runs SPMD
+    (module note). The comms knobs resolve here, at construction.
     """
     vag = value_and_grad_fn or value_and_grad(loss_fn)
+    comms_mode = _comms.compress_mode()
+    comms_block = _comms.block_size()
+    overlap = _comms.overlap_enabled() and microbatches > 1
+    _comms.STATS.record_overlap(microbatches, overlap)
+    spmd_on = plan is not None and plan.enabled
+    if spmd_on:
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed import spmd
+        if state_shardings is None:
+            raise ValueError("make_train_step(plan=...) needs the state's "
+                             "specs (spmd.state_shardings)")
+        rows_mask = [spmd.rows_sharded(sp, plan) for sp in leaves(
+            state_shardings["params"], is_leaf=spmd.is_spec)]
+        groups = spmd.batch_groups(plan)
+
+        def reduce_grads(g, async_op=False):
+            flat = leaves(g, is_leaf=is_sparse)
+            if any(map(is_sparse, flat)):
+                raise ValueError("sparse row gradients and an SPMD plan "
+                                 "are mutually exclusive")
+            out = coll.all_reduce_flat(flat, groups, async_op=async_op)
+            if async_op:
+                return lambda: unflatten(g, out())
+            return unflatten(g, out)
 
     def step(state, batch, base: int, step_idx: int):
         params = state["params"]
         device = leaves(params)[0].device
         if microbatches > 1:
-            acc, losses, sparse_parts = None, [], []
+            acc, losses, sparse_parts, pending = None, [], [], []
             for i in range(microbatches):
                 mb = tree_map(lambda x, i=i: x[i], batch)
                 loss_i, g = vag(params, mb, step_generator(
                     base, step_idx, i, device=device))
                 dense_g, sparse_g = split_sparse(g)
                 dense_g = tree_map(lambda x: x.float(), dense_g)
-                acc = dense_g if acc is None else tree_map(torch.add, acc,
-                                                           dense_g)
+                if spmd_on and overlap:
+                    # this microbatch's reduction runs while the next
+                    # one's forward and backward are issued
+                    pending.append(reduce_grads(dense_g, async_op=True))
+                else:
+                    acc = dense_g if acc is None else tree_map(
+                        torch.add, acc, dense_g)
                 sparse_parts.append(sparse_g)
                 losses.append(loss_i)
+            for finish in pending:
+                done = finish()
+                acc = done if acc is None else tree_map(torch.add, acc, done)
+            if spmd_on and not overlap:
+                acc = reduce_grads(acc)
             grads = merge_sparse(tree_map(lambda g: g / microbatches, acc),
                                  concat_sparse(sparse_parts,
                                                1.0 / microbatches))
@@ -166,9 +224,28 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
         else:
             loss, grads = vag(params, batch, step_generator(
                 base, step_idx, device=device))
+            if spmd_on:
+                grads = reduce_grads(grads)
+
+        # compressed gradient exchange with error feedback: send q(g + e),
+        # carry e' = (g + e) - q(g + e) beside the optimizer state
+        new_ef = None
+        if comms_mode != "none" and "comms_ef" in state:
+            grads, new_ef = _comms.ef_compress_step(
+                grads, state["comms_ef"], comms_mode, comms_block)
 
         g_leaves = leaves(grads, is_leaf=is_sparse)
-        gnorm = torch.sqrt(sum(sq_sum(g) for g in g_leaves) + 1e-20)
+        if spmd_on:
+            # the row-sharded leaves' squares summed over model, once
+            dense_sq = sum(sq_sum(g) for g, r in zip(g_leaves, rows_mask)
+                           if not r)
+            rows_sq = sum(sq_sum(g) for g, r in zip(g_leaves, rows_mask)
+                          if r)
+            gnorm = torch.sqrt(dense_sq + spmd.model_sum(
+                torch.as_tensor(rows_sq, device=device, dtype=torch.float32),
+                plan) + 1e-20)
+        else:
+            gnorm = torch.sqrt(sum(sq_sum(g) for g in g_leaves) + 1e-20)
         # non-finite guard: a NaN/Inf loss or gradient must not poison the
         # parameters — keep the old params/opt for this step (the step
         # counter still advances so data alignment is unchanged) and
@@ -186,6 +263,10 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
                      "params": tree_map(keep, new_params, params),
                      "opt": tree_map(keep, new_opt, state["opt"]),
                      "step": state["step"] + 1}
+        if new_ef is not None:
+            # the residual reverts with params on a skipped step
+            new_state["comms_ef"] = tree_map(keep, new_ef,
+                                             state["comms_ef"])
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "skipped": (~ok).to(torch.int32)}
 
@@ -196,17 +277,24 @@ class Trainer:
     def __init__(self, loss_fn: Callable, opt: Optimizer,
                  cfg: TrainLoopConfig, init_params_fn: Callable[[], Any], *,
                  value_and_grad_fn: Optional[Callable] = None,
-                 metrics_fn: Optional[Callable] = None, device="cuda"):
+                 metrics_fn: Optional[Callable] = None, device="cuda",
+                 plan=None):
+        self.loss_fn = loss_fn
         self.opt = opt
         self.cfg = cfg
         self.init_params_fn = init_params_fn
         self.device = torch.device(device)
+        self.plan = plan
+        self.value_and_grad_fn = value_and_grad_fn
         # extra metrics (e.g. NE) run only at logging steps, without
         # autograd — a quality metric read 1-in-log_every times must not
         # cost a second model forward on every step
         self.metrics_fn = metrics_fn
-        self.step_fn = make_train_step(loss_fn, opt, cfg.microbatches,
-                                       value_and_grad_fn)
+        self._spmd = plan is not None and plan.enabled
+        self._specs = None       # the state's spec tree, under a plan
+        # under a plan the step needs the state's specs: built in run()
+        self.step_fn = (None if self._spmd else make_train_step(
+            loss_fn, opt, cfg.microbatches, value_and_grad_fn))
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, cfg.keep_last,
                                        meta=cfg.ckpt_meta)
                      if cfg.ckpt_dir else None)
@@ -233,10 +321,43 @@ class Trainer:
         sparse step's in-place row writes never reach the caller's tree."""
         params = tree_map(lambda t: t.to(self.device, copy=True),
                           self.init_params_fn())
-        return {"params": params, "opt": self.opt.init(params),
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.device),
-                "rng": torch.tensor(int(seed), dtype=torch.int64)}
+        state = {"params": params, "opt": self.opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=self.device),
+                 "rng": torch.tensor(int(seed), dtype=torch.int64)}
+        self._ensure_comms_ef(state)
+        return state
+
+    def _ensure_comms_ef(self, state: Dict) -> None:
+        """Back-fill the error-feedback residual when the compressed
+        exchange is on and the (global) state has none yet."""
+        if _comms.compress_mode() == "none" or "comms_ef" in state:
+            return
+        ef = _comms.ef_init(state["params"], self.plan)
+        if ef:
+            state["comms_ef"] = ef
+
+    def _prepare(self, state: Dict) -> Dict:
+        """Under a plan: this rank's part of the global state, and the
+        SPMD step built with the state's specs."""
+        if not self._spmd:
+            return state
+        from repro_torch.distributed import spmd
+        self._specs = spmd.state_shardings(state, self.plan)
+        state = spmd.place_state(state, self.plan, specs=self._specs)
+        self.step_fn = make_train_step(
+            self.loss_fn, self.opt, self.cfg.microbatches,
+            self.value_and_grad_fn, plan=self.plan,
+            state_shardings=self._specs)
+        return state
+
+    def gather_state(self, state: Dict) -> Dict:
+        """The global state from every rank's part (collective over
+        ``model``; the state itself without a plan)."""
+        if not self._spmd:
+            return state
+        from repro_torch.distributed import spmd
+        return spmd.gather_state(state, self._specs, self.plan)
 
     def run(self, batch_iter_fn: Callable[[int], Iterator], seed: int = 0,
             stop_after: Optional[int] = None,
@@ -255,8 +376,10 @@ class Trainer:
             rng = restored.pop("rng", torch.tensor(int(seed),
                                                    dtype=torch.int64))
             state = {**self._to_device(restored), "rng": rng}
+            self._ensure_comms_ef(state)
         if state is None:
             state = self.init_state(seed)
+        state = self._prepare(state)
         base = int(state["rng"])      # the checkpointed base seed wins
         it = batch_iter_fn(start)
         t0 = time.monotonic()
@@ -292,7 +415,8 @@ class Trainer:
                 if (self.ckpt is not None
                         and (step + 1) % self.cfg.ckpt_every == 0):
                     with obs_trace.span("train.checkpoint", step=step + 1):
-                        self.ckpt.save(step + 1, state, blocking=False)
+                        self.ckpt.save(step + 1, state, blocking=False,
+                                       plan=self.plan, specs=self._specs)
                         if on_checkpoint is not None:
                             on_checkpoint(step + 1)
                 if stop_after is not None and (step + 1 - start) >= stop_after:

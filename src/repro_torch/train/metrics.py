@@ -12,12 +12,23 @@ from typing import Optional
 import torch
 
 
+def bce_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE from logits in the stable form
+    ``max(x, 0) - x y + log1p(exp(-|x|))``, with the reference's
+    subgradients at x = 0 (where a zero-init head sits on padding rows):
+    JAX's ``maximum`` splits the tie (``torch.maximum`` does too) and its
+    ``abs`` takes +1 there (``torch.abs`` takes 0)."""
+    zero = torch.zeros_like(logits)
+    abs_x = torch.where(logits >= 0, logits, -logits)
+    return torch.maximum(logits, zero) - logits * labels + \
+        torch.log1p(torch.exp(-abs_x))
+
+
 def bce(logits: torch.Tensor, labels: torch.Tensor,
         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Binary cross-entropy from logits, in the stable form; weighted mean
+    """Binary cross-entropy from logits (:func:`bce_terms`); weighted mean
     when ``weights`` is given."""
-    loss = torch.clamp(logits, min=0) - logits * labels + \
-        torch.log1p(torch.exp(-torch.abs(logits)))
+    loss = bce_terms(logits, labels)
     if weights is None:
         return torch.mean(loss)
     return torch.sum(loss * weights) / torch.clamp(torch.sum(weights),
@@ -25,31 +36,37 @@ def bce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def normalized_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """NE = CE(model) / CE(base rate)."""
+                       weights: Optional[torch.Tensor] = None,
+                       plan=None) -> torch.Tensor:
+    """NE = CE(model) / CE(base rate). Under an SPMD ``plan`` the inputs
+    are this rank's batch block and every sum is summed over the batch
+    axes (``spmd.data_sum``)."""
+    from repro_torch.distributed.spmd import data_sum
     weights = (torch.ones_like(labels) if weights is None
                else weights.to(labels.dtype))
-    ce = bce(logits, labels, weights)
-    p = torch.sum(labels * weights) / torch.clamp(torch.sum(weights), min=1.0)
+    loss = bce_terms(logits, labels)
+    w_sum = torch.clamp(data_sum(torch.sum(weights), plan), min=1.0)
+    ce = data_sum(torch.sum(loss * weights), plan) / w_sum
+    p = data_sum(torch.sum(labels * weights), plan) / w_sum
     p = torch.clamp(p, 1e-6, 1 - 1e-6)
     ce_base = -(p * torch.log(p) + (1 - p) * torch.log(1 - p))
     return ce / ce_base
 
 
-def make_ne_metrics(logits_labels_fn):
+def make_ne_metrics(logits_labels_fn, plan=None):
     """Build a Trainer ``metrics_fn`` surfacing NE in the logged metrics.
 
     ``logits_labels_fn(params, batch) -> (logits, labels[, weights])``
     extracts the primary-task head from the model; the returned callable
     plugs into ``Trainer(metrics_fn=...)``, so every logged history row
-    carries the paper's quality metric beside the loss.
+    carries the paper's quality metric beside the loss (over the whole
+    batch under an SPMD ``plan``).
     """
     def metrics_fn(params, batch, rng):
         out = logits_labels_fn(params, batch)
         logits, labels = out[0], out[1]
         weights = out[2] if len(out) > 2 else None
-        return {"ne": normalized_entropy(logits, labels, weights)}
+        return {"ne": normalized_entropy(logits, labels, weights, plan)}
     return metrics_fn
 
 

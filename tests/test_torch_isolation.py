@@ -47,7 +47,11 @@ def test_port_has_modules():
             "obs/__init__.py", "reliability/faults.py",
             "core/joiner.py", "data/storage.py", "pipeline/__init__.py",
             "pipeline/shards.py", "pipeline/joiner.py",
-            "pipeline/prefetch.py", "pipeline/resume.py"} <= names
+            "pipeline/prefetch.py", "pipeline/resume.py",
+            "distributed/sharding.py", "distributed/spmd.py",
+            "distributed/comms.py", "distributed/collectives.py",
+            "embeddings/sharded.py", "launch/mesh.py",
+            "launch/hostdevices.py", "train/compression.py"} <= names
 
 
 @pytest.mark.parametrize(

@@ -79,8 +79,9 @@ def test_obs_trace_and_export(tmp_path, capsys):
 @pytest.mark.parametrize("argv,slice_", [
     (["--arch", "starcoder2-15b"], "A10"),
     (["--arch", "mace"], "A10"),
-    (["--arch", "roo-lsr", "--mesh", "2x4"], "A9"),
-    (["--arch", "roo-lsr", "--comms-compress", "int8"], "A9")])
+    (["--arch", "dien", "--mesh", "2x2"], "train.mesh supports"),
+    (["--arch", "roo-lsr", "--mesh", "2x2", "--sparse-emb",
+      "--comms-compress", "int8"], "mutually exclusive")])
 def test_unported_flags_name_their_slice(argv, slice_):
     with pytest.raises(SystemExit, match=slice_):
         main(argv + ["--device", "cpu"])

@@ -237,9 +237,13 @@ def test_resume_from_a_cursor_in_the_middle(dirs):
 def test_loader_places_batches_on_its_device(dirs):
     with loader(dirs[0], False, epochs=1) as ld:
         assert ld.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        pipeline.PrefetchLoader(pipeline.ShardDataset(dirs[0], bcfg()),
-                                sharding=object())
+    # sharding= (an SPMD plan's cut) runs on the host batch before the copy
+    with pipeline.PrefetchLoader(
+            pipeline.ShardDataset(dirs[0], bcfg()), prefetch=False, epochs=1,
+            device="cpu", sharding=lambda b: dataclasses.replace(
+                b, labels=b.labels[:0])) as ld:
+        batch, _ = next(ld.batches())
+        assert batch.labels.shape[0] == 0 and batch.item_ids.shape[0] > 0
     cuda = pipeline.PrefetchLoader(pipeline.ShardDataset(dirs[0], bcfg()),
                                    prefetch=False, epochs=1)
     assert cuda.device == torch.device("cuda")   # the card by default
@@ -276,7 +280,8 @@ def test_cursor_store_save_load_prune(tmp_path):
     assert store.steps() == jstore.steps() == [30, 40]
 
 
-@pytest.mark.parametrize("kw", [{}, {"b_nro": 64}, {"hist_len": 32}])
+@pytest.mark.parametrize("kw", [{}, {"b_nro": 64}, {"hist_len": 32},
+                                {"n_shards": 2}])
 def test_dataset_fingerprint_equals_the_reference(dirs, kw):
     port, ref = dirs
     ours = resume.dataset_fingerprint(
@@ -284,8 +289,7 @@ def test_dataset_fingerprint_equals_the_reference(dirs, kw):
     theirs = jax_resume.dataset_fingerprint(
         jax_pipeline.ShardDataset(ref, jax_bcfg(**kw)))
     assert ours == theirs
-    assert set(resume._UNSHARDED_BATCHER_FIELDS) | {
-        f.name for f in dataclasses.fields(batcher.BatcherConfig)} == \
+    assert {f.name for f in dataclasses.fields(batcher.BatcherConfig)} == \
         {f.name for f in dataclasses.fields(jax_batcher.BatcherConfig)}
 
 
