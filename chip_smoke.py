@@ -255,6 +255,35 @@ Phases (any failure exits non-zero and prints no result):
                    turns, the pipeline's span times, queue depth and peak
                    memory; the stream's ROO and impression-level bytes
 
+ 20. spmd        — training over a mesh (``phase_spmd``): hstu-gr under a
+                   1x1 NCCL mesh bit for bit the run without one, two gloo
+                   ranks sharing the card, dlrm scoring under a 1x2 plan
+                   and B7 on one rank's D slice
+ 21. lm / mace   — the LM family at full width, cut in depth
+                   (phi3-medium-14b 2 of 40 layers at batch 1 x 4,096,
+                   granite-moe-3b-a800m 4 of 32 at 2 x 4,096): 5 training
+                   steps twice from one init tree, bit for bit, and with
+                   full_attn_max_seq = q_chunk = 1,024 (each step's loss vs
+                   the unchunked loss on the same params, rtol 1e-5);
+                   steps/s, tokens/s, peak memory, the model-FLOP share of
+                   the dense bf16 peak; decode: prefill 4 x 1,024 into
+                   s_max 1,152, 64 serve_steps, the first 4 steps' logits
+                   vs the full forward (f32 compute: max within 1e-3 of
+                   the logits' rms of the forward over the cache's bf16
+                   K/V; bf16: mean within 2e-2 of it, printed for the
+                   MoE, whose routing jumps); MACE at mace_cells'
+                   molecule shape (128 graphs of 30 nodes / 64 edges,
+                   channels 128): 10 steps twice bit for bit, the energy
+                   under a rotation + translation (2e-4), vs the CPU
+                   (1e-4), hoist_gathers on vs off (1e-5); the five LM
+                   archs' and MACE's smoke configs 10 steps through the
+                   launcher on the card and in process against the CPU
+                   per step (2e-2 bf16, 1e-4 MACE); none of these launches
+                   B1-B7. ``kernels/ops.py``: use_pallas "always" / "auto"
+                   vs "never" for B1 (serving shape), B5 (a dlrm scoring
+                   field) and B7 (dlrm scoring), one launch a call, with
+                   times
+
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
 order (atol = rtol = 1e-5 on attention outputs and on dq, dk, dv; 1e-4 on
@@ -265,6 +294,9 @@ grouped B5 bit for bit against its F = 1 launches and, for sum and mean,
 against fp32 adds in slot order (the kernel adds in that order).
 Dot interaction: atol 1e-4, rtol 1e-5 at std-1 inputs (sums of up to 256
 O(1) products, summed in another order); DLRM logits 1e-4; losses 1e-5.
+The LM computes in bf16 as the reference does; cuBLAS's reduced-precision
+bf16 reductions are off, so bf16 products are summed in f32 as the
+reference's dots sum them.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -3926,16 +3958,31 @@ def busy_share(fn) -> dict:
     wall = timed()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_wall = timed()
-    dev_s = 1e-6 * sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + 1e-6 * e.time_range.elapsed_us())
+    dev_s = sum(by_name.values())
     return dict(busy=dev_s / wall if dev_s > 0 else None, device_s=dev_s,
-                wall_s=wall, profiled_wall_s=profiled_wall)
+                wall_s=wall, profiled_wall_s=profiled_wall,
+                top=sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
-def busy_text(b: dict) -> str:
+def top_text(b: dict, n: int = 6) -> str:
+    """The trace's ``n`` largest device activities by summed time, each
+    with its share of the traced device time."""
+    if not b["device_s"]:
+        return "no device time in the trace"
+    return "; ".join(f"{name[:60]} {1e3 * t:.1f} ms "
+                     f"({100 * t / b['device_s']:.1f} %)"
+                     for name, t in b["top"][:n])
+
+
+def busy_text(b: dict, what: str = "a 10-step run") -> str:
     if b["busy"] is None:
         return "card busy not measured (no device time in the trace)"
-    return (f"card busy {100 * b['busy']:.1f} % of a 10-step run: device "
+    return (f"card busy {100 * b['busy']:.1f} % of {what}: device "
             f"{b['device_s'] * 1e3:.1f} ms (traced, card only) over "
             f"{b['wall_s'] * 1e3:.1f} ms unprofiled wall "
             f"({b['profiled_wall_s'] * 1e3:.1f} ms wall while traced)")
@@ -5558,6 +5605,593 @@ def phase_spmd(mods, device, card: str) -> dict:
                 dlrm_b7=ranks[0]["dlrm"]["counts"]["b7"])
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the LM and MACE families, and kernels/ops.py
+# ---------------------------------------------------------------------------
+
+LM_RUNS = (("phi3-medium-14b", 2, 1),          # (arch, layers kept, batch)
+           ("granite-moe-3b-a800m", 4, 2))
+LM_SEQ = 4096                 # lm_cells' train_4k sequence
+LM_STEPS = 5
+LM_CHUNK = 1024               # the "flash" option: full_attn_max_seq = q_chunk
+DECODE = (4, 1024, 1152, 64)  # batch, prompt, s_max, decode steps
+DECODE_CHECKED = 4            # steps held against the full forward
+LM_BF16_TOL = 2e-2            # bf16 compute: the reference's bf16 tolerance
+DECODE_F32_TOL = 1e-3         # decode vs its full forward at f32 compute,
+                              # x the logits' rms (other GEMM shapes: ~1e-4)
+CHUNK_RTOL = 1e-5             # chunked vs unchunked loss on the same params
+BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16, published
+MACE_MOLECULE = (128, 30, 64, 16)   # mace_cells' molecule: graphs, nodes and
+                                    # edges a graph, d_feat
+MACE_STEPS = 10
+MACE_CPU_TOL = 1e-4           # card vs CPU forward, f32
+MACE_HOIST_TOL = 1e-5         # hoist_gathers on vs off
+MACE_INVARIANCE_TOL = 2e-4    # the reference's bound (test_models_smoke.py)
+SMOKE_STEPS = 10
+SMOKE_ARCHS = ("starcoder2-15b", "deepseek-coder-33b", "phi3-medium-14b",
+               "qwen3-moe-235b-a22b", "granite-moe-3b-a800m", "mace")
+OPS_CALLS = 4                 # "always" calls a route in the counted drive
+
+
+def gib(n_bytes) -> str:
+    return f"{n_bytes / 2 ** 30:.2f} GiB"
+
+
+def detached(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach(), tree)
+
+
+def no_launches(mods, what: str) -> None:
+    counts = all_counts(mods)
+    if any(counts.values()):
+        raise SystemExit(f"{what} launched a kernel of B1-B7: {counts}")
+
+
+def timed_trainer_run(loss, lr, params, batches, steps, device,
+                      log_every=1) -> dict:
+    """One Trainer run of ``steps`` from (a copy of) ``params`` over the
+    list ``batches``: its logged losses, final params, wall seconds (the
+    card synchronized at both ends) and the card's peak memory."""
+    import torch
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+    from repro_torch.train.optim import adam
+    trainer = Trainer(loss, adam(lr), TrainLoopConfig(
+        total_steps=steps, log_every=log_every), lambda: params,
+        device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.run(lambda start: iter(batches[start:]), 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(losses=[row["loss"] for row in trainer.history],
+                params=state["params"], wall=wall,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def same_params(a, b) -> bool:
+    """Every leaf of ``a`` equal to ``b``'s bit for bit (``b``'s moved to
+    ``a``'s device)."""
+    import torch
+    from repro_torch.tree import leaves
+    return all(torch.equal(x, y.to(x.device))
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def lm_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one training step: 6 · n_active_params · tokens, plus
+    the attention's two products, 2 · 2 · S² · H · dh a sequence and layer
+    forward over the whole S × S the reference computes, x3 with the
+    backward. Recomputation under checkpointing is not counted."""
+    return (6.0 * cfg.n_active_params() * b * s
+            + 12.0 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.d_head)
+
+
+def cached_forward_logits(params, cfg, toks, prompt: int):
+    """The logits at the last position of ``toks`` as ``prefill`` over the
+    first ``prompt`` tokens and ``serve_step`` over the rest compute them,
+    in one forward: the prompt's rows attend over K and V as computed (the
+    prefill's full forward), the later rows over K and V rounded to bf16
+    (what they read from the cache). Whatever the compute dtype, the
+    function decode computes; at bf16 the plain full forward."""
+    import torch
+    from repro_torch.embeddings.sparse import gather_rows
+    from repro_torch.models.lm import transformer as lm
+    b, s = toks.shape
+    x = gather_rows(params["embed"], toks).to(cfg.cdtype)
+    pos = torch.arange(s, dtype=torch.int32, device=toks.device)[None]
+    pos = pos.expand(b, s)
+    for lyr in lm.layer_params(params, cfg.cdtype):
+        q, k, v = lm._qkv(lm._rmsnorm(x, lyr["attn_norm"]), lyr, cfg, pos)
+        kr, vr = (t.to(torch.bfloat16).to(cfg.cdtype) for t in (k, v))
+        attn = torch.cat([
+            lm._attention(q[:, :prompt], k[:, :prompt], v[:, :prompt],
+                          pos[:, :prompt], pos[:, :prompt], cfg),
+            lm._attention(q[:, prompt:], kr, vr, pos[:, prompt:], pos,
+                          cfg)], dim=1)
+        x = lm._ffn(x + attn.reshape(b, s, -1) @ lyr["wo"], lyr, cfg)
+    hidden = lm._rmsnorm(x[:, -1:], params["final_norm"])
+    return lm.lm_logits(params, cfg, hidden)[:, 0]
+
+
+def lm_decode(params, cfg, device, card: str, tag: str) -> dict:
+    """``prefill`` DECODE's batch x prompt into s_max, then its steps of
+    ``serve_step``, timed. Then, at a capacity that drops no token (an MoE
+    step of B tokens has another capacity than a forward over B x S), the
+    first DECODE_CHECKED steps' logits against a forward over the extended
+    sequence's last position: at f32 compute against
+    ``cached_forward_logits`` (the same function with the cache's bf16
+    K/V), max |diff| within DECODE_F32_TOL of the logits' rms; and at the
+    published bf16 compute against ``lm_forward`` + ``lm_logits``, the
+    mean |diff| within LM_BF16_TOL of the logits' rms. The two runs sum in
+    other orders: cuBLAS takes other kernels for 4 rows than for 4,100, so
+    the f32 run parts by ~1e-4 of the rms at its worst logit, and in bf16
+    a one-ulp difference spreads through the next GEMMs' roundings, so
+    single logits part by up to ~3 % of their rms, as two bf16 runs of the
+    full forward in other GEMM shapes would. An MoE's bf16 run is printed, not gated: there such a
+    difference also routes a near-tied token to another expert, a jump
+    (granite: mean |diff| 2.2 % of the rms, max 0.30, by step 4), as the
+    reference's jitted and op-by-op bf16 runs route otherwise on the CPU;
+    its f32 run, where ties that close do not occur, is gated."""
+    import dataclasses
+    import torch
+    from repro_torch.models.lm.decode import prefill, serve_step
+    from repro_torch.models.lm.transformer import lm_forward, lm_logits
+    b, prompt, s_max, steps = DECODE
+    gen = torch.Generator(device=device).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (b, prompt + steps), generator=gen,
+                         device=device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, toks[:, :prompt], s_max=s_max)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = serve_step(params, cfg, cache,
+                                       toks[:, prompt + i:prompt + i + 1])
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        if int(cache["pos"]) != prompt + steps or not bool(
+                torch.isfinite(logits).all()):
+            raise SystemExit(f"{tag} decode: pos {int(cache['pos'])} or "
+                             f"non-finite logits")
+        cache_bytes = sum(cache[n].numel() * cache[n].element_size()
+                          for n in ("k", "v"))
+        del cache, logits
+        ccfg = cfg
+        if cfg.moe is not None:
+            ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe,
+                capacity_factor=cfg.moe.n_experts_padded / cfg.moe.top_k))
+        errs = {}
+        for cdt in ("float32", "bfloat16"):
+            c = dataclasses.replace(ccfg, compute_dtype=cdt)
+            logits, cache = prefill(params, c, toks[:, :prompt],
+                                    s_max=s_max)
+            for i in range(DECODE_CHECKED):
+                pos = prompt + i
+                logits, cache = serve_step(params, c, cache,
+                                           toks[:, pos:pos + 1])
+                if cdt == "float32":
+                    want = cached_forward_logits(params, c,
+                                                 toks[:, :pos + 1], prompt)
+                else:
+                    want = lm_logits(params, c, lm_forward(
+                        params, c, toks[:, :pos + 1]))[:, -1]
+                d = (logits - want).abs()
+                rms = want.pow(2).mean().sqrt()
+                if cdt == "float32":
+                    ok = bool(d.max() <= DECODE_F32_TOL * rms)
+                else:       # an MoE's bf16 run: printed (docstring)
+                    ok = cfg.moe is not None or bool(
+                        d.mean() <= LM_BF16_TOL * rms)
+                errs.setdefault(cdt, []).append(
+                    (float(d.max()), float(d.mean()),
+                     float(want.pow(2).mean().sqrt())))
+                if not ok:
+                    raise SystemExit(f"{tag} decode ({cdt}): step {i + 1}'s "
+                                     f"logits off the full forward's: "
+                                     f"{errs[cdt][-1]}")
+            del cache, logits
+    rate = b * steps / t_decode
+
+    def fmt(rows):
+        return ", ".join(f"{mx:.3e} / {mean:.3e}" for mx, mean, _ in rows)
+    print(f"[lm decode] {tag} {card}: prefill {b} x {prompt} into s_max "
+          f"{s_max} {t_prefill * 1e3:.1f} ms, then {steps} serve_steps "
+          f"{t_decode * 1e3:.1f} ms: {rate:.1f} decode tokens/s; the bf16 "
+          f"cache {cache_bytes} B. The first {DECODE_CHECKED} steps' logits "
+          f"against a forward, max / mean |diff| a step: f32 compute vs "
+          f"the forward over the cache's bf16 K/V {fmt(errs['float32'])} "
+          f"(max within {DECODE_F32_TOL} x the logits' rms); bf16 compute "
+          f"vs lm_forward + "
+          f"lm_logits {fmt(errs['bfloat16'])} ("
+          + ("printed: MoE routing" if cfg.moe is not None else
+             f"mean within {LM_BF16_TOL} x the logits' rms")
+          + f", {errs['bfloat16'][0][2]:.3f})"
+          + ("" if cfg.moe is None else
+             f"; checked at capacity_factor {ccfg.moe.capacity_factor} (no "
+             f"token dropped), timed at {cfg.moe.capacity_factor}"))
+    return dict(tokens_per_s=rate, cache_bytes=cache_bytes, errs=errs)
+
+
+def phase_lm(mods, device, card: str) -> dict:
+    """The LM family at full width, cut in depth (LM_RUNS): LM_STEPS
+    training steps at the train_4k sequence through the port's Trainer and
+    adam, twice from one init tree (bit for bit), and once more with
+    full_attn_max_seq = q_chunk = LM_CHUNK (each step's loss against the
+    unchunked loss on the same params within CHUNK_RTOL); steps/s,
+    tokens/s, peak memory and the model-FLOP rate; then decode
+    (``lm_decode``). None of B1-B7 launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.lm.transformer import lm_init, lm_loss
+    from repro_torch.tree import leaves, tree_map
+    out = {}
+    for arch, layers, b in LM_RUNS:
+        reset_counts(mods)
+        full_cfg = get_arch(arch).CONFIG
+        cfg = dataclasses.replace(full_cfg, n_layers=layers)
+        chunked = dataclasses.replace(cfg, full_attn_max_seq=LM_CHUNK,
+                                      q_chunk=LM_CHUNK)
+        params = lm_init(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        print(f"[lm] {arch} reduced: {layers} of {full_cfg.n_layers} layers "
+              f"(every width the published config's: d {cfg.d_model}, "
+              f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_head "
+              f"{cfg.d_head}, d_ff {cfg.d_ff}"
+              + (f", {cfg.moe.n_experts} experts padded to "
+                 f"{cfg.moe.n_experts_padded}, top-{cfg.moe.top_k}, "
+                 f"d_ff_expert {cfg.moe.d_ff_expert}" if cfg.moe else "")
+              + f", vocab {cfg.vocab}); {cfg.n_params():,} params "
+              f"({cfg.n_active_params():,} active a token), {n_bytes:,} B "
+              f"allocated ({cfg.param_dtype}); batch {b} x {LM_SEQ}, "
+              f"{LM_STEPS} steps; random weights from seed 0")
+        gen = torch.Generator(device=device).manual_seed(1)
+        batches = [{"tokens": torch.randint(0, cfg.vocab, (b, LM_SEQ),
+                                            generator=gen, device=device)}
+                   for _ in range(LM_STEPS)]
+
+        def loss_of(c, shadow=None):
+            def loss(p, batch, g):
+                if shadow is not None:
+                    with torch.no_grad():
+                        shadow[1].append(float(lm_loss(
+                            detached(p), shadow[0], batch["tokens"],
+                            batch["tokens"])))
+                return lm_loss(p, c, batch["tokens"], batch["tokens"])
+            return loss
+        first = timed_trainer_run(loss_of(cfg), 3e-4, params, batches,
+                                  LM_STEPS, device)
+        # the first run's params wait on the host for the second's
+        first_params = tree_map(lambda t: t.cpu(), first.pop("params"))
+        second = timed_trainer_run(loss_of(cfg), 3e-4, params, batches,
+                                   LM_STEPS, device)
+        bitwise = (first["losses"] == second["losses"]
+                   and same_params(first_params, second.pop("params")))
+        del first_params
+        shadows = []
+        chunk = timed_trainer_run(loss_of(chunked, (cfg, shadows)), 3e-4,
+                                  params, batches, LM_STEPS, device)
+        chunk.pop("params")
+        torch.cuda.empty_cache()
+        losses = torch.tensor(first["losses"], dtype=torch.float64)
+        rel = [abs(a - s) / abs(s) for a, s in zip(chunk["losses"],
+                                                   shadows)]
+        drift = [abs(a - s) / abs(s) for a, s in zip(chunk["losses"],
+                                                     first["losses"])]
+        print(f"[lm] {arch} {card}: losses {first['losses']} (second run "
+              f"{second['losses']}); bit for bit (losses and every param) "
+              f"{bitwise}; q-chunked ({LM_CHUNK}) per-step loss vs the "
+              f"unchunked loss on the same params, relative "
+              f"{[float(f'{r:.3e}') for r in rel]} (bound {CHUNK_RTOL}); "
+              f"free-running chunked vs unchunked relative "
+              f"{[float(f'{r:.3e}') for r in drift]}")
+        if not bool(torch.isfinite(losses).all()) or not bitwise:
+            raise SystemExit(f"lm {arch}: non-finite losses or a second run "
+                             f"that is not bit for bit")
+        if max(rel) > CHUNK_RTOL or drift[0] > CHUNK_RTOL:
+            raise SystemExit(f"lm {arch}: the q-chunked loss is off the "
+                             f"unchunked one by {max(rel):.3e} (relative)")
+        prof = busy_share(lambda: timed_trainer_run(
+            loss_of(cfg), 3e-4, params, batches[:2], 2, device))
+        print(f"[lm] {arch} {card}: {busy_text(prof, 'a 2-step run')}; "
+              f"device time by kernel: {top_text(prof)}")
+        steps_per_s = LM_STEPS / second["wall"]
+        flops = lm_flops(cfg, b, LM_SEQ)
+        share = flops * steps_per_s / BF16_FLOP_PER_S
+        print(f"[lm] {arch} {card}: {steps_per_s:.3f} steps/s "
+              f"({second['wall']:.3f} s for {LM_STEPS} steps; the first "
+              f"run {first['wall']:.3f} s), {steps_per_s * b * LM_SEQ:.1f} "
+              f"tokens/s, peak memory {gib(second['peak'])}; model FLOPs "
+              f"{flops:.4e} a step (6 x {cfg.n_active_params():,} x "
+              f"{b * LM_SEQ} + attention): {flops * steps_per_s / 1e12:.2f} "
+              f"TFLOP/s, {100 * share:.2f} % of the card's dense bf16 peak "
+              f"(989 TFLOP/s)")
+        no_launches(mods, f"lm {arch} training")
+        dec = lm_decode(params, cfg, device, card, arch)
+        no_launches(mods, f"lm {arch} decode")
+        del params, batches
+        torch.cuda.empty_cache()
+        out[arch] = dict(steps_per_s=steps_per_s, busy=prof["busy"],
+                         tokens_per_s=steps_per_s * b * LM_SEQ,
+                         peak=second["peak"], mfu=share,
+                         decode_tokens_per_s=dec["tokens_per_s"])
+    return out
+
+
+def molecule_batch(device, seed=5):
+    """mace_cells' molecule shape: MACE_MOLECULE's graphs of 30 nodes and
+    64 edges (both ends in the graph) as one block-diagonal batch,
+    positions ~ N(0, 1.5²) a coordinate, features and energy targets
+    ~ N(0, 1), from numpy."""
+    import numpy as np
+    import torch
+    graphs, per, edges, d_feat = MACE_MOLECULE
+    rng = np.random.default_rng(seed)
+    n, e = graphs * per, graphs * edges
+    base = np.repeat(np.arange(graphs) * per, edges)
+    edge_index = np.stack([rng.integers(0, per, e) + base,
+                           rng.integers(0, per, e) + base], axis=1)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return dict(
+        node_feat=t(rng.normal(size=(n, d_feat)).astype(np.float32)),
+        positions=t((1.5 * rng.normal(size=(n, 3))).astype(np.float32)),
+        edge_index=t(edge_index.astype(np.int32)),
+        edge_mask=torch.ones((e,), dtype=torch.bool, device=device),
+        graph_ids=t(np.repeat(np.arange(graphs), per).astype(np.int32)),
+        targets=t(rng.normal(size=(graphs,)).astype(np.float32)))
+
+
+def phase_mace(mods, device, card: str) -> dict:
+    """MACE (the published config: channels 128, l_max 2, correlation 3)
+    at mace_cells' molecule shape: MACE_STEPS dense training steps twice
+    from one init tree (bit for bit), the energy under a random rotation
+    plus a translation, the card's forward against the CPU's on the same
+    params, ``hoist_gathers`` on against off; steps/s and peak memory. None
+    of B1-B7 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models.gnn.irreps import random_rotation
+    from repro_torch.models.gnn.mace import (MACEConfig, mace_forward,
+                                             mace_init)
+    from repro_torch.tree import tree_map
+    reset_counts(mods)
+    graphs, per, edges, d_feat = MACE_MOLECULE
+    cfg = MACEConfig(n_feat_in=d_feat, n_out=1)
+    params = mace_init(torch.Generator(device=device).manual_seed(3), cfg,
+                       device=device)
+    batch = molecule_batch(device)
+
+    def forward(p, b, **kw):
+        b = {k: v for k, v in b.items() if k != "targets"}
+        return mace_forward(p, cfg, **b, n_graphs=graphs, **kw)
+
+    def loss(p, b, g):
+        return torch.mean((forward(p, b)["energy"][:, 0] - b["targets"])
+                          ** 2)
+    runs = [timed_trainer_run(loss, 1e-3, params, [batch] * MACE_STEPS,
+                              MACE_STEPS, device) for _ in range(2)]
+    prof = busy_share(lambda: timed_trainer_run(
+        loss, 1e-3, params, [batch] * MACE_STEPS, MACE_STEPS, device))
+    bitwise = (runs[0]["losses"] == runs[1]["losses"]
+               and same_params(runs[0]["params"], runs[1]["params"]))
+    with torch.no_grad():
+        out = forward(params, batch)
+        hoisted = forward(params, batch, hoist_gathers=True)
+        rot = torch.from_numpy(random_rotation(11).astype(np.float32)).to(
+            device)
+        moved = dict(batch, positions=batch["positions"] @ rot.T
+                     + torch.tensor([2.0, -1.0, 0.5], device=device))
+        turned = forward(params, moved)
+        cpu = forward(tree_map(lambda t: t.cpu(), params),
+                      tree_map(lambda t: t.cpu(), batch))
+    errs = {"invariance": float((turned["energy"] - out["energy"]).abs()
+                                .max()),
+            "cpu": float((cpu["energy"] - out["energy"].cpu()).abs().max()),
+            "hoist": float((hoisted["energy"] - out["energy"]).abs().max())}
+    steps_per_s = MACE_STEPS / runs[1]["wall"]
+    print(f"[mace] {card}: molecule shape ({graphs} graphs x {per} nodes / "
+          f"{edges} edges, d_feat {d_feat}; channels {cfg.channels}, l_max "
+          f"{cfg.l_max}, correlation {cfg.correlation}, {cfg.n_layers} "
+          f"layers: nothing cut); losses {runs[0]['losses']} (second run "
+          f"bit for bit: {bitwise}); energy max|diff| under rotation + "
+          f"translation {errs['invariance']:.3e} (bound "
+          f"{MACE_INVARIANCE_TOL}), card vs CPU {errs['cpu']:.3e} (bound "
+          f"{MACE_CPU_TOL}), hoist_gathers on vs off {errs['hoist']:.3e} "
+          f"(bound {MACE_HOIST_TOL}); {steps_per_s:.2f} steps/s "
+          f"({runs[1]['wall']:.3f} s for {MACE_STEPS}; first run "
+          f"{runs[0]['wall']:.3f} s), peak memory {gib(runs[1]['peak'])}; "
+          f"{busy_text(prof)}; device time by kernel: {top_text(prof)}")
+    finite = all(np.isfinite(r["losses"]).all() for r in runs)
+    if not (finite and bitwise):
+        raise SystemExit("mace: non-finite losses or a second run that is "
+                         "not bit for bit")
+    if not (torch.allclose(turned["energy"], out["energy"],
+                           atol=MACE_INVARIANCE_TOL,
+                           rtol=MACE_INVARIANCE_TOL)
+            and torch.allclose(cpu["energy"], out["energy"].cpu(),
+                               atol=MACE_CPU_TOL, rtol=MACE_CPU_TOL)
+            and torch.allclose(hoisted["energy"], out["energy"],
+                               atol=MACE_HOIST_TOL, rtol=MACE_HOIST_TOL)):
+        raise SystemExit(f"mace: a check failed: {errs}")
+    no_launches(mods, "mace")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(steps_per_s=steps_per_s, errs=errs, busy=prof["busy"])
+
+
+def phase_lm_smoke(mods, device, card: str) -> None:
+    """The five LM archs' and MACE's smoke configs: SMOKE_STEPS steps
+    through ``python -m repro_torch.launch.train --arch X`` on the card
+    (its default device; the six processes started together), each ending
+    with its done line on cuda; in this process meanwhile the launcher's
+    same runs (``launch.train.lm_smoke`` / ``mace_smoke``) with each step's
+    loss held against the CPU's on the same params and batch (atol = rtol
+    LM_BF16_TOL for the bf16 LMs, MACE_CPU_TOL for MACE's f32)."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.train import lm_smoke, mace_smoke
+    from repro_torch.tree import tree_map
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    kind = torch.device(device).type
+    tmp = Path(tempfile.mkdtemp(prefix="lm_smoke_", dir=str(build_dir())))
+    procs = {}
+    try:
+        for arch in SMOKE_ARCHS:       # on the card: the default device
+            procs[arch] = launcher(
+                ["--arch", arch, "--steps", str(SMOKE_STEPS)]
+                + ([] if kind == "cuda" else ["--device", kind]), env,
+                tmp / f"{arch}.log")
+        reset_counts(mods)
+        for arch in SMOKE_ARCHS:
+            make = (lambda d: mace_smoke(d)) if arch == "mace" else (
+                lambda d, a=arch: lm_smoke(a, d))
+            run, cpu = make(device), make("cpu")
+            shadows = []
+
+            def loss(p, b, g, run=run, cpu=cpu, shadows=shadows):
+                with torch.no_grad():
+                    shadows.append(float(cpu["loss"](
+                        tree_map(lambda t: t.detach().cpu(), p),
+                        tree_map(lambda t: t.cpu(), b), None)))
+                return run["loss"](p, b, g)
+            batches = list(itertools.islice(run["batches"](0),
+                                            SMOKE_STEPS))
+            res = timed_trainer_run(loss, run["lr"], run["params"], batches,
+                                    SMOKE_STEPS, device)
+            tol = MACE_CPU_TOL if arch == "mace" else LM_BF16_TOL
+            diff = [abs(a - s) for a, s in zip(res["losses"], shadows)]
+            print(f"[lm smoke] {arch} {card}: {SMOKE_STEPS} steps, card "
+                  f"losses {[float(f'{x:.5g}') for x in res['losses']]}; "
+                  f"each vs the CPU's on the same params max|diff| "
+                  f"{max(diff):.3e} (atol = rtol {tol})")
+            if not all(abs(a - s) <= tol + tol * abs(s)
+                       for a, s in zip(res["losses"], shadows)):
+                raise SystemExit(f"lm smoke {arch}: the card's losses are "
+                                 f"off the CPU's")
+        no_launches(mods, "the LM and MACE smoke configs")
+        for arch, proc in procs.items():
+            log_text = (tmp / f"{arch}.log")
+            if proc.wait(timeout=600):
+                raise SystemExit(f"launcher --arch {arch} exited "
+                                 f"{proc.returncode}: "
+                                 + log_text.read_text())
+            done = "mace-smoke-done" if arch == "mace" else "lm-smoke-done"
+            lines = [x for x in log_text.read_text().splitlines()
+                     if done in x]
+            print(f"[lm smoke] launcher {arch} {card}: "
+                  + (lines[-1] if lines else "no done line"))
+            if not lines or f"device={kind}" not in lines[-1] or \
+                    f"step={SMOKE_STEPS}" not in lines[-1]:
+                raise SystemExit(f"launcher --arch {arch}: no done line on "
+                                 f"{kind}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_ops(mods, device, card: str) -> dict:
+    """``kernels/ops.py``'s three routes on the card: ``use_pallas=
+    "always"`` against ``"never"`` at phase 3's B1 serving shape, B5 at
+    dlrm-mlperf's scoring shape (one one-hot field of DLRM_CAP rows, B 512,
+    D 128, sum) and B7 at its scoring shape (B 512, F 26, D 128), within
+    the kernels' tolerances; each "always" or "auto" call launches its
+    kernel exactly once and no other, "never" none; the counted drive
+    (OPS_CALLS "always" calls and one "auto" a route) is the JSON's
+    launches. Then each route's times beside the plain one's, its bound
+    and, for B5, ``F.embedding_bag``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    emod, kmod, pmod, bmod, dmod = mods
+    x = attention_inputs((64, 2, 80, 32, 32, 64, 64), seed=90, device=device)
+    gen = torch.Generator(device=device).manual_seed(91)
+    table = 0.02 * torch.randn((DLRM_CAP, 128), generator=gen, device=device)
+    ids = torch.randint(0, DLRM_CAP, (512, 1), generator=gen, device=device,
+                        dtype=torch.int32)
+    lens = torch.ones(512, dtype=torch.int32, device=device)
+    dense, sparse = dot_inputs(DOT_SHAPES["score B512 F26 D128"], 92, device)
+    routes = {
+        "b1": (lambda u: ops.hstu_attention(
+            x["q"], x["k"], x["v"], x["rab"], x["hl"], x["tc"],
+            n_hist=x["n_hist"], max_rel_pos=x["max_rel"], use_pallas=u),
+            ATOL, RTOL),
+        "b5": (lambda u: ops.embedding_bag(table, ids, lens, pooling="sum",
+                                           use_pallas=u), BAG_TOL, 0.0),
+        "b7": (lambda u: ops.dot_interaction(dense, sparse, use_pallas=u),
+               DOT_ATOL, DOT_RTOL)}
+    reset_counts(mods)
+    errs = {}
+    for key, (fn, atol, rtol) in routes.items():
+        before = all_counts(mods)
+        want = fn("never")
+        if all_counts(mods) != before:
+            raise SystemExit(f"ops {key}: use_pallas='never' launched")
+        for use in ["always"] * OPS_CALLS + ["auto"]:
+            before = all_counts(mods)
+            got = fn(use)
+            after = all_counts(mods)
+            rose = {k: after[k] - before[k] for k in after}
+            if rose != {k: int(k == key) for k in after}:
+                raise SystemExit(f"ops {key} {use}: launches {rose}")
+            errs[key] = max(errs.get(key, 0.0),
+                            float((got - want).abs().max()))
+            if not torch.allclose(got, want, atol=atol, rtol=rtol):
+                raise SystemExit(f"ops {key} {use}: off 'never' by "
+                                 f"{errs[key]:.3e}")
+    launches = all_counts(mods)
+    print(f"[ops] {card}: use_pallas='always' / 'auto' vs 'never' max|diff| "
+          + ", ".join(f"{k.upper()} {v:.3e}" for k, v in errs.items())
+          + f"; launches in the drive {launches}")
+    flat = ids.reshape(-1).long()
+    offsets = torch.arange(512, device=device)
+    lib = lambda: F.embedding_bag(flat, table, offsets, mode="sum")
+    out = {}
+    for key, bound_fn, library, label in (
+            ("b1", lambda: bound(x), None,
+             "B1 hstu_attention B64 H2 S80 D32 rab"),
+            ("b5", lambda: bound_bag(dict(table=table, ids=ids, lens=lens),
+                                     "fwd"), lib,
+             f"B5 embedding_bag sum B512 L1 D128 V{DLRM_CAP}"),
+            ("b7", lambda: bound_dot(dense, sparse), None,
+             "B7 dot_interaction B512 F26 D128")):
+        fn = routes[key][0]
+        always, never = (lambda: fn("always")), (lambda: fn("never"))
+        # plain, kernel, kernel, plain
+        ms = {k: device_ms(f, iters) for k, f, iters in (
+            ("plain", never, 20), ("kernel", always, 200),
+            ("again", always, 200), ("plain_again", never, 20))}
+        library_ms = device_ms(library, 100) if library else None
+        bound_ms, bound_by, n_bytes, n_ops = bound_fn()
+        print(f"[ops times] {card}: {label} through ops (use_pallas), "
+              f"device time per call: 'always' {ms['kernel']:.5f} ms (again "
+              f"{ms['again']:.5f}), 'never' {ms['plain']:.5f} ms (again "
+              f"{ms['plain_again']:.5f}); bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {n_ops} FLOP at 3.35 TB/s / 67 "
+              f"TFLOP/s); library "
+              + (f"{library_ms:.5f} ms (F.embedding_bag)" if library_ms
+                 else "none"))
+        out[key] = dict(launches=launches[key], max_abs_err=errs[key],
+                        ms=ms["kernel"], plain_ms=ms["plain"],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms)
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5571,6 +6205,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products summed in f32 all the way, as the reference's dots
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
 
     card = card_line()
@@ -5659,6 +6295,11 @@ def main() -> int:
     disk = phase_disk(mods, device, card)
     scen_times = phase_scenario_times(emod, dmod, device, card, scen_train)
     spmd_run = phase_spmd(mods, device, card)
+    # the LM and MACE families, and kernels/ops.py's routes
+    lm = phase_lm(mods, device, card)
+    mace_run = phase_mace(mods, device, card)
+    phase_lm_smoke(mods, device, card)
+    ops_run = phase_ops(mods, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -5716,6 +6357,15 @@ def main() -> int:
               f"training steps/s " + ", ".join(
                   f"{how} " + " / ".join(f"{r:.2f}" for r in v)
                   for how, v in run["rates"].items()))
+
+    for arch, run in lm.items():
+        print(f"[lm {arch}] {card}: training {run['steps_per_s']:.3f} "
+              f"steps/s, {run['tokens_per_s']:.1f} tokens/s, "
+              f"{100 * run['mfu']:.2f} % of the dense bf16 peak, peak "
+              f"memory {gib(run['peak'])}; decode "
+              f"{run['decode_tokens_per_s']:.1f} tokens/s")
+    print(f"[mace molecule] {card}: training "
+          f"{mace_run['steps_per_s']:.2f} steps/s")
 
     gr_train = scen_train["hstu-gr", None]["launches"]
     scen_dlrm = scen_train["dlrm-mlperf", None]["launches"]
@@ -5886,7 +6536,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
         "replaces": "src/repro/kernels/dot_interaction.py:22",
         "launches": spmd_run["dlrm_b7"],
-        **spmd_run["times"]["slice"]}]}))
+        **spmd_run["times"]["slice"]}] + [{
+        "name": f"{name} (kernels/ops.py use_pallas='always', {what})",
+        "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/{ref}", **ops_run[key]}
+        for key, name, src, ref, what in (
+            ("b1", "hstu_attention_fwd", "hstu_attention_fwd.cu",
+             "hstu_attention.py:80", "hstu-gr serving shape"),
+            ("b5", "embedding_bag_fwd_grouped", "embedding_bag.cu",
+             "embedding_bag.py:48", "a dlrm scoring field"),
+            ("b7", "dot_interaction_fwd", "dot_interaction.cu",
+             "dot_interaction.py:22", "dlrm scoring shape"))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,24 +3,27 @@ ScenarioSpec factory for every recsys arch (torch port of
 ``repro/configs/registry.py``).
 
 :func:`scenario` / :func:`all_scenarios` give the same specs as the
-reference's: the same JSON bytes and hashes. The dry-run cells and the LM
-and MACE archs are not ported yet (ROADMAP A10): :func:`get_arch` and
-:func:`all_cells` raise ``NotImplementedError`` for them instead of
-importing a module that does not exist.
+reference's: the same JSON bytes and hashes. :func:`get_arch` resolves the
+five LM archs, ``mace`` and the paper's four ROO models to their config
+modules. The dry-run cells are not ported yet (ROADMAP A10b):
+:func:`all_cells`, the LM and MACE modules' ``SHAPES`` / ``build_cell``,
+and :func:`get_arch` for the four recsys cell wrappers (``mind``,
+``bert4rec``, ``dlrm-mlperf``, ``dien``, whose models live in
+``models/``) raise ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
 import importlib
 from typing import List, Mapping, Optional
 
-# the port's config modules by arch id; None = not ported yet (A10)
+# the port's config modules by arch id; None = not ported yet (A10b)
 _MODULES = {
-    "starcoder2-15b": None,
-    "deepseek-coder-33b": None,
-    "phi3-medium-14b": None,
-    "qwen3-moe-235b-a22b": None,
-    "granite-moe-3b-a800m": None,
-    "mace": None,
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "mace": "repro_torch.configs.mace",
     "mind": None,
     "bert4rec": None,
     "dlrm-mlperf": None,
@@ -32,22 +35,36 @@ _MODULES = {
     "hstu-gr": "repro_torch.configs.roo_models",
 }
 
-NOT_PORTED = ("the LM, MACE and dry-run cell configs are not ported yet "
-              "(ROADMAP A10)")
+CELLS_NOT_PORTED = ("the dry-run cells and the recsys cell wrappers are not "
+                    "ported yet (ROADMAP A10b)")
 
 
 def get_arch(arch_id: str):
-    """The arch's config module; raises ``NotImplementedError`` (A10) for
-    the LM, MACE and dry-run cell archs."""
+    """The arch's config module; raises ``NotImplementedError`` (A10b) for
+    the recsys cell wrappers."""
     module = _MODULES[arch_id]
     if module is None:
-        raise NotImplementedError(f"{arch_id}: {NOT_PORTED}")
+        raise NotImplementedError(f"{arch_id}: {CELLS_NOT_PORTED}")
     return importlib.import_module(module)
 
 
 def all_cells() -> List[tuple]:
-    """All (arch, shape) dry-run cells — none in the port yet (A10)."""
-    raise NotImplementedError(f"dry-run cells: {NOT_PORTED}")
+    """All (arch, shape) dry-run cells — none in the port yet (A10b)."""
+    raise NotImplementedError(f"dry-run cells: {CELLS_NOT_PORTED}")
+
+
+def refuse_cells(arch_id: str):
+    """``(build_cell, module __getattr__)`` for a config module whose cells
+    are not ported: both raise naming A10b, the latter for ``SHAPES``."""
+    def build_cell(shape_name, plan, opt_level="baseline"):
+        raise NotImplementedError(f"{arch_id}.build_cell: {CELLS_NOT_PORTED}")
+
+    def module_getattr(name):
+        if name == "SHAPES":
+            raise NotImplementedError(f"{arch_id}.SHAPES: {CELLS_NOT_PORTED}")
+        raise AttributeError(f"module of {arch_id!r} has no attribute "
+                             f"{name!r}")
+    return build_cell, module_getattr
 
 
 # ---------------------------------------------------------------------------

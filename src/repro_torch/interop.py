@@ -9,7 +9,9 @@ same way, field by field, and so do training states ``{params, opt, step}``
 (the optimizers keep the reference's state layout). A state's ``rng`` does
 not cross: the two packages' generators differ. Under an SPMD plan
 :func:`params_onto_plan` cuts a whole tree to this rank's blocks (tables
-to their row block) and :func:`params_off_plan` gathers them back.
+to their row block) and :func:`params_off_plan` gathers them back. The
+LM's and MACE's trees and the LM's decode cache (``{k, v, pos}``) cross
+like any other tree; bfloat16 leaves by their bits.
 """
 from __future__ import annotations
 
@@ -23,6 +25,17 @@ from repro_torch.models.gr import GRUserState
 from repro_torch.tree import leaves, tree_map
 
 
+def tensor_from_numpy(a: Any, device="cuda") -> torch.Tensor:
+    """One numpy array (or scalar) -> a tensor on ``device``, copied. A
+    bfloat16 array (the reference's ``ml_dtypes`` dtype, e.g. a bf16
+    parameter or the LM's KV cache) crosses by its bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Nested dict/list/tuple of numpy arrays -> the same tree of tensors on
     ``device`` (tuples become lists, as the port's params use lists)."""
@@ -30,7 +43,7 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    return tensor_from_numpy(tree, device)
 
 
 def params_to_numpy(tree: Any) -> Any:

@@ -1,5 +1,5 @@
-"""Training launcher: ``--arch <id>`` selects a registered recsys
-architecture (torch port of the recsys part of ``repro/launch/train.py``).
+"""Training launcher: ``--arch <id>`` selects a registered architecture
+(torch port of ``repro/launch/train.py``).
 
 The recsys archs (roo-lsr / roo-esr / roo-retrieval / hstu-gr / dien /
 mind / bert4rec / dlrm-mlperf) are **scenario-driven**: the registry's
@@ -22,8 +22,15 @@ SPMD, one process per rank (``repro_torch.distributed``), with
 exchange. On the CPU the launcher spawns the mesh's gloo ranks itself; on
 the card run one rank a card (``torchrun --nproc-per-node N``, NCCL), or
 ``--mesh 1x1`` in this process: a mesh larger than the visible cards is
-refused. Not ported yet, and refused with a message naming the slice:
-the LM and MACE archs (ROADMAP A10).
+refused.
+
+The LM archs and ``mace`` keep the reference's direct construction (they
+are not recsys scenarios): the arch's ``smoke_config()`` (MACE: channels
+32, 8 input features) trained by the port's ``Trainer`` and ``adam`` on
+seeded random batches (LM: 4 x 64 tokens a step, the labels the tokens, as
+the reference's; MACE: one fixed 64-node, 256-edge, 8-graph batch), with
+``--steps`` (default 100), ``--ckpt-dir`` and ``--device``; they end with
+an ``lm-smoke-done`` / ``mace-smoke-done`` line.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch roo-lsr --steps 200
@@ -35,6 +42,8 @@ Examples:
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch hstu-gr \\
       --steps 20 --mesh 2x2 --device cpu --comms-compress int8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
+      --steps 10 --device cpu
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import argparse
 import math
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -194,13 +204,109 @@ def resolve_spec(args):
     return spec.with_overrides(overrides) if overrides else spec
 
 
+def _last_loss(trainer, digits: int) -> dict:
+    """The done line's loss: the last logged row's (a run shorter than
+    ``log_every`` logs none)."""
+    if not trainer.history:
+        return {"logged": "none"}
+    return {"loss": round(trainer.history[-1]["loss"], digits)}
+
+
+def lm_smoke(arch: str, device) -> dict:
+    """The launcher's LM run, built: the arch's smoke config (``cfg``), its
+    params from seed 0 on ``device``, the loss (the labels are the tokens,
+    as the reference's launcher has them), ``batches(start)``, each step's
+    4 x 64 tokens from that step on, and Adam's ``lr``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.lm.transformer import lm_init, lm_loss
+    from repro_torch.train.loop import step_generator
+    cfg = get_arch(arch).smoke_config()
+
+    def batches(start):
+        i = start
+        while True:
+            toks = torch.randint(0, cfg.vocab, (4, 64),
+                                 generator=step_generator(0, i))
+            yield {"tokens": toks.to(device)}
+            i += 1
+
+    return dict(cfg=cfg, batches=batches, lr=3e-4,
+                params=lm_init(torch.Generator().manual_seed(0), cfg,
+                               device=device),
+                loss=lambda p, b, g: lm_loss(p, cfg, b["tokens"],
+                                             b["tokens"]))
+
+
+def mace_smoke(device) -> dict:
+    """The launcher's MACE run, built as :func:`lm_smoke`'s: channels 32,
+    8 input features, and one fixed 64-node, 256-edge, 8-graph batch with
+    its energy targets (the reference's draws from ``RandomState(0)``)."""
+    import numpy as np
+    from repro_torch.models.gnn.mace import (MACEConfig, mace_forward,
+                                             mace_init)
+    cfg = MACEConfig(channels=32, n_feat_in=8)
+    r = np.random.RandomState(0)
+    n, e, g = 64, 256, 8
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+    batch = dict(
+        node_feat=put(r.normal(size=(n, 8)).astype(np.float32)),
+        positions=put(r.normal(size=(n, 3)).astype(np.float32)),
+        edge_index=put(r.randint(0, n, (e, 2)).astype(np.int32)),
+        edge_mask=torch.ones((e,), dtype=torch.bool, device=device),
+        graph_ids=put(np.sort(r.randint(0, g, n)).astype(np.int32)),
+        targets=put(r.normal(size=(g,)).astype(np.float32)))
+
+    def loss(p, b, _):
+        b = dict(b)
+        targets = b.pop("targets")
+        out = mace_forward(p, cfg, **b, n_graphs=g)
+        return torch.mean((out["energy"][:, 0] - targets) ** 2)
+
+    return dict(cfg=cfg, batches=lambda start: iter(lambda: batch, None),
+                lr=1e-3, loss=loss,
+                params=mace_init(torch.Generator().manual_seed(0), cfg,
+                                 device=device))
+
+
+def _train_smoke(run: dict, steps: int, ckpt_dir: Optional[str], device):
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+    from repro_torch.train.optim import adam
+    trainer = Trainer(run["loss"], adam(run["lr"]),
+                      TrainLoopConfig(total_steps=steps, log_every=10,
+                                      ckpt_dir=ckpt_dir, ckpt_every=50),
+                      lambda: run["params"], device=device)
+    return trainer, trainer.run(run["batches"], 0)
+
+
+def _train_lm(arch: str, steps: int, ckpt_dir: Optional[str], device):
+    trainer, state = _train_smoke(lm_smoke(arch, device), steps, ckpt_dir,
+                                  device)
+    log.info("lm-smoke-done", arch=arch, step=int(state["step"]),
+             device=device, **_last_loss(trainer, 4))
+    return trainer, state
+
+
+def _train_mace(steps: int, ckpt_dir: Optional[str], device):
+    trainer, state = _train_smoke(mace_smoke(device), steps, ckpt_dir,
+                                  device)
+    log.info("mace-smoke-done", step=int(state["step"]), device=device,
+             **_last_loss(trainer, 5))
+    return trainer, state
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     if not args.arch and not args.config:
         raise SystemExit("pass --arch <id> or --config spec.json")
-    if args.arch in LM_ARCHS or args.arch == "mace":
-        raise SystemExit(f"--arch {args.arch}: the LM and MACE archs are not "
-                         f"ported yet (ROADMAP A10)")
+    # LM/GNN smoke paths predate the scenario surface and keep their
+    # direct construction (they are not recsys scenarios)
+    if args.arch in LM_ARCHS:
+        return _train_lm(args.arch, args.steps or 100, args.ckpt_dir,
+                         args.device)
+    if args.arch == "mace":
+        return _train_mace(args.steps or 100, args.ckpt_dir, args.device)
 
     from repro_torch.scenario.build import check_mesh, train_from_scenario
     from repro_torch.scenario.spec import ScenarioValidationError

@@ -1,2 +1,4 @@
-"""Model zoo (torch port of ``repro/models``): MLP, GR ranking, LSR, DLRM
-and the DCNv2 and dot interactions so far."""
+"""Model zoo (torch port of ``repro/models``): the recsys archs (GR
+ranking, LSR, DLRM, two-tower, MIND, DIN/DIEN, BERT4Rec) with the MLP and
+the DCNv2 and dot interactions, the LM family (``lm/``) and MACE
+(``gnn/``)."""

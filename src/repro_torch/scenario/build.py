@@ -178,8 +178,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
     if arch not in SCENARIO_ARCHS:
         raise ScenarioValidationError(
             f"scenario {spec.name!r}: model.arch {arch!r} is not a recsys "
-            f"scenario arch; expected one of {SCENARIO_ARCHS} (the LM and "
-            f"MACE archs are not ported yet: ROADMAP A10)")
+            f"scenario arch; expected one of {SCENARIO_ARCHS}")
 
     def sparse_vag(loss, table_ids_fn):
         return (make_sparse_value_and_grad(loss, table_ids_fn)

@@ -51,7 +51,14 @@ def test_port_has_modules():
             "distributed/sharding.py", "distributed/spmd.py",
             "distributed/comms.py", "distributed/collectives.py",
             "embeddings/sharded.py", "launch/mesh.py",
-            "launch/hostdevices.py", "train/compression.py"} <= names
+            "launch/hostdevices.py", "train/compression.py",
+            "models/lm/transformer.py", "models/lm/moe.py",
+            "models/lm/decode.py", "models/gnn/irreps.py",
+            "models/gnn/mace.py", "models/gnn/sampler.py",
+            "configs/starcoder2_15b.py", "configs/deepseek_coder_33b.py",
+            "configs/phi3_medium_14b.py", "configs/qwen3_moe_235b_a22b.py",
+            "configs/granite_moe_3b_a800m.py", "configs/mace.py",
+            "kernels/ops.py"} <= names
 
 
 @pytest.mark.parametrize(

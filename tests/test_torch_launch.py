@@ -4,8 +4,9 @@ and smoke runner (``python -m repro_torch.scenario.smoke``) on the CPU
 one (dlrm-mlperf), ``--dump-config`` / ``--config`` replay bit for bit,
 fewer steps than ``log_every`` (the run says that none was logged),
 ``--obs`` / ``--trace-out`` / ``--obs-export`` with the report reading the
-JSONL, fault injection announced, ``--data disk --shard-dir``, and the
-flags the port cannot run yet refused with the slice that brings them.
+JSONL, fault injection announced, ``--data disk --shard-dir``, the LM
+archs and MACE on their smoke configs, and the flags the port cannot run
+yet refused with the slice that brings them.
 """
 import json
 import os
@@ -13,11 +14,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from repro_torch.launch.train import main
 from repro_torch.obs import report
 from repro_torch.scenario.smoke import smoke_one
+from repro_torch.tree import leaves
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_port_state import one_thread, port_state  # noqa: E402,F401
@@ -77,14 +80,29 @@ def test_obs_trace_and_export(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["--arch", "starcoder2-15b"], "A10"),
-    (["--arch", "mace"], "A10"),
     (["--arch", "dien", "--mesh", "2x2"], "train.mesh supports"),
     (["--arch", "roo-lsr", "--mesh", "2x2", "--sparse-emb",
       "--comms-compress", "int8"], "mutually exclusive")])
 def test_unported_flags_name_their_slice(argv, slice_):
     with pytest.raises(SystemExit, match=slice_):
         main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "deepseek-coder-33b",
+                                  "phi3-medium-14b", "qwen3-moe-235b-a22b",
+                                  "granite-moe-3b-a800m", "mace"])
+def test_lm_and_mace_archs_train(arch, capsys, one_thread):
+    """The LM archs and MACE (once refused naming A10) train their smoke
+    configs 10 steps on the CPU and end with their done line."""
+    trainer, state = main(["--arch", arch, "--steps", "10", "--device",
+                           "cpu"])
+    assert int(state["step"]) == 10 and len(trainer.history) == 1
+    assert {t.device.type for t in leaves(state["params"])} == {"cpu"}
+    out = capsys.readouterr().out
+    done = "mace-smoke-done" if arch == "mace" else "lm-smoke-done"
+    line = [x for x in out.splitlines() if done in x][-1]
+    assert "step=10" in line and "device=cpu" in line and "loss=" in line
+    assert np.isfinite(trainer.history[-1]["loss"])
 
 
 def test_data_disk_runs(tmp_path, capsys):
