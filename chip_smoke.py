@@ -5331,6 +5331,7 @@ def phase_scenario_times(emod, dmod, device, card: str, trained) -> dict:
 SPMD_COLLECTIVES = ("all_reduce", "all_reduce async_op",
                     "all_gather_into_tensor", "reduce_scatter_tensor")
 SPMD_DLRM_BATCHES = 4         # dlrm scoring batches under the 1x2 plan
+SPMD_DLRM_IMPRESSIONS = 512   # the impression-level forward's batch
 SPMD_SLICE = (512, 26, 64)    # B7 on one model rank's D slice (B, F, D/2)
 
 
@@ -5381,7 +5382,9 @@ def spmd_rank(rank: int, out_dir: str) -> None:
     from repro_torch.kernels import hstu_attention_bwd as bmod
     from repro_torch.kernels import hstu_attention_prefix as pmod
     from repro_torch.launch.mesh import make_mesh_from_spec
-    from repro_torch.models.dlrm import dlrm_forward_roo, dlrm_init
+    from repro_torch.distributed import spmd
+    from repro_torch.models.dlrm import (dlrm_forward_impression,
+                                         dlrm_forward_roo, dlrm_init)
     from repro_torch.scenario.build import synthetic_dlrm_batches
     mods = (emod, kmod, pmod, bmod, dmod)
     res = {"probe": spmd_probe(rank)}
@@ -5408,15 +5411,34 @@ def spmd_rank(rank: int, out_dir: str) -> None:
                            device="cuda")
         want = [dlrm_forward_roo(params, cfg, *dlrm_roo_args(b))
                 for b in batches]
-        local, _ = params_onto_plan(params, plan, "cuda")
+        # the impression-level forward (C4) on the first batch: every
+        # request's fields fanned out to its impressions
+        b0 = batches[0]
+        seg = b0["seg"].long()
+        imp_args = (b0["ro_dense"][seg],
+                    torch.cat([b0["ro_ids"][seg], b0["nro_ids"]], 1),
+                    torch.cat([b0["ro_len"][seg], b0["nro_len"]], 1))
+        want_imp = dlrm_forward_impression(params, cfg, *imp_args)
+        local, specs = params_onto_plan(params, plan, "cuda")
+        dense_block = list(local["top_mlp"]["layers"][0]["w"].shape)
+        local = spmd.gather_dense(local, specs, plan)
         del params
         torch.cuda.empty_cache()
         reset_counts(mods)
         got = [dlrm_forward_roo(local, cfg, *dlrm_roo_args(b), plan=plan)
                for b in batches]
         torch.cuda.synchronize()
+        roo_counts = all_counts(mods)
+        reset_counts(mods)
+        got_imp = dlrm_forward_impression(local, cfg, *imp_args, plan=plan)
+        torch.cuda.synchronize()
+    res["dlrm_impression"] = dict(
+        counts=all_counts(mods), dense_block=dense_block,
+        max_abs_err=float((got_imp - want_imp).abs().max()),
+        finite=bool(torch.isfinite(got_imp).all()))
+    reset_counts(mods)
     res["dlrm"] = dict(
-        counts=all_counts(mods),
+        counts=roo_counts,
         max_abs_err=max(float((g - w).abs().max())
                         for g, w in zip(got, want)),
         finite=all(bool(torch.isfinite(g).all()) for g in got),
@@ -5470,18 +5492,137 @@ def spmd_slice_times(dmod, device, card: str) -> dict:
     return out
 
 
+SPMD_LM_RUNS = (("phi3-medium-14b", 2, 1, 1024),   # arch, layers, batch,
+                ("granite-moe-3b-a800m", 4, 2, 512))  # sequence
+SPMD_LM_DECODE = (2, 256, 320, 8)   # batch, prompt, s_max, steps
+SPMD_LM_RTOL = 1e-5       # the plan's loss vs no plan, f32 compute
+SPMD_LM_GRAD_TOL = 1e-4   # |grad - no plan| / max |no-plan grad|, a leaf
+SPMD_LM_DECODE_TOL = 1e-4  # decode's logits vs no plan, x their rms
+
+
+def spmd_lm(mods, device, card: str) -> dict:
+    """The LM under a 1 x 1 NCCL plan (the world of one phase 20's hstu-gr
+    run made): phi3 at 2 and granite at 4 layers, full width, f32 compute,
+    on the same params as without a plan. Both layer routes: the loss
+    within SPMD_LM_RTOL and every gradient leaf within SPMD_LM_GRAD_TOL of
+    its largest no-plan entry; then prefill + steps of decode with a
+    ``CacheSpec`` against no plan: the prefill's caches within one bf16
+    rounding step at their scale, its logits and each step's (both from the plan's cache)
+    within SPMD_LM_DECODE_TOL of the logits' rms. None of B1-B7
+    launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import plan_for_mesh
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.models.lm import decode
+    from repro_torch.models.lm.transformer import (lm_grad_axes, lm_init,
+                                                   lm_loss, lm_param_specs)
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import leaves
+    plan = plan_for_mesh(make_mesh_from_spec("1x1", backend="nccl"))
+    out = {}
+    for arch, layers, b, s in SPMD_LM_RUNS:
+        t0 = time.perf_counter()
+        reset_counts(mods)
+        cfg = dataclasses.replace(get_arch(arch).CONFIG, n_layers=layers,
+                                  compute_dtype="float32")
+        params = lm_init(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+        specs = spmd.state_shardings(params, plan,
+                                     param_specs=lm_param_specs(cfg, plan))
+        gen = torch.Generator(device=device).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                             device=device)
+        want, want_g = value_and_grad(
+            lambda p, bt, g: lm_loss(p, cfg, toks, toks))(params, None, None)
+        want_g = leaves(want_g)
+        errs = {}
+        for spmd_layer in (False, True):
+            c = dataclasses.replace(cfg, use_spmd_layer=spmd_layer)
+            loss, grads = value_and_grad(
+                lambda p, bt, g: lm_loss(p, c, toks, toks, plan))(
+                    params, None, None)
+            grads = leaves(spmd.reduce_grads(grads, specs, plan,
+                                             lm_grad_axes(c, plan)))
+            rel = abs(float(loss) - float(want)) / abs(float(want))
+            gerr = max(float((g - w).abs().max() / w.abs().max().clamp(
+                min=1e-30)) for g, w in zip(grads, want_g))
+            errs[spmd_layer] = (float(loss), rel, gerr)
+            del grads
+            if rel > SPMD_LM_RTOL or gerr > SPMD_LM_GRAD_TOL:
+                raise SystemExit(f"spmd lm {arch} (use_spmd_layer "
+                                 f"{spmd_layer}): loss {float(loss)} vs "
+                                 f"{float(want)} (rel {rel:.3e}), grads "
+                                 f"{gerr:.3e}")
+        del want_g
+        torch.cuda.empty_cache()
+        db, prompt, s_max, steps = SPMD_LM_DECODE
+        cs = decode.CacheSpec(("data",), "model")
+        dtoks = torch.randint(0, cfg.vocab, (db, prompt + steps),
+                              generator=gen, device=device)
+        dec, cache_err = [], 0.0
+        with torch.no_grad():
+            w, wc = decode.prefill(params, cfg, dtoks[:, :prompt],
+                                   s_max=s_max)
+            g_, gc = decode.prefill(params, cfg, dtoks[:, :prompt], plan=plan,
+                                    s_max=s_max, cs=cs)
+            # the caches within one bf16 rounding step at their scale: two
+            # GEMM shapes round some entries to neighbouring bf16 values
+            for n in ("k", "v"):
+                a, b_ = gc[n].float(), wc[n].float()
+                cache_err = max(cache_err, float((a - b_).abs().max()
+                                                 / b_.abs().max()))
+            for i in range(steps + 1):
+                dec.append(float((g_ - w).abs().max())
+                           / float(w.pow(2).mean().sqrt()))
+                if i == steps:
+                    break
+                # each step from the same cache: the plan's (a 1x1 block is
+                # the whole cache), so a K / V entry the two prefills round
+                # to neighbouring bf16 values does not count against it
+                t = dtoks[:, prompt + i:prompt + i + 1]
+                w, _ = decode.serve_step(params, cfg, gc, t)
+                g_, gc = decode.serve_step(params, cfg, gc, t, plan=plan,
+                                           cs=cs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"[spmd lm] {arch} {card}: {layers} layers at full width, f32 "
+              f"compute, {b} x {s} tokens under a 1x1 NCCL plan vs no plan "
+              f"on the same params: loss {float(want):.6f}; (loss, rel diff,"
+              f" max grad diff / max |grad|) GSPMD route {errs[False]}, "
+              f"explicit route {errs[True]} (bounds {SPMD_LM_RTOL}, "
+              f"{SPMD_LM_GRAD_TOL}); decode {db} x {prompt} + {steps} steps "
+              f"with {cs}: the caches' max |diff| / max |entry| {cache_err:.3e} "
+              f"(one bf16 step is {2 ** -7}), max |logits - no plan| / rms, the "
+              f"prefill then each step on the same cache "
+              f"{[float(f'{e:.3e}') for e in dec]} (bound "
+              f"{SPMD_LM_DECODE_TOL}); {secs:.1f} s")
+        if max(dec) > SPMD_LM_DECODE_TOL or cache_err > 2 ** -7 \
+                or not bool(torch.isfinite(g_).all()):
+            raise SystemExit(f"spmd lm {arch}: decode under the plan off")
+        no_launches(mods, f"spmd lm {arch}")
+        del params, w, wc, g_, gc
+        torch.cuda.empty_cache()
+        out[arch] = dict(errs=errs, decode=dec, seconds=secs)
+    return out
+
+
 def phase_spmd(mods, device, card: str) -> dict:
     """Phase 20: SPMD training over a mesh. NCCL at world 1 (mesh 1 x 1)
     in this process through ``train_from_scenario`` and, in a subprocess,
     through ``--mesh 1x1``: hstu-gr at its published widths, 20 steps,
     losses within rtol 1e-5 of the same params without a mesh, the same
     B1-B3 launches, the item table's seq-lookup exchange in
-    ``distributed.comms``. Then two gloo ranks share the card (mesh
-    1 x 2, ``spmd_rank``): the collectives probed on CUDA tensors, hstu-gr
-    and roo-lsr ``userarch_hstu`` within rtol 2e-4 of the world-1 runs
-    with each rank's table a V/2 row block, int8 + error feedback within
-    the reference's bounds, the dlrm-mlperf scoring forward under the plan
-    within 1e-4 of the unsharded one (B7 on the D-64 slice). Returns the
+    ``distributed.comms``; the LM under the same NCCL world's 1 x 1 plan
+    (``spmd_lm``). Then two gloo ranks share the card (mesh 1 x 2,
+    ``spmd_rank``): the collectives probed on CUDA tensors, hstu-gr and
+    roo-lsr ``userarch_hstu`` within rtol 2e-4 of the world-1 runs with
+    each rank's table a V/2 row block and each dense leaf its TP block,
+    int8 + error feedback within the reference's bounds, the dlrm-mlperf
+    scoring forward and its impression-level forward under the plan within
+    1e-4 of the unsharded ones (B7 on the D-64 slice). Returns the
     launches and B7's slice times for the kernels line."""
     import os
     import shutil
@@ -5528,6 +5669,7 @@ def phase_spmd(mods, device, card: str) -> dict:
                 or mesh_tr.skipped_steps:
             raise SystemExit("spmd: the 1x1 mesh run is off the no-mesh run "
                              "or its exchange record")
+        lm_runs = spmd_lm(mods, device, card)
         if dist.is_initialized():
             dist.destroy_process_group()
         torch.cuda.empty_cache()
@@ -5585,6 +5727,18 @@ def phase_spmd(mods, device, card: str) -> dict:
                     dl["counts"]["b7"] != SPMD_DLRM_BATCHES or \
                     dl["counts"]["b5"] != 2 * SPMD_DLRM_BATCHES:
                 raise SystemExit(f"spmd: rank {r} dlrm forward off")
+            di = res["dlrm_impression"]
+            print(f"[spmd] rank {r} dlrm-mlperf impression-level forward "
+                  f"under the 1x2 plan (one batch's {SPMD_DLRM_IMPRESSIONS}"
+                  f" impressions): max |scores - unsharded| "
+                  f"{di['max_abs_err']:.3e} (bound {LOGIT_TOL}), launches "
+                  f"{di['counts']}; the top MLP's first weight held as its TP "
+                  f"block "
+                  f"{di['dense_block']}")
+            if not di["finite"] or di["max_abs_err"] > LOGIT_TOL or \
+                    di["counts"]["b7"] != 1 or di["counts"]["b5"] < 1:
+                raise SystemExit(f"spmd: rank {r} dlrm impression-level "
+                                 f"forward off")
         if launch.wait(timeout=900):
             raise SystemExit("spmd: --mesh 1x1 exited "
                              + (tmp / "launcher.log").read_text())
@@ -5601,7 +5755,7 @@ def phase_spmd(mods, device, card: str) -> dict:
             launch.kill()
             launch.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(mesh_counts=mesh_counts, times=times,
+    return dict(mesh_counts=mesh_counts, times=times, lm=lm_runs,
                 dlrm_b7=ranks[0]["dlrm"]["counts"]["b7"])
 
 

@@ -23,7 +23,10 @@
     occupancy — and mirrors into ``repro_torch.obs`` as
     ``distributed.comms``. Lookup sites record the exchange's global
     shape (the reference's ``B`` is the whole batch); gradient sites
-    record the block a rank sends.
+    record the block a rank sends. The LM's dense exchanges under a plan
+    (FSDP gathers, sequence gathers and scatters, the MoE's
+    ``all_to_all``) accumulate by call in ``dense_sites``
+    (:meth:`CommsStats.record_bytes`).
 
 Knobs (the port's ladder, ``scenario/knobs.py``): ``comms_compress``
 (``REPRO_TORCH_COMMS_COMPRESS``), ``comms_overlap``
@@ -159,6 +162,7 @@ class CommsStats:
     def reset(self) -> None:
         with self._lock:
             self._sites: Dict[str, dict] = {}
+            self._dense: Dict[str, dict] = {}
             self._overlap: Dict[str, Any] = {
                 "enabled": False, "microbatches": 1, "occupancy": 0.0,
                 "deferred_grad_exchanges_per_step": 0}
@@ -181,6 +185,19 @@ class CommsStats:
                 "f32_bytes": f32, "wire_bytes": wire}
         _ensure_registered()
 
+    def record_bytes(self, site: str, n_bytes: int,
+                     collective: str) -> None:
+        """Add one call of a dense exchange site (the LM's FSDP gathers,
+        sequence gathers and scatters, the MoE's all_to_all): its bytes
+        accumulate, so a site that fires once a layer counts every layer
+        (``dense_sites`` in the snapshot)."""
+        with self._lock:
+            e = self._dense.setdefault(site, {"collective": collective,
+                                              "bytes": 0, "calls": 0})
+            e["bytes"] += int(n_bytes)
+            e["calls"] += 1
+        _ensure_registered()
+
     def record_overlap(self, microbatches: int, enabled: bool) -> None:
         m = max(int(microbatches), 1)
         with self._lock:
@@ -194,10 +211,11 @@ class CommsStats:
     def snapshot(self) -> dict:
         with self._lock:
             sites = {k: dict(v) for k, v in self._sites.items()}
+            dense = {k: dict(v) for k, v in self._dense.items()}
             overlap = dict(self._overlap)
         f32 = sum(s["f32_bytes"] for s in sites.values())
         wire = sum(s["wire_bytes"] for s in sites.values())
-        return {
+        out = {
             "sites": sites,
             "exchanges": len(sites),
             "dedup_exchanges": sum(1 for s in sites.values() if s["dedup"]),
@@ -206,6 +224,9 @@ class CommsStats:
             "compression_ratio": (f32 / wire) if wire else 1.0,
             "overlap": overlap,
         }
+        if dense:       # the reference's snapshot has no dense sites
+            out["dense_sites"] = dense
+        return out
 
 
 STATS = CommsStats()

@@ -17,10 +17,11 @@ tensor out behind the caller's back. ``shard_map`` has no counterpart.
 Conventions (the reference's):
   * embedding tables and their row-wise optimizer accumulators are
     row-sharded over ``model``; each rank holds its row block;
-  * dense >= 2-D params get ``(fsdp, ..., model)`` specs; the port records
-    them but holds those leaves whole on every rank and sums their
-    gradients over the batch axes (FSDP / TP storage is ROADMAP A9b: the
-    same numbers, not the same bytes);
+  * dense >= 2-D params get ``(fsdp, ..., model)`` specs and each rank
+    holds its block (FSDP rows over the fsdp axes, TP columns over
+    ``model``, where the mesh divides them); a model gathers them before
+    use (``spmd.use_leaf``), and the gather's backward reduce-scatters
+    the gradient (the LM's specs are its own, ``lm_param_specs``);
   * activations: the batch over (pod, data).
 """
 from __future__ import annotations

@@ -5,11 +5,25 @@
     optimizer state and the ``comms_ef`` residuals go through (ported to
     the letter: a spec equals the reference's after
     ``sharding.normalize_spec``);
-  * :func:`state_shardings` — the state's tree of specs; :func:`place_state`
-    realizes it: each rank keeps its row block of every leaf whose dim 0
-    is split over ``model`` (tables, their row-wise Adagrad accumulators,
-    the residuals). Dense leaves stay whole (their FSDP / TP specs are
-    recorded, not realized: ROADMAP A9b);
+  * :func:`state_shardings` — the state's tree of specs (or, with
+    ``param_specs=``, a model's own spec tree for its params, e.g.
+    ``lm_param_specs``, which Adam's ``m`` / ``v`` follow by path);
+    :func:`place_state` realizes it: each rank keeps its block of every
+    leaf, the block at its mesh coordinate of each split dim (tables and
+    their row-wise accumulators and residuals by rows over ``model``;
+    dense leaves of >= 2 dims by their FSDP rows and TP columns).
+    :func:`fit_spec` drops a spec entry whose axes do not divide the dim,
+    so that dim stays whole;
+  * :func:`use_leaf` — gather-before-use: the whole leaf forward from its
+    blocks, and the gradient backward reduce-scattered over the axes the
+    leaf's use is split over (this rank's chunk over the others);
+    :func:`gather_dense` does it for every dense leaf of a model that
+    reads its params whole (the recsys archs);
+  * :func:`reduce_grads` — the one gradient rule: a leaf's gradient is
+    summed over every axis its use was split over and the leaf is not
+    split on (the split ones were summed by its gather's backward);
+    :func:`grad_sq_norm` sums each leaf's squares over the axes it is
+    split on, once;
   * :func:`batch_spec` / :func:`place_batch` / :func:`make_batch_placer` /
     :func:`make_batch_sharding_fn` — each batch leaf's batch dim cut to
     this rank's data block; ``JaggedTensor``s stay whole, as the
@@ -144,42 +158,132 @@ def is_spec(x) -> bool:
 
 
 def state_shardings(state: Any, plan: Optional[ShardingPlan],
-                    is_embedding: Callable = default_is_embedding) -> Any:
+                    is_embedding: Callable = default_is_embedding,
+                    param_specs: Any = None) -> Any:
     """Tree of specs congruent with ``state`` (global shapes), or None when
-    the plan is disabled. Walk it with ``is_leaf=spmd.is_spec``."""
+    the plan is disabled. Walk it with ``is_leaf=spmd.is_spec``.
+
+    ``param_specs`` (a spec tree congruent with the params, as
+    ``lm_param_specs`` builds it) replaces :func:`param_spec`: a state
+    leaf whose path ends in a param's path (the params themselves, Adam's
+    ``m`` / ``v``) takes that param's spec fitted to its shape
+    (:func:`fit_spec`), every other leaf ``()``."""
     if not _enabled(plan):
         return None
     flat = flatten_with_path(state)
-    return unflatten(state, [param_spec(path, tuple(leaf.shape), plan,
-                                        is_embedding)
-                             for path, leaf in flat])
+    if param_specs is None:
+        return unflatten(state, [param_spec(path, tuple(leaf.shape), plan,
+                                            is_embedding)
+                                 for path, leaf in flat])
+    by_path = {tuple(p): s for p, s in flatten_with_path(
+        param_specs, is_leaf=is_spec)}
+    out = []
+    for path, leaf in flat:
+        spec = ()
+        for k in range(len(path)):
+            if tuple(path[k:]) in by_path:
+                spec = by_path[tuple(path[k:])]
+                break
+        out.append(fit_spec(spec, tuple(leaf.shape), plan))
+    return unflatten(state, out)
 
 
 def rows_sharded(spec: Spec, plan: ShardingPlan) -> bool:
-    """Whether a leaf of this spec is held as its row block (dim 0 over
-    ``model``): the only split the port realizes."""
+    """Whether a leaf of this spec is held as its row block over ``model``
+    (a table, its accumulator, its residual): the lookups read those."""
     return bool(spec) and spec[0] == plan.model_axis
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry's axis names (None -> ())."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
+def plan_axes(plan: ShardingPlan, names) -> list:
+    """``collectives.Axes`` of axis names (or one spec entry)."""
+    if isinstance(names, str) or names is None:
+        names = entry_axes(names)
+    return [(plan.mesh.group(a), plan.mesh.shape[a], plan.mesh.coord(a))
+            for a in names]
+
+
+def split_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis a leaf of this spec is split on."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def fit_spec(spec: Spec, shape: Tuple[int, ...],
+             plan: ShardingPlan) -> Spec:
+    """``spec`` for a leaf of ``shape`` with each entry whose axes do not
+    divide its dim made None (that dim stays whole)."""
+    out = []
+    for e, n in zip(tuple(spec), shape):
+        axes = entry_axes(e)
+        k = _axis_size(plan.mesh, axes)
+        out.append(e if axes and n % k == 0 else None)
+    return tuple(out)
 
 
 def local_block(x: torch.Tensor, spec: Spec,
                 plan: ShardingPlan) -> torch.Tensor:
-    """This rank's part of a global leaf: its row block (a copy, so the
-    whole leaf can be freed) for a row-sharded spec, else the leaf."""
-    if not rows_sharded(spec, plan):
+    """This rank's part of a global leaf: the block at its mesh
+    coordinate of every split dim (a copy, so the whole leaf can be
+    freed); the leaf itself when nothing splits it."""
+    if not any(entry_axes(e) for e in spec):
         return x
-    n, k = model_shard_count(plan), model_index(plan)
-    rows = x.shape[0] // n
-    return x[k * rows:(k + 1) * rows].clone()
+    for dim, e in enumerate(spec):
+        axes = entry_axes(e)
+        if axes:     # the mesh's coordinates only: no group is asked
+            x = coll.chunk_dim(x, [(None, plan.mesh.shape[a],
+                                    plan.mesh.coord(a)) for a in axes], dim)
+    return x.clone()
 
 
 def global_leaf(x: torch.Tensor, spec: Spec,
                 plan: ShardingPlan) -> torch.Tensor:
-    """The whole leaf from every model rank's block (all ranks of the
-    model group call it); other leaves as they are."""
-    if not rows_sharded(spec, plan):
-        return x
-    return coll.gather_rows_front(x, model_group(plan),
-                                  model_shard_count(plan))
+    """The whole leaf from every rank's block (every rank of the mesh
+    calls it); an unsplit leaf as it is."""
+    for dim, e in enumerate(spec):
+        if entry_axes(e):
+            x = coll.gather_dim(x, plan_axes(plan, e), dim)
+    return x
+
+
+def use_leaf(x: torch.Tensor, spec: Spec, plan: ShardingPlan,
+             split: Tuple[str, ...] = ()) -> torch.Tensor:
+    """Gather-before-use: the whole leaf from this rank's block, as an
+    autograd op. Backward, each split dim's gradient is reduce-scattered
+    over its axes when the use is split over them (``split``: each rank
+    uses the leaf on its own part of the data) and cut to this rank's
+    chunk when the use is replicated over them."""
+    for dim, e in enumerate(spec):
+        axes = entry_axes(e)
+        if not axes:
+            continue
+        inside = [a in split for a in axes]
+        if any(inside) and not all(inside):
+            raise ValueError(f"spec entry {e} is partly in the split axes "
+                             f"{split}")
+        x = coll.all_gather_dim(x, plan_axes(plan, axes), dim,
+                                "reduce_scatter" if all(inside) else "slice")
+    return x
+
+
+def gather_dense(params: Any, specs: Any, plan: Optional[ShardingPlan]
+                 ) -> Any:
+    """Every split leaf but the row-sharded tables gathered for use
+    (:func:`use_leaf`) over a use split by the batch axes: the params a
+    model that reads its dense leaves whole takes under FSDP / TP."""
+    if not _enabled(plan):
+        return params
+    return unflatten(params, [
+        x if rows_sharded(s, plan) else use_leaf(x, s, plan,
+                                                 tuple(plan.batch_axes))
+        for x, s in zip(leaves(params), leaves(specs, is_leaf=is_spec))])
 
 
 def place_state(state: Any, plan: Optional[ShardingPlan],
@@ -196,12 +300,68 @@ def place_state(state: Any, plan: Optional[ShardingPlan],
 
 
 def gather_state(state: Any, specs: Any, plan: Optional[ShardingPlan]) -> Any:
-    """The global state from every rank's part (collective over
-    ``model``; identity when disabled)."""
+    """The global state from every rank's part (every rank of the mesh
+    calls it; identity when disabled)."""
     if not _enabled(plan):
         return state
     return unflatten(state, [global_leaf(x, s, plan) for x, s in zip(
         leaves(state), leaves(specs, is_leaf=is_spec))])
+
+
+def reduce_grads(grads: Any, specs: Any, plan: ShardingPlan,
+                 grad_axes: Any = None, async_op: bool = False):
+    """The gradient rule (module note): each leaf summed over its use's
+    axes (``grad_axes``: a tree of axis tuples congruent with the params,
+    or None for the batch axes everywhere) less the axes it is split on,
+    one flat all-reduce per set of axes. With ``async_op`` returns a
+    ``finish()`` (the reduction issued at once when every leaf takes the
+    same single axis)."""
+    flat = leaves(grads)
+    spec_l = leaves(specs, is_leaf=is_spec)
+    use = ([tuple(plan.batch_axes)] * len(flat) if grad_axes is None
+           else leaves(grad_axes, is_leaf=_is_axes))
+    order = [a for a in plan.mesh.axis_names]
+    todo: dict = {}
+    for i, (s, u) in enumerate(zip(spec_l, use)):
+        axes = tuple(a for a in order if a in u and a not in split_axes(s))
+        if axes:
+            todo.setdefault(axes, []).append(i)
+    out = list(flat)
+    finishers = []
+    for axes, idx in todo.items():
+        groups = [plan.mesh.group(a) for a in axes]
+        done = coll.all_reduce_flat([flat[i] for i in idx], groups,
+                                    async_op=async_op)
+        finishers.append((idx, done))
+
+    def finish():
+        for idx, done in finishers:
+            for i, t in zip(idx, done() if async_op else done):
+                out[i] = t
+        return unflatten(grads, out)
+    return finish if async_op else finish()
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, str) for a in x)
+
+
+def grad_sq_norm(g_leaves: list, specs: Any, plan: ShardingPlan,
+                 sq_sum: Callable) -> torch.Tensor:
+    """The squared norm of the whole gradient from each rank's blocks:
+    each leaf's squares summed over the axes it is split on, once."""
+    by_axes: dict = {}
+    for g, s in zip(g_leaves, leaves(specs, is_leaf=is_spec)):
+        axes = split_axes(s)
+        by_axes[axes] = by_axes.get(axes, 0.0) + sq_sum(g)
+    total = 0.0
+    for axes, v in by_axes.items():
+        v = torch.as_tensor(v, dtype=torch.float32,
+                            device=g_leaves[0].device)
+        if axes:
+            v = coll.all_reduce_sum(v, [plan.mesh.group(a) for a in axes])
+        total = total + v
+    return total
 
 
 # ---------------------------------------------------------------------------

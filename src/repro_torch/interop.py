@@ -8,8 +8,10 @@ Incremental-serving user states (``GRUserState``: k, v, length) cross the
 same way, field by field, and so do training states ``{params, opt, step}``
 (the optimizers keep the reference's state layout). A state's ``rng`` does
 not cross: the two packages' generators differ. Under an SPMD plan
-:func:`params_onto_plan` cuts a whole tree to this rank's blocks (tables
-to their row block) and :func:`params_off_plan` gathers them back. The
+:func:`params_onto_plan` cuts a whole tree to this rank's blocks by spec
+(tables to their row block, dense leaves to their FSDP / TP block, or by a
+model's own spec tree such as ``lm_param_specs``) and
+:func:`params_off_plan` gathers them back. The
 LM's and MACE's trees and the LM's decode cache (``{k, v, pos}``) cross
 like any other tree; bfloat16 leaves by their bits.
 """
@@ -87,12 +89,13 @@ def train_state_to_numpy(state: dict) -> dict:
     return {k: params_to_numpy(state[k]) for k in TRAIN_STATE_KEYS}
 
 
-def params_onto_plan(tree: Any, plan, device="cuda"):
+def params_onto_plan(tree: Any, plan, device="cuda", param_specs=None):
     """A whole tree of numpy arrays (e.g. the reference's params) or of
     tensors -> (this rank's tree of tensors on ``device``, the tree's
-    specs under ``plan``; None without a plan). A tensor tree already on
-    ``device`` is not copied before it is cut."""
-    specs = spmd.state_shardings(tree, plan)
+    specs under ``plan``; None without a plan). ``param_specs`` is a
+    model's own spec tree (``spmd.state_shardings``). A tensor tree
+    already on ``device`` is not copied before it is cut."""
+    specs = spmd.state_shardings(tree, plan, param_specs=param_specs)
     if not isinstance(leaves(tree)[0], torch.Tensor):
         tree = params_from_numpy(tree, device)
     return (spmd.place_state(tree_map(lambda t: t.to(device), tree), plan,
@@ -100,6 +103,6 @@ def params_onto_plan(tree: Any, plan, device="cuda"):
 
 
 def params_off_plan(params: Any, specs: Any, plan) -> Any:
-    """Every rank's blocks -> the whole tree of numpy arrays (a collective
-    over ``model``: every rank of the model group calls it)."""
+    """Every rank's blocks -> the whole tree of numpy arrays (a collective:
+    every rank of the mesh calls it)."""
     return params_to_numpy(spmd.gather_state(params, specs, plan))

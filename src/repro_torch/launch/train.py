@@ -22,7 +22,10 @@ SPMD, one process per rank (``repro_torch.distributed``), with
 exchange. On the CPU the launcher spawns the mesh's gloo ranks itself; on
 the card run one rank a card (``torchrun --nproc-per-node N``, NCCL), or
 ``--mesh 1x1`` in this process: a mesh larger than the visible cards is
-refused.
+refused. Each rank holds its FSDP / TP block of every dense leaf and its
+row block of every sharded table, and logs their bytes (``rank-bytes``).
+The LM archs take no ``--mesh`` (the reference's launcher has none): the
+LM under a plan is reached through the library (``lm_loss(..., plan)``).
 
 The LM archs and ``mace`` keep the reference's direct construction (they
 are not recsys scenarios): the arch's ``smoke_config()`` (MACE: channels
@@ -335,6 +338,8 @@ def main(argv=None):
         raise SystemExit(str(e))
     dt = time.time() - t0
     import torch.distributed as dist
+    if spec.train.mesh:
+        _log_rank_bytes(state)
     if dist.is_initialized() and dist.get_rank() != 0:
         return trainer, state          # rank 0 reports the run
     # history only fills every log_every steps; a short run may log none
@@ -350,6 +355,23 @@ def main(argv=None):
         n = obs_trace.get_tracer().save(args.trace_out)
         log.info("trace-saved", path=args.trace_out, events=n)
     return trainer, state
+
+
+def _log_rank_bytes(state) -> None:
+    """Every rank's params bytes, its tables' and its dense leaves' (the
+    FSDP / TP blocks), as a ``rank-bytes`` line."""
+    import torch.distributed as dist
+
+    from repro_torch.train.optim import default_is_embedding
+    from repro_torch.tree import flatten_with_path
+    tables = dense = 0
+    for path, x in flatten_with_path(state["params"]):
+        n = x.numel() * x.element_size()
+        if default_is_embedding(path):
+            tables += n
+        else:
+            dense += n
+    log.info("rank-bytes", rank=dist.get_rank(), dense=dense, tables=tables)
 
 
 def _spawns_ranks(mesh: str, device) -> bool:

@@ -210,14 +210,26 @@ def dlrm_forward_roo(params: Dict, cfg: DLRMConfig, ro_dense: torch.Tensor,
 
 def dlrm_forward_impression(params: Dict, cfg: DLRMConfig,
                             dense: torch.Tensor, ids: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            lengths: torch.Tensor, plan=None) -> torch.Tensor:
     """Impression-level baseline: everything at B_NRO.
 
     dense: (B, n_dense); ids: (B, n_sparse, mh). Returns (B,) logits.
+    Under a plan the lookups go through ``_field_lookup``'s sharded bags
+    and, where the plan slices D, B7 runs on this rank's slice as in
+    :func:`dlrm_forward_from_embs`.
     """
     dense_out = mlp_apply(params["bot_mlp"], dense)
-    embs = _field_lookup(params, ids, lengths, range(cfg.n_sparse))
-    z = dot_interaction(dense_out, embs)
+    embs = _field_lookup(params, ids, lengths, range(cfg.n_sparse), cfg=cfg,
+                         plan=plan)
+    if not _sliced(cfg, plan):
+        z = dot_interaction(dense_out, embs)
+        return mlp_apply(params["top_mlp"], z)[:, 0]
+    n = spmd.model_shard_count(plan)
+    dense_slice = coll.slice_cols(dense_out, spmd.model_group(plan), n,
+                                  spmd.model_index(plan))
+    part = dot_interaction(dense_slice, embs)
+    pairs = spmd.model_sum(part[:, cfg.embed_dim // n:], plan)
+    z = torch.cat([dense_out, pairs], dim=1)
     return mlp_apply(params["top_mlp"], z)[:, 0]
 
 

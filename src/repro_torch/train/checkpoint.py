@@ -19,24 +19,27 @@ writer between the payload and the commit (the ``.tmp`` dir stays, no
 ``meta.json``), ``corrupt`` flips a byte of the committed ``arrays.npz``
 so that only digest verification catches it.
 
-**Sharded states** (``save(..., plan=, specs=)`` under an SPMD plan). The
-ranks of the first data block gather each row-sharded leaf's blocks over
-``model``, and rank 0 writes the reference's sharded layout: a leaf with a
-spec gets a ``sharding.json`` entry (global shape, dtype, spec, shards)
-and one ``a{i}.s{k}`` array a row block (a leaf held whole: one shard of
-the whole extent), the rest ``a{i}``; ``treedef.pkl`` holds the tree as
+**Sharded states** (``save(..., plan=, specs=)`` under an SPMD plan). Every
+rank takes part in gathering each leaf's blocks (FSDP rows and TP columns
+of the dense leaves, the tables' row blocks), and rank 0 writes the
+reference's sharded layout: a leaf with a spec gets a ``sharding.json``
+entry (global shape, dtype, spec, shards) and one ``a{i}.s{k}`` array a
+block of the mesh, with its ``index`` ranges on every dim (a 2-D block of
+an FSDP x TP leaf; a leaf held whole: one shard of the whole extent), the
+rest ``a{i}``; ``treedef.pkl`` holds the tree as
 the reference's ``jax`` (0.9) pickles a ``PyTreeDef``, written opcode by
 opcode here without importing it. So the reference's
 ``CheckpointManager.restore()`` reassembles a port checkpoint on one
 device. ``restore`` reassembles the global tree; ``saved_specs`` reads
-the specs back; ``restore_sharded(plan)`` cuts each leaf whose saved spec
-splits rows over ``model`` to this rank's block of the (possibly other)
-mesh (a leaf the new mesh does not divide stays whole);
+the specs back; ``restore_sharded(plan)`` re-applies each saved spec on
+the (possibly other) mesh and cuts the leaf to this rank's block (a dim
+the new mesh does not divide stays whole);
 ``restore_resharded(specs, plan)`` cuts by an explicit spec tree.
 """
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import shutil
@@ -157,9 +160,10 @@ def _host(x) -> np.ndarray:
             if isinstance(x, torch.Tensor) else np.asarray(x))
 
 
-def _sharded_payload(flat: list, spec_leaves: list, n_model: int):
+def _sharded_payload(flat: list, spec_leaves: list, mesh_shape: dict):
     """(arrays, manifest) of the reference's sharded layout for global
-    leaves and their specs (module note)."""
+    leaves and their specs (module note): one shard a block of the mesh,
+    blocks in row-major order of their dims' block indices."""
     host: Dict[str, np.ndarray] = {}
     manifest: Dict[str, dict] = {}
     for i, (x, spec) in enumerate(zip(flat, spec_leaves)):
@@ -167,14 +171,18 @@ def _sharded_payload(flat: list, spec_leaves: list, n_model: int):
         if not any(e is not None for e in spec):
             host[f"a{i}"] = arr
             continue
-        blocks = n_model if spec[0] == "model" else 1
-        rows = arr.shape[0] // blocks
+        counts = []
+        for dim, d in enumerate(arr.shape):
+            e = spec[dim] if dim < len(spec) else None
+            names = () if e is None else ((e,) if isinstance(e, str) else e)
+            counts.append(int(np.prod([mesh_shape[a] for a in names])))
         shards = []
-        for k in range(blocks):
+        for k, blk in enumerate(itertools.product(*map(range, counts))):
+            index = [[b * (d // c), (b + 1) * (d // c)]
+                     for b, c, d in zip(blk, counts, arr.shape)]
             key = f"a{i}.s{k}"
-            host[key] = arr[k * rows:(k + 1) * rows]
-            shards.append({"key": key, "index": [[k * rows, (k + 1) * rows]]
-                           + [[0, d] for d in arr.shape[1:]]})
+            host[key] = arr[tuple(slice(a, b) for a, b in index)]
+            shards.append({"key": key, "index": index})
         manifest[str(i)] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
                             "spec": _spec_to_json(spec), "shards": shards}
     return host, manifest
@@ -208,21 +216,19 @@ class CheckpointManager:
              plan=None, specs: Any = None) -> None:
         """Snapshot ``state`` to host memory synchronously and write it
         (async unless ``blocking``). Under an enabled ``plan`` every rank
-        calls it with its part and the state's ``specs``; rank 0 writes."""
+        calls it with its part and the state's ``specs`` (each takes part
+        in the gather); rank 0 writes."""
         sharded_manifest: Dict[str, dict] = {}
         if plan is not None and plan.enabled:
             import torch.distributed as dist
 
             from repro_torch.distributed import spmd
-            if spmd.data_index(plan) != 0:
-                return
             state = spmd.gather_state(state, specs, plan)
             if dist.get_rank() != 0:
                 return
             flat = leaves(state)
             host, sharded_manifest = _sharded_payload(
-                flat, leaves(specs, is_leaf=spmd.is_spec),
-                spmd.model_shard_count(plan))
+                flat, leaves(specs, is_leaf=spmd.is_spec), plan.mesh.shape)
         else:
             flat = leaves(state)
             host = {f"a{i}": _host(x) for i, x in enumerate(flat)}
@@ -384,21 +390,22 @@ class CheckpointManager:
 
     def restore_sharded(self, plan, step: Optional[int] = None) -> Any:
         """Restore onto ``plan``'s mesh (possibly of another shape than
-        the one saved from): each leaf whose saved spec splits its rows
-        over ``model`` is cut to this rank's block when the new model
-        ranks divide it, every other leaf whole."""
+        the one saved from): each leaf's saved spec is re-applied and the
+        leaf cut to this rank's block, a dim the new mesh does not divide
+        (or whose axis it lacks) whole."""
         from repro_torch.distributed import spmd
         state = self.restore(step)
         specs = self.saved_specs(step)
-        n = spmd.model_shard_count(plan)
-        flat = leaves(state)
+        names = set(plan.mesh.axis_names)
         cut = []
-        for i, x in enumerate(flat):
-            spec = tuple(specs.get(i) or ())
-            if spec and spec[0] == "model" and x.shape[0] % n == 0:
-                cut.append(spmd.local_block(x, spec, plan))
-            else:
-                cut.append(x)
+        for i, x in enumerate(leaves(state)):
+            spec = tuple(
+                None if e is None or not set(spmd.entry_axes(
+                    tuple(e) if isinstance(e, list) else e)) <= names
+                else (tuple(e) if isinstance(e, list) else e)
+                for e in (specs.get(i) or ()))
+            cut.append(spmd.local_block(
+                x, spmd.fit_spec(spec, tuple(x.shape), plan), plan))
         return unflatten(state, cut)
 
     def restore_resharded(self, specs: Any, plan,

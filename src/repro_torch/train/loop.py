@@ -43,23 +43,30 @@ numbers gives other draws than the reference; everything else follows the
 reference step for step.
 
 SPMD (``plan=``, ``distributed/``): one process per rank. The Trainer
-places its state with ``spmd.place_state`` (each table, its row-wise
-accumulator and its ``comms_ef`` residual as this rank's row block; dense
-leaves whole) and builds the step with the state's specs. The batch
-iterator yields this rank's block (``spmd.place_batch``, or the loader's
-``sharding=``). The loss sums its batch reductions over the batch axes
-(so each rank's loss is the global one and its gradient its own block's
-part); after backward the step sums every gradient over the batch axes in
-one flat all-reduce, and the grad norm adds the row-sharded leaves'
-squares over ``model`` once, so the non-finite guard is the same on
-every rank. With ``comms_compress`` on and a ``state["comms_ef"]`` the
-table gradients go through error feedback (``comms.ef_compress_step``)
-before the optimizer, with or without a plan (the reference's
-single-process simulation of the exchange); ``comms_overlap=on`` with
-microbatches issues each microbatch's reduction asynchronously and waits
-once before the optimizer. Checkpoints under a plan gather the row blocks
-over ``model`` and rank 0 writes the reference's sharded layout
-(``train/checkpoint.py``).
+places its state with ``spmd.place_state``: each leaf as this rank's block
+by its spec (tables, their row-wise accumulators and ``comms_ef``
+residuals by rows over ``model``; dense leaves of >= 2 dims by their FSDP
+rows and TP columns, where the mesh divides them), and builds the step
+with the state's specs. A model that reads its dense leaves whole (the
+recsys archs) gets them gathered inside the step's loss
+(``spmd.gather_dense``: the gather's backward reduce-scatters each
+gradient over the batch axes); a model that gathers its own weights (the
+LM: ``param_specs=`` and ``grad_axes=``) gets its blocks. The batch
+iterator yields what the loss takes (``spmd.place_batch``, or the loader's
+``sharding=``; the LM takes the global tokens). The loss sums its batch
+reductions over the batch axes (so each rank's loss is the global one and
+its gradient its own part); after backward the step applies the one
+gradient rule (``spmd.reduce_grads``: each leaf summed over its use's
+axes, the batch axes unless ``grad_axes`` says more, less the axes it is
+split on), and the grad norm adds each leaf's squares over the axes it is
+split on once, so the non-finite guard is the same on every rank. With
+``comms_compress`` on and a ``state["comms_ef"]`` the table gradients go
+through error feedback (``comms.ef_compress_step``) before the optimizer,
+with or without a plan (the reference's single-process simulation of the
+exchange); ``comms_overlap=on`` with microbatches issues each
+microbatch's reduction asynchronously and waits once before the
+optimizer. Checkpoints under a plan gather every block on rank 0, which
+writes the reference's sharded layout (``train/checkpoint.py``).
 
 Observability and faults mirror the reference: the Trainer registers its
 ``snapshot`` as ``train``; in ``trace`` mode each step is a ``train.step``
@@ -150,7 +157,8 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 def make_train_step(loss_fn: Callable, opt: Optimizer,
                     microbatches: int = 1,
                     value_and_grad_fn: Optional[Callable] = None,
-                    plan=None, state_shardings=None):
+                    plan=None, state_shardings=None, grad_axes=None,
+                    gathers_own: bool = False):
     """Returns ``step(state, batch, base_seed, step) -> (state, metrics)``.
 
     With microbatches > 1, every tensor leaf of ``batch`` has a leading
@@ -164,33 +172,38 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
 
     With an enabled ``plan`` and the state's spec tree
     (``spmd.state_shardings`` of the global state) the step runs SPMD
-    (module note). The comms knobs resolve here, at construction.
+    (module note): ``gathers_own`` says the loss gathers its own split
+    leaves (else the step gathers the dense ones for it) and
+    ``grad_axes`` is the tree of the axes each param's use is split over
+    (None: the batch axes). The comms knobs resolve here, at
+    construction.
     """
+    spmd_on = plan is not None and plan.enabled
+    if spmd_on:
+        from repro_torch.distributed import spmd
+        if state_shardings is None:
+            raise ValueError("make_train_step(plan=...) needs the state's "
+                             "specs (spmd.state_shardings)")
+        p_specs = state_shardings["params"]
+        if not gathers_own:
+            if value_and_grad_fn is not None:
+                raise ValueError("sparse row gradients and an SPMD plan "
+                                 "are mutually exclusive")
+            inner = loss_fn
+
+            def loss_fn(p, b, g):
+                return inner(spmd.gather_dense(p, p_specs, plan), b, g)
     vag = value_and_grad_fn or value_and_grad(loss_fn)
     comms_mode = _comms.compress_mode()
     comms_block = _comms.block_size()
     overlap = _comms.overlap_enabled() and microbatches > 1
     _comms.STATS.record_overlap(microbatches, overlap)
-    spmd_on = plan is not None and plan.enabled
     if spmd_on:
-        from repro_torch.distributed import collectives as coll
-        from repro_torch.distributed import spmd
-        if state_shardings is None:
-            raise ValueError("make_train_step(plan=...) needs the state's "
-                             "specs (spmd.state_shardings)")
-        rows_mask = [spmd.rows_sharded(sp, plan) for sp in leaves(
-            state_shardings["params"], is_leaf=spmd.is_spec)]
-        groups = spmd.batch_groups(plan)
-
         def reduce_grads(g, async_op=False):
-            flat = leaves(g, is_leaf=is_sparse)
-            if any(map(is_sparse, flat)):
+            if any(map(is_sparse, leaves(g, is_leaf=is_sparse))):
                 raise ValueError("sparse row gradients and an SPMD plan "
                                  "are mutually exclusive")
-            out = coll.all_reduce_flat(flat, groups, async_op=async_op)
-            if async_op:
-                return lambda: unflatten(g, out())
-            return unflatten(g, out)
+            return spmd.reduce_grads(g, p_specs, plan, grad_axes, async_op)
 
     def step(state, batch, base: int, step_idx: int):
         params = state["params"]
@@ -236,14 +249,9 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
 
         g_leaves = leaves(grads, is_leaf=is_sparse)
         if spmd_on:
-            # the row-sharded leaves' squares summed over model, once
-            dense_sq = sum(sq_sum(g) for g, r in zip(g_leaves, rows_mask)
-                           if not r)
-            rows_sq = sum(sq_sum(g) for g, r in zip(g_leaves, rows_mask)
-                          if r)
-            gnorm = torch.sqrt(dense_sq + spmd.model_sum(
-                torch.as_tensor(rows_sq, device=device, dtype=torch.float32),
-                plan) + 1e-20)
+            # each leaf's squares summed over the axes it is split on, once
+            gnorm = torch.sqrt(spmd.grad_sq_norm(g_leaves, p_specs, plan,
+                                                 sq_sum) + 1e-20)
         else:
             gnorm = torch.sqrt(sum(sq_sum(g) for g in g_leaves) + 1e-20)
         # non-finite guard: a NaN/Inf loss or gradient must not poison the
@@ -278,7 +286,7 @@ class Trainer:
                  cfg: TrainLoopConfig, init_params_fn: Callable[[], Any], *,
                  value_and_grad_fn: Optional[Callable] = None,
                  metrics_fn: Optional[Callable] = None, device="cuda",
-                 plan=None):
+                 plan=None, param_specs=None, grad_axes=None):
         self.loss_fn = loss_fn
         self.opt = opt
         self.cfg = cfg
@@ -291,6 +299,10 @@ class Trainer:
         # cost a second model forward on every step
         self.metrics_fn = metrics_fn
         self._spmd = plan is not None and plan.enabled
+        # a model's own spec tree and per-leaf use axes (the LM's): it then
+        # gathers its own weights (make_train_step's gathers_own)
+        self.param_specs = param_specs
+        self.grad_axes = grad_axes
         self._specs = None       # the state's spec tree, under a plan
         # under a plan the step needs the state's specs: built in run()
         self.step_fn = (None if self._spmd else make_train_step(
@@ -343,17 +355,19 @@ class Trainer:
         if not self._spmd:
             return state
         from repro_torch.distributed import spmd
-        self._specs = spmd.state_shardings(state, self.plan)
+        self._specs = spmd.state_shardings(state, self.plan,
+                                           param_specs=self.param_specs)
         state = spmd.place_state(state, self.plan, specs=self._specs)
         self.step_fn = make_train_step(
             self.loss_fn, self.opt, self.cfg.microbatches,
             self.value_and_grad_fn, plan=self.plan,
-            state_shardings=self._specs)
+            state_shardings=self._specs, grad_axes=self.grad_axes,
+            gathers_own=self.param_specs is not None)
         return state
 
     def gather_state(self, state: Dict) -> Dict:
-        """The global state from every rank's part (collective over
-        ``model``; the state itself without a plan)."""
+        """The global state from every rank's part (a collective every rank
+        calls; the state itself without a plan)."""
         if not self._spmd:
             return state
         from repro_torch.distributed import spmd
@@ -437,9 +451,14 @@ class Trainer:
         if self.metrics_fn is not None:
             mb = (tree_map(lambda x: x[0], batch)
                   if self.cfg.microbatches > 1 else batch)
+            params = state["params"]
+            if self._spmd and self.param_specs is None:
+                from repro_torch.distributed import spmd
+                params = spmd.gather_dense(params, self._specs["params"],
+                                           self.plan)
             with torch.no_grad():
                 extra = self.metrics_fn(
-                    state["params"], mb,
+                    params, mb,
                     step_generator(base, step, device=self.device))
             row.update({k: float(v) for k, v in extra.items()})
         return row

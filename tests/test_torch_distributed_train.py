@@ -4,14 +4,15 @@ One world of four ranks runs ``torch_spmd_ranks.train_rank`` once for the
 module (~10 s); each test reads its part of the results. Sizes and
 contracts are the reference's ``tests/test_distributed_train.py``'s
 (``_lsr_cfg``, ``_gr_cfg``, 60 requests over 512 items, batches of 8 / 32
-packed for 2 data shards). The reference's own SPMD path does not run on
-this jax (ROADMAP: ``ShardingTypeError`` in its sharded gather), so the
-port is held to the reference's single-device functions and contract:
+packed for 2 data shards). The port is held here to the reference's
+single-device functions and contract (its sharded runs, on a mesh of Auto
+axes, are ``test_torch_fsdp.py``'s oracle):
 
   * 20 Trainer steps of lsr ``userarch_hstu`` and gr on 2 x 2 against the
     port's one-process run: losses rtol 2e-4 / atol 1e-6, final params
     rtol 5e-3 / atol 2e-4; each rank holds V/2 rows of every sharded
-    table and the 4-row action table whole;
+    table, the 4-row action table whole and its FSDP / TP block of every
+    dense leaf;
   * step 0's loss and every gradient leaf (summed over the data ranks,
     tables gathered over the model ranks) against the reference's
     single-device ``jax.value_and_grad`` on the same params, to 1e-5;
@@ -95,8 +96,8 @@ def test_2x2_trains_as_one_process(ranks, arch):
 def test_ranks_hold_row_blocks(ranks, arch, tables):
     blocks = json.loads((ranks / f"{arch}_blocks.json").read_text())
     assert {k: blocks[k] for k in tables} == tables
-    # dense leaves stay whole (their FSDP / TP specs wait for A9b)
-    assert blocks["hstu/layers/0/w_uvqk"] == [32, 128]
+    # a dense leaf is held as its FSDP / TP block: (data, model) of (32, 128)
+    assert blocks["hstu/layers/0/w_uvqk"] == [16, 64]
 
 
 def _jax_cfg(arch):

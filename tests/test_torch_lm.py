@@ -13,7 +13,10 @@ The same numpy inputs go through both packages, with the reference's
   * the q-chunked branch (``full_attn_max_seq`` / ``q_chunk`` replaced)
     against the reference and against the port's unchunked run;
   * the MoE at ``capacity_factor`` 0.5, where tokens are dropped: the same
-    ``top_i`` and the same kept slots exactly, the output and gradients.
+    ``top_i`` and the same kept slots exactly, the output and gradients;
+  * the plan route on a 1 x 1 mesh (a world of one) equal to no plan (the
+    2 x 2 runs against the reference's sharded ones are
+    ``test_torch_lm_spmd.py``).
 
 Tolerances: f32 compute, the loss and logits atol = rtol = 1e-5 and the
 gradients atol = rtol = 1e-4 (the packages sum in other orders); bf16
@@ -22,7 +25,8 @@ compute, atol = rtol = 2e-2 (the reference's bf16 tolerance,
 bf16 without XLA's excess precision (``strict_jit``).
 """
 import dataclasses
-import types
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +46,8 @@ from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 LM_IDS = ("starcoder2-15b", "deepseek-coder-33b", "phi3-medium-14b",
           "qwen3-moe-235b-a22b", "granite-moe-3b-a800m")
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
 F32_TOL = 1e-5
 GRAD_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -283,15 +289,34 @@ def test_q_chunked_branch():
         assert_close(g, h, GRAD_TOL)
 
 
-def test_plan_refused_naming_a9b():
-    _, pc, _, pp = smoke("granite-moe-3b-a800m")
-    plan = types.SimpleNamespace(enabled=True)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        transformer.lm_forward(pp, pc, toks, plan=plan)
-    lyr = transformer.layer_params(pp, torch.float32)[0]
-    with pytest.raises(NotImplementedError, match="A9b"):
-        moe.moe_layer(torch.zeros((1, 4, pc.d_model)), lyr, pc.moe, plan)
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "granite-moe-3b-a800m"])
+def test_plan_refused_naming_a9b(arch):
+    """A 1 x 1 plan (a world of one) runs the plan route of the forward,
+    the loss and its gradients (both ``use_spmd_layer`` values) and the
+    MoE, and equals the run without a plan."""
+    from torch_port_state import world_of_one
+    _, pc, _, pp = smoke(arch, compute_dtype="float32")
+    toks = torch.from_numpy(tokens(pc.vocab, (2, 8)))
+    want, want_g = port_value_and_grad(
+        lambda p: transformer.lm_loss(p, pc, toks, toks), pp)
+    hidden = transformer.lm_forward(pp, pc, toks)
+    with world_of_one() as plan:
+        for spmd_layer in (False, True):
+            cfg = dataclasses.replace(pc, use_spmd_layer=spmd_layer)
+            got, got_g = port_value_and_grad(
+                lambda p: transformer.lm_loss(p, cfg, toks, toks, plan), pp)
+            assert_close(got, want, F32_TOL)
+            for g, w in zip(got_g, want_g):
+                assert_close(g, w, GRAD_TOL)
+            assert_close(transformer.lm_forward(pp, cfg, toks, plan)
+                         .detach(), hidden.detach(), F32_TOL)
+        if pc.moe is not None:
+            lyr = transformer.layer_params(pp, torch.float32)[0]
+            x = torch.from_numpy(rand((2, 8, pc.d_model), 1))
+            for seq_sharded in (True, False):
+                assert_close(moe.moe_layer(x, lyr, pc.moe, plan, seq_sharded)
+                             .detach(), moe.moe_layer(x, lyr, pc.moe)
+                             .detach(), F32_TOL)
 
 
 # ---------------------------------------------------------------------------

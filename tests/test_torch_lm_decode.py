@@ -114,7 +114,21 @@ def test_init_cache_and_the_sharded_cache_refused():
         pc.n_layers, 3, 40, pc.n_kv_heads, pc.d_head)
     assert cache["k"].dtype == torch.bfloat16
     assert int(cache["pos"]) == 0 and cache["pos"].dtype == torch.int32
-    toks = torch.zeros((3, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        decode.serve_step(pp, pc, cache, toks,
-                          cs=decode.CacheSpec(("data",), "model"))
+    # a sharded cache on a 1 x 1 plan: prefill and steps equal no plan
+    from torch_port_state import world_of_one
+    _, pc, _, pp = smoke("granite-moe-3b-a800m", compute_dtype="float32")
+    toks = torch.from_numpy(tokens(pc.vocab, (2, 12)))
+    want, want_c = decode.prefill(pp, pc, toks[:, :8], s_max=12)
+    with world_of_one() as plan:
+        for cs in (decode.CacheSpec(("data",), "model"),
+                   decode.CacheSpec(None, ("data", "model"))):
+            got, got_c = decode.prefill(pp, pc, toks[:, :8], plan=plan,
+                                        s_max=12, cs=cs)
+            w, wc = want, want_c
+            for i in range(8, 12):
+                assert_close(got, w, F32_TOL, f"{cs} position {i}")
+                got, got_c = decode.serve_step(pp, pc, got_c,
+                                               toks[:, i:i + 1], plan=plan,
+                                               cs=cs)
+                w, wc = decode.serve_step(pp, pc, wc, toks[:, i:i + 1])
+            assert got_c["pos"].device == toks.device

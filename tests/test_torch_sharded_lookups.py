@@ -40,7 +40,7 @@ from repro_torch.data.jagged import JaggedTensor
 from repro_torch.embeddings import collection as ec
 from repro_torch.interop import params_to_numpy
 from repro_torch.launch.hostdevices import spawn
-from repro_torch.models.dlrm import dlrm_init
+from repro_torch.models.dlrm import dlrm_forward_impression, dlrm_init
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_spmd_ranks as R  # noqa: E402
@@ -124,6 +124,29 @@ def test_dlrm_forward_under_the_plan_matches_the_reference(got):
                                      *map(jnp.asarray, args))
     np.testing.assert_allclose(res["dlrm/out"], np.asarray(want), rtol=2e-5,
                                atol=1e-5)
+
+
+def test_dlrm_impression_forward_under_the_plan(got):
+    """``dlrm_forward_impression(plan=...)`` on the 2 x 2 world (its bags
+    through the sharded lookups, B7 on the D slice) against the unsharded
+    forward on the same params, and against the reference's."""
+    res, _ = got
+    cfg, _ = R.dlrm_inputs()
+    params = dlrm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    args = R.dlrm_impression_inputs()
+    with torch.no_grad():
+        want = dlrm_forward_impression(params, cfg,
+                                       *map(torch.from_numpy, args))
+    np.testing.assert_allclose(res["dlrm_impression/out"], want.numpy(),
+                               atol=1e-4, rtol=0)
+    jcfg = jax_dlrm.DLRMConfig(n_dense=4, embed_dim=32, bot_mlp=(4, 32, 32),
+                               top_mlp=(64, 32, 1), vocabs=(256, 128, 64, 8),
+                               n_ro_fields=2, multi_hot=2)
+    ref = jax_dlrm.dlrm_forward_impression(
+        jax.tree.map(jnp.asarray, params_to_numpy(params)), jcfg,
+        *map(jnp.asarray, args))
+    np.testing.assert_allclose(res["dlrm_impression/out"], np.asarray(ref),
+                               atol=1e-4, rtol=0)
 
 
 def test_lsr_loss_with_dedup_forced_composes_with_the_sums(got):

@@ -260,5 +260,9 @@ def test_restore_resharded_cuts_by_explicit_specs(tmp_path):
     got = CheckpointManager(str(tmp_path)).restore_resharded(specs, plan, 3)
     torch.testing.assert_close(got["params"]["item_emb"],
                                state["params"]["item_emb"][256:])
-    torch.testing.assert_close(got["params"]["w"], state["params"]["w"])
+    # a dense leaf is cut by its TP spec (None, model): model rank 1's
+    # columns
+    assert specs["params"]["w"] == (None, "model")
+    torch.testing.assert_close(got["params"]["w"],
+                               state["params"]["w"][:, 2:])
     assert int(got["step"]) == 3

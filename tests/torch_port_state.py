@@ -4,8 +4,11 @@ touch is reset around each test — the knob defaults (backends, dedup,
 obs mode, verbosity, fault plan), the obs registry (its metrics and
 mirrors; the fault plan's collector is registered again), the span
 tracer and the telemetry install point. Import ``port_state`` into a test
-module to make it autouse there.
+module to make it autouse there. ``world_of_one`` gives a test a 1 x 1
+SPMD plan in its own process.
 """
+import contextlib
+
 import pytest
 
 from repro_torch.embeddings import collection  # noqa: F401 (registers knob)
@@ -50,3 +53,20 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A 1 x 1 plan over a gloo world of one in this process; the world is
+    destroyed on the way out (the launcher's ``--mesh 1x1`` on the CPU)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import plan_for_mesh
+    from repro_torch.launch.hostdevices import ensure_world
+    from repro_torch.launch.mesh import make_mesh
+    assert not dist.is_initialized()
+    ensure_world("gloo")
+    try:
+        yield plan_for_mesh(make_mesh((1, 1), ("data", "model")))
+    finally:
+        dist.destroy_process_group()

@@ -38,7 +38,7 @@ from repro_torch.scenario.knobs import UNSET
 from repro_torch.train.loop import Trainer, TrainLoopConfig, value_and_grad
 from repro_torch.train.optim import (adam, default_is_embedding, make_mixed,
                                      rowwise_adagrad)
-from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten
+from repro_torch.tree import flatten_with_path, tree_map
 
 N_STEPS = 20
 
@@ -169,10 +169,10 @@ def train_rank(rank: int, out: str) -> None:
         params, loss = model(arch)
         local, specs = params_onto_plan(params, plan, "cpu")
         batch = spmd.place_batch(batches()[0], plan)
-        value, grads = value_and_grad(lambda p, b, g: loss(p, b, plan))(
-            local, batch, None)
-        flat = coll.all_reduce_flat(leaves(grads), spmd.batch_groups(plan))
-        grads = params_off_plan(unflatten(grads, flat), specs, plan)
+        value, grads = value_and_grad(lambda p, b, g: loss(
+            spmd.gather_dense(p, specs, plan), b, plan))(local, batch, None)
+        grads = params_off_plan(spmd.reduce_grads(grads, specs, plan),
+                                specs, plan)
         if rank == 0:
             save_npz(os.path.join(out, f"{arch}_step0.npz"), loss=value,
                      **{f"g/{k}": v for k, v in _np_tree(grads).items()})
@@ -326,6 +326,15 @@ def dlrm_inputs():
     return cfg, args
 
 
+def dlrm_impression_inputs():
+    """An impression-level batch of ``dlrm_inputs``' config: (dense (32,
+    4), ids (32, 4, 2), lengths (32, 4))."""
+    r = np.random.RandomState(1)
+    return (r.normal(size=(32, 4)).astype(np.float32),
+            r.randint(0, 8, (32, 4, 2)).astype(np.int32),
+            r.randint(0, 3, (32, 4)).astype(np.int32))
+
+
 def _gather_cols(x: torch.Tensor, plan) -> torch.Tensor:
     """Every model rank's last-dim chunk, side by side."""
     n, c = spmd.model_shard_count(plan), x.shape[-1]
@@ -337,7 +346,8 @@ def _gather_cols(x: torch.Tensor, plan) -> torch.Tensor:
 def lookups_rank(rank: int, out: str) -> None:
     from repro_torch.data.jagged import JaggedTensor
     from repro_torch.embeddings import collection as ec
-    from repro_torch.models.dlrm import dlrm_forward_roo, dlrm_init
+    from repro_torch.models.dlrm import (dlrm_forward_impression,
+                                         dlrm_forward_roo, dlrm_init)
     plan = plan_for_mesh(make_test_mesh(2, 2))
     d, n_data = spmd.data_index(plan), spmd.data_shard_count(plan)
     m, n_model = spmd.model_index(plan), spmd.model_shard_count(plan)
@@ -406,20 +416,27 @@ def lookups_rank(rank: int, out: str) -> None:
     # the dlrm forward under the plan: RS bags + B7 on the D slices
     cfg, args = dlrm_inputs()
     params = dlrm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    local, _ = params_onto_plan(params, plan, "cpu")
+    local, specs = params_onto_plan(params, plan, "cpu")
+    local = spmd.gather_dense(local, specs, plan)
     targs = [torch.from_numpy(a) for a in args]
     b_ro = targs[0].shape[0] // n_data
     placed = [spmd.place_batch(a, plan) for a in targs]
     placed[5] = placed[5] - d * b_ro          # the block's segment ids
     with torch.no_grad():
         logits = dlrm_forward_roo(local, cfg, *placed, plan=plan)
+        imp = [spmd.place_batch(torch.from_numpy(a), plan)
+               for a in dlrm_impression_inputs()]
+        res["dlrm_impression/out"] = spmd.gather_batch(
+            dlrm_forward_impression(local, cfg, *imp, plan=plan), plan)
     res["dlrm/out"] = spmd.gather_batch(logits, plan)
     # the lsr loss with dedup forced, through the sums
     ec.set_dedup_policy("always")
     try:
         params, loss = model("lsr")
         with torch.no_grad():
-            res["lsr_dedup/loss"] = loss(spmd.place_state(params, plan),
+            local, specs = params_onto_plan(params, plan, "cpu")
+            res["lsr_dedup/loss"] = loss(spmd.gather_dense(local, specs,
+                                                           plan),
                                          spmd.place_batch(batches()[0], plan),
                                          plan)
     finally:
@@ -429,4 +446,170 @@ def lookups_rank(rank: int, out: str) -> None:
                  **{k: v.detach().numpy() for k, v in res.items()})
         with open(os.path.join(out, "sites.json"), "w") as f:
             json.dump(sites, f)
+    dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# test_torch_lm_spmd.py
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("phi3-medium-14b", "granite-moe-3b-a800m")
+LM_BATCH, LM_SEQ, PROMPT, S_MAX, STEPS = 4, 16, 8, 16, 4
+
+
+def lm_config(arch: str):
+    """The smoke config at f32 compute; the MoE at ``capacity_factor``
+    0.5, so tokens drop (``torch_ref_spmd.lm_config``)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(),
+                              compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+    return cfg
+
+
+def odd_heads_config():
+    """phi3's smoke config with 5 heads (5 KV heads): the model axis of 2
+    splits ``wq``'s 40 columns but not its heads."""
+    import dataclasses
+    return dataclasses.replace(lm_config("phi3-medium-14b"), n_heads=5,
+                               n_kv_heads=5)
+
+
+def nested(flat: dict) -> dict:
+    """"a/b"-keyed leaves -> the nested dict tree."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def lm_rank(rank: int, out: str, params_npz: str) -> None:
+    """The LM under a 2 x 2 plan on the reference's params: the hidden,
+    the loss and the gathered gradients on both layer routes, and
+    ``prefill`` + ``STEPS`` ``serve_step``s under both ``lm_cells`` cache
+    layouts (rank 0 writes ``lm.npz``); each rank's block shapes
+    (``lm_blocks_r{rank}.json``)."""
+    import dataclasses
+    from repro_torch.models.lm import decode
+    from repro_torch.models.lm.transformer import (lm_forward, lm_grad_axes,
+                                                   lm_init, lm_loss,
+                                                   lm_param_specs)
+    plan = plan_for_mesh(make_test_mesh(2, 2))
+    m_axes = spmd.plan_axes(plan, "model")
+    b_axes = spmd.plan_axes(plan, ("data",))
+    data = np.load(params_npz)
+    res, shapes = {}, {}
+    for arch in LM_ARCHS:
+        cfg = lm_config(arch)
+        prefix = f"{arch}/p/"
+        params = nested({k[len(prefix):]: data[k] for k in data.files
+                         if k.startswith(prefix)})
+        local, specs = params_onto_plan(params, plan, "cpu",
+                                        param_specs=lm_param_specs(cfg, plan))
+        shapes[arch] = {k: list(v.shape) for k, v in _np_tree(local).items()}
+        toks = torch.from_numpy(np.random.RandomState(7).randint(
+            0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int64))
+        for spmd_layer in (False, True):
+            c = dataclasses.replace(cfg, use_spmd_layer=spmd_layer)
+            tag = f"{arch}/{int(spmd_layer)}"
+            with torch.no_grad():
+                h = lm_forward(local, c, toks, plan)
+            res[f"{tag}/hidden"] = coll.gather_dim(
+                coll.gather_dim(h, m_axes, 1), b_axes, 0)
+            loss, grads = value_and_grad(
+                lambda p, b, g: lm_loss(p, c, toks, toks, plan))(
+                    local, None, None)
+            grads = spmd.reduce_grads(grads, specs, plan,
+                                      lm_grad_axes(c, plan))
+            res[f"{tag}/loss"] = loss
+            res.update({f"{tag}/g/{k}": torch.from_numpy(v) for k, v in
+                        _np_tree(spmd.gather_state(grads, specs,
+                                                   plan)).items()})
+        with torch.no_grad():
+            for name, cs in (
+                    ("seq", decode.CacheSpec(("data",), "model")),
+                    ("long", decode.CacheSpec(None, ("data", "model")))):
+                logits, cache = decode.prefill(local, cfg, toks[:, :PROMPT],
+                                               plan=plan, s_max=S_MAX, cs=cs)
+                res[f"{arch}/{name}/0"] = logits
+                shapes[f"{arch}/{name}/cache"] = list(cache["k"].shape)
+                for i in range(STEPS):
+                    logits, cache = decode.serve_step(
+                        local, cfg, cache,
+                        toks[:, PROMPT + i:PROMPT + i + 1], plan=plan, cs=cs)
+                    res[f"{arch}/{name}/{i + 1}"] = logits
+    # heads the model axis does not divide: every head on every model rank
+    cfg = odd_heads_config()
+    params = lm_init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    local, specs = params_onto_plan(params, plan, "cpu",
+                                    param_specs=lm_param_specs(cfg, plan))
+    shapes["odd_heads/wq"] = list(local["layers"]["wq"].shape)
+    toks = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int64))
+    loss, grads = value_and_grad(
+        lambda p, b, g: lm_loss(p, cfg, toks, toks, plan))(local, None, None)
+    grads = spmd.gather_state(spmd.reduce_grads(
+        grads, specs, plan, lm_grad_axes(cfg, plan)), specs, plan)
+    res["odd_heads/loss"] = loss
+    res.update({f"odd_heads/g/{k}": torch.from_numpy(v)
+                for k, v in _np_tree(grads).items()})
+    with open(os.path.join(out, f"lm_blocks_r{rank}.json"), "w") as f:
+        json.dump(shapes, f)
+    if rank == 0:
+        save_npz(os.path.join(out, "lm.npz"),
+                 **{k: v.detach().numpy() for k, v in res.items()})
+    dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# test_torch_fsdp.py
+# ---------------------------------------------------------------------------
+
+def fsdp_rank(rank: int, out: str) -> None:
+    """FSDP / TP storage of the recsys archs on 2 x 2: each rank's blocks
+    (``fsdp_blocks_r{rank}.npz``, with its mesh coordinate), step 0's
+    loss and gathered gradients, 20 Trainer steps, a checkpoint of 2-D
+    blocks at step 8 and its resume on 1 x 2 (rank 0 writes
+    ``fsdp.npz``)."""
+    plan = plan_for_mesh(make_test_mesh(2, 2))
+    res, blocks = {}, {"coord": np.asarray([spmd.data_index(plan),
+                                            spmd.model_index(plan)])}
+    for arch in ("lsr", "gr"):
+        params, loss = model(arch)
+        local, specs = params_onto_plan(params, plan, "cpu")
+        blocks.update({f"{arch}/{k}": v for k, v in _np_tree(local).items()})
+        batch = spmd.place_batch(batches()[0], plan)
+        value, grads = value_and_grad(lambda p, b, g: loss(
+            spmd.gather_dense(p, specs, plan), b, plan))(local, batch, None)
+        grads = params_off_plan(spmd.reduce_grads(grads, specs, plan),
+                                specs, plan)
+        res[f"{arch}/loss"] = np.asarray(value)
+        res.update({f"{arch}/g/{k}": v for k, v in _np_tree(grads).items()})
+        losses, trainer, state = train(arch, plan)
+        res[f"{arch}/losses"] = np.asarray(losses)
+        res.update({f"{arch}/p/{k}": v for k, v in _np_tree(
+            trainer.gather_state(state)["params"]).items()})
+    save_npz(os.path.join(out, f"fsdp_blocks_r{rank}.npz"), **blocks)
+    ck = os.path.join(out, "ck_2x2")
+    _, trainer, state = train("lsr", plan, 8, ckpt_dir=ck, ckpt_every=8)
+    full = trainer.gather_state(state)
+    res.update({f"s/{k}": v for k, v in _np_tree(
+        {k: full[k] for k in ("params", "opt", "step")}).items()})
+    sub = plan_for_mesh(make_test_mesh(1, 2))
+    if in_mesh(sub.mesh):
+        if rank == 0:
+            shutil.copytree(ck, os.path.join(out, "resume_2x2"))
+        dist.barrier(group=spmd.model_group(sub))
+        losses, _, _ = train("lsr", sub, 16,
+                             ckpt_dir=os.path.join(out, "resume_2x2"))
+        res["resumed"] = np.asarray(losses)
+    if rank == 0:
+        save_npz(os.path.join(out, "fsdp.npz"), **res)
     dist.barrier()
