@@ -283,6 +283,19 @@ Phases (any failure exits non-zero and prints no result):
                    vs "never" for B1 (serving shape), B5 (a dlrm scoring
                    field) and B7 (dlrm scoring), one launch a call, with
                    times
+ 22. dry run     — ``python -m repro_torch.launch.dryrun`` over all 40
+                   cells on the 16 x 16 and the 2 x 16 x 16 fake worlds
+                   and on 1 x 1, in parallel processes (``--shard``): 40
+                   OK lines from each, each cell's dominant roofline term;
+                   then every cell whose 1 x 1 peak estimate is under 60
+                   GiB (at least mace/molecule and mind, bert4rec and dien
+                   serve_p99) on the card under a 1 x 1 NCCL plan, its
+                   state and inputs from a seeded generator, the plain
+                   backends set through the env vars: FlopCounterMode's
+                   count of a step equal to the dry run's, the card's peak
+                   memory within 20 % of the estimate, 3 steps timed
+                   against the roofline's largest term (no gate), B1-B7
+                   launches
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -6346,6 +6359,112 @@ def phase_ops(mods, device, card: str) -> dict:
     return out
 
 
+# phase 22: the dry run's processes (all started together: one a core of
+# the card's host) and the card's checks of its estimates
+DRYRUN_SHARDS = (("16x16", 3), ("2x16x16", 3), ("1x1", 2))
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_CARD_GIB = 60
+DRYRUN_PEAK_TOL = 0.20
+DRYRUN_STEPS = 3
+DRYRUN_MUST = (("mace", "molecule"), ("mind", "serve_p99"),
+               ("bert4rec", "serve_p99"), ("dien", "serve_p99"))
+
+
+def phase_dryrun(mods, device, card: str) -> dict:
+    """Phase 22 (module note). Returns the card runs by cell."""
+    import os
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import run_on_card
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = []
+    for mesh, n in DRYRUN_SHARDS:
+        for k in range(n):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--all", "--shard", f"{k}/{n}", "--out",
+                   str(out_dir / mesh)]
+            cmd += (["--multi-pod"] if mesh == "2x16x16" else
+                    ["--mesh", mesh] if mesh == "1x1" else [])
+            procs.append((mesh, subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+    ok = {mesh: [] for mesh, _ in DRYRUN_SHARDS}
+    failed = []
+    for mesh, p in procs:
+        stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        ok[mesh] += [ln for ln in stdout.splitlines() if ln.startswith("OK")]
+        if p.returncode != 0:
+            failed.append((mesh, p.returncode, stdout[-2000:]
+                           + stderr[-2000:]))
+    wall = time.perf_counter() - t0
+    print(f"[dryrun] {card}: {len(procs)} processes in {wall:.1f} s; OK "
+          f"lines " + ", ".join(f"{m} {len(v)}" for m, v in ok.items()))
+    if failed or any(len(v) != 40 for v in ok.values()):
+        raise SystemExit(f"dryrun: a process failed or a mesh has not 40 "
+                         f"OK lines: {failed}")
+
+    def result(mesh, arch, shape):
+        tag = f"{arch}__{shape}__{'pod2' if mesh == '2x16x16' else 'pod1'}"
+        tag += "__1x1" if mesh == "1x1" else ""
+        return json.loads((out_dir / mesh / f"{tag}.json").read_text())
+
+    from repro_torch.configs.registry import all_cells
+    cells = all_cells()
+    for mesh in ("16x16", "2x16x16"):
+        print(f"[dryrun {mesh}] {card}: dominant roofline term (H100 "
+              f"constants, meta analysis) " + ", ".join(
+                  f"{a}/{s} {result(mesh, a, s)['roofline']['dominant']}"
+                  for a, s in cells))
+    est = {(a, s): result("1x1", a, s) for a, s in cells}
+    pick = [c for c in cells if est[c]["memory_analysis"]["peak_bytes"]
+            < DRYRUN_CARD_GIB * 2 ** 30]
+    if any(c not in pick for c in DRYRUN_MUST):
+        raise SystemExit(f"dryrun: a required cell's 1x1 estimate is over "
+                         f"{DRYRUN_CARD_GIB} GiB: {pick}")
+    plain = {"REPRO_TORCH_HSTU_BACKEND": "torch-chunked",
+             "REPRO_TORCH_EMB_BACKEND": "torch",
+             "REPRO_TORCH_DOT_BACKEND": "torch"}
+    os.environ.update(plain)
+    print(f"[dryrun card] {card}: plain backends {plain}; cells under "
+          f"{DRYRUN_CARD_GIB} GiB at 1x1: {[f'{a}/{s}' for a, s in pick]}")
+    runs, bad = {}, []
+    for arch, shape in pick:
+        e = est[arch, shape]
+        reset_counts(mods)
+        r = run_on_card(arch, shape, device, steps=DRYRUN_STEPS, seed=0)
+        counts = all_counts(mods)
+        want_f = e["cost_analysis"]["flops"]
+        want_p = e["memory_analysis"]["peak_bytes"]
+        ratio = r["peak_bytes"] / want_p
+        roof = max(e["roofline"][k]
+                   for k in ("compute_s", "memory_s", "collective_s"))
+        step_s = statistics.median(r["step_s"])
+        print(f"[dryrun card {arch}/{shape}] {card}: FLOPs {r['flops']:.6e} "
+              f"(dry run {want_f:.6e}, equal: {r['flops'] == want_f}); "
+              f"peak {gib(r['peak_bytes'])} vs estimate {gib(want_p)} "
+              f"(ratio {ratio:.3f}; arguments {gib(r['argument_bytes'])} vs "
+              f"{gib(e['memory_analysis']['argument_bytes'])}); step "
+              f"{1e3 * step_s:.3f} ms (steps {[round(1e3 * t, 3) for t in r['step_s']]}) "
+              f"vs the roofline's largest term {1e3 * roof:.3f} ms "
+              f"({e['roofline']['dominant']}; {step_s / roof:.1f}x); "
+              f"launches {counts}")
+        runs[arch, shape] = dict(r, ratio=ratio, roof=roof, counts=counts)
+        if r["flops"] != want_f or abs(ratio - 1) > DRYRUN_PEAK_TOL \
+                or any(counts.values()):
+            bad.append(f"{arch}/{shape}")
+    for k in plain:
+        os.environ.pop(k, None)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"dryrun: the card is off the estimate for {bad}")
+    return dict(wall=wall, runs=runs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6454,6 +6573,8 @@ def main() -> int:
     mace_run = phase_mace(mods, device, card)
     phase_lm_smoke(mods, device, card)
     ops_run = phase_ops(mods, device, card)
+    # the dry-run cells (A10b): the meta analysis and the card against it
+    dry = phase_dryrun(mods, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -6520,6 +6641,10 @@ def main() -> int:
               f"{run['decode_tokens_per_s']:.1f} tokens/s")
     print(f"[mace molecule] {card}: training "
           f"{mace_run['steps_per_s']:.2f} steps/s")
+    print(f"[dryrun] {card}: {dry['wall']:.1f} s for the 120 meta analyses; "
+          + ", ".join(f"{a}/{s} step {1e3 * min(r['step_s']):.3f} ms vs "
+                      f"roofline {1e3 * r['roof']:.3f} ms"
+                      for (a, s), r in dry["runs"].items()))
 
     gr_train = scen_train["hstu-gr", None]["launches"]
     scen_dlrm = scen_train["dlrm-mlperf", None]["launches"]

@@ -2,12 +2,14 @@
 n_layers=2, d_hidden=128, l_max=2, correlation=3, n_rbf=8 (the defaults of
 ``models.gnn.mace.MACEConfig``).
 
-Torch port of ``repro/configs/mace.py``; the dry-run cells (SHAPES,
-build_cell) are ROADMAP A10b.
+Torch port of ``repro/configs/mace.py``.
 """
-from repro_torch.configs.registry import refuse_cells
+from repro_torch.configs.mace_cells import MACE_SHAPES, build_mace_cell
 
 ARCH_ID = "mace"
 FAMILY = "gnn"
+SHAPES = MACE_SHAPES
 
-build_cell, __getattr__ = refuse_cells(ARCH_ID)
+
+def build_cell(shape_name, plan, opt_level="baseline"):
+    return build_mace_cell(shape_name, plan, opt_level)

@@ -1,22 +1,17 @@
-"""Architecture registry: ``--arch <id>`` resolution plus the declarative
-ScenarioSpec factory for every recsys arch (torch port of
-``repro/configs/registry.py``).
+"""Architecture registry: ``--arch <id>`` resolution for launch/dryrun/train
+plus the declarative ScenarioSpec factory for every recsys arch (torch port
+of ``repro/configs/registry.py``).
 
 :func:`scenario` / :func:`all_scenarios` give the same specs as the
-reference's: the same JSON bytes and hashes. :func:`get_arch` resolves the
-five LM archs, ``mace`` and the paper's four ROO models to their config
-modules. The dry-run cells are not ported yet (ROADMAP A10b):
-:func:`all_cells`, the LM and MACE modules' ``SHAPES`` / ``build_cell``,
-and :func:`get_arch` for the four recsys cell wrappers (``mind``,
-``bert4rec``, ``dlrm-mlperf``, ``dien``, whose models live in
-``models/``) raise ``NotImplementedError`` naming it.
+reference's: the same JSON bytes and hashes. :func:`get_arch` resolves
+every arch to its config module; :func:`all_cells` lists the 40 (arch,
+shape) dry-run cells of the ten assigned archs in the reference's order.
 """
 from __future__ import annotations
 
 import importlib
 from typing import List, Mapping, Optional
 
-# the port's config modules by arch id; None = not ported yet (A10b)
 _MODULES = {
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
@@ -24,10 +19,10 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "mace": "repro_torch.configs.mace",
-    "mind": None,
-    "bert4rec": None,
-    "dlrm-mlperf": None,
-    "dien": None,
+    "mind": "repro_torch.configs.mind",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
+    "dien": "repro_torch.configs.dien",
     # the paper's own ROO models (selectable for train/bench, not dry-run cells)
     "roo-lsr": "repro_torch.configs.roo_models",
     "roo-esr": "repro_torch.configs.roo_models",
@@ -35,36 +30,23 @@ _MODULES = {
     "hstu-gr": "repro_torch.configs.roo_models",
 }
 
-CELLS_NOT_PORTED = ("the dry-run cells and the recsys cell wrappers are not "
-                    "ported yet (ROADMAP A10b)")
+ASSIGNED = ["starcoder2-15b", "deepseek-coder-33b", "phi3-medium-14b",
+            "qwen3-moe-235b-a22b", "granite-moe-3b-a800m", "mace",
+            "mind", "bert4rec", "dlrm-mlperf", "dien"]
 
 
 def get_arch(arch_id: str):
-    """The arch's config module; raises ``NotImplementedError`` (A10b) for
-    the recsys cell wrappers."""
-    module = _MODULES[arch_id]
-    if module is None:
-        raise NotImplementedError(f"{arch_id}: {CELLS_NOT_PORTED}")
-    return importlib.import_module(module)
+    return importlib.import_module(_MODULES[arch_id])
 
 
 def all_cells() -> List[tuple]:
-    """All (arch, shape) dry-run cells — none in the port yet (A10b)."""
-    raise NotImplementedError(f"dry-run cells: {CELLS_NOT_PORTED}")
-
-
-def refuse_cells(arch_id: str):
-    """``(build_cell, module __getattr__)`` for a config module whose cells
-    are not ported: both raise naming A10b, the latter for ``SHAPES``."""
-    def build_cell(shape_name, plan, opt_level="baseline"):
-        raise NotImplementedError(f"{arch_id}.build_cell: {CELLS_NOT_PORTED}")
-
-    def module_getattr(name):
-        if name == "SHAPES":
-            raise NotImplementedError(f"{arch_id}.SHAPES: {CELLS_NOT_PORTED}")
-        raise AttributeError(f"module of {arch_id!r} has no attribute "
-                             f"{name!r}")
-    return build_cell, module_getattr
+    """All 40 (arch, shape) dry-run cells."""
+    out = []
+    for a in ASSIGNED:
+        mod = get_arch(a)
+        for s in mod.SHAPES:
+            out.append((a, s))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -73,12 +73,21 @@ def abstract_mesh(dims: Tuple[int, ...],
     return Mesh(tuple(axis_names), tuple(int(d) for d in dims))
 
 
+# tables with fewer rows than this stay replicated: sharding a 4-row action
+# vocab over the model ranks buys nothing and costs a collective
+SHARD_MIN_ROWS = 64
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:
     mesh: Optional[Mesh]
     batch_axes: Tuple[str, ...] = ("data",)     # ("pod", "data") multi-pod
     model_axis: Optional[str] = "model"
     fsdp_axis: Any = "data"                     # str or tuple: FSDP axes
+    # the fewest rows a table the plan row-shards has
+    # (spmd.table_is_sharded); the dlrm cells raise it to the reference's
+    # DLRMConfig.SHARD_MIN_ROWS
+    table_min_rows: int = SHARD_MIN_ROWS
 
     @property
     def enabled(self) -> bool:

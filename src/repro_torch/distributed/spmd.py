@@ -47,13 +47,10 @@ import torch
 
 from repro_torch.data.jagged import JaggedTensor
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import ShardingPlan, Spec
+from repro_torch.distributed.sharding import (SHARD_MIN_ROWS,  # noqa: F401
+                                              ShardingPlan, Spec)
 from repro_torch.train.optim import default_is_embedding
 from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten
-
-# tables with fewer rows than this stay replicated: sharding a 4-row action
-# vocab over the model ranks buys nothing and costs a collective
-SHARD_MIN_ROWS = 64
 
 
 def _axis_size(mesh, axes) -> int:
@@ -106,13 +103,14 @@ def model_group(plan: ShardingPlan):
 
 
 def table_is_sharded(plan: Optional[ShardingPlan], vocab: int) -> bool:
-    """True when the plan row-shards a table of this vocab over ``model``.
+    """True when the plan row-shards a table of this vocab over ``model``
+    (at least ``plan.table_min_rows`` rows, divisible by the model ranks).
 
     The same predicate gates (a) the table's param / opt-state placement
     and (b) routing its lookups through ``embeddings/sharded.py``.
     """
     return (_enabled(plan) and plan.model_axis is not None
-            and vocab >= SHARD_MIN_ROWS
+            and vocab >= plan.table_min_rows
             and vocab % plan.mesh.shape[plan.model_axis] == 0)
 
 

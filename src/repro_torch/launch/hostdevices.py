@@ -14,7 +14,12 @@ world:
   * :func:`init_from_env` joins the world ``torchrun`` describes
     (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``);
   * :func:`ensure_world` makes sure a world exists: torchrun's, or a world
-    of one (a mesh of 1 x 1 needs no other process).
+    of one (a mesh of 1 x 1 needs no other process); it leaves a world
+    that exists alone;
+  * :func:`init_fake_world` makes the dry run's world: ``world`` ranks in
+    this one process as rank 0, on ``torch.distributed``'s fake backend
+    (its collectives return at once and move nothing: the dry run runs
+    them on meta tensors to count them).
 
 Importing this module starts nothing.
 """
@@ -66,6 +71,18 @@ def ensure_world(backend: str) -> int:
             backend, store=dist.FileStore(os.path.join(store_dir, "store"),
                                           1), rank=0, world_size=1)
     return dist.get_world_size()
+
+
+def init_fake_world(world: int) -> None:
+    """A fake world of ``world`` ranks, this process rank 0 (module note).
+    Refuses to start inside an existing process group."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a process group exists already ({dist.get_backend()}, "
+            f"{dist.get_world_size()} ranks): the dry run owns its process")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def _rank_entry(rank: int, world: int, store_dir: str, backend: str,

@@ -1,4 +1,5 @@
-"""Device meshes (torch port of ``repro/launch/mesh.py``).
+"""Device meshes and the card's roofline constants (torch port of
+``repro/launch/mesh.py``).
 
 Single pod: ``("data", "model")``; multi-pod: ``("pod", "data", "model")``.
 A mesh is made over the ranks of the ``torch.distributed`` world
@@ -99,5 +100,37 @@ def make_mesh_from_spec(spec: str, backend: Optional[str] = None) -> Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production shapes: 16 x 16, or 2 x 16 x 16."""
+    """The reference's production shapes: 16 x 16, or 2 x 16 x 16, over
+    the world of this process (the dry run's fake world of 256 or 512
+    ranks: ``hostdevices.init_fake_world``)."""
     return make_mesh_from_spec("2x16x16" if multi_pod else "16x16")
+
+
+# ---------------------------------------------------------------------------
+# H100 SXM roofline constants (per card), from NVIDIA's H100 datasheet; the
+# reference's are a TPU v5e's
+# ---------------------------------------------------------------------------
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12                # bytes/s, HBM3
+NVLINK_BW = 450e9               # bytes/s each way, card to card in a node
+NODE_NET_BW = 50e9              # bytes/s a card across nodes (400 Gb/s NDR)
+CARDS_PER_NODE = 8              # an HGX H100 node
+
+
+def axis_link(mesh: Mesh, axis: str) -> str:
+    """The link ``axis``'s collectives cross: ``"nvlink"`` when every group
+    along it lies inside one node of :data:`CARDS_PER_NODE` cards (ranks
+    numbered row-major over the mesh, nodes of consecutive ranks), else
+    ``"network"``. Rank 0's group stands for all: a mesh axis's groups
+    differ only by an offset."""
+    strides, n = {}, 1
+    for a, d in reversed(list(zip(mesh.axis_names, mesh.dims))):
+        strides[a] = n
+        n *= d
+    ranks = [k * strides[axis] for k in range(mesh.shape[axis])]
+    nodes = {r // CARDS_PER_NODE for r in ranks}
+    return "nvlink" if len(nodes) == 1 else "network"
+
+
+def link_bandwidth(link: str) -> float:
+    return NVLINK_BW if link == "nvlink" else NODE_NET_BW

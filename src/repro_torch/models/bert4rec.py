@@ -73,11 +73,14 @@ def bert4rec_init(gen: torch.Generator, cfg: BERT4RecConfig,
 
 
 def encode(params: Dict, cfg: BERT4RecConfig, ids: torch.Tensor,
-           lengths: torch.Tensor) -> torch.Tensor:
-    """ids: (B, S) -> (B, S, d) bidirectional encoding (valid-masked)."""
+           lengths: torch.Tensor, plan=None) -> torch.Tensor:
+    """ids: (B, S) -> (B, S, d) bidirectional encoding (valid-masked).
+    Under an SPMD ``plan`` the ids are this rank's batch block and the
+    item lookup goes through the plan's row-sharded route; the encoder's
+    weights are whole on every rank."""
     b, s = ids.shape
     d, h = cfg.embed_dim, cfg.n_heads
-    x = ec.seq_lookup(params["item_emb"], ids, vocab=cfg.n_items)
+    x = ec.seq_lookup(params["item_emb"], ids, vocab=cfg.n_items, plan=plan)
     x = x + params["pos_emb"][None, :s]
     valid = torch.arange(s, device=x.device)[None] < lengths[:, None]
     attn_mask = valid[:, None, None, :]                     # keys must be valid

@@ -111,19 +111,24 @@ def augru_scan(p: Dict, xs: torch.Tensor, att: torch.Tensor,
 
 
 def dien_logits_roo(params: Dict, cfg: DIENConfig,
-                    batch: ROOBatch) -> torch.Tensor:
-    """ROO path: extraction GRU at B_RO; AUGRU at B_NRO after fanout."""
+                    batch: ROOBatch, plan=None) -> torch.Tensor:
+    """ROO path: extraction GRU at B_RO; AUGRU at B_NRO after fanout.
+    Under an SPMD ``plan`` the batch is this rank's block (its segment ids
+    rebased to it) and both item lookups take the plan's row-sharded
+    route; the other params are whole on every rank."""
     t = cfg.seq_len
     hist_ids = batch.history_ids[:, :t]
     lengths = torch.clamp(batch.history_lengths, max=t)
-    hist = ec.seq_lookup(params["item_emb"], hist_ids, vocab=cfg.n_items)
+    hist = ec.seq_lookup(params["item_emb"], hist_ids, vocab=cfg.n_items,
+                         plan=plan)
     # ---- RO: interest extraction runs once per request ----------------------
     states = gru_scan(params["gru"], hist, lengths)           # (B_RO, T, h)
     # ---- fanout of the hidden states and lengths, once ----------------------
     states_nro = fanout(states, batch.segment_ids)            # (B_NRO, T, h)
     len_nro = fanout(lengths, batch.segment_ids)
     # ---- NRO: target attention + AUGRU --------------------------------------
-    tgt = ec.row_lookup(params["item_emb"], batch.item_ids, vocab=cfg.n_items)
+    tgt = ec.row_lookup(params["item_emb"], batch.item_ids, vocab=cfg.n_items,
+                        plan=plan)
     tgt_h = mlp_apply(params["h_proj"], tgt)                  # (B_NRO, h)
     b_nro, tt, _ = states_nro.shape
     att_in = torch.cat([

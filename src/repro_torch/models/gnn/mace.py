@@ -99,7 +99,10 @@ def bessel_rbf(r: torch.Tensor, n: int, r_cut: float) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _cg_tensor(l1: int, l2: int, l3: int, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(cg_real(l1, l2, l3), dtype=dtype, device=device)
+    c = cg_real(l1, l2, l3)
+    if torch.device(device).type == "meta":    # the dry run: no host copy
+        return torch.empty(c.shape, dtype=dtype, device=device)
+    return torch.as_tensor(c, dtype=dtype, device=device)
 
 
 def segment_layout(ids: torch.Tensor, n: int):
@@ -141,27 +144,41 @@ def mace_forward(params: Dict, cfg: MACEConfig,
                  n_graphs: int,
                  node_mask: torch.Tensor = None,
                  hoist_gathers: bool = False,
-                 msg_dtype=None) -> Dict[str, torch.Tensor]:
+                 msg_dtype=None, plan=None) -> Dict[str, torch.Tensor]:
     """Returns {"energy": (n_graphs, n_out), "node_out": (N, n_out)}.
 
     ``hoist_gathers``: gather each irrep of h_j over edges ONCE per layer
     (3 gathers) instead of once per CG path (15 gathers), and sum each
     l3's paths in one segment sum: identical math. ``msg_dtype`` (a torch
     dtype) is the messages' dtype on that route.
+
+    Under an SPMD ``plan`` the node and edge arrays are this rank's blocks
+    over every mesh axis (``mace_cells``: graph work has no TP dimension)
+    and the params are whole on every rank. ``edge_index`` and
+    ``graph_ids`` hold global ids; the positions and each gathered irrep
+    of h are all-gathered over every axis before the edge gathers (once a
+    CG path, or once a layer when hoisted: the reference's collective
+    counts), each segment sum over the rank's edges fills a whole-graph
+    buffer that is reduce-scattered back to the node owners, and the
+    per-graph readout is all-reduced: ``energy`` comes back whole on
+    every rank, ``node_out`` as this rank's node block.
     """
-    n = node_feat.shape[0]
     c = cfg.channels
     paths = cg_paths(cfg.l_max)
     dt, dev = node_feat.dtype, node_feat.device
+    n_loc = node_feat.shape[0]
     if node_mask is None:
-        node_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        node_mask = torch.ones((n_loc,), dtype=torch.bool, device=dev)
+    gather, scatter, total = _graph_route(plan)
+    n = n_loc * _route_size(plan)
 
     src = torch.clamp(edge_index[:, 0], 0, n - 1).long()
     dst = torch.clamp(edge_index[:, 1], 0, n - 1).long()
     # the edges in dst order, stable: each node's messages in edge order
     perm, lengths = segment_layout(dst, n)
     src, dst, edge_mask = src[perm], dst[perm], edge_mask[perm]
-    rel = gather_rows(positions, dst) - gather_rows(positions, src)
+    pos_all = gather(positions)
+    rel = gather_rows(pos_all, dst) - gather_rows(pos_all, src)
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-18)
     unit = rel / dist[:, None]
     # zero-length edges (self-loops / padding) carry no geometry and their
@@ -173,7 +190,7 @@ def mace_forward(params: Dict, cfg: MACEConfig,
     g_perm, g_lengths = segment_layout(graph_ids, n_graphs)
 
     def zeros():
-        return {l: torch.zeros((n, DIMS[l], c), dtype=dt, device=dev)
+        return {l: torch.zeros((n_loc, DIMS[l], c), dtype=dt, device=dev)
                 for l in _ls(cfg)}
 
     # h: {l: (N, 2l+1, c)} — start with scalars from node features
@@ -181,7 +198,7 @@ def mace_forward(params: Dict, cfg: MACEConfig,
     h[0] = mlp_apply(params["embed"], node_feat)[:, None, :]
 
     energy = torch.zeros((n_graphs, cfg.n_out), dtype=dt, device=dev)
-    node_out = torch.zeros((n, cfg.n_out), dtype=dt, device=dev)
+    node_out = torch.zeros((n_loc, cfg.n_out), dtype=dt, device=dev)
     for t in range(cfg.n_layers):
         lyr = params[f"layer_{t}"]
         radial = mlp_apply(lyr["radial"], rbf)               # (E, P*c)
@@ -194,7 +211,8 @@ def mace_forward(params: Dict, cfg: MACEConfig,
             mdt = msg_dtype or dt
             if msg_dtype is not None:
                 hm = {l: hm[l].to(msg_dtype) for l in _ls(cfg)}
-            hm_src = {l: _gather(hm[l], src) for l in _ls(cfg)}  # 3 gathers
+            hm_src = {l: _gather(gather(hm[l]), src)
+                      for l in _ls(cfg)}                     # 3 gathers
             msgs = {l: [] for l in _ls(cfg)}
             for pi, (l1, l2, l3) in enumerate(paths):
                 C = _cg_tensor(l1, l2, l3, mdt, dev)
@@ -204,17 +222,17 @@ def mace_forward(params: Dict, cfg: MACEConfig,
                     m * (radial[:, pi, :] * emask)[:, None, :].to(mdt))
             for l3 in _ls(cfg):                              # 3 sums/layer
                 if msgs[l3]:
-                    summed = segment_sum(torch.cat(msgs[l3], dim=-1),
-                                         lengths, n)
+                    summed = scatter(segment_sum(
+                        torch.cat(msgs[l3], dim=-1), lengths, n))
                     A[l3] = sum(p.to(dt) for p in torch.split(summed, c,
                                                               dim=-1))
         else:
             for pi, (l1, l2, l3) in enumerate(paths):
                 C = _cg_tensor(l1, l2, l3, dt, dev)          # (d1,d2,d3)
-                hj = _gather(hm[l2], src)                    # (E, d2, c)
+                hj = _gather(gather(hm[l2]), src)            # (E, d2, c)
                 m = torch.einsum("abk,ea,ebc->ekc", C, Y[l1], hj)
                 m = m * (radial[:, pi, :] * emask)[:, None, :]
-                A[l3] = A[l3] + segment_sum(m, lengths, n)
+                A[l3] = A[l3] + scatter(segment_sum(m, lengths, n))
         # ---- product basis: iterated CG contraction to correlation order ---
         Bs = [A]
         for v in range(2, cfg.correlation + 1):
@@ -239,9 +257,33 @@ def mace_forward(params: Dict, cfg: MACEConfig,
         e_node = mlp_apply(lyr["readout"], inv)               # (N, n_out)
         e_node = e_node * node_mask[:, None].to(dt)
         node_out = node_out + e_node
-        energy = energy + segment_sum(gather_rows(e_node, g_perm), g_lengths,
-                                      n_graphs)
+        energy = energy + total(segment_sum(gather_rows(e_node, g_perm),
+                                            g_lengths, n_graphs))
     return {"energy": energy, "node_out": node_out}
+
+
+def _route_size(plan) -> int:
+    """The number of node blocks under ``plan`` (every mesh axis)."""
+    if plan is None or not plan.enabled:
+        return 1
+    return plan.mesh.size
+
+
+def _graph_route(plan):
+    """(gather, scatter, total) over every mesh axis: the tiled all-gather
+    of a node block (backward reduce-scatter: each rank uses the whole for
+    its own edges), the tiled reduce-scatter of a whole-graph sum to the
+    node owners (backward all-gather) and the all-reduce of a per-graph
+    sum (identity backward); the identity each without a plan."""
+    if plan is None or not plan.enabled:
+        return (lambda x: x,) * 3
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import spmd
+    axes = spmd.plan_axes(plan, tuple(plan.batch_axes) + (plan.model_axis,))
+    groups = [g for g, _, _ in axes]
+    return (lambda x: coll.all_gather_dim(x, axes, 0),
+            lambda x: coll.reduce_scatter_dim(x, axes, 0),
+            lambda x: coll.all_reduce_sum(x, groups))
 
 
 def mace_energy_loss(params, cfg, batch, targets) -> torch.Tensor:

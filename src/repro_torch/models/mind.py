@@ -51,16 +51,19 @@ def _squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def interest_capsules(params: Dict, cfg: MINDConfig, hist_ids: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      lengths: torch.Tensor, plan=None) -> torch.Tensor:
     """B2I dynamic routing. hist_ids: (B, T) -> capsules (B, K, d).
 
     Routing logits are not trained (no gradient flows through them, as in
-    the paper); the routing loop is unrolled (capsule_iters=3).
+    the paper); the routing loop is unrolled (capsule_iters=3). Under an
+    SPMD ``plan`` the histories are this rank's batch block and
+    ``item_emb`` its row block when the plan row-shards it: the lookup is
+    ``embeddings/sharded.py``'s (a local partial summed over ``model``).
     """
     b, t = hist_ids.shape
     kk = cfg.n_interests
-    e = ec.seq_lookup(params["item_emb"], hist_ids,
-                      vocab=cfg.n_items)                     # (B,T,d)
+    e = ec.seq_lookup(params["item_emb"], hist_ids, vocab=cfg.n_items,
+                      plan=plan)                             # (B,T,d)
     eh = e @ params["S"]                                     # low-level caps
     dev = eh.device
     valid = torch.arange(t, device=dev)[None] < lengths[:, None]

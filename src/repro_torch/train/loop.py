@@ -262,6 +262,13 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
         # with SparseRows grads the optimizer writes the touched rows in
         # place under the guard, and returns those tensors as they are
         sparse = {"ok": ok} if any(map(is_sparse, g_leaves)) else {}
+        if spmd_on:
+            # a clip norm is the whole gradient's (over the mesh), of
+            # whichever leaves an optimizer is handed
+            spec_of = {id(p): sp for p, sp in zip(
+                leaves(params), leaves(p_specs, is_leaf=spmd.is_spec))}
+            sparse["sq_norm"] = lambda gl, pl: spmd.grad_sq_norm(
+                gl, [spec_of[id(p)] for p in pl], plan, sq_sum)
         new_params, new_opt = opt.update(grads, state["opt"], params,
                                          **sparse)
 

@@ -12,7 +12,10 @@ params) -> (new_params, new_state)`` returns new tensors and changes
 nothing in place (the Trainer's non-finite guard keeps the old ones), and
 states keep the reference's layout, leaf for leaf, so a state crosses
 between the packages through ``interop``. They run on plain tensors, with
-no ``torch.optim``.
+no ``torch.optim``. Every ``update`` takes ``sq_norm``: under an SPMD plan
+the Trainer hands it a function that gives the squared norm of any set
+of gradient leaves over the whole mesh, and Adam's ``grad_clip`` clips by
+that norm (by this process's sum without it); the others ignore it.
 
 Row-wise Adagrad also takes **sparse row gradients**: a grads leaf may be
 an ``embeddings.sparse.SparseRows`` (from ``make_sparse_value_and_grad``).
@@ -75,10 +78,18 @@ def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
                 "v": tree_map(torch.zeros_like, zeros),
                 "t": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, sq_norm=None):
+        """``sq_norm(grad_leaves, param_leaves)``: the squared norm of
+        these leaves' whole gradient (under an SPMD plan the Trainer's
+        ``spmd.grad_sq_norm`` over the mesh; by default this process's
+        sum, which under a plan is the rank's blocks' only)."""
         if grad_clip > 0:
-            gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                for g in leaves(grads)) + 1e-12)
+            if sq_norm is None:
+                total = sum(torch.sum(torch.square(g.float()))
+                            for g in leaves(grads))
+            else:
+                total = sq_norm(leaves(grads), leaves(params))
+            gn = torch.sqrt(total + 1e-12)
             scale = torch.clamp(grad_clip / gn, max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
         t = state["t"] + 1
@@ -149,7 +160,7 @@ def rowwise_adagrad(lr: float = 0.01, eps: float = 1e-8) -> Optimizer:
             lambda p: torch.zeros(p.shape[:1], dtype=torch.float32,
                                   device=p.device), params)}
 
-    def update(grads, state, params, ok=None):
+    def update(grads, state, params, ok=None, sq_norm=None):
         def upd(p, g, a):
             if is_sparse(g):
                 return _rowwise_sparse_apply(p, g, a, lr, eps, ok)
@@ -172,7 +183,7 @@ def sgd(lr: float = 0.1, momentum: float = 0.0) -> Optimizer:
                 lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
         return {}
 
-    def update(grads, state, params):
+    def update(grads, state, params, sq_norm=None):
         if momentum:
             new_mom = tree_map(lambda m, g: momentum * m + g.float(),
                                state["mom"], grads)
@@ -207,7 +218,7 @@ def make_mixed(dense_opt: Optimizer, embedding_opt: Optimizer,
                 [p for p, m in zip(flat, emb_mask) if not m]),
         }
 
-    def update(grads, state, params, ok=None):
+    def update(grads, state, params, ok=None, sq_norm=None):
         emb_mask = _mask(params)
         # a SparseRows grad stays whole and pairs up with its table
         g_leaves = leaves(grads, is_leaf=is_sparse)
@@ -216,9 +227,11 @@ def make_mixed(dense_opt: Optimizer, embedding_opt: Optimizer,
         pe = [p for p, m in zip(p_leaves, emb_mask) if m]
         gd = [g for g, m in zip(g_leaves, emb_mask) if not m]
         pd = [p for p, m in zip(p_leaves, emb_mask) if not m]
+        norm = {} if sq_norm is None else {"sq_norm": sq_norm}
         new_pe, new_se = embedding_opt.update(
-            ge, state["emb"], pe, **({} if ok is None else {"ok": ok}))
-        new_pd, new_sd = dense_opt.update(gd, state["dense"], pd)
+            ge, state["emb"], pe, **({} if ok is None else {"ok": ok}),
+            **norm)
+        new_pd, new_sd = dense_opt.update(gd, state["dense"], pd, **norm)
         it_e, it_d = iter(new_pe), iter(new_pd)
         merged = [next(it_e) if m else next(it_d) for m in emb_mask]
         return unflatten(params, merged), {"emb": new_se, "dense": new_sd}

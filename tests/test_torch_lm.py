@@ -123,10 +123,14 @@ def test_config_modules_match_reference(arch):
         assert pc.cdtype == torch.bfloat16
         assert pc.pdtype == (torch.bfloat16 if rc.param_dtype == "bfloat16"
                              else torch.float32)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        mod.SHAPES
-    with pytest.raises(NotImplementedError, match="A10b"):
-        mod.build_cell("train_4k", None)
+    # the dry-run cells (A10b): the reference's shapes, a Cell per shape
+    from repro_torch.configs.base import Cell
+    from repro_torch.distributed.sharding import replicated_plan
+    assert mod.SHAPES == ref.SHAPES
+    for shape in mod.SHAPES:
+        cell = mod.build_cell(shape, replicated_plan())
+        assert isinstance(cell, Cell) and cell.shape == shape
+        assert cell.arch == arch
 
 
 @pytest.mark.parametrize("arch", LM_IDS)

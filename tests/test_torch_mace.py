@@ -179,7 +179,11 @@ def test_sampler_gives_the_reference_subgraph():
 def test_config_module():
     mod = get_arch("mace")
     assert (mod.ARCH_ID, mod.FAMILY) == ("mace", "gnn")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        mod.SHAPES
-    with pytest.raises(NotImplementedError, match="A10b"):
-        mod.build_cell("molecule", None)
+    # the dry-run cells (A10b): the reference's shapes, a Cell per shape
+    from repro.configs.mace import SHAPES as ref_shapes
+    from repro_torch.configs.base import Cell
+    from repro_torch.distributed.sharding import replicated_plan
+    assert mod.SHAPES == ref_shapes
+    for shape in mod.SHAPES:
+        cell = mod.build_cell(shape, replicated_plan())
+        assert isinstance(cell, Cell) and cell.kind == "train"

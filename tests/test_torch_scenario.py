@@ -559,13 +559,12 @@ def test_unported_engine_knobs_and_archs_raise():
     engine = build.engine_from_scenario(
         scenario("roo-esr", {"knobs.comms_compress": "bf16"}), device="cpu")
     assert engine is not None and comms.compress_mode() == "bf16"
-    # the LM and MACE config modules are ported (A10a); the recsys cell
-    # wrappers and the dry-run cells are not (A10b)
+    # the LM and MACE config modules are ported (A10a), and the recsys
+    # cell wrappers and the dry-run cells (A10b)
     for arch in ("dien", "dlrm-mlperf", "mind", "bert4rec"):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            get_arch(arch)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        all_cells()
+        assert get_arch(arch).FAMILY == "recsys"
+        assert get_arch(arch).build_cell
+    assert len(all_cells()) == 40
     assert get_arch("hstu-gr").gr_config
     assert get_arch("starcoder2-15b").FAMILY == "lm"
     assert get_arch("mace").FAMILY == "gnn"

@@ -478,18 +478,6 @@ def odd_heads_config():
                                n_kv_heads=5)
 
 
-def nested(flat: dict) -> dict:
-    """"a/b"-keyed leaves -> the nested dict tree."""
-    tree: dict = {}
-    for key, leaf in flat.items():
-        node = tree
-        *head, last = key.split("/")
-        for k in head:
-            node = node.setdefault(k, {})
-        node[last] = leaf
-    return tree
-
-
 def lm_rank(rank: int, out: str, params_npz: str) -> None:
     """The LM under a 2 x 2 plan on the reference's params: the hidden,
     the loss and the gathered gradients on both layer routes, and
@@ -612,4 +600,353 @@ def fsdp_rank(rank: int, out: str) -> None:
         res["resumed"] = np.asarray(losses)
     if rank == 0:
         save_npz(os.path.join(out, "fsdp.npz"), **res)
+    dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the dry-run cells: test_torch_cells.py, test_torch_dryrun.py and
+# test_torch_cells_spmd.py (torch_ref_cells.py runs the reference's side
+# and imports the tables below)
+# ---------------------------------------------------------------------------
+
+# (arch, shape, opt_level) of the dry-run comparison on 2 x 4
+DRYRUN_CELLS = [("mace", "molecule", "baseline"),
+                ("mind", "serve_p99", "baseline"),
+                ("dlrm-mlperf", "serve_p99", "baseline"),
+                ("dlrm-mlperf", "train_batch", "baseline"),
+                ("dlrm-mlperf", "train_batch", "impression"),
+                ("starcoder2-15b", "decode_32k", "baseline"),
+                ("granite-moe-3b-a800m", "train_4k", "baseline")]
+
+# opt levels beyond baseline (the LM family's through build_lm_cell)
+OPT_LEVELS = {"dlrm-mlperf": ("impression", "opt", "opt2"),
+              "mace": ("hoist", "hoist_bf16"),
+              "lm": ("flash", "flash_bf16", "megatron_sp")}
+
+
+def all_levels(registry) -> list:
+    """Every (arch, shape, opt_level) of a registry module (the port's or
+    the reference's)."""
+    out = []
+    for arch, shape in registry.all_cells():
+        fam = registry.get_arch(arch).FAMILY
+        out.append((arch, shape, "baseline"))
+        for lv in OPT_LEVELS.get(arch, OPT_LEVELS["lm"] if fam == "lm"
+                                 else ()):
+            out.append((arch, shape, lv))
+    return out
+
+
+def _shape_table(tree) -> dict:
+    return {"".join(p): [list(x.shape), str(x.dtype).replace("torch.", "")]
+            for p, x in flatten_with_path(tree)}
+
+
+def _spec_table(tree) -> dict:
+    return {"".join(p): [list(e) if isinstance(e, tuple) else e for e in s]
+            for p, s in flatten_with_path(tree, is_leaf=spmd.is_spec)}
+
+
+def port_cells(out: str) -> None:
+    """The port's side of ``torch_ref_cells.py``'s ``cells`` job, in a
+    process of its own (a fake world of 256 ranks) -> ``port_cells.json``."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import replicated_plan
+    from repro_torch.launch.dryrun import _world_and_mesh, build_cell
+    plan = plan_for_mesh(_world_and_mesh("16x16"))
+    rplan = replicated_plan()
+    res = {}
+    for arch, shape, level in all_levels(registry):
+        c = build_cell(arch, shape, rplan, level)
+        cp = build_cell(arch, shape, plan, level)
+        st, ins = cp.shardings(plan)
+        res[f"{arch}/{shape}/{level}"] = {
+            "kind": c.kind, "notes": c.notes,
+            "model_flops": float(c.model_flops),
+            "state": _shape_table(c.abstract_state()),
+            "inputs": _shape_table(c.input_specs()),
+            "state_specs": _spec_table(st), "input_specs": _spec_table(ins)}
+    with open(os.path.join(out, "port_cells.json"), "w") as f:
+        json.dump(res, f)
+
+
+# the small cells of test_torch_cells_spmd: the production widths with a
+# 4,096-row catalog and batches that split over 2 data ranks
+SMALL_ITEMS = 4096
+SMALL_SHAPES = {"train_batch": dict(kind="train", b_nro=32, b_ro=8),
+                "serve_p99": dict(kind="serve", b_nro=32, b_ro=8),
+                "serve_bulk": dict(kind="serve", b_nro=32, b_ro=8),
+                "retrieval_cand": dict(kind="serve", b_nro=64, b_ro=4)}
+REF_CELLS = [("mind", "train_batch"), ("mind", "serve_p99"),
+             ("mind", "retrieval_cand"), ("bert4rec", "train_batch"),
+             ("bert4rec", "serve_p99"), ("bert4rec", "retrieval_cand"),
+             ("dien", "train_batch"), ("dien", "serve_p99")]
+
+
+class small_shapes:
+    """``with small_shapes(recsys_cells_module):`` — the module's shapes
+    and catalog are the small ones (either package's module)."""
+
+    def __init__(self, mod):
+        self.mod = mod
+
+    def __enter__(self):
+        self.old = (self.mod.RECSYS_SHAPES, self.mod.N_ITEMS)
+        self.mod.RECSYS_SHAPES, self.mod.N_ITEMS = SMALL_SHAPES, SMALL_ITEMS
+        return self.mod
+
+    def __exit__(self, *exc):
+        self.mod.RECSYS_SHAPES, self.mod.N_ITEMS = self.old
+
+
+def small_cfg(arch: str):
+    from repro_torch.models.bert4rec import BERT4RecConfig
+    from repro_torch.models.din_dien import DIENConfig
+    from repro_torch.models.mind import MINDConfig
+    return {"mind": lambda: MINDConfig(n_items=SMALL_ITEMS, hist_len=64),
+            "bert4rec": lambda: BERT4RecConfig(n_items=SMALL_ITEMS,
+                                               seq_len=200),
+            "dien": lambda: DIENConfig(n_items=SMALL_ITEMS, seq_len=100,
+                                       n_ro_dense=16)}[arch]()
+
+
+def cell_params(arch: str) -> dict:
+    """The small cell's params (the port's init, seeded), numpy leaves."""
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.models.bert4rec import bert4rec_init
+    from repro_torch.models.din_dien import dien_init
+    from repro_torch.models.mind import mind_init
+    init = {"mind": mind_init, "bert4rec": bert4rec_init,
+            "dien": dien_init}[arch]
+    gen = torch.Generator().manual_seed(11)
+    return params_to_numpy(init(gen, small_cfg(arch), device="cpu"))
+
+
+def _segments(rs, b_ro: int, b_nro: int, n_blocks: int = 2):
+    """Global segment ids with every impression in its request's block and
+    one padding slot (== b_ro) a block."""
+    r, m = b_ro // n_blocks, b_nro // n_blocks
+    out = []
+    for k in range(n_blocks):
+        seg = np.sort(rs.randint(0, r, m - 1)) + k * r
+        out.append(np.concatenate([seg, [b_ro]]))
+    return np.concatenate(out).astype(np.int32)
+
+
+def cell_inputs(arch: str, shape: str) -> dict:
+    """The small cell's global inputs (numpy, seeded)."""
+    sh = SMALL_SHAPES[shape]
+    b_ro, b_nro = sh["b_ro"], sh["b_nro"]
+    cfg = small_cfg(arch)
+    rs = np.random.RandomState(len(arch) * 100 + len(shape))
+    hl = {"mind": 64, "bert4rec": 200, "dien": 100}[arch]
+    s = {"history_ids": rs.randint(2, cfg.n_items, (b_ro, hl)),
+         "history_lengths": rs.randint(1, hl + 1, (b_ro,))}
+    train = sh["kind"] == "train"
+    retrieval = shape == "retrieval_cand"
+    if arch != "bert4rec" or not train:
+        s["item_ids"] = rs.randint(0, cfg.n_items, (b_nro,))
+        if not retrieval:
+            s["segment_ids"] = _segments(rs, b_ro, b_nro)
+    if train:
+        s["labels"] = (rs.rand(b_nro) < 0.5).astype(np.float32)
+        if arch != "dien":
+            s["neg_ids"] = rs.randint(0, cfg.n_items, (8192,))
+    if arch == "dien":
+        s["ro_dense"] = rs.randn(b_ro, 16).astype(np.float32)
+    return {k: (v.astype(np.int32) if v.dtype.kind == "i" else v)
+            for k, v in s.items()}
+
+
+def nested(flat: dict):
+    """"a/b/0/c"-keyed leaves -> the nested dict / list tree."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
+def port_cell_run(arch: str, shape: str, plan) -> dict:
+    """The small cell on ``plan`` (None: one process): its loss and
+    gradients gathered whole (train) or its output gathered whole
+    (serve), numpy, keyed as the reference side keys them."""
+    from repro_torch.configs import recsys_cells as rc
+    from repro_torch.distributed.sharding import replicated_plan
+    from repro_torch.launch.dryrun import build_cell, place
+    plan_ = plan or replicated_plan()
+    sh = SMALL_SHAPES[shape]
+    cfg = small_cfg(arch)
+    params = tree_map(torch.as_tensor, cell_params(arch))
+    inputs = {k: torch.as_tensor(v) for k, v in
+              cell_inputs(arch, shape).items()}
+    with small_shapes(rc):
+        cell = build_cell(arch, shape, plan_)
+    on = plan is not None
+    if on:
+        st, ins = cell.shardings(plan)
+        params = place(params, st["params"], plan)
+        inputs = place(inputs, ins, plan)
+    pre, res = f"{arch}/{shape}/", {}
+    if sh["kind"] == "train":
+        fn = {"mind": lambda p, i: rc.mind_cell_loss(p, cfg, i, plan,
+                                                     sh["b_nro"]),
+              "bert4rec": lambda p, i: rc.bert4rec_cell_loss(p, cfg, i, plan,
+                                                             sh["b_ro"]),
+              "dien": lambda p, i: rc.dien_cell_loss(p, cfg, i, plan,
+                                                     sh["b_nro"])}[arch]
+        loss, grads = value_and_grad(lambda p, b, _: fn(p, b))(
+            params, inputs, None)
+        if on:
+            specs = rc.fitted(st["params"], tree_map(
+                torch.as_tensor, cell_params(arch)), plan)
+            grads = spmd.reduce_grads(grads, specs, plan)
+            grads = spmd.gather_state(grads, specs, plan)
+        res[pre + "loss"] = np.asarray(loss)
+        res.update({pre + "g/" + k: v for k, v in _np_tree(grads).items()})
+    else:
+        with torch.no_grad():
+            out = cell.step({"params": params}, inputs)
+        if on:
+            axes = spmd.plan_axes(plan, tuple(plan.batch_axes))
+            out = coll.gather_dim(out, axes, 1 if shape == "retrieval_cand"
+                                  else 0)
+        res[pre + "out"] = out.numpy()
+    return res
+
+
+def mace_small():
+    """A small MACE config, its params and a graph of 32 nodes / 64 edges
+    in 4 graphs (energy) and as one graph (3 node classes)."""
+    from repro_torch.models.gnn.mace import MACEConfig, mace_init
+    rs = np.random.RandomState(3)
+    n, e = 32, 64
+    out = {}
+    for task, n_out, g in (("energy", 1, 4), ("node", 3, 1)):
+        cfg = MACEConfig(channels=8, n_feat_in=6, n_out=n_out)
+        params = mace_init(torch.Generator().manual_seed(5), cfg,
+                           device="cpu")
+        inputs = {
+            "node_feat": torch.as_tensor(rs.randn(n, 6).astype(np.float32)),
+            "positions": torch.as_tensor(
+                rs.randn(n, 3).astype(np.float32) * 2),
+            "edge_index": torch.as_tensor(rs.randint(0, n, (e, 2))
+                                          .astype(np.int32)),
+            "edge_mask": torch.as_tensor(rs.rand(e) < 0.9),
+            "graph_ids": torch.as_tensor(np.repeat(np.arange(g), n // g)
+                                         .astype(np.int32)),
+            "node_mask": torch.ones(n, dtype=torch.bool)}
+        if task == "energy":
+            inputs["targets"] = torch.as_tensor(rs.randn(g).astype(
+                np.float32))
+        else:
+            inputs["labels"] = torch.as_tensor(rs.randint(0, n_out, n)
+                                               .astype(np.int32))
+            inputs["label_mask"] = torch.as_tensor(rs.rand(n) < 0.7)
+        out[task] = (cfg, params, inputs, g, n)
+    return out
+
+
+def mace_run(plan) -> dict:
+    """The small MACE loss and whole gradients on both gather routes (and
+    each task) under ``plan`` (None: one process)."""
+    from repro_torch.configs.mace_cells import _all_axes_plan, mace_cell_loss
+    res = {}
+    for task, (cfg, params, inputs, g, n) in mace_small().items():
+        if plan is not None:
+            ax = tuple(plan.batch_axes) + (plan.model_axis,)
+            inputs = {k: spmd.local_block(
+                v, (ax,) + (None,) * (v.dim() - 1) if k != "targets"
+                else (), plan) for k, v in inputs.items()}
+        for level in ("baseline", "hoist"):
+            loss, grads = value_and_grad(lambda p, b, _: mace_cell_loss(
+                p, cfg, b, plan, g, task, n, level))(params, inputs, None)
+            if plan is not None:
+                grads = spmd.reduce_grads(
+                    grads, tree_map(lambda _: (), grads),
+                    _all_axes_plan(plan))
+            res[f"mace/{task}/{level}/loss"] = np.asarray(loss)
+            res.update({f"mace/{task}/{level}/g/{k}": v
+                        for k, v in _np_tree(grads).items()})
+    return res
+
+
+def exchange_run(plan) -> dict:
+    """dlrm ``opt2``'s sparse row update (the (id, grad) all-gather) and
+    ``opt``'s table-sized deltas against the one-process update: a
+    64-row table row-sharded over ``model`` and a 16-row one whole."""
+    from repro_torch.configs.recsys_cells import sparse_row_update
+    rs = np.random.RandomState(9)
+    res = {}
+    for name, rows, sharded in (("big", 64, True), ("tiny", 16, False)):
+        table = torch.as_tensor(rs.randn(rows, 8).astype(np.float32))
+        acc = torch.as_tensor(rs.rand(rows).astype(np.float32))
+        ids = torch.as_tensor(rs.randint(0, rows, 16)).long()
+        ids[3] = ids[5]                               # a repeated row
+        g = torch.as_tensor(rs.randn(16, 8).astype(np.float32))
+        if plan is None:
+            t2, a2 = sparse_row_update(table, acc, ids, g, plan=None,
+                                       sharded=False, exchange=True,
+                                       lr=0.05, eps=1e-8)
+            res[f"x/{name}/local"] = np.concatenate(
+                [t2.numpy(), a2.numpy()[:, None]], 1)
+            continue
+        tspec = ("model", None) if sharded else ()
+        aspec = ("model",) if sharded else ()
+        bspec = (tuple(plan.batch_axes),)
+        for ex in (True, False):
+            t2, a2 = sparse_row_update(
+                spmd.local_block(table, tspec, plan),
+                spmd.local_block(acc, aspec, plan),
+                spmd.local_block(ids, bspec, plan),
+                spmd.local_block(g, bspec + (None,), plan), plan=plan,
+                sharded=sharded, exchange=ex, lr=0.05, eps=1e-8)
+            t2 = spmd.global_leaf(t2, tspec, plan)
+            a2 = spmd.global_leaf(a2, aspec, plan)
+            res[f"x/{name}/{'opt2' if ex else 'opt'}"] = np.concatenate(
+                [t2.numpy(), a2.numpy()[:, None]], 1)
+    return res
+
+
+def clip_run(plan) -> list:
+    """3 Trainer steps of gr with ``adam(grad_clip=1e-3)`` (it binds at
+    every step) under ``plan``: the losses and the whole params (C5)."""
+    params, loss = model("gr")
+    opt = make_mixed(adam(1e-3, grad_clip=1e-3), rowwise_adagrad(0.05),
+                     default_is_embedding)
+    trainer = Trainer(lambda p, b, g: loss(p, b, plan), opt,
+                      TrainLoopConfig(total_steps=3, log_every=1),
+                      lambda: params, device="cpu", plan=plan)
+    state = trainer.run(cycling(batches(), spmd.make_batch_placer(plan)),
+                        seed=7)
+    full = trainer.gather_state(state) if plan is not None else state
+    return [r["loss"] for r in trainer.history], _np_tree(full["params"])
+
+
+def cells_rank(rank: int, out: str) -> None:
+    """test_torch_cells_spmd on 2 x 2 (rank 0 writes ``cells_2x2.npz``;
+    the 1 x 2 submesh's rank 0 adds the C5 clip run)."""
+    plan = plan_for_mesh(make_test_mesh(2, 2))
+    res = {}
+    for arch, shape in REF_CELLS:
+        res.update(port_cell_run(arch, shape, plan))
+    res.update(mace_run(plan))
+    res.update(exchange_run(plan))
+    sub = plan_for_mesh(make_test_mesh(1, 2))
+    if in_mesh(sub.mesh):
+        losses, params = clip_run(sub)
+        res["clip/losses"] = np.asarray(losses)
+        res.update({f"clip/p/{k}": v for k, v in params.items()})
+    if rank == 0:
+        save_npz(os.path.join(out, "cells_2x2.npz"), **res)
     dist.barrier()
