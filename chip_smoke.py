@@ -296,6 +296,22 @@ Phases (any failure exits non-zero and prints no result):
                    memory within 20 % of the estimate, 3 steps timed
                    against the roofline's largest term (no gate), B1-B7
                    launches
+ 23. examples    — ``examples/torch_*.py`` in process, each ``main(["--device",
+                   "cuda"])`` at the reference examples' sizes and default
+                   steps: the launches of B1-B7 in each run against the
+                   counts the code gives (the examples' roo-lsr
+                   ``userarch_hstu`` and roo-retrieval HSTU towers run
+                   B1-B3; no example reaches B4-B7); serve_roo's scores
+                   against the same example on the CPU (1e-4); the
+                   pipeline's resume bit for bit (the example asserts it);
+                   NE and losses finite; storage_analysis's table. Then the
+                   dense-mask HSTU branch on the card against the MaskSpec
+                   route (B1) at 1e-5, both mask ranks; the impression-level
+                   baseline (``impression_batches``, B_RO = B_NRO = 192)
+                   beside the quickstart's ROO batches, 10 steps each,
+                   steps/s and impressions/s; B1-B3 timed at the operands
+                   each example's run recorded, beside the plain version
+                   and the bound
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -3651,6 +3667,24 @@ def bound_dot(dense, sparse, self_interaction=False) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
 
 
+def dot_yardstick(dmod, dense, sparse):
+    """B7's library yardstick, two calls: ``torch.bmm(T, Tᵀ)`` and the tril
+    ``index_select``, on T = [dense; sparse] concatenated beforehand (the
+    copy is not timed); checked against the kernel's pair columns."""
+    import torch
+    f1 = sparse.shape[1] + 1
+    t = torch.cat([dense[:, None, :], sparse], dim=1)
+    i, j = torch.tril_indices(f1, f1, offset=-1, device=dense.device)
+    flat = i * f1 + j
+    lib = lambda: torch.bmm(t, t.transpose(1, 2)).flatten(1).index_select(
+        1, flat)
+    torch.cuda.synchronize()
+    if not torch.allclose(lib(), dmod.dot_interaction_cuda(
+            dense, sparse)[:, dense.shape[1]:], atol=DOT_ATOL, rtol=DOT_RTOL):
+        raise SystemExit("times: bmm + index_select disagrees with B7")
+    return lib
+
+
 def phase_dot_times(dmod, device, card: str) -> dict:
     """B7 at the dlrm-mlperf scoring (B 512) and training (B 8,192) shapes
     (F 26, D 128, fp32) beside its plain version and its bound. No single
@@ -3662,18 +3696,9 @@ def phase_dot_times(dmod, device, card: str) -> dict:
     for key, name in (("score", "score B512 F26 D128"),
                       ("train", "train B8192 F26 D128")):
         dense, sparse = dot_inputs(DOT_SHAPES[name], 100, device)
-        f1 = sparse.shape[1] + 1
-        t = torch.cat([dense[:, None, :], sparse], dim=1)
-        i, j = torch.tril_indices(f1, f1, offset=-1, device=device)
-        flat = i * f1 + j
         kernel = lambda: dmod.dot_interaction_cuda(dense, sparse)
         plain = lambda: dmod.dot_interaction_plain(dense, sparse)
-        lib = lambda: torch.bmm(t, t.transpose(1, 2)).flatten(1).index_select(
-            1, flat)
-        torch.cuda.synchronize()
-        if not torch.allclose(lib(), kernel()[:, dense.shape[1]:],
-                              atol=DOT_ATOL, rtol=DOT_RTOL):
-            raise SystemExit("times: bmm + index_select disagrees with B7")
+        lib = dot_yardstick(dmod, dense, sparse)
         # plain, kernel, kernel, plain
         ms = {k: device_ms(fn, iters) for k, fn, iters in (
             ("plain", plain, 40), ("kernel", kernel, 200),
@@ -5322,18 +5347,20 @@ def phase_scenario_times(emod, dmod, device, card: str, trained) -> dict:
     err = float((kernel() - plain()).abs().max())
     if not torch.allclose(kernel(), plain(), atol=DOT_ATOL, rtol=DOT_RTOL):
         raise SystemExit(f"scenario times: B7 off plain by {err:.3e}")
+    lib = dot_yardstick(dmod, dense, sparse)
     ms = {k: device_ms(fn, iters) for k, fn, iters in (
-        ("plain", plain, 40), ("kernel", kernel, 200))}
+        ("plain", plain, 40), ("kernel", kernel, 200), ("library", lib, 100))}
     bound_ms, bound_by, n_bytes, ops = bound_dot(dense, sparse)
     print(f"[times] {card}: B7 dot_interaction_fwd scenario dlrm-mlperf "
           f"training B{sparse.shape[0]} F{sparse.shape[1]} "
           f"D{sparse.shape[2]} fp32, device time per call: kernel "
           f"{ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms; bound "
           f"{bound_ms:.3e} ms ({bound_by}: {n_bytes} B, {ops} FLOP); "
-          f"max|B7 - plain| {err:.3e}; library: none (phase_dot_times)")
+          f"max|B7 - plain| {err:.3e}; library yardstick (two calls: "
+          f"torch.bmm + tril index_select) {ms['library']:.5f} ms")
     out["dot"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                      max_abs_err=err)
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=ms["library"], max_abs_err=err)
     return out
 
 
@@ -6332,7 +6359,8 @@ def phase_ops(mods, device, card: str) -> dict:
             ("b5", lambda: bound_bag(dict(table=table, ids=ids, lens=lens),
                                      "fwd"), lib,
              f"B5 embedding_bag sum B512 L1 D128 V{DLRM_CAP}"),
-            ("b7", lambda: bound_dot(dense, sparse), None,
+            ("b7", lambda: bound_dot(dense, sparse),
+             dot_yardstick(dmod, dense, sparse),
              "B7 dot_interaction B512 F26 D128")):
         fn = routes[key][0]
         always, never = (lambda: fn("always")), (lambda: fn("never"))
@@ -6348,8 +6376,10 @@ def phase_ops(mods, device, card: str) -> dict:
               f"{ms['plain_again']:.5f}); bound {bound_ms:.5f} ms "
               f"({bound_by}: {n_bytes} B, {n_ops} FLOP at 3.35 TB/s / 67 "
               f"TFLOP/s); library "
-              + (f"{library_ms:.5f} ms (F.embedding_bag)" if library_ms
-                 else "none"))
+              + (f"{library_ms:.5f} ms ("
+                 + ("F.embedding_bag" if key == "b5" else
+                    "yardstick, two calls: torch.bmm + tril index_select")
+                 + ")" if library_ms else "none"))
         out[key] = dict(launches=launches[key], max_abs_err=errs[key],
                         ms=ms["kernel"], plain_ms=ms["plain"],
                         bound_ms=bound_ms, bound_by=bound_by,
@@ -6357,6 +6387,356 @@ def phase_ops(mods, device, card: str) -> dict:
     del table
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 23. the examples on the card (examples/torch_*.py)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_storage_analysis", "torch_quickstart", "torch_serve_roo",
+            "torch_train_lsr_e2e", "torch_pipeline_e2e")
+EXAMPLE_SERVE_TOL = 1e-4      # serve_roo's scores, card vs CPU (atol, rtol)
+DENSE_MASK_TOL = 1e-5         # the dense-mask branch vs the MaskSpec route
+BASELINE_STEPS = 10           # the impression-level baseline's timed steps
+
+
+def load_example(name: str):
+    """A fresh module object of ``examples/<name>.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def expected_example_launches(name: str, out: dict) -> dict:
+    """The launches the code gives for one example's run, from what the
+    run returned: every HSTU layer's forward is one B1 and its backward
+    one B2 and one B3 (``HSTUAttentionFn``); no example reaches B4-B7."""
+    want = dict.fromkeys(("b1", "b2", "b3", "b4", "b5", "b6", "b7"), 0)
+    if name == "torch_quickstart":          # + the held-out and served fwd
+        n, steps = out["n_layers"], out["steps"]
+        want.update(b1=n * (steps + 2), b2=n * steps, b3=n * steps)
+    elif name == "torch_train_lsr_e2e":     # + NE on the held-out batches
+        n, steps = out["n_layers"], out["steps"]
+        want.update(b1=n * (steps + out["n_test_batches"]), b2=n * steps,
+                    b3=n * steps)
+    elif name == "torch_serve_roo":         # batches the cache did not serve
+        st = out["stats"]
+        want.update(b1=out["lsr_layers"] * (st["n_batches"]
+                                            - st["n_full_cache_batches"])
+                    + out["retrieval_layers"])
+    elif name == "torch_pipeline_e2e":      # full run + killed + resumed
+        n = out["n_layers"]
+        steps = out["steps"] + out["kill_at"] + out["resumed_steps"]
+        want.update(b1=n * steps, b2=n * steps, b3=n * steps)
+    return want
+
+
+@contextlib.contextmanager
+def recording_hstu(kmod, bmod):
+    """Record the operands of the first B1 call and of the first B2 + B3
+    backward (copies) while the block runs; the kernels run and count as
+    ever."""
+    import torch
+    rec = {}
+    fwd, bwd = kmod.hstu_attention_cuda, bmod.hstu_attention_bwd_cuda
+
+    def copy(args):
+        return tuple(a.detach().clone() if torch.is_tensor(a) else a
+                     for a in args)
+
+    def fwd_rec(*args):
+        rec.setdefault("fwd", copy(args))
+        return fwd(*args)
+
+    def bwd_rec(*args):
+        rec.setdefault("bwd", copy(args))
+        return bwd(*args)
+
+    kmod.hstu_attention_cuda, bmod.hstu_attention_bwd_cuda = fwd_rec, bwd_rec
+    try:
+        yield rec
+    finally:
+        kmod.hstu_attention_cuda, bmod.hstu_attention_bwd_cuda = fwd, bwd
+
+
+def example_kernel_times(kmod, bmod, rec: dict, tag: str, card: str) -> dict:
+    """B1 (and B2 / B3 where the run trained) at the operands the run
+    recorded: against the plain version, device times, bounds."""
+    import torch
+    out = {}
+    args = rec["fwd"]
+    q, k, v, rab, n_hist, hl, tc, max_rel = args
+    x = dict(q=q, k=k, v=v, rab=rab, hl=hl, tc=tc, n_hist=n_hist,
+             max_rel=max_rel)
+    kernel = lambda: kmod.hstu_attention_cuda(*args)
+    plain = lambda: kmod.hstu_attention_plain(*args)
+    got, want = kernel(), plain()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+        raise SystemExit(f"examples: B1 off plain by {err:.3e} at {tag}'s "
+                         f"operands")
+    ms = {key: device_ms(fn, iters) for key, fn, iters in (
+        ("plain", plain, 20), ("kernel", kernel, 200))}
+    bound_ms, bound_by, n_bytes, ops = bound(x)
+    b, h, s, d = q.shape
+    print(f"[examples times] {card}: B1 hstu_attention_fwd at {tag}'s "
+          f"operands B{b} H{h} S{s} D{d} (hist {int(hl.max())} max, "
+          f"targets {int(tc.max())} max), device time per call: kernel "
+          f"{ms['kernel']:.5f} ms, plain torch {ms['plain']:.5f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {ops} FLOP); "
+          f"max|B1 - plain| {err:.3e}")
+    out["b1"] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                     max_abs_err=err)
+    if "bwd" not in rec:
+        return out
+    args = rec["bwd"]
+    q, k, v, rab, n_hist, hl, tc, max_rel, g = args
+    x = dict(q=q, k=k, v=v, rab=rab, hl=hl, tc=tc, n_hist=n_hist)
+    dq, drab = bmod.hstu_attention_bwd_dq_cuda(*args)
+    dk, dv = bmod.hstu_attention_bwd_dkv_cuda(*args)
+    pdq, pdk, pdv, pdrab = bmod.hstu_attention_bwd_plain(*args)
+    errs = {"b2": max(float((dq - pdq).abs().max()),
+                      float((drab - pdrab).abs().max())),
+            "b3": max(float((dk - pdk).abs().max()),
+                      float((dv - pdv).abs().max()))}
+    if not (all(torch.allclose(a, b, atol=ATOL, rtol=RTOL)
+                for a, b in ((dq, pdq), (dk, pdk), (dv, pdv)))
+            and torch.allclose(drab, pdrab, atol=LOGIT_TOL, rtol=LOGIT_TOL)):
+        raise SystemExit(f"examples: B2 / B3 off plain by {errs} at {tag}'s "
+                         f"operands")
+    b2 = lambda: bmod.hstu_attention_bwd_dq_cuda(*args)
+    b3 = lambda: bmod.hstu_attention_bwd_dkv_cuda(*args)
+    plain = lambda: bmod.hstu_attention_bwd_plain(*args)
+    ms = {key: device_ms(fn, iters) for key, fn, iters in (
+        ("plain", plain, 8), ("b2", b2, 200), ("b3", b3, 200))}
+    for key, which, label in (("b2", "dq", "B2 hstu_attention_bwd_dq"),
+                              ("b3", "dkv", "B3 hstu_attention_bwd_dkv")):
+        bound_ms, bound_by, n_bytes, ops = bound_bwd(x, which)
+        print(f"[examples times] {card}: {label} at {tag}'s operands, "
+              f"device time per call: kernel {ms[key]:.5f} ms, plain torch "
+              f"backward {ms['plain']:.5f} ms; bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {ops} FLOP); max|kernel - plain| "
+              f"{errs[key]:.3e}")
+        out[key] = dict(ms=ms[key], plain_ms=ms["plain"], bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None,
+                        max_abs_err=errs[key])
+    return out
+
+
+def example_dense_mask(kmod, device, card: str) -> float:
+    """The dense-mask branch of ``hstu_apply`` (plain torch on the card)
+    against the MaskSpec route (B1), at the examples' HSTU widths, for a
+    (B, S, S) ``roo_batch_mask`` and an (S, S) ``roo_sequence_mask``."""
+    import torch
+    from repro_torch.core import hstu
+    from repro_torch.core.masks import (roo_batch_mask, roo_sequence_mask,
+                                        roo_spec)
+    cfg = hstu.HSTUConfig(d_model=64, n_heads=2, d_qk=32, d_v=32,
+                          n_layers=2, max_rel_pos=64)
+    gen = torch.Generator().manual_seed(23)
+    params = hstu.hstu_init(gen, cfg, device=device)
+    for layer in params["layers"]:          # a bias that moves the scores
+        layer["rab"] = 0.5 * torch.randn(tuple(layer["rab"].shape),
+                                         generator=gen).to(device)
+    b, n_hist, m = 32, 48, 16
+    x = torch.randn((b, n_hist + m, cfg.d_model), generator=gen).to(device)
+    hl = torch.randint(0, n_hist + 1, (b,), generator=gen,
+                       dtype=torch.int32)
+    tc = torch.randint(0, m + 1, (b,), generator=gen, dtype=torch.int32)
+    hl[0], tc[0] = n_hist, m
+    hl, tc = hl.to(device), tc.to(device)
+    full_hl = torch.full_like(hl, n_hist)
+    full_tc = torch.full_like(tc, m)
+    worst = 0.0
+    with torch.no_grad():
+        for what, mask, spec in (
+                ("(B, S, S) roo_batch_mask", roo_batch_mask(hl, tc, n_hist, m),
+                 roo_spec(hl, tc, n_hist)),
+                ("(S, S) roo_sequence_mask",
+                 roo_sequence_mask(n_hist, m, device),
+                 roo_spec(full_hl, full_tc, n_hist))):
+            before = kmod.launch_count
+            dense = hstu.hstu_apply(params, cfg, x, mask)
+            if kmod.launch_count != before:
+                raise SystemExit("examples: the dense-mask branch launched B1")
+            got = hstu.hstu_apply(params, cfg, x, spec)
+            if kmod.launch_count - before != cfg.n_layers:
+                raise SystemExit("examples: the MaskSpec route did not launch "
+                                 "B1 once a layer")
+            err = float((dense - got).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(dense, got, atol=DENSE_MASK_TOL,
+                                  rtol=DENSE_MASK_TOL):
+                raise SystemExit(f"examples: dense-mask branch {what} off the "
+                                 f"MaskSpec route by {err:.3e}")
+            print(f"[examples] {card}: hstu_apply B{b} S{n_hist + m} "
+                  f"d{cfg.d_model} x {cfg.n_layers} layers, dense {what} "
+                  f"(plain torch) vs the MaskSpec route (B1): max|diff| "
+                  f"{err:.3e} (tol {DENSE_MASK_TOL:g})")
+    return worst
+
+
+def example_baseline(quick, device, card: str) -> dict:
+    """The paper's impression-level baseline beside ROO at the quickstart's
+    stream, config and optimizer: ``impression_batches`` with B_RO = B_NRO
+    = the quickstart's B_NRO against the quickstart's ROO batches, the same
+    impression slots a step; a warm-up step, then ``BASELINE_STEPS``
+    timed steps each."""
+    import math
+    import torch
+    from repro_torch.configs import roo_models as rm
+    from repro_torch.core.joiner import (ImpressionLevelJoiner,
+                                         RequestLevelJoiner)
+    from repro_torch.data.batcher import (BatcherConfig, ROOBatcher,
+                                          impression_batches)
+    from repro_torch.data.events import EventSimulator, EventStreamConfig
+    from repro_torch.models.lsr import lsr_init, lsr_loss
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optim import adam
+    events = list(EventSimulator(EventStreamConfig(
+        n_requests=quick.N_REQUESTS, hist_init_max=quick.HIST_INIT_MAX,
+        seed=quick.SEED)).stream())
+    bcfg = BatcherConfig(b_ro=quick.B_RO, b_nro=quick.B_NRO,
+                         hist_len=quick.HIST_LEN)
+    runs = {"roo": list(ROOBatcher(bcfg, device=device).batches(
+                RequestLevelJoiner().join(events))),
+            "impression": list(impression_batches(
+                ImpressionLevelJoiner().join(events), quick.B_NRO, bcfg,
+                device=device))}
+    cfg = rm.lsr_config("userarch_hstu")
+    vag = value_and_grad(lambda p, b, g: lsr_loss(p, cfg, b))
+    out = {}
+    for tag, batches in runs.items():
+        params = lsr_init(torch.Generator().manual_seed(quick.SEED), cfg,
+                          device=device)
+        opt = adam(1e-3)
+        state = opt.init(params)
+        loss, grads = vag(params, batches[0], None)      # warm-up
+        params, state = opt.update(grads, state, params)
+        order = [batches[i % len(batches)] for i in range(BASELINE_STEPS)]
+        n_imp = sum(int(b.num_valid_impressions()) for b in order)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for batch in order:
+            loss, grads = vag(params, batch, None)
+            params, state = opt.update(grads, state, params)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"examples: {tag} baseline losses {losses}")
+        out[tag] = dict(steps_per_s=BASELINE_STEPS / dt,
+                        impressions_per_s=n_imp / dt,
+                        impressions_a_step=n_imp / BASELINE_STEPS,
+                        b_ro=batches[0].b_ro, b_nro=batches[0].b_nro,
+                        n_batches=len(batches))
+    r, i = out["roo"], out["impression"]
+    print(f"[examples] {card}: impression-level baseline (impression_batches"
+          f", B_RO = B_NRO = {i['b_nro']}) {i['steps_per_s']:.2f} steps/s, "
+          f"{i['impressions_per_s']:.1f} impressions/s "
+          f"({i['impressions_a_step']:.1f} a step) vs the quickstart's ROO "
+          f"batches (B_RO {r['b_ro']}, B_NRO {r['b_nro']}) "
+          f"{r['steps_per_s']:.2f} steps/s, {r['impressions_per_s']:.1f} "
+          f"impressions/s ({r['impressions_a_step']:.1f} a step): "
+          f"{i['steps_per_s'] / r['steps_per_s']:.3f}x the ROO steps/s at "
+          f"{i['b_nro']} impression slots a step, "
+          f"{i['impressions_per_s'] / r['impressions_per_s']:.3f}x its "
+          f"impressions/s")
+    return out
+
+
+def phase_examples(mods, device, card: str) -> dict:
+    """Phase 23 (module note): each example's ``main`` in process on the
+    card at the reference's sizes, its launches gated against the code's
+    counts, then the dense-mask branch, the impression-level baseline and
+    the kernel times at the recorded operands."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    emod, kmod, pmod, bmod, dmod = mods
+    t_phase = time.perf_counter()
+    root = build_dir() / "chip_smoke_examples"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs, times = {}, {}
+    for name in EXAMPLES:
+        ex = load_example(name)
+        argv = ["--device", "cuda"]
+        if name == "torch_train_lsr_e2e":
+            argv += ["--ckpt-dir", str(root / "ckpt")]
+        t0 = time.perf_counter()
+        with spec_scope():
+            reset_counts(mods)
+            with recording_hstu(kmod, bmod) as rec:
+                out = ex.main(argv)
+            counts = all_counts(mods)
+        wall = time.perf_counter() - t0
+        want = expected_example_launches(name, out)
+        if counts != want:
+            raise SystemExit(f"examples: {name} launched {counts}, the code "
+                             f"gives {want}")
+        print(f"[examples] {card}: {name} {wall:.1f} s, launches {counts} "
+              f"(as the code gives)")
+        runs[name] = dict(out=out, launches=counts, wall_s=wall)
+        if rec:
+            times[name] = example_kernel_times(kmod, bmod, rec, name, card)
+        if name == "torch_quickstart":
+            quick = ex
+    # results
+    q = runs["torch_quickstart"]["out"]
+    tr = runs["torch_train_lsr_e2e"]["out"]
+    pipe = runs["torch_pipeline_e2e"]["out"]
+    for tag, vals in (("quickstart", q["epoch_losses"] + [q["ne"]]),
+                      ("train_lsr_e2e", tr["losses"] + [tr["ne"]]),
+                      ("pipeline_e2e", pipe["losses"])):
+        if not all(math.isfinite(v) for v in vals):
+            raise SystemExit(f"examples: {tag} has non-finite losses / NE "
+                             f"{vals}")
+    if not pipe["same"] or tr["start_step"] != 0 \
+            or tr["final_step"] != tr["steps"]:
+        raise SystemExit("examples: the pipeline's resume or the training "
+                         "run from a fresh directory did not hold")
+    serve = runs["torch_serve_roo"]["out"]
+    with spec_scope():
+        cpu = load_example("torch_serve_roo").main(["--device", "cpu"])
+    serve_err = 0.0
+    for key in ("scores", "repeat_scores", "online"):
+        for got, want in zip(serve[key], cpu[key]):
+            serve_err = max(serve_err, float(np.abs(got - want).max()))
+            np.testing.assert_allclose(got, want, atol=EXAMPLE_SERVE_TOL,
+                                       rtol=EXAMPLE_SERVE_TOL)
+    user_err = float((serve["user_repr"] - cpu["user_repr"]).abs().max())
+    if not torch.allclose(serve["user_repr"], cpu["user_repr"],
+                          atol=EXAMPLE_SERVE_TOL, rtol=EXAMPLE_SERVE_TOL):
+        raise SystemExit(f"examples: serve_roo's retrieval user repr off the "
+                         f"CPU by {user_err:.3e}")
+    print(f"[examples] {card}: serve_roo card vs CPU: scores max|diff| "
+          f"{serve_err:.3e}, retrieval user repr {user_err:.3e} (tol "
+          f"{EXAMPLE_SERVE_TOL:g}); first pass "
+          f"{serve['requests_per_s']:.1f} requests/s, cache pass "
+          f"{serve['repeat_requests_per_s']:.1f} requests/s, 1-vs-1M "
+          f"retrieval {serve['retrieval_ms']:.3f} ms")
+    print(f"[examples] {card}: quickstart {q['steps_per_s']:.2f} steps/s "
+          f"({q['steps']} steps), held-out NE {q['ne']:.4f}; train_lsr_e2e "
+          f"{tr['n_params'] / 1e6:.1f}M params, {tr['steps_per_s']:.2f} "
+          f"steps/s over {tr['steps']} steps (3 checkpoints included), "
+          f"held-out NE {tr['ne']:.4f}; pipeline_e2e resume bit for bit "
+          f"after {pipe['kill_at']} + {pipe['resumed_steps']} steps")
+    dense_err = example_dense_mask(kmod, device, card)
+    baseline = example_baseline(quick, device, card)
+    wall = time.perf_counter() - t_phase
+    print(f"[examples] {card}: phase 23 {wall:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(runs=runs, times=times, dense_err=dense_err,
+                baseline=baseline, serve_err=serve_err, wall_s=wall)
 
 
 # phase 22: the dry run's processes (all started together: one a core of
@@ -6575,6 +6955,8 @@ def main() -> int:
     ops_run = phase_ops(mods, device, card)
     # the dry-run cells (A10b): the meta analysis and the card against it
     dry = phase_dryrun(mods, device, card)
+    # the examples on the card (A12 and the examples)
+    examples = phase_examples(mods, device, card)
     print(f"[serve] {card}: {serve['requests_per_s']:.1f} requests/s")
     print(f"[incremental] {card}: repeat traffic {inc['requests_per_s']:.1f} "
           f"requests/s incremental, {inc['stateless_requests_per_s']:.1f} "
@@ -6645,6 +7027,11 @@ def main() -> int:
           + ", ".join(f"{a}/{s} step {1e3 * min(r['step_s']):.3f} ms vs "
                       f"roofline {1e3 * r['roof']:.3f} ms"
                       for (a, s), r in dry["runs"].items()))
+
+    ex_runs = examples["runs"]
+    print(f"[examples] {card}: " + ", ".join(
+        f"{name} {run['wall_s']:.1f} s" for name, run in ex_runs.items())
+        + f"; phase 23 {examples['wall_s']:.1f} s")
 
     gr_train = scen_train["hstu-gr", None]["launches"]
     scen_dlrm = scen_train["dlrm-mlperf", None]["launches"]
@@ -6825,7 +7212,18 @@ def main() -> int:
             ("b5", "embedding_bag_fwd_grouped", "embedding_bag.cu",
              "embedding_bag.py:48", "a dlrm scoring field"),
             ("b7", "dot_interaction_fwd", "dot_interaction.cu",
-             "dot_interaction.py:22", "dlrm scoring shape"))]}))
+             "dot_interaction.py:22", "dlrm scoring shape"))] + [{
+        "name": f"{kname} (examples/{name}.py)", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": ex_runs[name]["launches"][key],
+        **examples["times"][name][key]}
+        for name in examples["times"]
+        for key, kname, src, line in (
+            ("b1", "hstu_attention_fwd", "hstu_attention_fwd.cu", 80),
+            ("b2", "hstu_attention_bwd_dq", "hstu_attention_bwd.cu", 108),
+            ("b3", "hstu_attention_bwd_dkv", "hstu_attention_bwd.cu", 170))
+        if key in examples["times"][name]]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

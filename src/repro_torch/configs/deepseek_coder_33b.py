@@ -15,8 +15,8 @@ CONFIG = LMConfig(name=ARCH_ID, n_layers=62, d_model=7168, n_heads=56,
                   activation="swiglu", rope_theta=1e5)
 
 
-def build_cell(shape_name, plan):
-    return build_lm_cell(CONFIG, shape_name, plan)
+def build_cell(shape_name, plan, opt_level="baseline"):
+    return build_lm_cell(CONFIG, shape_name, plan, opt_level)
 
 
 def smoke_config():

@@ -51,7 +51,7 @@ from repro_torch.models.dlrm import (DLRMConfig, _field_lookup,
                                      dlrm_forward_from_embs, dlrm_forward_roo,
                                      dlrm_init)
 from repro_torch.models.mind import MINDConfig, interest_capsules, mind_init
-from repro_torch.train.metrics import bce_terms
+from repro_torch.train.metrics import bce, bce_terms  # noqa: F401
 from repro_torch.train.optim import (adam, default_is_embedding, make_mixed,
                                      rowwise_adagrad)
 from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten

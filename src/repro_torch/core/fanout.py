@@ -4,8 +4,10 @@
 In impression-level training every user-side activation exists ``B_NRO``
 times. Under ROO the user side is computed once per request (``B_RO``
 rows) and fanned out to its impressions exactly once, at the interaction
-point. The fanout is a gather by ``segment_ids``. Its transpose (``fanin_sum``,
-``fanin_mean``) waits for a caller.
+point. The fanout is a gather by ``segment_ids``; its transpose
+(``fanin_sum``, ``fanin_mean``) is a segment sum, in slot order within each
+request (a stable sort by segment, then ``torch.segment_reduce``), so two
+calls on the card give the same bits, as ``embeddings/bag.bag_pool`` does.
 
 Under an SPMD plan both leading dims are split over the batch axes and
 the batcher's request locality keeps every impression on its request's
@@ -28,6 +30,27 @@ def fanout(x_ro: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
     valid = segment_ids < b_ro
     return out * valid.reshape((-1,) + (1,) * (out.dim() - 1)).to(out.dtype)
 
+
+def fanin_sum(x_nro: torch.Tensor, segment_ids: torch.Tensor,
+              b_ro: int) -> torch.Tensor:
+    """Transpose of fanout: sum impression rows back to their request.
+    Slots whose id is outside [0, b_ro) (padding) are dropped."""
+    seg = segment_ids.long()
+    seg = torch.where((seg >= 0) & (seg < b_ro), seg,
+                      torch.full_like(seg, b_ro))
+    order = torch.sort(seg, stable=True).indices
+    counts = torch.bincount(seg, minlength=b_ro + 1)
+    return torch.segment_reduce(x_nro[order], "sum", lengths=counts,
+                                unsafe=True)[:b_ro]
+
+
+def fanin_mean(x_nro: torch.Tensor, segment_ids: torch.Tensor,
+               b_ro: int) -> torch.Tensor:
+    s = fanin_sum(x_nro, segment_ids, b_ro)
+    ones = torch.ones((x_nro.shape[0],), dtype=x_nro.dtype,
+                      device=x_nro.device)
+    n = fanin_sum(ones, segment_ids, b_ro)
+    return s / torch.clamp(n, min=1.0).reshape((-1,) + (1,) * (s.dim() - 1))
 
 
 def fanout_local(x_ro: torch.Tensor, segment_ids: torch.Tensor,

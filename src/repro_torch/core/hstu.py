@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -185,14 +185,25 @@ def hstu_attention_prefix_chunked(q: torch.Tensor, k: torch.Tensor,
     return torch.cat(outs, dim=2)
 
 
+def _rel_bias(rab: torch.Tensor, s: int, max_rel: int) -> torch.Tensor:
+    """(H, S, S) bias from the (H, 2*max+1) delta table."""
+    pos = torch.arange(s, device=rab.device)
+    delta = torch.clamp(pos[:, None] - pos[None, :], -max_rel,
+                        max_rel) + max_rel
+    return rab[:, delta]
+
+
 def hstu_layer_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
-                     mask: MaskSpec,
+                     mask: Union[torch.Tensor, MaskSpec],
                      backend: Optional[str] = None) -> torch.Tensor:
-    """x: (B, S, d). Returns (B, S, d). ``mask`` is a :class:`MaskSpec`
-    (the dense-mask legacy path of the reference is not ported);
+    """x: (B, S, d). Returns (B, S, d).
+
+    ``mask``: a :class:`MaskSpec` (preferred: routed through
+    kernels/dispatch.py, so the mask is generated inside the selected
+    backend and the CUDA kernels run on the card) or a dense (B, S, S) /
+    (S, S) bool tensor (the reference's legacy path, plain torch: it
+    materializes the scores and the bias, and ignores ``backend``).
     ``backend`` overrides ``cfg.attn_backend`` for this call."""
-    if not isinstance(mask, MaskSpec):
-        raise TypeError("hstu_layer_apply takes a MaskSpec")
     b, s, d = x.shape
     h, dqk, dv = cfg.n_heads, cfg.d_qk, cfg.d_v
     xn = _ln(x, cfg.eps)
@@ -202,11 +213,22 @@ def hstu_layer_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
     k = k.reshape(b, s, h, dqk).transpose(1, 2)
     v = v.reshape(b, s, h, dv).transpose(1, 2)
 
-    from repro_torch.kernels import dispatch
-    rab = params["rab"] if cfg.use_rab else None
-    av = dispatch.hstu_attention(q, k, v, rab, mask,
-                                 backend=backend or cfg.attn_backend,
-                                 max_rel_pos=cfg.max_rel_pos)
+    if isinstance(mask, MaskSpec):
+        from repro_torch.kernels import dispatch
+        rab = params["rab"] if cfg.use_rab else None
+        av = dispatch.hstu_attention(q, k, v, rab, mask,
+                                     backend=backend or cfg.attn_backend,
+                                     max_rel_pos=cfg.max_rel_pos)
+    else:
+        if mask.dim() == 2:
+            mask = mask[None]
+        scores = torch.einsum("bhid,bhjd->bhij", q, k) / math.sqrt(dqk)
+        if cfg.use_rab:
+            scores = scores + _rel_bias(params["rab"], s,
+                                        cfg.max_rel_pos)[None]
+        a = F.silu(scores) / s
+        a = a * mask[:, None].to(a.dtype)
+        av = torch.einsum("bhij,bhjd->bhid", a, v)
 
     av = av.transpose(1, 2).reshape(b, s, h * dv)
     y = _ln(av, cfg.eps) * params["ln_scale"] + params["ln_bias"]
@@ -215,7 +237,8 @@ def hstu_layer_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
 
 
 def hstu_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
-               mask: MaskSpec, backend: Optional[str] = None) -> torch.Tensor:
+               mask: Union[torch.Tensor, MaskSpec],
+               backend: Optional[str] = None) -> torch.Tensor:
     x = _ln(x, cfg.eps) * params["in_ln_scale"] + params["in_ln_bias"]
     for layer in params["layers"]:
         x = hstu_layer_apply(layer, cfg, x, mask, backend=backend)

@@ -140,3 +140,19 @@ def roo_spec(hist_lengths: torch.Tensor, target_counts: torch.Tensor,
 def causal_spec(hist_lengths: torch.Tensor, n_hist: int) -> MaskSpec:
     """Spec for a history-only causal sequence (no target slots)."""
     return MaskSpec(n_hist, hist_lengths, torch.zeros_like(hist_lengths))
+
+
+def causal_mask(n: int, device=None) -> torch.Tensor:
+    """(n, n) bool lower-triangular mask (True = may attend)."""
+    i = torch.arange(n, device=device)[:, None]
+    j = torch.arange(n, device=device)[None, :]
+    return j <= i
+
+
+def history_mask(hist_lengths: torch.Tensor, n_hist: int) -> torch.Tensor:
+    """(B, n, n) causal mask over variable-length histories."""
+    device = hist_lengths.device
+    base = causal_mask(n_hist, device)[None]
+    pos = torch.arange(n_hist, device=device)
+    valid = pos[None, :] < hist_lengths[:, None]
+    return base & valid[:, None, :] & valid[:, :, None]

@@ -55,6 +55,19 @@ class ROOBatch:
     def num_valid_impressions(self) -> torch.Tensor:
         return torch.sum(self.num_impressions)
 
+    def validate_static(self) -> None:
+        """Host-side shape checks; raises AssertionError, as the
+        reference's asserts do."""
+        for what, a, b in (
+                ("segment_ids / nro_dense", self.segment_ids, self.nro_dense),
+                ("num_impressions / ro_dense", self.num_impressions,
+                 self.ro_dense),
+                ("history_ids / ro_dense", self.history_ids, self.ro_dense),
+                ("labels / nro_dense", self.labels, self.nro_dense)):
+            if a.shape[0] != b.shape[0]:
+                raise AssertionError(f"{what}: leading dims {a.shape[0]} "
+                                     f"!= {b.shape[0]}")
+
     def to(self, device) -> "ROOBatch":
         """The same batch with every tensor on ``device``."""
         return ROOBatch(**{

@@ -114,3 +114,14 @@ def gather_targets_to_ro(target_emb_nro: torch.Tensor, batch: ROOBatch,
                       torch.full_like(seg, b_ro * m_targets))
     out[lin] = target_emb_nro
     return out[:-1].reshape(b_ro, m_targets, d)
+
+
+def sequence_flops(cfg: ROOSequenceConfig, d: int, roo: bool,
+                   b_ro: int, b_nro: int) -> int:
+    """§3.3 cost model: m(n²d+nd²) vs (n+m)²d+(n+m)d² (per-request units)."""
+    n, m = cfg.n_hist, cfg.m_targets
+    if roo:
+        s = n + m
+        return b_ro * (s * s * d + s * d * d) * cfg.hstu.n_layers
+    return b_nro * ((n + 1) * (n + 1) * d + (n + 1) * d * d) \
+        * cfg.hstu.n_layers

@@ -17,8 +17,9 @@ numpy, then moves each packed batch to the requested device in one step:
     dropped by truncation.
 
 Dropped impressions are always counted in the ungated
-``batcher.impressions_dropped`` obs counter. The impression-level packing
-(``impression_batches``) is not ported yet.
+``batcher.impressions_dropped`` obs counter. ``impression_batches`` packs
+impression samples as degenerate ROO batches (one impression a request):
+the paper's impression-level baseline on the same model code.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.joiner import ROOSample
+from repro_torch.core.joiner import ImpressionSample, ROOSample
 from repro_torch.core.roo_batch import ROOBatch
 from repro_torch.data.jagged import JaggedTensor, KeyedJagged
 from repro_torch.obs import metrics as obs_metrics
@@ -248,3 +249,22 @@ class ROOBatcher:
             nro_sparse=nro_sparse, item_ids=t(item_ids), labels=t(labels),
             num_impressions=t(num_imp), segment_ids=t(seg))
         return batch.to(self.device), BatchPlan(requests=tuple(packed))
+
+
+def impression_batches(samples: Sequence[ImpressionSample], batch_size: int,
+                       cfg: BatcherConfig,
+                       device="cuda") -> Iterator[ROOBatch]:
+    """Pack impression samples as degenerate ROO batches (1 impression per
+    'request'): this is exactly impression-level training, reusing the same
+    model code. B_RO == B_NRO == batch_size."""
+    roo_like = [
+        ROOSample(request_id=s.request_id, user_id=s.user_id,
+                  ro_dense=s.ro_dense, ro_idlist=s.ro_idlist,
+                  history_ids=s.history_ids,
+                  history_actions=s.history_actions, item_ids=[s.item_id],
+                  item_dense=[s.item_dense], item_idlist=[s.item_idlist],
+                  labels=[s.labels])
+        for s in samples
+    ]
+    sub = dataclasses.replace(cfg, b_ro=batch_size, b_nro=batch_size)
+    yield from ROOBatcher(sub, device=device).batches(roo_like)

@@ -386,6 +386,23 @@ def _is_jagged(x) -> bool:
     return isinstance(x, JaggedTensor)
 
 
+def batch_shardings(batch: Any, plan: Optional[ShardingPlan],
+                    batch_dim: int = 0) -> Any:
+    """The tree of ``batch``'s specs under ``plan`` (None when there is no
+    plan or it is disabled): each leaf's :func:`batch_spec`; a jagged
+    leaf's values and lengths stay whole (``()``), since jagged buffers are
+    packed row-major with no per-row alignment to the data split."""
+    if not _enabled(plan):
+        return None
+
+    def leaf(x):
+        if _is_jagged(x):
+            return JaggedTensor(values=(), lengths=())
+        return batch_spec(tuple(x.shape), plan, batch_dim)
+
+    return tree_map(leaf, batch, is_leaf=_is_jagged)
+
+
 def place_batch(batch: Any, plan: Optional[ShardingPlan],
                 batch_dim: int = 0) -> Any:
     """This rank's block of a global batch (module note); the leaves stay

@@ -62,7 +62,7 @@ import torch
 
 from repro_torch.core.hstu import normal_init
 from repro_torch.data.jagged import JaggedTensor, KeyedJagged
-from repro_torch.embeddings.bag import bag_pool
+from repro_torch.embeddings.bag import bag_pool, bag_pool_dense  # noqa: F401
 from repro_torch.embeddings.sparse import GatheredTable, gather_rows
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                               embedding_bag_grouped)
@@ -87,10 +87,14 @@ def _want_dedup(dedup: Optional[bool]) -> bool:
     return DEDUP_KNOB.resolve() == "always"
 
 
-def dedup_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with each distinct id read once; ids pre-clipped."""
+def dedup_gather(table: torch.Tensor, ids: torch.Tensor,
+                 row_gather=None) -> torch.Tensor:
+    """``table[ids]`` with each distinct id read once; ids pre-clipped.
+    ``row_gather(uids) -> (n_ids, D)`` overrides how the distinct rows are
+    fetched (a sharded gather, say)."""
     uids, inv = torch.unique(ids.reshape(-1), return_inverse=True)
-    rows = gather_rows(table, uids)
+    rows = (gather_rows(table, uids) if row_gather is None
+            else row_gather(uids))
     return gather_rows(rows, inv).reshape(tuple(ids.shape)
                                           + tuple(rows.shape[1:]))
 

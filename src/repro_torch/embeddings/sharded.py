@@ -17,17 +17,47 @@ global batch (the local one times the data shards). The collectives are
 identity backward, a reduce-scatter whose backward all-gathers. Plain
 torch, like the reference's jnp: no kernel runs on these routes.
 
-Every function takes ``plan`` (an enabled ``ShardingPlan``) and the
-table's global ``vocab``; ``table`` is this rank's (vocab / n, D) block.
+Every sharded function takes ``plan`` (an enabled ``ShardingPlan``) and
+the table's global ``vocab``; ``table`` is this rank's (vocab / n, D)
+block. ``lookup`` / ``lookup_dense`` are the replicated path (plain bags),
+and ``table_partition_specs`` gives every table of a collection its row
+split over ``model`` as the port's spec tuples.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from repro_torch.data.jagged import JaggedTensor
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import comms, spmd
+from repro_torch.distributed.sharding import Spec, normalize_spec
+from repro_torch.embeddings.bag import bag_lookup, bag_lookup_dense
+# table configs live with the collection (the embedding entry point);
+# re-exported here, as the reference does
+from repro_torch.embeddings.collection import (  # noqa: F401
+    EmbeddingCollectionConfig, TableConfig, init_tables)
 from repro_torch.embeddings.sparse import gather_rows
+
+
+def table_partition_specs(cfg: EmbeddingCollectionConfig,
+                          model_axis: str = "model") -> Dict[str, Spec]:
+    """Row-shard every table over the model axis."""
+    return {t.name: normalize_spec((model_axis, None)) for t in cfg.tables}
+
+
+# ---------------------------------------------------------------------------
+# Replicated-path lookups (one device, CPU tests): plain bags.
+# ---------------------------------------------------------------------------
+
+def lookup(table: torch.Tensor, ids: JaggedTensor, pooling: str = "sum"):
+    return bag_lookup(table, ids, pooling)
+
+
+def lookup_dense(table: torch.Tensor, ids: torch.Tensor,
+                 lengths: torch.Tensor, pooling: str = "sum"):
+    return bag_lookup_dense(table, ids, lengths, pooling)
 
 
 def _local_partial_bag(tbl_shard: torch.Tensor, ids: torch.Tensor,

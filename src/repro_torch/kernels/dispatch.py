@@ -164,11 +164,9 @@ def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.device.type != "cuda":
             raise ValueError(f"attention backend 'cuda' needs CUDA tensors, "
                              f"got {q.device}")
-        from repro_torch.kernels.hstu_attention_bwd import HSTUAttentionFn
-        return HSTUAttentionFn.apply(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            None if rab is None else rab.contiguous(), spec.n_hist,
-            spec.hist_lengths, spec.target_counts, max_rel_pos)
+        from repro_torch.kernels.hstu_attention import hstu_attention as fn
+        return fn(q, k, v, rab, spec.n_hist, spec.hist_lengths,
+                  spec.target_counts, max_rel_pos)
     if be == "torch-chunked":
         from repro_torch.core.hstu import hstu_attention_chunked
         return hstu_attention_chunked(q, k, v, rab, spec,
@@ -200,13 +198,10 @@ def hstu_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.device.type != "cuda":
             raise ValueError(f"attention backend 'cuda' needs CUDA tensors, "
                              f"got {q.device}")
-        from repro_torch.kernels.hstu_attention_prefix import (
-            hstu_attention_prefix_cuda)
-        return hstu_attention_prefix_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            None if rab is None else rab.contiguous(), spec.n_hist,
-            spec.n_new, spec.prefix_lengths, spec.new_counts,
-            spec.target_counts, scale_len, max_rel_pos)
+        from repro_torch.kernels.hstu_attention import (
+            hstu_attention_prefix as fn)
+        return fn(q, k, v, rab, spec.n_hist, spec.n_new, spec.prefix_lengths,
+                  spec.new_counts, spec.target_counts, scale_len, max_rel_pos)
     if be == "torch-chunked":
         from repro_torch.core.hstu import hstu_attention_prefix_chunked
         return hstu_attention_prefix_chunked(q, k, v, rab, spec, scale_len,

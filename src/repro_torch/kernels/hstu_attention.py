@@ -22,6 +22,13 @@ under grad mode, so autograd can reach it only through that Function.
 :func:`hstu_attention_plain` (the dense oracle of ``kernels/ref.py``) is
 what the kernel is held against.
 ``launch_count`` counts the kernel's launches.
+
+:func:`hstu_attention` and :func:`hstu_attention_prefix` carry the names and
+signatures of the reference module's two entry points (less its TPU
+tiling knobs): on a CUDA tensor the first is
+``hstu_attention_bwd.HSTUAttentionFn`` (B1 forward, B2 + B3 backward) and
+the second the cached-prefix kernel (B4, forward only); on a CPU tensor
+each is its plain torch version.
 """
 from __future__ import annotations
 
@@ -227,3 +234,39 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({err})")
     launch_count += 1
     return out
+
+
+def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   rab: Optional[torch.Tensor], n_hist: int,
+                   hist_lengths: torch.Tensor, target_counts: torch.Tensor,
+                   max_rel_pos: int = 128) -> torch.Tensor:
+    """q, k: (B, H, S, Dqk); v: (B, H, S, Dv); rab: (H, 2*max_rel_pos+1) or
+    None. Returns (B, H, S, Dv), differentiable w.r.t. q, k, v and rab: on
+    the card the kernels (module note), on the CPU the plain version."""
+    if q.device.type != "cuda":
+        return hstu_attention_plain(q, k, v, rab, n_hist, hist_lengths,
+                                    target_counts, max_rel_pos)
+    from repro_torch.kernels.hstu_attention_bwd import HSTUAttentionFn
+    return HSTUAttentionFn.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        None if rab is None else rab.contiguous(), n_hist, hist_lengths,
+        target_counts, max_rel_pos)
+
+
+def hstu_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          rab: Optional[torch.Tensor], n_hist: int,
+                          n_new: int, prefix_lengths: torch.Tensor,
+                          new_counts: torch.Tensor,
+                          target_counts: torch.Tensor, scale_len: int,
+                          max_rel_pos: int = 128) -> torch.Tensor:
+    """Cached-prefix HSTU attention (forward only, a serving path): q (B, H,
+    n_new + m, Dqk), k / v (B, H, n_hist + m, ·). On the card the B4
+    kernel, on the CPU its plain version. Returns (B, H, n_new + m, Dv)."""
+    from repro_torch.kernels import hstu_attention_prefix as pfx
+    args = (n_hist, n_new, prefix_lengths, new_counts, target_counts,
+            scale_len, max_rel_pos)
+    if q.device.type != "cuda":
+        return pfx.hstu_attention_prefix_plain(q, k, v, rab, *args)
+    return pfx.hstu_attention_prefix_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        None if rab is None else rab.contiguous(), *args)

@@ -41,6 +41,7 @@ from repro_torch.distributed import spmd
 from repro_torch.embeddings.collection import (EmbeddingCollection,
                                                EmbeddingCollectionConfig,
                                                FeatureSpec, TableConfig,
+                                               bag_lookup_dense,  # noqa: F401
                                                bag_lookup_dense_grouped)
 from repro_torch.models.interactions import dot_interaction
 from repro_torch.models.mlp import mlp_apply, mlp_flops, mlp_init

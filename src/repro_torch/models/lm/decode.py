@@ -36,6 +36,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (  # noqa: F401
+    ShardingPlan, replicated_plan)
 from repro_torch.embeddings.sparse import gather_rows
 from repro_torch.models.lm.moe import moe_layer
 from repro_torch.models.lm.transformer import (LMConfig, _attention, _ffn,

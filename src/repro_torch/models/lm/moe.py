@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.hstu import normal_init
+from repro_torch.distributed.sharding import ShardingPlan  # noqa: F401
 from repro_torch.embeddings.sparse import gather_rows
 
 

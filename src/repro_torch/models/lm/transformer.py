@@ -55,6 +55,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.hstu import normal_init
+from repro_torch.distributed.sharding import (  # noqa: F401
+    ShardingPlan, replicated_plan)
 from repro_torch.embeddings.sparse import gather_rows
 from repro_torch.models.lm.moe import (MoEConfig, moe_init, moe_layer,
                                        moe_param_specs)

@@ -53,6 +53,9 @@ from repro_torch.configs.registry import SCENARIO_ARCHS
 from repro_torch.scenario.spec import ScenarioSpec, ScenarioValidationError
 from repro_torch.serve.adapter import ServeAdapter
 
+# archs the recsys scenario surface covers (dry-run-only archs excluded)
+RECSYS_ARCHS = SCENARIO_ARCHS
+
 # archs whose losses route embedding lookups through a sharding plan —
 # the only ones that may train under --mesh / train.mesh
 PLAN_ARCHS = ("roo-lsr", "hstu-gr")

@@ -55,3 +55,12 @@ class ServeAdapter:
         return (self.init_user_state is not None
                 and self.score_from_state is not None
                 and self.state_hist_len > 0)
+
+    # -- the reference's older names for the halves --------------------------
+    @property
+    def score_fn(self) -> Callable:
+        return self.score
+
+    @property
+    def user_fn(self) -> Optional[Callable]:
+        return self.user_repr

@@ -328,6 +328,9 @@ class CheckpointManager:
                 return False
         return True
 
+    def valid_steps(self) -> List[int]:
+        return [s for s in self.all_steps() if self.verify(s)]
+
     def latest_valid_step(self) -> Optional[int]:
         """Newest step that passes verification — the step ``restore()``
         falls back to when the latest commit rotted."""

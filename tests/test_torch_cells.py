@@ -6,7 +6,10 @@
     the reference's exactly, ``input_specs()`` and ``abstract_state()``
     equal by tree path in shape and dtype;
   * on the 16 x 16 plan, the state's and the inputs' specs, normalized
-    (``sharding.normalize_spec``), equal the reference's by tree path.
+    (``sharding.normalize_spec``), equal the reference's by tree path;
+  * deepseek's module-level ``build_cell`` takes the reference's
+    ``opt_level`` and builds train_4k at each level as the reference's
+    module does.
 
 Both sides run in subprocesses: the reference (``torch_ref_cells.py
 cells``) on 256 forced host devices with Auto axes, building plans only,
@@ -29,7 +32,7 @@ LEVELS = [f"{a}/{s}/{lv}" for a, s, lv in R.all_levels(registry)]
 
 
 @pytest.fixture(scope="module")
-def tables(tmp_path_factory):
+def cells_dir(tmp_path_factory):
     out = tmp_path_factory.mktemp("cells")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     ref = subprocess.Popen(
@@ -44,8 +47,13 @@ def tables(tmp_path_factory):
     stdout, stderr = ref.communicate(timeout=600)
     assert "REF_CELLS_DONE" in stdout, stderr[-3000:]
     assert port.returncode == 0, port.stderr[-3000:]
-    return (json.loads((out / "port_cells.json").read_text()),
-            json.loads((out / "ref_cells.json").read_text()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def tables(cells_dir):
+    return (json.loads((cells_dir / "port_cells.json").read_text()),
+            json.loads((cells_dir / "ref_cells.json").read_text()))
 
 
 def test_assigned_and_all_cells_are_the_references():
@@ -134,3 +142,16 @@ def test_inputs_mean_what_the_cell_reads():
     dlrm.fill.pop("segment_ids")
     with pytest.raises(KeyError, match="segment_ids"):
         dlrm.inputs(torch.Generator(), "cpu")
+
+
+def test_deepseek_build_cell_takes_opt_level(cells_dir):
+    """``deepseek_coder_33b.build_cell(shape, plan, opt_level)`` has the
+    reference's signature: train_4k at every level the reference's module
+    accepts, on the replicated plan and the 16 x 16 one, equals the
+    reference's cell (kind, notes, ``model_flops``, shapes and specs)."""
+    port = json.loads((cells_dir / "port_module_cells.json").read_text())
+    ref = json.loads((cells_dir / "ref_module_cells.json").read_text())
+    assert sorted(port) == sorted(ref) == sorted(
+        ("baseline",) + R.OPT_LEVELS["lm"])
+    for level, want in ref.items():
+        assert port[level] == want, level

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
-``chip_smoke.py`` and not the port's kernel scripts
-(``scripts/*_ablations.py``) imports ``jax`` or the JAX package ``repro``
+``chip_smoke.py``, not the port's examples (``examples/torch_*.py``) and
+not the port's scripts (``scripts/*_ablations.py``, ``scripts/torch_*.py``)
+imports ``jax`` or the JAX package ``repro``
 (the card's machine has neither). An AST scan, so imports inside
 functions count too.
 """
@@ -11,7 +12,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-SCRIPT_FILES = sorted((ROOT / "scripts").glob("*_ablations.py"))
+SCRIPT_FILES = sorted(set((ROOT / "scripts").glob("*_ablations.py"))
+                      | set((ROOT / "scripts").glob("torch_*.py")))
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -61,8 +64,16 @@ def test_port_has_modules():
             "kernels/ops.py"} <= names
 
 
+def test_port_has_examples():
+    """Each example of the reference has its port beside it."""
+    ref = {p.name for p in (ROOT / "examples").glob("*.py")
+           if not p.name.startswith("torch_")}
+    assert {"torch_" + n for n in ref} == {p.name for p in EXAMPLE_FILES}
+
+
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"] + SCRIPT_FILES,
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"] + SCRIPT_FILES
+    + EXAMPLE_FILES,
     ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_imports(path):
     bad = [(root, line) for root, line in imported_roots(path)

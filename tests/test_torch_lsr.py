@@ -229,7 +229,7 @@ def test_fanout_matches_reference(data):
     pb, jb = data["pb"][0], data["jb"][0]
     x = np.random.default_rng(0).normal(size=(pb.b_ro, 5)).astype(np.float32)
     np.testing.assert_array_equal(
-        np_(fanout.fanout(torch.from_numpy(x), pb.segment_ids)),
+        np_(fanout(torch.from_numpy(x), pb.segment_ids)),
         np_(jax_fanout(jnp.asarray(x), jb.segment_ids)))
 
 

@@ -108,6 +108,20 @@ def run_cells(out):
         res[tag]["input_specs"] = spec_table(cp.input_pspecs(plan))
     with open(os.path.join(out, "ref_cells.json"), "w") as f:
         json.dump(res, f)
+    # deepseek's module-level build_cell at each of its opt levels
+    from repro.configs import deepseek_coder_33b as ds
+    mod = {}
+    for level in ("baseline",) + R.OPT_LEVELS["lm"]:
+        c = ds.build_cell("train_4k", rplan, opt_level=level)
+        cp = ds.build_cell("train_4k", plan, opt_level=level)
+        mod[level] = {"kind": c.kind, "notes": c.notes,
+                      "model_flops": float(c.model_flops),
+                      "state": shape_table(c.abstract_state()),
+                      "inputs": shape_table(c.input_specs()),
+                      "state_specs": spec_table(cp.state_pspecs(plan)),
+                      "input_specs": spec_table(cp.input_pspecs(plan))}
+    with open(os.path.join(out, "ref_module_cells.json"), "w") as f:
+        json.dump(mod, f)
 
 
 def run_dryrun(out):

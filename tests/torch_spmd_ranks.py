@@ -668,6 +668,21 @@ def port_cells(out: str) -> None:
             "state_specs": _spec_table(st), "input_specs": _spec_table(ins)}
     with open(os.path.join(out, "port_cells.json"), "w") as f:
         json.dump(res, f)
+    # deepseek's module-level build_cell at each of its opt levels
+    from repro_torch.configs import deepseek_coder_33b as ds
+    mod = {}
+    for level in ("baseline",) + OPT_LEVELS["lm"]:
+        c = ds.build_cell("train_4k", rplan, opt_level=level)
+        cp = ds.build_cell("train_4k", plan, opt_level=level)
+        st, ins = cp.shardings(plan)
+        mod[level] = {
+            "kind": c.kind, "notes": c.notes,
+            "model_flops": float(c.model_flops),
+            "state": _shape_table(c.abstract_state()),
+            "inputs": _shape_table(c.input_specs()),
+            "state_specs": _spec_table(st), "input_specs": _spec_table(ins)}
+    with open(os.path.join(out, "port_module_cells.json"), "w") as f:
+        json.dump(mod, f)
 
 
 # the small cells of test_torch_cells_spmd: the production widths with a
