@@ -312,6 +312,35 @@ Phases (any failure exits non-zero and prints no result):
                    steps/s and impressions/s; B1-B3 timed at the operands
                    each example's run recorded, beside the plain version
                    and the bound
+ 24. bf16        — (runs right after phase 10, beside the fp32 hstu-gr
+                   phases: after phases 22 and 23 a torch.profiler trace
+                   of the card recorded no device activity in this
+                   process) hstu-gr with bf16 params (``gr_init(..., dtype=
+                   torch.bfloat16)``) and the bf16 variants of B1-B4: each
+                   against the fp32 oracle on the same bf16 values (the
+                   reference's bf16 kernel tolerance, 2e-2) and bit for bit
+                   against the fp32 kernel on those values rounded once to
+                   bf16 (the same products, less those that are exactly 0),
+                   at the serving (B 64) and training (B 32) shapes, D 64,
+                   D 128 and a D 18 / 13 shape (one-element copies), rab on
+                   and off; B4 at n_new 1, 8 and 64 and its prefix-0 case
+                   bit for bit B1's; B2 / B3 through autograd; a
+                   torch.profiler count of the kernels of one call (one
+                   bf16 kernel, no cast of q, k, v or the output). Then the
+                   model through its entry points: ROOServer stateless (the
+                   1,000 requests, B1 = n_layers x batches) and with the
+                   user-tower cache (pass 2 all full-cache, bit for bit
+                   pass 1), the incremental engine on the repeat waves
+                   (B4 alone, hits, bf16 K/V states of two bytes an
+                   element) against the stateless server, each against a
+                   CPU server on the same params (2e-2 + 2e-2 |score|);
+                   20 Trainer steps (B1-B3 launches, each step's loss
+                   against torch-dense on the same params, rtol 5e-3);
+                   roo-lsr ``userarch_hstu`` and roo-esr's ``"hstu"`` user
+                   tower in bf16: one step's loss, gradients and scores
+                   through B1-B3 against the CPU; requests/s and steps/s
+                   beside the fp32 phases'; bf16 and fp32 kernel times in
+                   turns at the same shapes
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -356,6 +385,7 @@ DLRM_CAP = 2 ** 21            # rows per dlrm-mlperf table on the card
 DLRM_CPU_CAP = 2 ** 14        # rows per table in the CPU cross-check
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 SPARSE_STEPS_PEAK_GIB = 8.0   # dlrm sparse steps' peak: 7.50 GiB before
                               # the Trainer copied its state, + 0.5
 
@@ -428,22 +458,32 @@ def attention_inputs(shape, seed, device):
                 n_hist=n_hist, max_rel=max_rel)
 
 
+def op_rate(x) -> float:
+    """The card's peak rate for the operands' type: fp32 outside the
+    tensor cores, or bf16 on them."""
+    import torch
+    return (BF16_FLOP_PER_S if x["q"].dtype == torch.bfloat16
+            else FP32_FLOP_PER_S)
+
+
 def bound(x) -> tuple:
     """Least time (ms) the card needs for one call on these inputs: bytes
-    over HBM rate vs FLOPs over the fp32 rate, both counted on what the ROO
-    mask keeps. Bytes: the q, k and v rows the output depends on (history
-    rows < hist_lengths, target rows < target_counts) read once, the whole
-    output written once, rab and the lengths. FLOPs: 2 (Dqk + Dv) per cell
-    the mask keeps."""
+    over HBM rate vs FLOPs over the rate for the operands' type
+    (``op_rate``), both counted on what the ROO mask keeps. Bytes: the q, k
+    and v rows the output depends on (history rows < hist_lengths, target
+    rows < target_counts) read once, the whole output written once, rab
+    and the lengths (int32), at the operands' element size. FLOPs:
+    2 (Dqk + Dv) per cell the mask keeps."""
     from repro_torch.core.masks import roo_spec
     b, h, s, dqk = x["q"].shape
     dv = x["v"].shape[-1]
+    es = x["q"].element_size()
     valid_rows = int((x["hl"] + x["tc"]).sum()) * h
-    n_bytes = 4 * (valid_rows * (2 * dqk + dv) + b * h * s * dv
-                   + x["rab"].numel() + 2 * b)
+    n_bytes = es * (valid_rows * (2 * dqk + dv) + b * h * s * dv
+                    + x["rab"].numel()) + 4 * 2 * b
     cells = int(roo_spec(x["hl"], x["tc"], x["n_hist"]).dense(s).sum()) * h
     ops = 2 * cells * (dqk + dv)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / op_rate(x)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
 
@@ -487,14 +527,15 @@ def bound_prefix(x) -> tuple:
     from repro_torch.core.masks import prefix_spec
     b, h, n_rows, dqk = x["q"].shape
     n_cols, dv = x["k"].shape[2], x["v"].shape[-1]
+    es = x["q"].element_size()
     q_rows = int((x["nc"] + x["tc"]).sum()) * h
     kv_cols = int((x["pfx"] + x["nc"] + x["tc"]).sum()) * h
-    n_bytes = 4 * (q_rows * dqk + kv_cols * (dqk + dv)
-                   + b * h * n_rows * dv + x["rab"].numel() + 3 * b)
+    n_bytes = es * (q_rows * dqk + kv_cols * (dqk + dv)
+                    + b * h * n_rows * dv + x["rab"].numel()) + 4 * 3 * b
     spec = prefix_spec(x["pfx"], x["nc"], x["tc"], x["n_hist"], x["n_new"])
     cells = int(spec.dense(n_rows, n_cols).sum()) * h
     ops = 2 * cells * (dqk + dv)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / op_rate(x)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
 
@@ -511,12 +552,13 @@ def phase_build(kmods) -> None:
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
-    bwd = bwd_registers("\n".join(log for _, log in built))
-    for (name, dp), (regs, spill) in sorted(bwd.items()):
-        print(f"[build] {name} D{dp}: {regs} registers, {spill} bytes "
-              f"spilled")
-    if len(bwd) != 6 or any(spill for (_, dp), (_, spill) in bwd.items()
-                            if dp == 32):
+    hstu = hstu_registers("\n".join(log for _, log in built))
+    for (name, dp, dtype), (regs, spill) in sorted(hstu.items()):
+        print(f"[build] {name} {dtype} D{dp}: {regs} registers, {spill} "
+              f"bytes spilled")
+    if len(hstu) != 24 or any(
+            spill for (name, dp, _), (_, spill) in hstu.items()
+            if dp == 32 and name in ("B2", "B3")):
         raise SystemExit("the backward kernels' D 32 templates spill (the "
                          "main path's) or a template is missing")
     dot = dot_registers("\n".join(log for _, log in built))
@@ -553,15 +595,18 @@ def ptxas_registers(log: str, key) -> dict:
     return out
 
 
-def bwd_registers(log: str) -> dict:
-    """{(B2 | B3, padded D): (registers, spill bytes)} of the backward
-    kernels' templates."""
+def hstu_registers(log: str) -> dict:
+    """{(B1 | B4 | B2 | B3, padded D, fp32 | bf16): (registers, spill
+    bytes)} of the HSTU kernels' templates."""
     import re
-    names = {"hstu_bwd_dq_kernel": "B2", "hstu_bwd_dkv_kernel": "B3"}
+    names = {"hstu_fwd_kernel": "B1", "hstu_prefix_fwd_kernel": "B4",
+             "hstu_bwd_dq_kernel": "B2", "hstu_bwd_dkv_kernel": "B3"}
 
     def key(name):
-        k = re.search(r"(hstu_bwd_(?:dq|dkv)_kernel)ILi(\d+)E", name)
-        return (names[k.group(1)], int(k.group(2))) if k else None
+        k = re.search(r"(hstu_(?:prefix_fwd|fwd|bwd_dq|bwd_dkv)_kernel)"
+                      r"ILi(\d+)E(f|13__nv_bfloat16)E", name)
+        return ((names[k.group(1)], int(k.group(2)),
+                 "fp32" if k.group(3) == "f" else "bf16") if k else None)
     return ptxas_registers(log, key)
 
 
@@ -738,14 +783,15 @@ def bound_bwd(x, which: str) -> tuple:
     from repro_torch.core.masks import roo_spec
     b, h, s, dqk = x["q"].shape
     dv = x["v"].shape[-1]
+    es = x["q"].element_size()
     valid_rows = int((x["hl"] + x["tc"]).sum()) * h
     n_rab = x["rab"].numel()
     outputs = (b * h * s * dqk + n_rab if which == "dq"
                else b * h * s * (dqk + dv))
-    n_bytes = 4 * (valid_rows * 2 * (dqk + dv) + n_rab + 2 * b + outputs)
+    n_bytes = es * (valid_rows * 2 * (dqk + dv) + n_rab + outputs) + 4 * 2 * b
     cells = int(roo_spec(x["hl"], x["tc"], x["n_hist"]).dense(s).sum()) * h
     ops = cells * (2 * (2 * dqk + dv) if which == "dq" else 4 * (dqk + dv))
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / op_rate(x)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
 
@@ -6845,6 +6891,610 @@ def phase_dryrun(mods, device, card: str) -> dict:
     return dict(wall=wall, runs=runs)
 
 
+BF16_TOL = 2e-2               # bf16 kernels vs the fp32 oracle on the same
+                              # bf16 values, atol and rtol (the reference's
+                              # bf16 kernel tolerance, tests/test_kernels.py)
+BF16_SCORE_TOL = 2e-2         # bf16 hstu-gr scores, card vs CPU and
+                              # incremental vs stateless (atol and rtol):
+                              # ~4 bf16 ulps at |score| 3
+BF16_LOSS_RTOL = 5e-3         # a bf16 step's loss vs the plain backends on
+                              # the same params: ~1 bf16 ulp of a logit
+BF16_B1_SHAPES = {   # (B, H, S, Dqk, Dv, n_hist, max_rel)
+    "serve B64 S80": (64, 2, 80, 32, 32, 64, 64),
+    "train B32 S80": (32, 2, 80, 32, 32, 64, 64),
+    "D64 S80": (8, 2, 80, 64, 64, 64, 64),
+    "wide D128 S160": (3, 2, 160, 128, 128, 140, 128),
+    "short S17 D18/13": (7, 3, 17, 18, 13, 12, 8),   # one-element copies
+    "causal B32 S64": (32, 2, 64, 32, 32, 64, 64),
+}
+BF16_B4_SHAPES = {   # (B, H, n_hist, n_new, m, Dqk, Dv, max_rel, scale_len)
+    "serve n_new=1": (64, 2, 64, 1, 16, 32, 32, 64, 80),
+    "serve n_new=8": (64, 2, 64, 8, 16, 32, 32, 64, 80),
+    "serve n_new=64": (64, 2, 64, 64, 16, 32, 32, 64, 80),
+    "D64": (8, 2, 64, 8, 16, 64, 64, 64, 80),
+    "wide D128": (3, 2, 140, 20, 20, 128, 128, 128, 160),
+    "short D18/13": (5, 3, 30, 7, 4, 18, 13, 8, 34),
+}
+
+
+def as_bf16(x) -> dict:
+    """``attention_inputs`` / ``prefix_inputs`` with q, k, v and rab rounded
+    to bf16 (the same dict otherwise)."""
+    import torch
+    return {key: (val.to(torch.bfloat16) if key in ("q", "k", "v", "rab")
+                  else val) for key, val in x.items()}
+
+
+def bf16_close(got, want) -> tuple:
+    """(max |got - want|, ok): a bf16 result against fp32 ``want`` within
+    BF16_TOL x max(1, max |want|) + BF16_TOL |want|."""
+    import torch
+    err = (got.float() - want).abs()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    ok = bool(torch.all(err <= BF16_TOL * scale + BF16_TOL * want.abs()))
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def phase_bf16_kernels(kmod, pmod, bmod, device) -> dict:
+    """The bf16 variants of B1-B4 on the card through dispatch's auto
+    backend: each against the fp32 oracle on the same bf16 values and bit
+    for bit against the fp32 kernel on those values, rounded to bf16;
+    masked rows exactly 0, two calls bit for bit. Returns the largest
+    |kernel - oracle| of each kernel's outputs."""
+    import torch
+    from repro_torch.core.masks import prefix_spec, roo_spec
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ref import as_f32
+    bf16 = torch.bfloat16
+    worst = dict(b1=0.0, b4=0.0, dq=0.0, dkv=0.0)
+    for i, (name, shape) in enumerate(BF16_B1_SHAPES.items()):
+        x = as_bf16(attention_inputs(shape, seed=40 + i, device=device))
+        if name.startswith("causal"):
+            x["tc"].zero_()
+        spec = roo_spec(x["hl"], x["tc"], x["n_hist"])
+        for use_rab in (True, False):
+            rab = x["rab"] if use_rab else None
+            args = (x["n_hist"], x["hl"], x["tc"], x["max_rel"])
+            before = kmod.launch_count
+            got = dispatch.hstu_attention(x["q"], x["k"], x["v"], rab, spec,
+                                          max_rel_pos=x["max_rel"])
+            if kmod.launch_count != before + 1 or got.dtype != bf16:
+                raise SystemExit(f"bf16 {name}: dispatch did not launch the "
+                                 f"kernel once, or the output is not bf16")
+            ops = as_f32(x["q"], x["k"], x["v"], rab)
+            oracle = kmod.hstu_attention_plain(*ops, *args)
+            f32_kernel = kmod.hstu_attention_cuda(*ops, *args)
+            again = dispatch.hstu_attention(x["q"], x["k"], x["v"], rab,
+                                            spec, max_rel_pos=x["max_rel"])
+            torch.cuda.synchronize()
+            err, ok = bf16_close(got, oracle)
+            worst["b1"] = max(worst["b1"], err)
+            bits = torch.equal(got, f32_kernel.to(bf16))
+            dead = ~spec.dense(x["q"].shape[2]).any(-1)
+            zero = bool(torch.all(got.transpose(1, 2)[dead] == 0))
+            finite = bool(torch.isfinite(got.float()).all())
+            same = torch.equal(got, again)
+            print(f"[bf16 kernels] B1 {name} rab={use_rab}: max|kernel - "
+                  f"fp32 oracle| = {err:.3e} ok={ok} bitwise_fp32_kernel="
+                  f"{bits} masked_rows_zero={zero} finite={finite} "
+                  f"repeat_bitwise={same}")
+            if not (ok and bits and zero and finite and same):
+                raise SystemExit(f"bf16 B1 disagrees at {name} "
+                                 f"rab={use_rab}")
+    for i, (name, shape) in enumerate(BF16_B4_SHAPES.items()):
+        x = as_bf16(prefix_inputs(shape, seed=50 + i, device=device))
+        spec = prefix_spec(x["pfx"], x["nc"], x["tc"], x["n_hist"],
+                           x["n_new"])
+        for use_rab in (True, False):
+            rab = x["rab"] if use_rab else None
+            args = (x["n_hist"], x["n_new"], x["pfx"], x["nc"], x["tc"],
+                    x["scale_len"], x["max_rel"])
+            before = pmod.launch_count
+            got = dispatch.hstu_attention_prefix(
+                x["q"], x["k"], x["v"], rab, spec, scale_len=x["scale_len"],
+                max_rel_pos=x["max_rel"])
+            if pmod.launch_count != before + 1 or got.dtype != bf16:
+                raise SystemExit(f"bf16 prefix {name}: dispatch did not "
+                                 f"launch the kernel once, or not bf16")
+            ops = as_f32(x["q"], x["k"], x["v"], rab)
+            oracle = pmod.hstu_attention_prefix_plain(*ops, *args)
+            f32_kernel = pmod.hstu_attention_prefix_cuda(*ops, *args)
+            torch.cuda.synchronize()
+            err, ok = bf16_close(got, oracle)
+            worst["b4"] = max(worst["b4"], err)
+            bits = torch.equal(got, f32_kernel.to(bf16))
+            dead = ~spec.dense(got.shape[2], x["k"].shape[2]).any(-1)
+            zero = bool(torch.all(got.transpose(1, 2)[dead] == 0))
+            finite = bool(torch.isfinite(got.float()).all())
+            print(f"[bf16 kernels] B4 {name} rab={use_rab}: max|kernel - "
+                  f"fp32 oracle| = {err:.3e} ok={ok} bitwise_fp32_kernel="
+                  f"{bits} masked_rows_zero={zero} finite={finite}")
+            if not (ok and bits and zero and finite):
+                raise SystemExit(f"bf16 B4 disagrees at {name} "
+                                 f"rab={use_rab}")
+    # prefix 0 and n_new == n_hist: B4 is B1, bit for bit, in bf16 too
+    x = as_bf16(attention_inputs((64, 2, 80, 32, 32, 64, 64), seed=7,
+                                 device=device))
+    spec = prefix_spec(torch.zeros_like(x["hl"]), x["hl"], x["tc"], 64, 64)
+    b4 = dispatch.hstu_attention_prefix(x["q"], x["k"], x["v"], x["rab"],
+                                        spec, scale_len=80,
+                                        max_rel_pos=x["max_rel"])
+    b1 = kmod.hstu_attention_cuda(x["q"], x["k"], x["v"], x["rab"], 64,
+                                  x["hl"], x["tc"], x["max_rel"])
+    torch.cuda.synchronize()
+    print(f"[bf16 kernels] B4 prefix 0, n_new = n_hist vs B1: bitwise="
+          f"{torch.equal(b4, b1)}")
+    if not torch.equal(b4, b1):
+        raise SystemExit("bf16 B4's full-recompute case is not B1's bits")
+
+    for i, name in enumerate(("train B32 S80", "D64 S80", "wide D128 S160",
+                              "short S17 D18/13", "causal B32 S64")):
+        x = as_bf16(attention_inputs(BF16_B1_SHAPES[name], seed=60 + i,
+                                     device=device))
+        if name.startswith("causal"):
+            x["tc"].zero_()
+        g = torch.randn(x["v"].shape, generator=torch.Generator(
+            device=device).manual_seed(i), device=device).to(bf16)
+        spec = roo_spec(x["hl"], x["tc"], x["n_hist"])
+        for use_rab in (True, False):
+            leaves = [x["q"], x["k"], x["v"]] + ([x["rab"]] if use_rab
+                                                 else [])
+            args = [t.detach().requires_grad_(True) for t in leaves]
+            rab = args[3] if use_rab else None
+            before = (kmod.launch_count, bmod.dq_launch_count,
+                      bmod.dkv_launch_count)
+            out = dispatch.hstu_attention(args[0], args[1], args[2], rab,
+                                          spec, max_rel_pos=x["max_rel"])
+            grads = torch.autograd.grad(out, args, g)
+            after = (kmod.launch_count, bmod.dq_launch_count,
+                     bmod.dkv_launch_count)
+            if tuple(a - b for a, b in zip(after, before)) != (1, 1, 1) \
+                    or any(t.dtype != bf16 for t in grads):
+                raise SystemExit(f"bf16 {name}: autograd did not launch B1, "
+                                 f"B2 and B3 once each, or not bf16")
+            rab_in = x["rab"] if use_rab else None
+            lens = (x["n_hist"], x["hl"], x["tc"], x["max_rel"])
+            oracle = bmod.hstu_attention_bwd_plain(
+                *as_f32(x["q"], x["k"], x["v"], rab_in), *lens, g.float())
+            f32_kernels = bmod.hstu_attention_bwd_cuda(
+                *as_f32(x["q"], x["k"], x["v"], rab_in), *lens, g.float())
+            torch.cuda.synchronize()
+            errs, oks, bits = {}, [], []
+            for key, got, want, f32k in zip(("dq", "dk", "dv", "drab"),
+                                            grads, oracle, f32_kernels):
+                errs[key], ok = bf16_close(got, want)
+                oks.append(ok)
+                bits.append(torch.equal(got, f32k.to(bf16)))
+                which = "dq" if key in ("dq", "drab") else "dkv"
+                worst[which] = max(worst[which], errs[key])
+            print(f"[bf16 kernels] B2/B3 {name} rab={use_rab}: max|kernel - "
+                  f"fp32 oracle| " + " ".join(f"{k} {v:.3e}"
+                                              for k, v in errs.items())
+                  + f" ok={all(oks)} bitwise_fp32_kernels={all(bits)}")
+            if not (all(oks) and all(bits)):
+                raise SystemExit(f"bf16 B2/B3 disagree at {name} "
+                                 f"rab={use_rab}")
+    return worst
+
+
+def cuda_kernels(fn) -> list:
+    """Names of the device activities (kernels, copies) of one ``fn()``,
+    from a ``torch.profiler`` trace of the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def phase_bf16_profile(kmod, pmod, bmod, device) -> None:
+    """One bf16 attention call is one launch of its bf16 kernel and nothing
+    else on the card: no cast of q, k, v or the output (B1, B4; B2 + B3
+    after B1 under autograd, plus drab's partial sum and its rounding to
+    rab's dtype when there is a rab), counted from a profiler trace."""
+    import torch
+    from repro_torch.core.masks import prefix_spec, roo_spec
+    from repro_torch.kernels import dispatch
+    x = as_bf16(attention_inputs((64, 2, 80, 32, 32, 64, 64), seed=0,
+                                 device=device))
+    spec = roo_spec(x["hl"], x["tc"], x["n_hist"])
+    p = as_bf16(prefix_inputs((64, 2, 64, 8, 16, 32, 32, 64, 80), seed=11,
+                              device=device))
+    pspec = prefix_spec(p["pfx"], p["nc"], p["tc"], p["n_hist"],
+                        p["n_new"])
+    g = x["v"].clone()
+
+    def fwd():
+        with torch.no_grad():
+            dispatch.hstu_attention(x["q"], x["k"], x["v"], x["rab"], spec,
+                                    max_rel_pos=x["max_rel"])
+
+    def prefix():
+        dispatch.hstu_attention_prefix(p["q"], p["k"], p["v"], p["rab"],
+                                       pspec, scale_len=p["scale_len"],
+                                       max_rel_pos=p["max_rel"])
+
+    def train(use_rab):
+        def run():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (x["q"], x["k"], x["v"], x["rab"])]
+            out = dispatch.hstu_attention(
+                *leaves[:3], leaves[3] if use_rab else None, spec,
+                max_rel_pos=x["max_rel"])
+            torch.autograd.grad(out, leaves[:4] if use_rab else leaves[:3],
+                                g)
+        return run
+
+    fwd(), prefix(), train(True)()                      # warm-up
+    cases = (("B1 forward", fwd, ("hstu_fwd_kernel",), 0),
+             ("B4 forward", prefix, ("hstu_prefix_fwd_kernel",), 0),
+             ("B1 + B2 + B3, no rab", train(False),
+              ("hstu_fwd_kernel", "hstu_bwd_dq_kernel",
+               "hstu_bwd_dkv_kernel"), 0),
+             ("B1 + B2 + B3, rab", train(True),
+              ("hstu_fwd_kernel", "hstu_bwd_dq_kernel",
+               "hstu_bwd_dkv_kernel"), 2))
+    for what, fn, kernels, n_drab in cases:
+        names = cuda_kernels(fn)
+        hstu = [n for n in names if "hstu_" in n]
+        rest = [n for n in names if "hstu_" not in n]
+        print(f"[bf16 profile] {what}: {len(names)} device activities: "
+              + "; ".join(n[:90] for n in names))
+        if sorted(k for n in hstu for k in kernels if k + "<" in n) \
+                != sorted(kernels) or len(hstu) != len(kernels) \
+                or not all("__nv_bfloat16" in n for n in hstu) \
+                or len(rest) != n_drab:
+            raise SystemExit(f"bf16 profile, {what}: not one bf16 launch of "
+                             f"each kernel and {n_drab} drab kernels")
+
+
+def phase_bf16_serve(kmod, pmod, device, card: str) -> dict:
+    """bf16 hstu-gr through the serving entry points: ROOServer stateless
+    and with the user-tower cache, the incremental engine on the repeat
+    waves; launches, scores against CPU servers on the same params and
+    incremental against stateless; requests/s."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.roo_models import gr_config
+    from repro_torch.models.gr import (gr_history_repr, gr_init,
+                                       gr_ranking_logits,
+                                       gr_ranking_logits_from_history,
+                                       gr_state_init)
+    from repro_torch.serve.engine import BF16_BITS, ScoreError
+    from repro_torch.serve.serving import ROOServer, ServeConfig
+    from repro_torch.tree import tree_map
+    bf16 = torch.bfloat16
+    cfg = gr_config()
+    n_layers = cfg.hstu.n_layers
+    params = gr_init(torch.Generator().manual_seed(0), cfg, dtype=bf16,
+                     device=device)
+    cpu_params = tree_map(lambda t: t.to("cpu"), params)
+    score = lambda p, b: gr_ranking_logits(p, cfg, b)
+    requests = make_requests(cfg, 1000)
+    serve_cfg = ServeConfig(b_ro=64, b_nro=512, hist_len=cfg.hist_len)
+
+    def check(tag, got, reqs):
+        if len(got) != len(reqs) or any(
+                isinstance(s, ScoreError) or s.dtype != np.float32
+                or s.shape != (r.num_impressions, cfg.n_tasks)
+                or not np.isfinite(s).all() for r, s in zip(reqs, got)):
+            raise SystemExit(f"bf16 {tag}: a ScoreError, or scores not "
+                             f"float32, misaligned or not finite")
+
+    def close(tag, got, want):
+        diff = max(float(np.abs(a - b).max(initial=0.0))
+                   for a, b in zip(got, want))
+        ok = all(np.allclose(a, b, atol=BF16_SCORE_TOL, rtol=BF16_SCORE_TOL)
+                 for a, b in zip(got, want))
+        print(f"[bf16 serve] {tag}: max|diff| {diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit(f"bf16 serve: {tag} disagree")
+        return diff
+
+    ROOServer(params, score, serve_cfg, device=device).score_requests(
+        requests[:80])                                  # warm-up
+    server = ROOServer(params, score, serve_cfg, device=device)
+    kmod.reset_launch_count()
+    pmod.reset_launch_count()
+    scores, wall = serve_waves(server, [requests])
+    st = server.stats
+    launches = kmod.launch_count
+    print(f"[bf16 serve] stateless: {len(requests)} requests in "
+          f"{wall * 1e3:.1f} ms ({len(requests) / wall:.1f} requests/s), "
+          f"{st.n_batches} batches, B1 launches {launches}, B4 "
+          f"{pmod.launch_count}, failed batches {st.n_failed_batches}")
+    check("stateless", scores, requests)
+    if launches != n_layers * st.n_batches or pmod.launch_count \
+            or st.n_failed_batches:
+        raise SystemExit("bf16 serve: B1 launches != n_layers x batches, "
+                         "B4 launched, or a batch failed")
+    cpu = ROOServer(cpu_params, score, serve_cfg,
+                    device="cpu").score_requests(requests[:48])
+    close("card vs a CPU server, 48 requests", scores[:48], cpu)
+
+    cached = ROOServer(
+        params, score, ServeConfig(b_ro=64, b_nro=512, hist_len=cfg.hist_len,
+                                   cache_user_tower=True),
+        user_fn=lambda p, b: gr_history_repr(p, cfg, b),
+        score_from_user=lambda p, b, u:
+            gr_ranking_logits_from_history(p, cfg, b, u), device=device)
+    kmod.reset_launch_count()
+    first, first_s = serve_waves(cached, [requests])
+    n1 = cached.stats.n_batches
+    second, second_s = serve_waves(cached, [requests])
+    cs = cached.stats
+    full_2 = cs.n_full_cache_batches
+    row = next(iter(cached.cache._data.values()))
+    print(f"[bf16 serve] cache: pass 1 {len(requests) / first_s:.1f} "
+          f"requests/s, pass 2 {len(requests) / second_s:.1f} requests/s, "
+          f"{full_2} of {cs.n_batches - n1} pass-2 batches full-cache, B1 "
+          f"launches {kmod.launch_count}; a cached row {row.dtype} "
+          f"{row.nbytes} B")
+    check("cache", second, requests)
+    if full_2 != cs.n_batches - n1 or full_2 == 0 or cs.n_failed_batches \
+            or kmod.launch_count != n_layers * cs.n_batches \
+            or row.dtype != BF16_BITS:
+        raise SystemExit("bf16 cache: pass 2 not all full-cache, a failed "
+                         "batch, B1 launches off, or rows not bf16 bits")
+    if not all(np.array_equal(a, b) for a, b in zip(first, second)):
+        raise SystemExit("bf16 cache: pass 2 differs from pass 1")
+    close("cache pass 1 vs stateless", first, scores)
+    close("cache vs a CPU server, 48 requests", second[:48], cpu)
+
+    inc_serve = dict(cfg=cfg, params=params, score=score)
+    waves = repeat_waves(cfg)
+    n_req = sum(len(w) for w in waves)
+    stateless = ROOServer(params, score, serve_cfg, device=device)
+    want, stateless_s = serve_waves(stateless, waves)
+
+    def engine():
+        e = incremental_engine(inc_serve, device)
+        e.adapter = dataclasses.replace(
+            e.adapter, init_user_state=lambda: gr_state_init(
+                cfg, dtype=bf16, device=device))
+        return e
+    serve_waves(engine(), waves)                        # warm-up
+    eng = engine()
+    kmod.reset_launch_count()
+    pmod.reset_launch_count()
+    got, inc_s = serve_waves(eng, waves)
+    ss, st = eng.state_store.stats, eng.stats
+    state = next(iter(eng.state_store._data.values())).state
+    state_bytes = sum(leaf.nbytes for leaf in state)
+    print(f"[bf16 serve] incremental: {len(waves)} waves x {len(waves[0])} "
+          f"users, {st.n_batches} batches, hits {ss.hits}, launches B4 "
+          f"{pmod.launch_count} B1 {kmod.launch_count}; {n_req / inc_s:.1f} "
+          f"requests/s (stateless {n_req / stateless_s:.1f}); a user's K/V "
+          f"state {state_bytes} B ({state.k.dtype} k {state.k.shape})")
+    for w in got:
+        if isinstance(w, ScoreError):
+            raise SystemExit(f"bf16 incremental: {w}")
+    if ss.hits != len(waves[0]) * (len(waves) - 1) or st.n_failed_batches \
+            or pmod.launch_count != n_layers * st.n_batches \
+            or kmod.launch_count or state.k.dtype != BF16_BITS \
+            or state.k.nbytes != 2 * state.k.size:
+        raise SystemExit("bf16 incremental: hits, failed batches, launches "
+                         "or the state's dtype off")
+    close("incremental vs stateless (card)", got, want)
+    cpu_waves = ROOServer(cpu_params, score, serve_cfg,
+                          device="cpu").score_requests(waves[-1])
+    close("incremental vs a CPU server, the last wave",
+          got[-len(waves[-1]):], cpu_waves)
+    return dict(launches=launches, b4=pmod.launch_count,
+                requests_per_s=len(requests) / wall,
+                cached_requests_per_s=len(requests) / second_s,
+                incremental_requests_per_s=n_req / inc_s,
+                stateless_waves_requests_per_s=n_req / stateless_s,
+                state_bytes=state_bytes)
+
+
+def phase_bf16_train(kmod, pmod, bmod, device, card: str) -> dict:
+    """20 bf16 hstu-gr Trainer steps (the scenario's optimizer) through
+    B1-B3: launches, each step's loss against torch-dense on the card and
+    torch-chunked on the CPU on the same params and batch, steps/s."""
+    import numpy as np
+    import torch
+    from repro_torch.models.gr import gr_init, gr_ranking_loss
+    from repro_torch.tree import tree_map
+    bf16 = torch.bfloat16
+    setup = train_setup(device)
+    cfg, steps = setup["cfg"], 20
+    n_layers = cfg.hstu.n_layers
+    setup["init"] = lambda: gr_init(torch.Generator().manual_seed(0), cfg,
+                                    dtype=bf16, device=device)
+    dense = train_setup(device, "torch-dense")["cfg"]
+    cpu = train_setup("cpu", "torch-chunked")["cfg"]
+    traced, plain_losses = shadowed(
+        setup, lambda p, b: gr_ranking_loss(p, dense, b))
+    traced, cpu_losses = shadowed(
+        traced, lambda p, b: gr_ranking_loss(
+            tree_map(lambda t: t.detach().cpu(), p), cpu, b.to("cpu")))
+    for mod in (kmod, pmod, bmod):
+        mod.reset_launch_count()
+    trainer, state, losses = run_trainer(traced, device, steps)
+    torch.cuda.synchronize()
+    launches = dict(b1=kmod.launch_count, b2=bmod.dq_launch_count,
+                    b3=bmod.dkv_launch_count, b4=pmod.launch_count)
+    n_metric = sum(1 for row in trainer.history if "ne" in row)
+    leaf = state["params"]["hstu"]["layers"][0]["w_uvqk"]
+    print(f"[bf16 train] {steps} steps, params {leaf.dtype}: launches "
+          f"B1 {launches['b1']} B2 {launches['b2']} B3 {launches['b3']} B4 "
+          f"{launches['b4']}; {n_metric} NE forwards; losses "
+          f"{[round(float(v), 5) for v in losses]}")
+    if launches["b2"] != n_layers * steps or launches["b3"] != launches["b2"] \
+            or launches["b1"] != n_layers * (steps + n_metric) \
+            or launches["b4"] or leaf.dtype != bf16:
+        raise SystemExit("bf16 train: launch counts are not B2 = B3 = "
+                         "n_layers x steps, B1 = n_layers x (steps + NE), "
+                         "or the params are not bf16")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()) \
+            or trainer.skipped_steps:
+        raise SystemExit("bf16 train: wrong step count, a skipped step or "
+                         "a non-finite loss")
+    for what, other in (("torch-dense on the card", plain_losses),
+                        ("torch-chunked on the CPU", cpu_losses)):
+        other = torch.stack(other).float().cpu()
+        diff = float((losses.float() - other).abs().max())
+        ok = torch.allclose(losses.float(), other, atol=0.0,
+                            rtol=BF16_LOSS_RTOL)
+        print(f"[bf16 train] per-step losses vs {what} on the same params "
+              f"and batch: max|diff| {diff:.3e} ok={ok}")
+        if not ok:
+            raise SystemExit(f"bf16 train: losses disagree with {what}")
+    run_trainer(setup, device, steps, halt_after_skips=0)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    req_per_batch = float(np.mean([
+        int(b.request_mask().sum()) for b in setup["batches"][:steps]]))
+    print(f"[bf16 train] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * req_per_batch / wall:.1f} "
+          f"requests/s)")
+    return dict(launches=launches, steps_per_s=steps / wall,
+                requests_per_s=steps * req_per_batch / wall)
+
+
+def phase_bf16_towers(kmod, pmod, bmod, device) -> None:
+    """The other user towers that reach the HSTU kernels, with bf16 params
+    (their inits' ``dtype=``): roo-lsr ``userarch_hstu`` and roo-esr's
+    ``"hstu"`` tower at their configs' widths, one training batch: the
+    loss and its gradients (B1, B2, B3 n_layers times each) and the
+    scores (B1 n_layers times more) against the CPU on the same params."""
+    import torch
+    from repro_torch.configs.roo_models import esr_config, lsr_config
+    from repro_torch.models import lsr
+    from repro_torch.models import two_tower as tt
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    bf16 = torch.bfloat16
+    lcfg, ecfg = lsr_config("userarch_hstu"), esr_config(True)
+    cases = {"roo-lsr userarch_hstu": (lcfg, lsr.lsr_init, lsr.lsr_loss,
+                                       lsr.lsr_logits_roo),
+             "roo-esr hstu user tower": (ecfg, tt.two_tower_init,
+                                         tt.esr_loss_roo, tt.esr_logits_roo)}
+    for tag, (cfg, init, loss_fn, score_fn) in cases.items():
+        params = init(torch.Generator().manual_seed(0), cfg, dtype=bf16,
+                      device=device)
+        n_layers = len(params["hstu"]["layers"])
+        cpu_params = tree_map(lambda t: t.to("cpu"), params)
+        batch = train_batches(cfg.n_items, cfg.hist_len)[0]
+        for mod in (kmod, pmod, bmod):
+            mod.reset_launch_count()
+        loss, grads = value_and_grad(lambda p, b, g: loss_fn(p, cfg, b))(
+            params, batch.to(device), None)
+        with torch.no_grad():
+            scores = score_fn(params, cfg, batch.to(device))
+        torch.cuda.synchronize()
+        got = (kmod.launch_count, bmod.dq_launch_count,
+               bmod.dkv_launch_count, pmod.launch_count)
+        with torch.no_grad():
+            cpu_loss = loss_fn(cpu_params, cfg, batch)
+            cpu_scores = score_fn(cpu_params, cfg, batch)
+        d_loss = abs(float(loss) - float(cpu_loss))
+        d_scores = float((scores.float().cpu() - cpu_scores.float()).abs()
+                         .max())
+        ok = (d_loss <= BF16_LOSS_RTOL * abs(float(cpu_loss))
+              and torch.allclose(scores.float().cpu(), cpu_scores.float(),
+                                 atol=BF16_SCORE_TOL, rtol=BF16_SCORE_TOL)
+              and all(bool(torch.isfinite(g.float()).all())
+                      for g in leaves(grads)))
+        print(f"[bf16 towers] {tag}: launches B1 {got[0]} B2 {got[1]} B3 "
+              f"{got[2]} B4 {got[3]}; loss {float(loss):.6f} vs CPU "
+              f"{float(cpu_loss):.6f}, scores ({scores.dtype}) max|card - "
+              f"CPU| {d_scores:.3e}, grads finite; ok={ok}")
+        if got != (2 * n_layers, n_layers, n_layers, 0) or not ok:
+            raise SystemExit(f"bf16 {tag}: launches off, or the loss, the "
+                             f"scores or the gradients disagree")
+
+
+def phase_bf16_times(kmod, pmod, bmod, device, card: str) -> dict:
+    """bf16 and fp32 kernel times in turns at the same shapes (fp32,
+    bf16, bf16, fp32), the bf16 variant beside its plain version on the
+    same bf16 operands and its bound at 2-byte operands: B1 at the serving
+    (B 64) and training (B 32) shapes, B4 at n_new 1, 8 and 64, B2 / B3 at
+    the training shape."""
+    import torch
+    out = {}
+
+    def turns(tag, f32_fn, bf16_fn, plain_fn, plain_iters, xb, bound_fn):
+        f32_ms = device_ms(f32_fn, iters=200)
+        ms = device_ms(bf16_fn, iters=200)
+        ms_again = device_ms(bf16_fn, iters=200)
+        f32_again = device_ms(f32_fn, iters=200)
+        plain_ms = device_ms(plain_fn, iters=plain_iters)
+        bound_ms, bound_by, n_bytes, ops = bound_fn(xb)
+        print(f"[bf16 times] {card}: {tag}, device time per call: bf16 "
+              f"kernel {ms:.5f} ms (again {ms_again:.5f}), fp32 kernel "
+              f"{f32_ms:.5f} ms (again {f32_again:.5f}), plain torch on the "
+              f"bf16 operands {plain_ms:.5f} ms; bf16 bound {bound_ms:.5f} "
+              f"ms ({bound_by}: {n_bytes} B, {ops} FLOP at 3.35 TB/s / 989 "
+              f"TFLOP/s); {ms / bound_ms:.1f}x the bound; library: none")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, f32_ms=f32_ms)
+
+    for key, b in (("serve", 64), ("train", 32)):
+        x = attention_inputs((b, 2, 80, 32, 32, 64, 64), seed=0,
+                             device=device)
+        xb = as_bf16(x)
+        args = lambda y: (y["q"], y["k"], y["v"], y["rab"], y["n_hist"],
+                          y["hl"], y["tc"], y["max_rel"])
+        out[key] = turns(
+            f"hstu_attention_fwd B{b} H2 S80 D32 rab",
+            lambda: kmod.hstu_attention_cuda(*args(x)),
+            lambda: kmod.hstu_attention_cuda(*args(xb)),
+            lambda: kmod.hstu_attention_plain(*args(xb)), 20, xb, bound)
+        if key == "train":
+            g = torch.randn(x["v"].shape, generator=torch.Generator(
+                device=device).manual_seed(0), device=device)
+            gb = g.to(torch.bfloat16)
+            for which, fn in (("dq", bmod.hstu_attention_bwd_dq_cuda),
+                              ("dkv", bmod.hstu_attention_bwd_dkv_cuda)):
+                out[which] = turns(
+                    f"hstu_attention_bwd_{which} B32 H2 S80 D32 rab",
+                    lambda: fn(*args(x), g), lambda: fn(*args(xb), gb),
+                    lambda: bmod.hstu_attention_bwd_plain(*args(xb), gb), 8,
+                    xb, lambda y, w=which: bound_bwd(y, w))
+    for n_new in (1, 8, 64):
+        x = prefix_inputs((64, 2, 64, n_new, 16, 32, 32, 64, 80), seed=11,
+                          device=device)
+        xb = as_bf16(x)
+        args = lambda y: (y["q"], y["k"], y["v"], y["rab"], y["n_hist"],
+                          y["n_new"], y["pfx"], y["nc"], y["tc"],
+                          y["scale_len"], y["max_rel"])
+        out["b4", n_new] = turns(
+            f"hstu_attention_prefix_fwd B64 H2 n_hist64 n_new{n_new} m16 "
+            f"D32 rab", lambda: pmod.hstu_attention_prefix_cuda(*args(x)),
+            lambda: pmod.hstu_attention_prefix_cuda(*args(xb)),
+            lambda: pmod.hstu_attention_prefix_plain(*args(xb)), 8, xb,
+            bound_prefix)
+    return out
+
+
+def phase_bf16(kmod, pmod, bmod, device, card: str, f32: dict) -> dict:
+    """Phase 24: hstu-gr with bf16 params and the bf16 kernels (module
+    note); ``f32`` holds the fp32 phases' rates to print beside."""
+    worst = phase_bf16_kernels(kmod, pmod, bmod, device)
+    phase_bf16_profile(kmod, pmod, bmod, device)
+    serve = phase_bf16_serve(kmod, pmod, device, card)
+    train = phase_bf16_train(kmod, pmod, bmod, device, card)
+    phase_bf16_towers(kmod, pmod, bmod, device)
+    times = phase_bf16_times(kmod, pmod, bmod, device, card)
+    print(f"[bf16] {card}: serving {serve['requests_per_s']:.1f} requests/s "
+          f"(fp32 {f32['serve']['requests_per_s']:.1f}), incremental "
+          f"{serve['incremental_requests_per_s']:.1f} (fp32 "
+          f"{f32['inc']['requests_per_s']:.1f}), training "
+          f"{train['steps_per_s']:.2f} steps/s (fp32 "
+          f"{f32['train']['steps_per_s']:.2f})")
+    return dict(worst=worst, serve=serve, train=train, times=times)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6891,6 +7541,10 @@ def main() -> int:
     train = phase_train(kmod, pmod, bmod, device, card)
     if emod.fwd_launch_count or emod.coo_launch_count:
         raise SystemExit("hstu-gr launched a bag kernel")
+    # hstu-gr in bf16 (phase 24), beside the fp32 phases above: the bf16
+    # variants of B1-B4, serving and training
+    bf16 = phase_bf16(kmod, pmod, bmod, device, card,
+                      dict(serve=serve, inc=inc, train=train))
     lsr_serve = phase_lsr_serve(emod, kmod, device)
     lsr_train = phase_lsr_train(emod, kmod, pmod, bmod, device, card)
     lsr_sparse = phase_lsr_sparse_train(emod, kmod, pmod, bmod, device, card,
@@ -7037,6 +7691,8 @@ def main() -> int:
     scen_dlrm = scen_train["dlrm-mlperf", None]["launches"]
     disk_gr = disk["hstu-gr", None]["launches"]
     disk_lsr = disk["roo-lsr", "userarch"]["launches"]
+    bf_run, bf_times, bf_worst = bf16["serve"], bf16["times"], bf16["worst"]
+    bf_train = bf16["train"]["launches"]
     print(json.dumps({"kernels": [{
         "name": "hstu_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
@@ -7223,7 +7879,32 @@ def main() -> int:
             ("b1", "hstu_attention_fwd", "hstu_attention_fwd.cu", 80),
             ("b2", "hstu_attention_bwd_dq", "hstu_attention_bwd.cu", 108),
             ("b3", "hstu_attention_bwd_dkv", "hstu_attention_bwd.cu", 170))
-        if key in examples["times"][name]]}))
+        if key in examples["times"][name]] + [{
+        "name": f"hstu_attention_fwd (bf16 hstu-gr {what})", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:80",
+        "launches": launches, "max_abs_err": bf_worst["b1"],
+        **{k: v for k, v in bf_times[key].items() if k != "f32_ms"},
+        "library_ms": None}
+        for what, key, launches in (("serving", "serve", bf_run["launches"]),
+                                    ("training", "train", bf_train["b1"]))]
+        + [{
+        "name": "hstu_attention_prefix_fwd (bf16 hstu-gr incremental "
+                "serving; times at n_new 8)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_prefix_fwd.cu",
+        "replaces": "src/repro/kernels/hstu_attention.py:392",
+        "launches": bf_run["b4"], "max_abs_err": bf_worst["b4"],
+        **{k: v for k, v in bf_times["b4", 8].items() if k != "f32_ms"},
+        "library_ms": None}] + [{
+        "name": f"{name} (bf16 hstu-gr training)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hstu_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": bf_train[key], "max_abs_err": bf_worst[which],
+        **{k: v for k, v in bf_times[which].items() if k != "f32_ms"},
+        "library_ms": None}
+        for name, line, key, which in (
+            ("hstu_attention_bwd_dq", 108, "b2", "dq"),
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

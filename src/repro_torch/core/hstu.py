@@ -91,7 +91,10 @@ def hstu_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            chunk: int = 128) -> torch.Tensor:
     """Blockwise torch path: scores, rab bias and the ROO mask are produced
     one q-chunk at a time, so no (S, S) tensor exists — what
-    `torch-chunked` dispatches to. Matches kernels/ref.py numerics.
+    `torch-chunked` dispatches to. Matches kernels/ref.py numerics: on
+    bf16 operands the scores and probabilities are fp32 and the
+    probabilities are rounded to bf16 before the product with v, as the
+    reference's jnp-chunked route (the kernels keep them in fp32).
 
     q, k: (B, H, S, Dqk); v: (B, H, S, Dv); rab: (H, 2*max_rel_pos+1) | None.
     """

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.hstu import normal_init
+from repro_torch.core.promote import einsum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +42,9 @@ def lce_init(gen: torch.Generator, cfg: LCEConfig, dtype=torch.float32,
 
 def lce_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """Eq. 1–2. x: (B, d_in, n_in) -> (B, n_out, d_out)."""
-    h = torch.einsum("bdn,nm->bdm", x, params["W"]) + params["b"][None]
+    h = einsum("bdn,nm->bdm", x, params["W"]) + params["b"][None]
     h = h.transpose(1, 2)                                 # (B, n_out, d_in)
-    return torch.einsum("bmd,de->bme", h, params["W2"]) + params["b2"][None]
+    return einsum("bmd,de->bme", h, params["W2"]) + params["b2"][None]
 
 
 def lce_flops(cfg: LCEConfig, batch: int) -> int:

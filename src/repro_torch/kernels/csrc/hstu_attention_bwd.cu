@@ -73,6 +73,14 @@
 // Both read the lengths in-block, use the unpadded S for 1/S, and give
 // exact zeros for masked rows (dq) and columns (dk, dv).
 //
+// bf16 (hstu_attention_bwd_dq_bf16, hstu_attention_bwd_dkv_bf16): the same
+// kernels on bf16 q, k, v, g and rab, writing bf16 dq, dk and dv (the drab
+// partials stay fp32, as the reference's). They hold bf16 tiles in shared
+// memory and compute in fp32, as B1's bf16 variant (hstu_fwd_tile.cuh):
+// the products of two bf16 operands (the scores and g.v^T) are one TF32
+// mma, those of an fp32 fragment and a bf16 operand (ds.k, ds^T.q, a^T.g)
+// two, and each output is rounded to bf16 once, at the store.
+//
 // Interface: plain C, loaded with ctypes. Each host function launches one
 // kernel on the caller's stream, does not synchronise, and returns
 // cudaGetLastError().
@@ -124,29 +132,32 @@ struct RooMask {
   }
 };
 
+template <class T>
 struct BwdArgs {
-  const float* hold1;   // the warps' own rows: q (B2) / k (B3), (S, Dqk)
-  const float* hold2;   //                      g (B2) / v (B3), (S, Dv)
-  const float* str1;    // the streamed tiles:  k (B2) / q (B3), (S, Dqk)
-  const float* str2;    //                      v (B2) / g (B3), (S, Dv)
-  const float* rab;     // (2*max_rel+1) of this h, or null
-  float* out1;          // dq (B2) / dk (B3), (S, Dqk)
-  float* out2;          // drab partials (B2, rab only) / dv (B3), (S, Dv)
+  const T* hold1;       // the warps' own rows: q (B2) / k (B3), (S, Dqk)
+  const T* hold2;       //                      g (B2) / v (B3), (S, Dv)
+  const T* str1;        // the streamed tiles:  k (B2) / q (B3), (S, Dqk)
+  const T* str2;        //                      v (B2) / g (B3), (S, Dv)
+  const T* rab;         // (2*max_rel+1) of this h, or null
+  T* out1;              // dq (B2) / dk (B3), (S, Dqk)
+  T* out2;              // dv (B3), (S, Dv)
+  float* part;          // drab partials (B2, rab only)
   int H, S, Dqk, Dv, max_rel;
   int vec_qk, vec_v;    // 16-byte copies allowed
   float inv_sqrt_d, inv_s;
   int rb, ks;           // tile_config
 };
 
-// Dynamic shared memory of one block: the two held tiles, the two-stage
-// ring of ks streamed tile pairs, the rab row and, for B2's drab, the delta
-// table, the warps' staged ds tiles and their diagonal sums.
+// Dynamic shared memory of one block: the two held tiles and the two-stage
+// ring of ks streamed tile pairs (elements of es bytes), then fp32: the rab
+// row and, for B2's drab, the delta table, the warps' staged ds tiles and
+// their diagonal sums.
 inline long long bwd_smem_bytes(const TileConfig& c, int dp, int nrab,
-                                bool fold) {
-  const long long ld = dp + 4;
-  long long n = 2LL * c.rb * ROWS * ld + 2LL * c.ks * 2 * BK * ld + nrab;
+                                bool fold, int es = 4) {
+  const long long ld = tile_ld(dp, es);
+  long long n = nrab;
   if (fold) n += nrab + NWARPS * ROWS * DS_LD + NWARPS * DIAG_LD;
-  return 4 * n;
+  return es * (2LL * c.rb * ROWS * ld + 2LL * c.ks * 2 * BK * ld) + 4 * n;
 }
 
 // B3 holds two accumulator sets (dk and dv): at D 64 and 128 it gets more
@@ -157,11 +168,12 @@ constexpr int min_blocks() {
 }
 
 // The block's work: row tiles [blockIdx.y * rb, +rb) of one (b, h).
-template <int DP, bool DKV>
-__device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
-                                         float* smem) {
-  constexpr int LD = DP + 4;
+template <int DP, bool DKV, class T>
+__device__ __forceinline__ void bwd_tile(const RooMask& L,
+                                         const BwdArgs<T>& a, float* smem) {
+  constexpr int LD = tile_ld(DP, sizeof(T));
   constexpr int NB = DP / 8;      // 8-column blocks of D
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16 operands: exact in TF32
   const int ks_n = a.ks, S = a.S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -170,10 +182,11 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
   const bool fold = !DKV && use_rab;
   const int nrab = use_rab ? 2 * a.max_rel + 1 : 0;
 
-  float* h1_s = smem;                               // rb*16 x LD
-  float* h2_s = h1_s + a.rb * ROWS * LD;            // rb*16 x LD
-  float* ring = h2_s + a.rb * ROWS * LD;            // [2][ks][1|2] BK x LD
-  float* rab_s = ring + 2 * ks_n * 2 * BK * LD;     // nrab
+  T* h1_s = reinterpret_cast<T*>(smem);             // rb*16 x LD
+  T* h2_s = h1_s + a.rb * ROWS * LD;                // rb*16 x LD
+  T* ring = h2_s + a.rb * ROWS * LD;                // [2][ks][1|2] BK x LD
+  float* rab_s =                                    // nrab
+      reinterpret_cast<float*>(ring + 2 * ks_n * 2 * BK * LD);
   float* drab_s = rab_s + nrab;                     // nrab (fold)
   float* ds_s = drab_s + nrab;                      // NWARPS x 16 x DS_LD
   float* diag_s = ds_s + NWARPS * ROWS * DS_LD;     // NWARPS x DIAG_LD
@@ -205,7 +218,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
     for (int s = 0; s < ks_n; ++s) {
       const int ct = ct0 + t * ks_n + s;
       if (!live(ct, br0, br_last)) continue;
-      float* s1 = ring + ((stage * ks_n + s) * 2) * BK * LD;
+      T* s1 = ring + ((stage * ks_n + s) * 2) * BK * LD;
       copy_rows<DP>(s1, a.str1, ct * BK, BK, S, a.Dqk, a.vec_qk);
       copy_rows<DP>(s1 + BK * LD, a.str2, ct * BK, BK, S, a.Dv, a.vec_v);
     }
@@ -215,8 +228,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
   // of the loop makes all of it visible
   copy_rows<DP>(h1_s, a.hold1, br0, a.rb * ROWS, S, a.Dqk, a.vec_qk);
   copy_rows<DP>(h2_s, a.hold2, br0, a.rb * ROWS, S, a.Dv, a.vec_v);
-  for (int i = threadIdx.x; i < nrab; i += NT) cp_async4(rab_s + i, a.rab + i,
-                                                         true);
+  load_rab(rab_s, a.rab, nrab);
   int t = next_round(0);
   if (t < n_rounds) issue_round(t, 0);
   cp_async_commit();
@@ -240,8 +252,8 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
       if constexpr (DKV) acc2[n][e] = 0.0f;
     }
 
-  const float* h1w = h1_s + my_rt * ROWS * LD;
-  const float* h2w = h2_s + my_rt * ROWS * LD;
+  const T* h1w = h1_s + my_rt * ROWS * LD;
+  const T* h2w = h2_s + my_rt * ROWS * LD;
   int stage = 0;
   while (t < n_rounds) {
     const int t_next = next_round(t + 1);
@@ -253,8 +265,8 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
     const int ct = ct0 + t * ks_n + my_ks;
     const bool warp_live = live(ct, wr0, wr_last);
     if (warp_live) {
-      const float* s1 = ring + ((stage * ks_n + my_ks) * 2) * BK * LD;
-      const float* s2 = s1 + BK * LD;
+      const T* s1 = ring + ((stage * ks_n + my_ks) * 2) * BK * LD;
+      const T* s2 = s1 + BK * LD;
       const int c0 = ct * BK;
       // p = hold1 . str1^T (the scores), d = hold2 . str2^T (da): 16 x BK
       float p[BK / 8][4], d[BK / 8][4];
@@ -265,25 +277,27 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
 #pragma unroll
       for (int kk = 0; kk < NB; ++kk) {
         if (kk >= nb_qk) break;
-        const float* x = h1w + g * LD + kk * 8 + t4;
-        const SplitA af({x[0], x[8 * LD], x[4], x[8 * LD + 4]});
+        const T* x = h1w + g * LD + kk * 8 + t4;
+        const SplitA af({to_f32(x[0]), to_f32(x[8 * LD]), to_f32(x[4]),
+                         to_f32(x[8 * LD + 4])});
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
-          const float* y = s1 + (j * 8 + g) * LD + kk * 8 + t4;
-          const float bf[2] = {y[0], y[4]};
-          mma_3xtf32(p[j], af, bf);
+          const T* y = s1 + (j * 8 + g) * LD + kk * 8 + t4;
+          const float bf[2] = {to_f32(y[0]), to_f32(y[4])};
+          mma_acc<EXACT, EXACT>(p[j], af, bf);
         }
       }
 #pragma unroll
       for (int kk = 0; kk < NB; ++kk) {
         if (kk >= nb_v) break;
-        const float* x = h2w + g * LD + kk * 8 + t4;
-        const SplitA af({x[0], x[8 * LD], x[4], x[8 * LD + 4]});
+        const T* x = h2w + g * LD + kk * 8 + t4;
+        const SplitA af({to_f32(x[0]), to_f32(x[8 * LD]), to_f32(x[4]),
+                         to_f32(x[8 * LD + 4])});
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
-          const float* y = s2 + (j * 8 + g) * LD + kk * 8 + t4;
-          const float bf[2] = {y[0], y[4]};
-          mma_3xtf32(d[j], af, bf);
+          const T* y = s2 + (j * 8 + g) * LD + kk * 8 + t4;
+          const float bf[2] = {to_f32(y[0]), to_f32(y[4])};
+          mma_acc<EXACT, EXACT>(d[j], af, bf);
         }
       }
       // mask, scale, rab, SiLU / SiLU' and 1/S on the fragments; element e
@@ -314,21 +328,21 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         const SplitA af({d[j][0], d[j][2], d[j][1], d[j][3]});
-        const float* y = s1 + (j * 8 + 2 * t4) * LD + g;
+        const T* y = s1 + (j * 8 + 2 * t4) * LD + g;
 #pragma unroll
         for (int n = 0; n < NB; ++n) {
           if (n >= nb_qk) break;
-          const float bf[2] = {y[n * 8], y[LD + n * 8]};
-          mma_3xtf32(acc1[n], af, bf);
+          const float bf[2] = {to_f32(y[n * 8]), to_f32(y[LD + n * 8])};
+          mma_acc<false, EXACT>(acc1[n], af, bf);
         }
         if constexpr (DKV) {
           const SplitA aa({p[j][0], p[j][2], p[j][1], p[j][3]});
-          const float* z = s2 + (j * 8 + 2 * t4) * LD + g;
+          const T* z = s2 + (j * 8 + 2 * t4) * LD + g;
 #pragma unroll
           for (int n = 0; n < NB; ++n) {
             if (n >= nb_v) break;
-            const float bf[2] = {z[n * 8], z[LD + n * 8]};
-            mma_3xtf32(acc2[n], aa, bf);
+            const float bf[2] = {to_f32(z[n * 8]), to_f32(z[LD + n * 8])};
+            mma_acc<false, EXACT>(acc2[n], aa, bf);
           }
         }
       }
@@ -417,7 +431,8 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
   constexpr int NACC = DKV ? 2 : 1;
   if (ks_n > 1) {
     __syncthreads();
-    float* part = ring;   // [rb][ks-1][NACC][NB][4][32]
+    // [rb][ks-1][NACC][NB][4][32]
+    float* part = reinterpret_cast<float*>(ring);
     if (my_ks > 0 && wr0 < S) {
       float* q = part + ((my_rt * (ks_n - 1) + my_ks - 1) * NACC * NB) * 128;
 #pragma unroll
@@ -447,7 +462,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
     __syncthreads();
     const size_t n_part = (size_t)(gridDim.x / a.H) * gridDim.y;
     for (int i = threadIdx.x; i < nrab; i += NT)
-      a.out2[(size_t)i * n_part] = drab_s[i];
+      a.part[(size_t)i * n_part] = drab_s[i];
   }
   if (my_ks != 0 || wr0 >= S) return;
 #pragma unroll
@@ -457,15 +472,19 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L, const BwdArgs& a,
       const int r = wr0 + g + (e >> 1) * 8;
       const int c = n * 8 + 2 * t4 + (e & 1);
       if (r >= S) continue;
-      if (c < a.Dqk) a.out1[(size_t)r * a.Dqk + c] = acc1[n][e] * a.inv_sqrt_d;
+      if (c < a.Dqk)
+        a.out1[(size_t)r * a.Dqk + c] =
+            from_f32<T>(acc1[n][e] * a.inv_sqrt_d);
       if constexpr (DKV)
-        if (c < a.Dv) a.out2[(size_t)r * a.Dv + c] = acc2[n][e];
+        if (c < a.Dv)
+          a.out2[(size_t)r * a.Dv + c] = from_f32<T>(acc2[n][e]);
     }
 }
 
 // Per-(b, h) offsets, then the tile body.
-template <int DP, bool DKV>
-__device__ __forceinline__ void bwd_block(BwdArgs a, const int* hist_lengths,
+template <int DP, bool DKV, class T>
+__device__ __forceinline__ void bwd_block(BwdArgs<T> a,
+                                          const int* hist_lengths,
                                           const int* target_counts,
                                           int n_hist) {
   extern __shared__ __align__(16) float smem[];
@@ -482,35 +501,35 @@ __device__ __forceinline__ void bwd_block(BwdArgs a, const int* hist_lengths,
     const int nrab = 2 * a.max_rel + 1;
     a.rab += (size_t)h * nrab;
     if (!DKV)   // drab partials: (H, nrab, B * row blocks)
-      a.out2 += (size_t)h * nrab * (gridDim.x / a.H) * gridDim.y +
+      a.part += (size_t)h * nrab * (gridDim.x / a.H) * gridDim.y +
                 (size_t)b * gridDim.y + blockIdx.y;
   }
   if (DKV) a.out2 += vv;
   bwd_tile<DP, DKV>(L, a, smem);
 }
 
-template <int DP>
+template <int DP, class T>
 __global__ void __launch_bounds__(NT, (min_blocks<DP, false>()))
-hstu_bwd_dq_kernel(BwdArgs a, const int* __restrict__ hist_lengths,
+hstu_bwd_dq_kernel(BwdArgs<T> a, const int* __restrict__ hist_lengths,
                    const int* __restrict__ target_counts, int n_hist) {
   bwd_block<DP, false>(a, hist_lengths, target_counts, n_hist);
 }
 
-template <int DP>
+template <int DP, class T>
 __global__ void __launch_bounds__(NT, (min_blocks<DP, true>()))
-hstu_bwd_dkv_kernel(BwdArgs a, const int* __restrict__ hist_lengths,
+hstu_bwd_dkv_kernel(BwdArgs<T> a, const int* __restrict__ hist_lengths,
                     const int* __restrict__ target_counts, int n_hist) {
   bwd_block<DP, true>(a, hist_lengths, target_counts, n_hist);
 }
 
-template <int DP, bool DKV>
-cudaError_t launch(const BwdArgs& a, const int* hl, const int* tc, int BH,
+template <int DP, bool DKV, class T>
+cudaError_t launch(const BwdArgs<T>& a, const int* hl, const int* tc, int BH,
                    int n_hist, cudaStream_t stream) {
   const int nrab = a.rab != nullptr ? 2 * a.max_rel + 1 : 0;
   const long long smem = bwd_smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab,
-                                        !DKV && a.rab != nullptr);
-  void (*kern)(BwdArgs, const int*, const int*, int) =
-      DKV ? &hstu_bwd_dkv_kernel<DP> : &hstu_bwd_dq_kernel<DP>;
+                                        !DKV && a.rab != nullptr, sizeof(T));
+  void (*kern)(BwdArgs<T>, const int*, const int*, int) =
+      DKV ? &hstu_bwd_dkv_kernel<DP, T> : &hstu_bwd_dq_kernel<DP, T>;
   const cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const int rt = (a.S + ROWS - 1) / ROWS;
@@ -519,28 +538,30 @@ cudaError_t launch(const BwdArgs& a, const int* hl, const int* tc, int BH,
   return cudaGetLastError();
 }
 
-template <bool DKV>
+// out2: dv (B3) or the drab partials (B2)
+template <bool DKV, class T>
 int run(const void* q, const void* k, const void* v, const void* rab,
         const void* g, const void* hist_lengths, const void* target_counts,
         void* out1, void* out2, int B, int H, int S, int Dqk, int Dv,
         int n_hist, int max_rel, int use_rab, void* stream) {
   if (B * H == 0 || S == 0) return (int)cudaSuccess;
   const TileConfig cfg = tile_config((long long)B * H, S);
-  BwdArgs a;
-  a.hold1 = (const float*)(DKV ? k : q);
-  a.hold2 = (const float*)(DKV ? v : g);
-  a.str1 = (const float*)(DKV ? q : k);
-  a.str2 = (const float*)(DKV ? g : v);
-  a.rab = use_rab ? (const float*)rab : nullptr;
-  a.out1 = (float*)out1;
-  a.out2 = (float*)out2;
+  BwdArgs<T> a;
+  a.hold1 = (const T*)(DKV ? k : q);
+  a.hold2 = (const T*)(DKV ? v : g);
+  a.str1 = (const T*)(DKV ? q : k);
+  a.str2 = (const T*)(DKV ? g : v);
+  a.rab = use_rab ? (const T*)rab : nullptr;
+  a.out1 = (T*)out1;
+  a.out2 = DKV ? (T*)out2 : nullptr;
+  a.part = DKV ? nullptr : (float*)out2;
   a.H = H;
   a.S = S;
   a.Dqk = Dqk;
   a.Dv = Dv;
   a.max_rel = max_rel;
-  a.vec_qk = vec_ok(q, k, Dqk);
-  a.vec_v = vec_ok(v, g, Dv);
+  a.vec_qk = vec_ok(q, k, Dqk, sizeof(T));
+  a.vec_v = vec_ok(v, g, Dv, sizeof(T));
   a.inv_sqrt_d = 1.0f / sqrtf((float)Dqk);
   a.inv_s = 1.0f / (float)S;
   a.rb = cfg.rb;
@@ -573,6 +594,18 @@ long long hstu_attention_bwd_dkv_smem_bytes(int Dqk, int Dv, int max_rel,
                         use_rab ? 2 * max_rel + 1 : 0, false);
 }
 
+long long hstu_attention_bwd_dq_bf16_smem_bytes(int Dqk, int Dv, int max_rel,
+                                                int use_rab) {
+  return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
+                        use_rab ? 2 * max_rel + 1 : 0, use_rab != 0, 2);
+}
+
+long long hstu_attention_bwd_dkv_bf16_smem_bytes(int Dqk, int Dv,
+                                                 int max_rel, int use_rab) {
+  return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
+                        use_rab ? 2 * max_rel + 1 : 0, false, 2);
+}
+
 // Output rows (q rows of B2, k columns of B3) one block covers at this
 // shape: 16 x tile_config's rb. B2 writes one drab partial row per block.
 int hstu_attention_bwd_rows_per_block(long long n_heads, int S) {
@@ -582,27 +615,54 @@ int hstu_attention_bwd_rows_per_block(long long n_heads, int S) {
 // q, k, dq: (B, H, S, Dqk); v, g: (B, H, S, Dv); rab: (H, 2*max_rel+1) or
 // null when use_rab == 0; hist_lengths, target_counts: (B,) int32;
 // drab_part: (H, 2*max_rel+1, B * ceil(S / rows_per_block)), written only
-// when use_rab. All contiguous fp32 on the current device.
+// when use_rab. All contiguous on the current device: fp32 here, bf16 (q,
+// k, v, rab, g, dq; drab_part stays fp32) in hstu_attention_bwd_dq_bf16.
 int hstu_attention_bwd_dq(const void* q, const void* k, const void* v,
                           const void* rab, const void* g,
                           const void* hist_lengths, const void* target_counts,
                           void* dq, void* drab_part, int B, int H, int S,
                           int Dqk, int Dv, int n_hist, int max_rel,
                           int use_rab, void* stream) {
-  return run<false>(q, k, v, rab, g, hist_lengths, target_counts, dq,
-                    drab_part, B, H, S, Dqk, Dv, n_hist, max_rel, use_rab,
-                    stream);
+  return run<false, float>(q, k, v, rab, g, hist_lengths, target_counts, dq,
+                           drab_part, B, H, S, Dqk, Dv, n_hist, max_rel,
+                           use_rab, stream);
 }
 
-// k, dk: (B, H, S, Dqk); v, dv: (B, H, S, Dv); the rest as above.
+int hstu_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                               const void* rab, const void* g,
+                               const void* hist_lengths,
+                               const void* target_counts, void* dq,
+                               void* drab_part, int B, int H, int S, int Dqk,
+                               int Dv, int n_hist, int max_rel, int use_rab,
+                               void* stream) {
+  return run<false, __nv_bfloat16>(q, k, v, rab, g, hist_lengths,
+                                   target_counts, dq, drab_part, B, H, S,
+                                   Dqk, Dv, n_hist, max_rel, use_rab, stream);
+}
+
+// k, dk: (B, H, S, Dqk); v, dv: (B, H, S, Dv); the rest as above (bf16 in
+// hstu_attention_bwd_dkv_bf16).
 int hstu_attention_bwd_dkv(const void* q, const void* k, const void* v,
                            const void* rab, const void* g,
                            const void* hist_lengths,
                            const void* target_counts, void* dk, void* dv,
                            int B, int H, int S, int Dqk, int Dv, int n_hist,
                            int max_rel, int use_rab, void* stream) {
-  return run<true>(q, k, v, rab, g, hist_lengths, target_counts, dk, dv, B,
-                   H, S, Dqk, Dv, n_hist, max_rel, use_rab, stream);
+  return run<true, float>(q, k, v, rab, g, hist_lengths, target_counts, dk,
+                          dv, B, H, S, Dqk, Dv, n_hist, max_rel, use_rab,
+                          stream);
+}
+
+int hstu_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                                const void* rab, const void* g,
+                                const void* hist_lengths,
+                                const void* target_counts, void* dk,
+                                void* dv, int B, int H, int S, int Dqk,
+                                int Dv, int n_hist, int max_rel, int use_rab,
+                                void* stream) {
+  return run<true, __nv_bfloat16>(q, k, v, rab, g, hist_lengths,
+                                  target_counts, dk, dv, B, H, S, Dqk, Dv,
+                                  n_hist, max_rel, use_rab, stream);
 }
 
 const char* hstu_attention_bwd_error_string(int code) {

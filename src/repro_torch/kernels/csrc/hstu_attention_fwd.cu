@@ -31,6 +31,12 @@
 // The tile body is hstu_fwd_tile.cuh (shared with the cached-prefix
 // forward); this file holds the ROO mask's maps and tile skip.
 //
+// bf16 (hstu_attention_fwd_bf16): the same kernel on bf16 q, k, v and rab,
+// writing a bf16 output: half the bytes at the serving shape (~1.7 MB).
+// It computes in fp32 and rounds once, at the store (the tile header says
+// how): the reference's Pallas kernel also reads bf16 tiles and computes
+// in fp32.
+//
 // Interface: plain C, loaded with ctypes. The host function launches on the
 // caller's stream, does not synchronise, and returns cudaGetLastError().
 
@@ -66,9 +72,9 @@ struct RooLayout {
   }
 };
 
-template <int DP>
+template <int DP, class T>
 __global__ void __launch_bounds__(NT, 4)
-hstu_fwd_kernel(TileArgs a, const int* __restrict__ hist_lengths,
+hstu_fwd_kernel(TileArgs<T> a, const int* __restrict__ hist_lengths,
                 const int* __restrict__ target_counts, int H, int n_hist) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x;
@@ -88,53 +94,40 @@ hstu_fwd_kernel(TileArgs a, const int* __restrict__ hist_lengths,
   fwd_tile<DP>(L, a, smem);
 }
 
-template <int DP>
-cudaError_t launch(const TileArgs& a, const int* hl, const int* tc, int BH,
-                   int H, int n_hist, int nrab, cudaStream_t stream) {
+template <int DP, class T>
+cudaError_t launch(const TileArgs<T>& a, const int* hl, const int* tc,
+                   int BH, int H, int n_hist, int nrab, cudaStream_t stream) {
   const long long smem =
-      smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab);
-  const cudaError_t e = set_smem(hstu_fwd_kernel<DP>, smem);
+      smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab, sizeof(T));
+  const cudaError_t e = set_smem(hstu_fwd_kernel<DP, T>, smem);
   if (e != cudaSuccess) return e;
   const int rt = (a.R + ROWS - 1) / ROWS;
   const dim3 grid(BH, (rt + a.rb - 1) / a.rb);
-  hstu_fwd_kernel<DP><<<grid, NT, (size_t)smem, stream>>>(a, hl, tc, H,
-                                                         n_hist);
+  hstu_fwd_kernel<DP, T><<<grid, NT, (size_t)smem, stream>>>(a, hl, tc, H,
+                                                            n_hist);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory (bytes) one block may need, at most; the wrapper checks it.
-long long hstu_attention_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
-                                        int use_rab) {
-  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0);
-}
-
-// q, k: (B, H, S, Dqk); v, out: (B, H, S, Dv); rab: (H, 2*max_rel+1) or
-// null when use_rab == 0; hist_lengths, target_counts: (B,) int32. All
-// contiguous fp32 on the current device.
-int hstu_attention_fwd(const void* q, const void* k, const void* v,
-                       const void* rab, const void* hist_lengths,
-                       const void* target_counts, void* out, int B, int H,
-                       int S, int Dqk, int Dv, int n_hist, int max_rel,
-                       int use_rab, void* stream) {
+template <class T>
+int run(const void* q, const void* k, const void* v, const void* rab,
+        const void* hist_lengths, const void* target_counts, void* out,
+        int B, int H, int S, int Dqk, int Dv, int n_hist, int max_rel,
+        int use_rab, void* stream) {
   if (B * H == 0 || S == 0) return (int)cudaSuccess;
   const TileConfig cfg = tile_config((long long)B * H, S);
-  TileArgs a;
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.rab = use_rab ? (const float*)rab : nullptr;
-  a.out = (float*)out;
+  TileArgs<T> a;
+  a.q = (const T*)q;
+  a.k = (const T*)k;
+  a.v = (const T*)v;
+  a.rab = use_rab ? (const T*)rab : nullptr;
+  a.out = (T*)out;
   a.R = S;
   a.C = S;
   a.Dqk = Dqk;
   a.Dv = Dv;
   a.max_rel = max_rel;
-  a.vec_qk = vec_ok(q, k, Dqk);
-  a.vec_v = vec_ok(v, v, Dv);
+  a.vec_qk = vec_ok(q, k, Dqk, sizeof(T));
+  a.vec_v = vec_ok(v, v, Dv, sizeof(T));
   a.inv_sqrt_d = 1.0f / sqrtf((float)Dqk);
   a.inv_scale = 1.0f / (float)S;
   a.rb = cfg.rb;
@@ -148,6 +141,44 @@ int hstu_attention_fwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch<64>(a, hl, tc, B * H, H, n_hist, nrab, st);
     default: return (int)launch<128>(a, hl, tc, B * H, H, n_hist, nrab, st);
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory (bytes) one block may need, at most; the wrapper checks it.
+long long hstu_attention_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
+                                        int use_rab) {
+  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0);
+}
+
+long long hstu_attention_fwd_bf16_smem_bytes(int Dqk, int Dv, int max_rel,
+                                             int use_rab) {
+  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0, 2);
+}
+
+// q, k: (B, H, S, Dqk); v, out: (B, H, S, Dv); rab: (H, 2*max_rel+1) or
+// null when use_rab == 0; hist_lengths, target_counts: (B,) int32. All
+// contiguous on the current device: fp32 here, bf16 (q, k, v, rab, out)
+// in hstu_attention_fwd_bf16.
+int hstu_attention_fwd(const void* q, const void* k, const void* v,
+                       const void* rab, const void* hist_lengths,
+                       const void* target_counts, void* out, int B, int H,
+                       int S, int Dqk, int Dv, int n_hist, int max_rel,
+                       int use_rab, void* stream) {
+  return run<float>(q, k, v, rab, hist_lengths, target_counts, out, B, H, S,
+                    Dqk, Dv, n_hist, max_rel, use_rab, stream);
+}
+
+int hstu_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                            const void* rab, const void* hist_lengths,
+                            const void* target_counts, void* out, int B,
+                            int H, int S, int Dqk, int Dv, int n_hist,
+                            int max_rel, int use_rab, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, rab, hist_lengths, target_counts, out,
+                            B, H, S, Dqk, Dv, n_hist, max_rel, use_rab,
+                            stream);
 }
 
 const char* hstu_attention_fwd_error_string(int code) {

@@ -40,6 +40,10 @@
 // rows need the valid history plus the target columns on their diagonals;
 // every other k tile is skipped.
 //
+// bf16 (hstu_attention_prefix_fwd_bf16): the same kernel on bf16 q, the
+// bf16 K/V buffer and rab, writing a bf16 output; fp32 inside and one
+// rounding at the store, as B1's bf16 variant (hstu_fwd_tile.cuh).
+//
 // Interface: plain C, loaded with ctypes. The host function launches on the
 // caller's stream, does not synchronise, and returns cudaGetLastError().
 
@@ -82,9 +86,9 @@ struct PrefixLayout {
   }
 };
 
-template <int DP>
+template <int DP, class T>
 __global__ void __launch_bounds__(NT, 4)
-hstu_prefix_fwd_kernel(TileArgs a, const int* __restrict__ prefix_lengths,
+hstu_prefix_fwd_kernel(TileArgs<T> a, const int* __restrict__ prefix_lengths,
                        const int* __restrict__ new_counts,
                        const int* __restrict__ target_counts, int H,
                        int n_hist, int n_new) {
@@ -109,56 +113,42 @@ hstu_prefix_fwd_kernel(TileArgs a, const int* __restrict__ prefix_lengths,
   fwd_tile<DP>(L, a, smem);
 }
 
-template <int DP>
-cudaError_t launch(const TileArgs& a, const int* pfx, const int* nc,
+template <int DP, class T>
+cudaError_t launch(const TileArgs<T>& a, const int* pfx, const int* nc,
                    const int* tc, int BH, int H, int n_hist, int n_new,
                    int nrab, cudaStream_t stream) {
-  const long long smem = smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab);
-  const cudaError_t e = set_smem(hstu_prefix_fwd_kernel<DP>, smem);
+  const long long smem =
+      smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab, sizeof(T));
+  const cudaError_t e = set_smem(hstu_prefix_fwd_kernel<DP, T>, smem);
   if (e != cudaSuccess) return e;
   const int rt = (a.R + ROWS - 1) / ROWS;
   const dim3 grid(BH, (rt + a.rb - 1) / a.rb);
-  hstu_prefix_fwd_kernel<DP><<<grid, NT, (size_t)smem, stream>>>(
+  hstu_prefix_fwd_kernel<DP, T><<<grid, NT, (size_t)smem, stream>>>(
       a, pfx, nc, tc, H, n_hist, n_new);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory (bytes) one block may need, at most; the wrapper checks it.
-long long hstu_attention_prefix_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
-                                               int use_rab) {
-  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0);
-}
-
-// q: (B, H, R, Dqk) with R = n_new + m; k: (B, H, C, Dqk) and v: (B, H, C,
-// Dv) with C = n_hist + m; out: (B, H, R, Dv); rab: (H, 2*max_rel+1) or null
-// when use_rab == 0; prefix_lengths, new_counts, target_counts: (B,) int32.
-// All contiguous fp32 on the current device.
-int hstu_attention_prefix_fwd(const void* q, const void* k, const void* v,
-                              const void* rab, const void* prefix_lengths,
-                              const void* new_counts,
-                              const void* target_counts, void* out, int B,
-                              int H, int R, int C, int Dqk, int Dv,
-                              int n_hist, int n_new, int scale_len,
-                              int max_rel, int use_rab, void* stream) {
+template <class T>
+int run(const void* q, const void* k, const void* v, const void* rab,
+        const void* prefix_lengths, const void* new_counts,
+        const void* target_counts, void* out, int B, int H, int R, int C,
+        int Dqk, int Dv, int n_hist, int n_new, int scale_len, int max_rel,
+        int use_rab, void* stream) {
   if (B * H == 0 || R == 0) return (int)cudaSuccess;
   const TileConfig cfg = tile_config((long long)B * H, R);
-  TileArgs a;
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.rab = use_rab ? (const float*)rab : nullptr;
-  a.out = (float*)out;
+  TileArgs<T> a;
+  a.q = (const T*)q;
+  a.k = (const T*)k;
+  a.v = (const T*)v;
+  a.rab = use_rab ? (const T*)rab : nullptr;
+  a.out = (T*)out;
   a.R = R;
   a.C = C;
   a.Dqk = Dqk;
   a.Dv = Dv;
   a.max_rel = max_rel;
-  a.vec_qk = vec_ok(q, k, Dqk);
-  a.vec_v = vec_ok(v, v, Dv);
+  a.vec_qk = vec_ok(q, k, Dqk, sizeof(T));
+  a.vec_v = vec_ok(v, v, Dv, sizeof(T));
   a.inv_sqrt_d = 1.0f / sqrtf((float)Dqk);
   a.inv_scale = 1.0f / (float)scale_len;
   a.rb = cfg.rb;
@@ -179,6 +169,53 @@ int hstu_attention_prefix_fwd(const void* q, const void* k, const void* v,
       return (int)launch<128>(a, pfx, nc, tc, B * H, H, n_hist, n_new, nrab,
                               st);
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory (bytes) one block may need, at most; the wrapper checks it.
+long long hstu_attention_prefix_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
+                                               int use_rab) {
+  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0);
+}
+
+long long hstu_attention_prefix_fwd_bf16_smem_bytes(int Dqk, int Dv,
+                                                    int max_rel,
+                                                    int use_rab) {
+  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0, 2);
+}
+
+// q: (B, H, R, Dqk) with R = n_new + m; k: (B, H, C, Dqk) and v: (B, H, C,
+// Dv) with C = n_hist + m; out: (B, H, R, Dv); rab: (H, 2*max_rel+1) or null
+// when use_rab == 0; prefix_lengths, new_counts, target_counts: (B,) int32.
+// All contiguous on the current device: fp32 here, bf16 (q, k, v, rab,
+// out) in hstu_attention_prefix_fwd_bf16.
+int hstu_attention_prefix_fwd(const void* q, const void* k, const void* v,
+                              const void* rab, const void* prefix_lengths,
+                              const void* new_counts,
+                              const void* target_counts, void* out, int B,
+                              int H, int R, int C, int Dqk, int Dv,
+                              int n_hist, int n_new, int scale_len,
+                              int max_rel, int use_rab, void* stream) {
+  return run<float>(q, k, v, rab, prefix_lengths, new_counts, target_counts,
+                    out, B, H, R, C, Dqk, Dv, n_hist, n_new, scale_len,
+                    max_rel, use_rab, stream);
+}
+
+int hstu_attention_prefix_fwd_bf16(const void* q, const void* k,
+                                   const void* v, const void* rab,
+                                   const void* prefix_lengths,
+                                   const void* new_counts,
+                                   const void* target_counts, void* out,
+                                   int B, int H, int R, int C, int Dqk,
+                                   int Dv, int n_hist, int n_new,
+                                   int scale_len, int max_rel, int use_rab,
+                                   void* stream) {
+  return run<__nv_bfloat16>(q, k, v, rab, prefix_lengths, new_counts,
+                            target_counts, out, B, H, R, C, Dqk, Dv, n_hist,
+                            n_new, scale_len, max_rel, use_rab, stream);
 }
 
 const char* hstu_attention_prefix_fwd_error_string(int code) {

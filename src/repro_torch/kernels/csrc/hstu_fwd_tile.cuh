@@ -36,9 +36,21 @@
 //    the copy itself (src-size 0): no pad-and-crop on the host.
 //  * A k tile that no row of the block can see is never loaded; a warp
 //    multiplies only the tiles its own rows can see.
+//  * The element type T is a template: float, or __nv_bfloat16 for bf16
+//    models. A bf16 variant reads q, k, v and rab as bf16 (half the bytes),
+//    keeps its tiles in shared memory as bf16 (rows padded to D + 8), widens
+//    each fragment element to fp32 as it loads it, computes in fp32 and
+//    rounds each output to bf16 once, at the store. A bf16 value is exact
+//    in TF32 (its lo part is 0), so q.k^T is one TF32 mma (exact products,
+//    fp32 sums) and p.v, p kept in fp32 (not rounded to bf16, as the
+//    reference's jnp route rounds it), is two: lo(p)*v + hi(p)*v
+//    (mma_acc). The same products as the fp32 kernel's 3xTF32 less the
+//    terms that are exactly 0, in the same order: on bf16-valued inputs
+//    the bf16 variant gives the fp32 kernel's output rounded to bf16.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,17 +85,43 @@ inline int padded_d(int dqk, int dv) {
   return d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
+// Row stride (elements) of a shared tile of element size ES bytes: D
+// padded by 16 bytes, which keeps rows 16-byte aligned for cp.async and
+// every fragment load free of bank conflicts
+__host__ __device__ constexpr int tile_ld(int dp, int es) {
+  return dp + 16 / es;
+}
+
 // Dynamic shared memory of one block: the q rows, the two-stage ring of KS
-// k and v tiles, and the head's rab row.
-inline long long smem_bytes(const TileConfig& c, int dp, int nrab) {
-  const long long ld = dp + 4;
-  return 4LL * ((long long)c.rb * ROWS * ld + 2LL * c.ks * 2 * BK * ld +
-                nrab);
+// k and v tiles (elements of ES bytes), and the head's rab row (fp32).
+inline long long smem_bytes(const TileConfig& c, int dp, int nrab,
+                            int es = 4) {
+  const long long ld = tile_ld(dp, es);
+  return (long long)es * ((long long)c.rb * ROWS * ld +
+                          2LL * c.ks * 2 * BK * ld) +
+         4LL * nrab;
 }
 
 // The most any configuration needs (the 4-way split).
-inline long long max_smem_bytes(int dqk, int dv, int nrab) {
-  return smem_bytes(TileConfig{1, NWARPS}, padded_d(dqk, dv), nrab);
+inline long long max_smem_bytes(int dqk, int dv, int nrab, int es = 4) {
+  return smem_bytes(TileConfig{1, NWARPS}, padded_d(dqk, dv), nrab, es);
+}
+
+// fp32 <-> the element type: widening is exact, narrowing rounds to
+// nearest even
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <class T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float silu(float x) {
@@ -131,7 +169,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a,
   mma_tf32(c, a.hi, bh);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+// c += a * b at fp32 accuracy where an operand that is EXACT in TF32 (a
+// widened bf16 value: its lo part is 0) skips the products with its lo
+// part: mma_3xtf32's products less those that are exactly 0, in its order.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_acc(float (&c)[4], const SplitA& a,
+                                        const float (&b)[2]) {
+  if constexpr (!A_EXACT && !B_EXACT) {
+    mma_3xtf32(c, a, b);
+  } else if constexpr (B_EXACT) {
+    const uint32_t bh[2] = {__float_as_uint(b[0]), __float_as_uint(b[1])};
+    if constexpr (!A_EXACT) mma_tf32(c, a.lo, bh);
+    mma_tf32(c, a.hi, bh);
+  } else {
+    uint32_t bh[2], bl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) split_tf32(b[e], bh[e], bl[e]);
+    mma_tf32(c, a.hi, bl);
+    mma_tf32(c, a.hi, bh);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in_range) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   const int n = in_range ? 16 : 0;
@@ -156,23 +215,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [row0, row0 + n_rows) of a (n_src, d) fp32 matrix into shared rows
-// of stride DP + 4; rows past n_src are zero-filled, columns past d are
-// left alone (the caller zeroes them once).
-template <int DP>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          int row0, int n_rows, int n_src,
-                                          int d, bool vec) {
-  constexpr int LD = DP + 4;
+// rows [row0, row0 + n_rows) of a (n_src, d) matrix of T into shared rows
+// of stride tile_ld(DP); rows past n_src are zero-filled, columns past d
+// are left alone (the caller zeroes them once). vec: 16-byte cp.async
+// chunks; else one element at a time (cp.async for fp32, a plain load and
+// store for a 2-byte type, which cp.async cannot copy).
+template <int DP, class T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int row0,
+                                          int n_rows, int n_src, int d,
+                                          bool vec) {
+  constexpr int LD = tile_ld(DP, sizeof(T));
+  constexpr int E = 16 / sizeof(T);     // elements a 16-byte chunk
   if (vec) {
-    const int nch = d >> 2;
-    for (int idx = threadIdx.x; idx < n_rows * (DP / 4); idx += NT) {
-      const int r = idx / (DP / 4), ch = idx - r * (DP / 4);
+    const int nch = d / E;
+    for (int idx = threadIdx.x; idx < n_rows * (DP / E); idx += NT) {
+      const int r = idx / (DP / E), ch = idx - r * (DP / E);
       if (ch >= nch) continue;
       const int row = row0 + r;
       const bool ok = row < n_src;
-      cp_async16(dst + r * LD + 4 * ch,
-                 src + (ok ? (size_t)row * d + 4 * ch : 0), ok);
+      cp_async16(dst + r * LD + E * ch,
+                 src + (ok ? (size_t)row * d + E * ch : 0), ok);
     }
   } else {
     for (int idx = threadIdx.x; idx < n_rows * DP; idx += NT) {
@@ -180,28 +242,45 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
       if (c >= d) continue;
       const int row = row0 + r;
       const bool ok = row < n_src;
-      cp_async4(dst + r * LD + c, src + (ok ? (size_t)row * d + c : 0), ok);
+      if constexpr (sizeof(T) == 4)
+        cp_async4(dst + r * LD + c, src + (ok ? (size_t)row * d + c : 0),
+                  ok);
+      else
+        dst[r * LD + c] = ok ? src[(size_t)row * d + c] : from_f32<T>(0.0f);
     }
   }
 }
 
 // zero columns [d, DP) of n_rows shared rows
-template <int DP>
-__device__ __forceinline__ void zero_pad(float* dst, int n_rows, int d) {
-  constexpr int LD = DP + 4;
+template <int DP, class T>
+__device__ __forceinline__ void zero_pad(T* dst, int n_rows, int d) {
+  constexpr int LD = tile_ld(DP, sizeof(T));
   if (d >= DP) return;
   for (int idx = threadIdx.x; idx < n_rows * DP; idx += NT) {
     const int r = idx / DP, c = idx - r * DP;
-    if (c >= d) dst[r * LD + c] = 0.0f;
+    if (c >= d) dst[r * LD + c] = from_f32<T>(0.0f);
   }
 }
 
+// the head's rab row into fp32 shared memory (cp.async for fp32, widened
+// one element at a time for bf16)
+template <class T>
+__device__ __forceinline__ void load_rab(float* dst, const T* src, int n) {
+  for (int i = threadIdx.x; i < n; i += NT) {
+    if constexpr (sizeof(T) == 4)
+      cp_async4(dst + i, src + i, true);
+    else
+      dst[i] = to_f32(src[i]);
+  }
+}
+
+template <class T>
 struct TileArgs {
-  const float* q;                 // (R, Dqk) of this (b, h)
-  const float* k;                 // (C, Dqk)
-  const float* v;                 // (C, Dv)
-  const float* rab;               // (2*max_rel+1) of this h, or null
-  float* out;                     // (R, Dv)
+  const T* q;                     // (R, Dqk) of this (b, h)
+  const T* k;                     // (C, Dqk)
+  const T* v;                     // (C, Dv)
+  const T* rab;                   // (2*max_rel+1) of this h, or null
+  T* out;                         // (R, Dv)
   int R, C, Dqk, Dv, max_rel;
   int vec_qk, vec_v;              // 16-byte copies allowed
   float inv_sqrt_d, inv_scale;
@@ -211,19 +290,21 @@ struct TileArgs {
 // The block's work: row tiles [blockIdx.y * rb, +rb) of one (b, h).
 // Layout: keep(r, j), pos(r) and live(r_lo, r_hi, j_lo, j_hi) (some row in
 // [r_lo, r_hi] sees some column in [j_lo, j_hi]), all for r < R, j < C.
-template <int DP, class Layout>
-__device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
+template <int DP, class T, class Layout>
+__device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs<T>& a,
                                          float* smem) {
-  constexpr int LD = DP + 4;
+  constexpr int LD = tile_ld(DP, sizeof(T));
   constexpr int NB = DP / 8;      // 8-column blocks of D
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16 operands: exact in TF32
   const int ks_n = a.ks;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int my_rt = warp / ks_n, my_ks = warp - my_rt * ks_n;
 
-  float* q_s = smem;                                // rb*16 x LD
-  float* ring = q_s + a.rb * ROWS * LD;             // [2][ks][k|v] BK x LD
-  float* rab_s = ring + 2 * ks_n * 2 * BK * LD;     // 2*max_rel+1
+  T* q_s = reinterpret_cast<T*>(smem);             // rb*16 x LD
+  T* ring = q_s + a.rb * ROWS * LD;                 // [2][ks][k|v] BK x LD
+  float* rab_s =                                    // 2*max_rel+1
+      reinterpret_cast<float*>(ring + 2 * ks_n * 2 * BK * LD);
 
   const int bq0 = blockIdx.y * a.rb * ROWS;
   const int bq_last = min(bq0 + a.rb * ROWS, a.R) - 1;
@@ -248,7 +329,7 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
     for (int s = 0; s < ks_n; ++s) {
       const int kt = t * ks_n + s;
       if (!tile_live(kt, bq0, bq_last)) continue;
-      float* k_s = ring + ((stage * ks_n + s) * 2) * BK * LD;
+      T* k_s = ring + ((stage * ks_n + s) * 2) * BK * LD;
       copy_rows<DP>(k_s, a.k, kt * BK, BK, a.C, a.Dqk, a.vec_qk);
       copy_rows<DP>(k_s + BK * LD, a.v, kt * BK, BK, a.C, a.Dv, a.vec_v);
     }
@@ -257,9 +338,7 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
   // q and rab first (they need no lengths), then the first round; the
   // first barrier of the loop makes all of it visible
   copy_rows<DP>(q_s, a.q, bq0, a.rb * ROWS, a.R, a.Dqk, a.vec_qk);
-  if (a.rab != nullptr)
-    for (int i = threadIdx.x; i < 2 * a.max_rel + 1; i += NT)
-      cp_async4(rab_s + i, a.rab + i, true);
+  if (a.rab != nullptr) load_rab(rab_s, a.rab, 2 * a.max_rel + 1);
   int t = next_round(0);
   if (t < n_rounds) issue_round(t, 0);
   cp_async_commit();
@@ -276,7 +355,7 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
 
-  const float* qw = q_s + my_rt * ROWS * LD;
+  const T* qw = q_s + my_rt * ROWS * LD;
   int stage = 0;
   while (t < n_rounds) {
     const int t_next = next_round(t + 1);
@@ -287,8 +366,8 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
 
     const int kt = t * ks_n + my_ks;
     if (tile_live(kt, wq0, wq_last)) {
-      const float* k_s = ring + ((stage * ks_n + my_ks) * 2) * BK * LD;
-      const float* v_s = k_s + BK * LD;
+      const T* k_s = ring + ((stage * ks_n + my_ks) * 2) * BK * LD;
+      const T* v_s = k_s + BK * LD;
       const int k0 = kt * BK;
       // scores: (16 x BK) = q (16 x Dqk) . k^T, two 8-column blocks
       float s[BK / 8][4];
@@ -299,13 +378,14 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
 #pragma unroll
       for (int kk = 0; kk < NB; ++kk) {
         if (kk >= nb_qk) break;
-        const float* qa = qw + g * LD + kk * 8 + t4;
-        const SplitA af({qa[0], qa[8 * LD], qa[4], qa[8 * LD + 4]});
+        const T* qa = qw + g * LD + kk * 8 + t4;
+        const SplitA af({to_f32(qa[0]), to_f32(qa[8 * LD]), to_f32(qa[4]),
+                         to_f32(qa[8 * LD + 4])});
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
-          const float* kb = k_s + (j * 8 + g) * LD + kk * 8 + t4;
-          const float bf[2] = {kb[0], kb[4]};
-          mma_3xtf32(s[j], af, bf);
+          const T* kb = k_s + (j * 8 + g) * LD + kk * 8 + t4;
+          const float bf[2] = {to_f32(kb[0]), to_f32(kb[4])};
+          mma_acc<EXACT, EXACT>(s[j], af, bf);
         }
       }
       // mask, scale, rab, SiLU and 1/S on the fragment; element e of block
@@ -332,12 +412,12 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         const SplitA af({s[j][0], s[j][2], s[j][1], s[j][3]});
-        const float* vb = v_s + (j * 8 + 2 * t4) * LD + g;
+        const T* vb = v_s + (j * 8 + 2 * t4) * LD + g;
 #pragma unroll
         for (int n = 0; n < NB; ++n) {
           if (n >= nb_v) break;
-          const float bf[2] = {vb[n * 8], vb[LD + n * 8]};
-          mma_3xtf32(o[n], af, bf);
+          const float bf[2] = {to_f32(vb[n * 8]), to_f32(vb[LD + n * 8])};
+          mma_acc<false, EXACT>(o[n], af, bf);
         }
       }
     }
@@ -350,7 +430,7 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
   // the k-split's partials, summed in a fixed order through the ring
   if (ks_n > 1) {
     __syncthreads();
-    float* part = ring;   // [rb][ks-1][NB][4][32]
+    float* part = reinterpret_cast<float*>(ring);  // [rb][ks-1][NB][4][32]
     if (my_ks > 0 && wq0 < a.R) {
       float* p = part + ((my_rt * (ks_n - 1) + my_ks - 1) * NB) * 128;
 #pragma unroll
@@ -381,15 +461,17 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs& a,
     for (int e = 0; e < 4; ++e) {
       const int r = wq0 + g + (e >> 1) * 8;
       const int c = n * 8 + 2 * t4 + (e & 1);
-      if (r < a.R && c < a.Dv) a.out[(size_t)r * a.Dv + c] = o[n][e];
+      if (r < a.R && c < a.Dv)
+        a.out[(size_t)r * a.Dv + c] = from_f32<T>(o[n][e]);
     }
   }
 }
 
 // Host side, for the launchers of the .cu files: whether 16-byte copies
-// may be used, and the dynamic shared memory a kernel needs above 48 KB.
-inline bool vec_ok(const void* p0, const void* p1, int d) {
-  return d % 4 == 0 && (((uintptr_t)p0 | (uintptr_t)p1) & 15) == 0;
+// may be used (rows of d elements of es bytes), and the dynamic shared
+// memory a kernel needs above 48 KB.
+inline bool vec_ok(const void* p0, const void* p1, int d, int es = 4) {
+  return d % (16 / es) == 0 && (((uintptr_t)p0 | (uintptr_t)p1) & 15) == 0;
 }
 
 template <class F>

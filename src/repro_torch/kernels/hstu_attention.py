@@ -20,8 +20,19 @@ on CUDA tensors or raises — there is no fallback. Callers reach it through
 the plain torch path for CPU tensors. It refuses inputs that require grad
 under grad mode, so autograd can reach it only through that Function.
 :func:`hstu_attention_plain` (the dense oracle of ``kernels/ref.py``) is
-what the kernel is held against.
-``launch_count`` counts the kernel's launches.
+what the kernel is held against. ``launch_count`` counts the kernel's
+launches.
+
+Dtypes (:data:`DTYPES`): q, k and v are fp32 or bf16, all one dtype, and
+the output comes back in it, as the reference's ``out_shape``. rab is taken
+in that dtype; a table of the other one is cast (it is only (H, 2 *
+max_rel_pos + 1)). bf16 operands launch the kernel's bf16 variant
+(``hstu_attention_fwd_bf16`` in the same source: bf16 in, fp32 inside, one
+rounding to bf16 at the store), one launch, no cast of q, k, v or the
+output; it keeps the probabilities in fp32, as the reference's Pallas
+kernel, so it is held against the plain version on the operands' fp32
+values, rounded once (``kernels/ref.py``'s note). Any other dtype raises
+``TypeError``.
 
 :func:`hstu_attention` and :func:`hstu_attention_prefix` carry the names and
 signatures of the reference module's two entry points (less its TPU
@@ -54,8 +65,10 @@ ROW_TILE = 16            # q rows per warp: a grid row covers 1-4 tiles
 MAX_GRID_Y = 65535
 MAX_REL_POS = 4096       # the rab row lives in shared memory
 MAX_SMEM_BYTES = 227 * 1024
+DTYPES = (torch.float32, torch.bfloat16)   # what the kernels take
 
-# the plain torch version the kernel is held against
+# the plain torch version the kernel is held against (on bf16 operands, on
+# their fp32 values: ``kernels/ref.py``'s note)
 hstu_attention_plain = hstu_attention_ref
 
 launch_count = 0         # kernel launches since the last reset
@@ -133,23 +146,47 @@ def _load():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.hstu_attention_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
-        lib.hstu_attention_fwd.restype = i
-        lib.hstu_attention_fwd_smem_bytes.argtypes = [i] * 4
-        lib.hstu_attention_fwd_smem_bytes.restype = ctypes.c_longlong
+        for name in ("hstu_attention_fwd", "hstu_attention_fwd_bf16"):
+            getattr(lib, name).argtypes = [vp] * 7 + [i] * 8 + [vp]
+            getattr(lib, name).restype = i
+            smem = getattr(lib, name + "_smem_bytes")
+            smem.argtypes = [i] * 4
+            smem.restype = ctypes.c_longlong
         lib.hstu_attention_fwd_error_string.argtypes = [i]
         lib.hstu_attention_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+def symbol(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of kernel ``name`` for operands of ``dtype``."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
+
+
+def check_operand(name: str, t: torch.Tensor, device: torch.device,
+                  dtype: Optional[torch.dtype] = None) -> None:
+    """Raise unless ``t`` is a contiguous tensor on ``device`` of a dtype in
+    :data:`DTYPES` (and of ``dtype``, q's, when given)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got "
+                        f"{t.dtype}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype} but q is {dtype}: the "
+                        f"operands share one dtype")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def rab_operand(rab: Optional[torch.Tensor], dtype: torch.dtype,
+                device: torch.device) -> Optional[torch.Tensor]:
+    """rab in the operands' ``dtype``: a table of the other kernel dtype is
+    cast (it is only (H, 2 * max_rel_pos + 1)), any other dtype raises."""
+    if rab is None:
+        return None
+    check_operand("rab", rab, device)
+    return rab.to(dtype)
 
 
 def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -174,8 +211,9 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         target_counts: torch.Tensor,
                         max_rel_pos: int = 128) -> torch.Tensor:
     """Launch the CUDA kernel. q, k: (B, H, S, Dqk); v: (B, H, S, Dv);
-    rab: (H, 2*max_rel_pos+1) or None; lengths (B,). fp32, contiguous, on
-    one CUDA device; raises on anything the kernel does not take, and on
+    rab: (H, 2*max_rel_pos+1) or None; lengths (B,). fp32 or bf16 (module
+    note), contiguous, on one CUDA device; returns (B, H, S, Dv) in q's
+    dtype. Raises on anything the kernel does not take, and on
     inputs that require grad under grad mode (the output is outside the
     autograd graph: :class:`hstu_attention_bwd.HSTUAttentionFn` is the
     differentiable op)."""
@@ -192,7 +230,7 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, dqk = q.shape
     dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(name, t, device)
+        check_operand(name, t, device, q.dtype)
     if not (0 < dqk <= MAX_D and 0 < dv <= MAX_D):
         raise ValueError(f"Dqk={dqk}, Dv={dv}: the kernel takes 1..{MAX_D}")
     if not 0 <= n_hist <= s:
@@ -203,35 +241,34 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > 2 ** 31 - 1 or -(-s // ROW_TILE) > MAX_GRID_Y \
             or b * h * s * max(dqk, dv) >= 2 ** 62:
         raise ValueError("tensor too large for the kernel's indexing")
+    rab = rab_operand(rab, q.dtype, device)
     use_rab = rab is not None
-    if use_rab:
-        check_operand("rab", rab, device)
-        if tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
-            raise ValueError(f"rab{tuple(rab.shape)} != "
-                             f"({h}, {2 * max_rel_pos + 1})")
+    if use_rab and tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
+        raise ValueError(f"rab{tuple(rab.shape)} != "
+                         f"({h}, {2 * max_rel_pos + 1})")
     if hist_lengths.shape != (b,) or target_counts.shape != (b,):
         raise ValueError("hist_lengths / target_counts must be (B,)")
     hl = hist_lengths.to(device=device, dtype=torch.int32).contiguous()
     tc = target_counts.to(device=device, dtype=torch.int32).contiguous()
-    out = torch.empty((b, h, s, dv), device=device, dtype=torch.float32)
+    out = torch.empty((b, h, s, dv), device=device, dtype=q.dtype)
     if out.numel() == 0:
         return out
     lib = _load()
-    smem = lib.hstu_attention_fwd_smem_bytes(dqk, dv, max_rel_pos,
-                                             int(use_rab))
+    name = symbol("hstu_attention_fwd", q.dtype)
+    smem = getattr(lib, name + "_smem_bytes")(dqk, dv, max_rel_pos,
+                                              int(use_rab))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"needs {smem} B of shared memory per block")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hstu_attention_fwd(
+        err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rab.data_ptr() if use_rab else None, hl.data_ptr(),
             tc.data_ptr(), out.data_ptr(), b, h, s, dqk, dv, n_hist,
             max_rel_pos, int(use_rab), stream)
     if err != 0:
         msg = lib.hstu_attention_fwd_error_string(err).decode()
-        raise RuntimeError(f"hstu_attention_fwd launch failed: {msg} "
-                           f"({err})")
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
     launch_count += 1
     return out
 

@@ -16,8 +16,12 @@ nvcc ``sm_90a`` into ``build/kernels/`` at first use, plain C interface,
 (B3) launch one kernel each on CUDA tensors or raise — there is no fallback;
 :func:`hstu_attention_bwd_cuda` runs both and returns ``(dq, dk, dv, drab)``.
 ``dq_launch_count`` and ``dkv_launch_count`` count their launches.
-:func:`hstu_attention_bwd_plain` (the dense oracle of ``kernels/ref.py``) is
-what they are held against.
+:func:`hstu_attention_bwd_plain` (the dense oracle of ``kernels/ref.py``:
+fp32 inside, each gradient rounded once to its operand's dtype) is what
+they are held against. Dtypes as the forward's (``hstu_attention``'s
+module note): q, k, v and g fp32 or bf16, one dtype; dq, dk and dv come
+back in it and drab in rab's dtype; bf16 through the ``_bf16`` entry
+points.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 from repro_torch.kernels import hstu_attention as fwd
 from repro_torch.kernels.hstu_attention import (MAX_D, MAX_REL_POS,
                                                 MAX_SMEM_BYTES, build_library,
-                                                check_operand)
+                                                check_operand, rab_operand,
+                                                symbol)
 from repro_torch.kernels.ref import hstu_attention_bwd_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "hstu_attention_bwd.cu"
@@ -61,9 +66,10 @@ def _load():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.hstu_attention_bwd_dq.argtypes = [vp] * 9 + [i] * 8 + [vp]
-        lib.hstu_attention_bwd_dkv.argtypes = [vp] * 9 + [i] * 8 + [vp]
-        for name in ("hstu_attention_bwd_dq", "hstu_attention_bwd_dkv"):
+        for name in ("hstu_attention_bwd_dq", "hstu_attention_bwd_dkv",
+                     "hstu_attention_bwd_dq_bf16",
+                     "hstu_attention_bwd_dkv_bf16"):
+            getattr(lib, name).argtypes = [vp] * 9 + [i] * 8 + [vp]
             getattr(lib, name).restype = i
             smem = getattr(lib, name + "_smem_bytes")
             smem.argtypes = [i] * 4
@@ -79,7 +85,8 @@ def _load():
 
 def _checked(q, k, v, rab, n_hist, hist_lengths, target_counts, max_rel_pos,
              g):
-    """Validate the operands both kernels take; returns the int32 lengths."""
+    """Validate the operands both kernels take; returns rab in q's dtype
+    (``rab_operand``) and the int32 lengths."""
     if q.device.type != "cuda":
         raise ValueError(f"the HSTU backward CUDA kernels need CUDA tensors, "
                          f"got {q.device}")
@@ -91,7 +98,7 @@ def _checked(q, k, v, rab, n_hist, hist_lengths, target_counts, max_rel_pos,
     b, h, s, dqk = q.shape
     dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
-        check_operand(name, t, device)
+        check_operand(name, t, device, q.dtype)
     if not (0 < dqk <= MAX_D and 0 < dv <= MAX_D):
         raise ValueError(f"Dqk={dqk}, Dv={dv}: the kernels take 1..{MAX_D}")
     if not 0 <= n_hist <= s:
@@ -102,19 +109,20 @@ def _checked(q, k, v, rab, n_hist, hist_lengths, target_counts, max_rel_pos,
     if b * h > 2 ** 31 - 1 or (s + ROWS - 1) // ROWS > 65535 \
             or b * h * s * max(dqk, dv) >= 2 ** 62:
         raise ValueError("tensor too large for the kernels' indexing")
-    if rab is not None:
-        check_operand("rab", rab, device)
-        if tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
-            raise ValueError(f"rab{tuple(rab.shape)} != "
-                             f"({h}, {2 * max_rel_pos + 1})")
+    rab = rab_operand(rab, q.dtype, device)
+    if rab is not None and tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
+        raise ValueError(f"rab{tuple(rab.shape)} != "
+                         f"({h}, {2 * max_rel_pos + 1})")
     if hist_lengths.shape != (b,) or target_counts.shape != (b,):
         raise ValueError("hist_lengths / target_counts must be (B,)")
-    return (hist_lengths.to(device=device, dtype=torch.int32).contiguous(),
+    return (rab,
+            hist_lengths.to(device=device, dtype=torch.int32).contiguous(),
             target_counts.to(device=device, dtype=torch.int32).contiguous())
 
 
 def _launch(name: str, dqk: int, dv: int, max_rel_pos: int, use_rab: bool,
             device, *args) -> None:
+    """Launch kernel ``name`` (its C entry point for the operands' dtype)."""
     lib = _load()
     smem = getattr(lib, name + "_smem_bytes")(dqk, dv, max_rel_pos,
                                               int(use_rab))
@@ -146,10 +154,10 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     None)``. The kernel writes one partial drab table per (b, h, row
     block) into an (H, nrab, B * row blocks) buffer; they are summed here
     over its last axis in a fixed order (the reference's ``.sum(0)`` over
-    its per-(b, h) partials)."""
+    its per-(b, h) partials) and come back in rab's dtype."""
     global dq_launch_count
-    hl, tc = _checked(q, k, v, rab, n_hist, hist_lengths, target_counts,
-                      max_rel_pos, g)
+    rab_in, hl, tc = _checked(q, k, v, rab, n_hist, hist_lengths,
+                              target_counts, max_rel_pos, g)
     b, h, s, dqk = q.shape
     dv = v.shape[-1]
     use_rab = rab is not None
@@ -161,11 +169,12 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     if dq.numel() == 0:
         return dq, (torch.zeros((h, nrab), device=q.device, dtype=rab.dtype)
                     if use_rab else None)
-    _launch("hstu_attention_bwd_dq", dqk, dv, max_rel_pos, use_rab, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            rab.data_ptr() if use_rab else None, g.data_ptr(), hl.data_ptr(),
-            tc.data_ptr(), dq.data_ptr(), part.data_ptr() if use_rab else None,
-            b, h, s, dqk, dv, n_hist, max_rel_pos, int(use_rab))
+    _launch(symbol("hstu_attention_bwd_dq", q.dtype), dqk, dv, max_rel_pos,
+            use_rab, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            rab_in.data_ptr() if use_rab else None, g.data_ptr(),
+            hl.data_ptr(), tc.data_ptr(), dq.data_ptr(),
+            part.data_ptr() if use_rab else None, b, h, s, dqk, dv, n_hist,
+            max_rel_pos, int(use_rab))
     dq_launch_count += 1
     return dq, (part.sum(-1).to(rab.dtype) if use_rab else None)
 
@@ -178,19 +187,19 @@ def hstu_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch B3: ``(dk (B, H, S, Dqk), dv (B, H, S, Dv))``."""
     global dkv_launch_count
-    hl, tc = _checked(q, k, v, rab, n_hist, hist_lengths, target_counts,
-                      max_rel_pos, g)
+    rab, hl, tc = _checked(q, k, v, rab, n_hist, hist_lengths,
+                           target_counts, max_rel_pos, g)
     b, h, s, dqk = q.shape
     dv_dim = v.shape[-1]
     use_rab = rab is not None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _launch("hstu_attention_bwd_dkv", dqk, dv_dim, max_rel_pos, use_rab,
-            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            rab.data_ptr() if use_rab else None, g.data_ptr(), hl.data_ptr(),
-            tc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, dqk, dv_dim,
-            n_hist, max_rel_pos, int(use_rab))
+    _launch(symbol("hstu_attention_bwd_dkv", q.dtype), dqk, dv_dim,
+            max_rel_pos, use_rab, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), rab.data_ptr() if use_rab else None, g.data_ptr(),
+            hl.data_ptr(), tc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+            s, dqk, dv_dim, n_hist, max_rel_pos, int(use_rab))
     dkv_launch_count += 1
     return dk, dv
 
@@ -202,7 +211,7 @@ def hstu_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                             g: torch.Tensor):
     """B2 then B3 on the same operands: ``(dq, dk, dv, drab)``, drab None
     when rab is None. Same signature as :func:`hstu_attention_bwd_plain`.
-    Operands: fp32, contiguous, on one CUDA device."""
+    Operands: fp32 or bf16, contiguous, on one CUDA device."""
     args = (q, k, v, rab, n_hist, hist_lengths, target_counts, max_rel_pos,
             g)
     dq, drab = hstu_attention_bwd_dq_cuda(*args)
@@ -218,7 +227,9 @@ class HSTUAttentionFn(torch.autograd.Function):
     lengths get no gradient, and rab none when it is None.
 
     ``apply(q, k, v, rab, n_hist, hist_lengths, target_counts,
-    max_rel_pos)``; q, k, v, rab contiguous fp32 on one CUDA device.
+    max_rel_pos)``; q, k, v, rab contiguous fp32 or bf16 (one dtype for q,
+    k and v) on one CUDA device; the output and the gradients in their
+    dtypes.
     """
 
     @staticmethod

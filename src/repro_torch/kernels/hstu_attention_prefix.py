@@ -16,7 +16,9 @@ kernel on CUDA tensors or raises — there is no fallback. Callers reach it
 through ``dispatch.hstu_attention_prefix``, whose auto rung picks it for
 CUDA tensors and the plain torch path for CPU tensors. The wrapper never
 reads the counts back to the host: ``prefix + new <= n_hist`` is the
-caller's contract (the engine checks it on host ints).
+caller's contract (the engine checks it on host ints). Dtypes as the full
+forward's (``hstu_attention``'s module note): fp32 or bf16 operands, the
+output in their dtype, bf16 through ``hstu_attention_prefix_fwd_bf16``.
 :func:`hstu_attention_prefix_plain` (the dense oracle of ``kernels/ref.py``)
 is what the kernel is held against. ``launch_count`` counts its launches.
 """
@@ -30,13 +32,15 @@ import torch
 from repro_torch.kernels.hstu_attention import (MAX_D, MAX_GRID_Y,
                                                 MAX_REL_POS, MAX_SMEM_BYTES,
                                                 ROW_TILE, build_library,
-                                                check_operand, refuse_grad)
+                                                check_operand, rab_operand,
+                                                refuse_grad, symbol)
 from repro_torch.kernels.ref import hstu_attention_prefix_ref
 
 SOURCE = (Path(__file__).resolve().parent / "csrc"
           / "hstu_attention_prefix_fwd.cu")
 
-# the plain torch version the kernel is held against
+# the plain torch version the kernel is held against (on bf16 operands, on
+# their fp32 values: ``kernels/ref.py``'s note)
 hstu_attention_prefix_plain = hstu_attention_prefix_ref
 
 launch_count = 0         # kernel launches since the last reset
@@ -60,10 +64,13 @@ def _load():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.hstu_attention_prefix_fwd.argtypes = [vp] * 8 + [i] * 11 + [vp]
-        lib.hstu_attention_prefix_fwd.restype = i
-        lib.hstu_attention_prefix_fwd_smem_bytes.argtypes = [i] * 4
-        lib.hstu_attention_prefix_fwd_smem_bytes.restype = ctypes.c_longlong
+        for name in ("hstu_attention_prefix_fwd",
+                     "hstu_attention_prefix_fwd_bf16"):
+            getattr(lib, name).argtypes = [vp] * 8 + [i] * 11 + [vp]
+            getattr(lib, name).restype = i
+            smem = getattr(lib, name + "_smem_bytes")
+            smem.argtypes = [i] * 4
+            smem.restype = ctypes.c_longlong
         lib.hstu_attention_prefix_fwd_error_string.argtypes = [i]
         lib.hstu_attention_prefix_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -79,8 +86,9 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
                                max_rel_pos: int = 128) -> torch.Tensor:
     """Launch the CUDA kernel. q: (B, H, n_new + m, Dqk); k: (B, H,
     n_hist + m, Dqk); v: (B, H, n_hist + m, Dv); rab: (H, 2*max_rel_pos+1)
-    or None; counts (B,). fp32, contiguous, on one CUDA device; raises on
-    anything the kernel does not take. Forward only, as in the reference:
+    or None; counts (B,). fp32 or bf16, contiguous, on one CUDA device;
+    returns (B, H, n_new + m, Dv) in q's dtype. Raises on anything the
+    kernel does not take. Forward only, as in the reference:
     raises on inputs that require grad under grad mode."""
     global launch_count
     refuse_grad("hstu_attention_prefix_cuda", q, k, v, rab)
@@ -96,7 +104,7 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
     b, h, n_rows, dqk = q.shape
     n_cols, dv = k.shape[2], v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(name, t, device)
+        check_operand(name, t, device, q.dtype)
     if not (0 < dqk <= MAX_D and 0 < dv <= MAX_D):
         raise ValueError(f"Dqk={dqk}, Dv={dv}: the kernel takes 1..{MAX_D}")
     if not 0 <= n_new <= n_rows:
@@ -111,12 +119,11 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
     if b * h > 2 ** 31 - 1 or -(-n_rows // ROW_TILE) > MAX_GRID_Y \
             or b * h * max(n_rows, n_cols) * max(dqk, dv) >= 2 ** 62:
         raise ValueError("tensor too large for the kernel's indexing")
+    rab = rab_operand(rab, q.dtype, device)
     use_rab = rab is not None
-    if use_rab:
-        check_operand("rab", rab, device)
-        if tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
-            raise ValueError(f"rab{tuple(rab.shape)} != "
-                             f"({h}, {2 * max_rel_pos + 1})")
+    if use_rab and tuple(rab.shape) != (h, 2 * max_rel_pos + 1):
+        raise ValueError(f"rab{tuple(rab.shape)} != "
+                         f"({h}, {2 * max_rel_pos + 1})")
     counts = []
     for name, t in (("prefix_lengths", prefix_lengths),
                     ("new_counts", new_counts),
@@ -125,17 +132,18 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} must be (B,) = ({b},), got "
                              f"{tuple(t.shape)}")
         counts.append(t.to(device=device, dtype=torch.int32).contiguous())
-    out = torch.empty((b, h, n_rows, dv), device=device, dtype=torch.float32)
+    out = torch.empty((b, h, n_rows, dv), device=device, dtype=q.dtype)
     if out.numel() == 0:
         return out
     lib = _load()
-    smem = lib.hstu_attention_prefix_fwd_smem_bytes(dqk, dv, max_rel_pos,
-                                                    int(use_rab))
+    name = symbol("hstu_attention_prefix_fwd", q.dtype)
+    smem = getattr(lib, name + "_smem_bytes")(dqk, dv, max_rel_pos,
+                                              int(use_rab))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"needs {smem} B of shared memory per block")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hstu_attention_prefix_fwd(
+        err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rab.data_ptr() if use_rab else None, counts[0].data_ptr(),
             counts[1].data_ptr(), counts[2].data_ptr(), out.data_ptr(), b,
@@ -143,7 +151,6 @@ def hstu_attention_prefix_cuda(q: torch.Tensor, k: torch.Tensor,
             max_rel_pos, int(use_rab), stream)
     if err != 0:
         msg = lib.hstu_attention_prefix_fwd_error_string(err).decode()
-        raise RuntimeError(f"hstu_attention_prefix_fwd launch failed: {msg} "
-                           f"({err})")
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
     launch_count += 1
     return out

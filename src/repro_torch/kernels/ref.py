@@ -3,6 +3,17 @@
 The HSTU forward, its backward, the cached-prefix forward, the embedding
 bag (forward, COO-row backward, max-pooling backward) and the DLRM dot
 interaction oracles: one for each of the reference's kernels.
+
+bf16 semantics of the HSTU oracles. The forward oracles (the
+``torch-dense`` backend) compute the scores and the probabilities in fp32
+and, as the reference's oracles and jnp routes, round the probabilities to
+v's dtype before the product with v, which sums in fp32 and rounds once.
+The HSTU kernels keep the probabilities in fp32, as the reference's Pallas
+kernel does: their function is the forward oracle on the operands' fp32
+values (:func:`as_f32`, exact for bf16) with the output rounded once to
+the operands' dtype, and that is what a bf16 kernel is held against. The
+backward oracle computes in fp32 on the operands' values and rounds each
+gradient once to its operand's dtype: the backward kernels' function.
 """
 from __future__ import annotations
 
@@ -14,6 +25,14 @@ import torch.nn.functional as F
 
 from repro_torch.core.masks import PrefixMaskSpec, roo_batch_mask
 from repro_torch.embeddings.sparse import gather_rows
+
+
+def as_f32(*tensors: Optional[torch.Tensor]) -> tuple:
+    """Each tensor widened to at least fp32 (None stays None; fp32 and fp64
+    tensors are returned as they are): bf16 values are exact in fp32."""
+    return tuple(None if t is None else
+                 t.to(torch.promote_types(t.dtype, torch.float32))
+                 for t in tensors)
 
 
 def hstu_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,8 +88,11 @@ def hstu_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dk = dsᵀ q / sqrt(Dqk)``, ``dv = aᵀ g``; ``drab[h, t]`` sums ds over
     the batch and every cell whose clipped delta
     ``clip(i - j, -max_rel, max_rel) + max_rel`` is t. Returns
-    ``(dq, dk, dv, drab)``; drab is None when rab is None.
+    ``(dq, dk, dv, drab)``; drab is None when rab is None. fp32 inside on
+    bf16 operands, each gradient rounded once to its operand's dtype.
     """
+    dtypes = (q.dtype, k.dtype, v.dtype, None if rab is None else rab.dtype)
+    q, k, v, rab, g = as_f32(q, k, v, rab, g)
     b, h, s, dqk = q.shape
     device = q.device
     inv_d = 1.0 / math.sqrt(dqk)
@@ -95,8 +117,8 @@ def hstu_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # no atomics and no host sync on the card
         bins = torch.arange(2 * max_rel_pos + 1, device=device)
         onehot = (delta.reshape(-1, 1) == bins).to(ds.dtype)
-        drab = (ds.sum(0).reshape(h, s * s) @ onehot).to(rab.dtype)
-    return dq, dk, dv, drab
+        drab = (ds.sum(0).reshape(h, s * s) @ onehot).to(dtypes[3])
+    return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2]), drab
 
 
 def hstu_attention_prefix_ref(q: torch.Tensor, k: torch.Tensor,

@@ -15,6 +15,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.hstu import normal_init
+from repro_torch.core.promote import matmul
 from repro_torch.kernels import dot_interaction as _dot
 
 
@@ -53,8 +54,8 @@ def dcnv2_apply(params: Dict, x0: torch.Tensor) -> torch.Tensor:
     x = x0
     for lyr in params["layers"]:
         if "u" in lyr:
-            wx = (x @ lyr["u"]) @ lyr["v"] + lyr["b"]
+            wx = matmul(matmul(x, lyr["u"]), lyr["v"]) + lyr["b"]
         else:
-            wx = x @ lyr["w"] + lyr["b"]
+            wx = matmul(x, lyr["w"]) + lyr["b"]
         x = x0 * wx + x
     return x

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.fanout import fanout
 from repro_torch.core.hstu import normal_init
+from repro_torch.core.promote import einsum, matmul
 from repro_torch.core.roo_batch import ROOBatch
 from repro_torch.embeddings import collection as ec
 
@@ -64,7 +65,7 @@ def interest_capsules(params: Dict, cfg: MINDConfig, hist_ids: torch.Tensor,
     kk = cfg.n_interests
     e = ec.seq_lookup(params["item_emb"], hist_ids, vocab=cfg.n_items,
                       plan=plan)                             # (B,T,d)
-    eh = e @ params["S"]                                     # low-level caps
+    eh = matmul(e, params["S"])                              # low-level caps
     dev = eh.device
     valid = torch.arange(t, device=dev)[None] < lengths[:, None]
     # a fixed pseudo-random pattern of initial routing logits keeps steps
@@ -75,9 +76,9 @@ def interest_capsules(params: Dict, cfg: MINDConfig, hist_ids: torch.Tensor,
     blog = binit[None].expand(b, t, kk)
     for _ in range(cfg.capsule_iters):
         w = torch.softmax(torch.where(valid[..., None], blog, -1e9), dim=-1)
-        cand = torch.einsum("btk,btd->bkd", w, eh)
+        cand = einsum("btk,btd->bkd", w, eh)
         caps = _squash(cand)
-        blog = blog + torch.einsum("bkd,btd->btk", caps.detach(), eh)
+        blog = blog + einsum("bkd,btd->btk", caps.detach(), eh)
     return caps                                              # (B,K,d)
 
 
@@ -93,7 +94,7 @@ def score_candidates_roo(params: Dict, cfg: MINDConfig,
     caps_nro = fanout(_capsules(params, cfg, batch),
                       batch.segment_ids)                     # (B_NRO,K,d)
     tgt = ec.row_lookup(params["item_emb"], batch.item_ids, vocab=cfg.n_items)
-    scores = torch.einsum("bkd,bd->bk", caps_nro, tgt)       # (B_NRO,K)
+    scores = einsum("bkd,bd->bk", caps_nro, tgt)             # (B_NRO,K)
     return torch.amax(scores, dim=-1)                        # serving rule
 
 
@@ -113,9 +114,9 @@ def mind_loss(params: Dict, cfg: MINDConfig, batch: ROOBatch,
     tgt = ec.row_lookup(params["item_emb"], batch.item_ids, vocab=cfg.n_items)
     caps_nro = fanout(caps, batch.segment_ids)               # (B_NRO,K,d)
     att = torch.softmax(
-        cfg.pow_p * torch.einsum("bkd,bd->bk", caps_nro, tgt), dim=-1)
-    u = torch.einsum("bk,bkd->bd", att, caps_nro)            # label-aware user
-    logits = (u @ tgt.T) / temperature                       # (B_NRO, B_NRO)
+        cfg.pow_p * einsum("bkd,bd->bk", caps_nro, tgt), dim=-1)
+    u = einsum("bk,bkd->bd", att, caps_nro)                  # label-aware user
+    logits = matmul(u, tgt.T) / temperature                  # (B_NRO, B_NRO)
     valid = batch.impression_mask()
     logits = torch.where(valid[None, :], logits, -1e9)
     pos_logp = torch.diagonal(torch.log_softmax(logits, dim=-1))

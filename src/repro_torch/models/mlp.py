@@ -6,6 +6,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from repro_torch.core.hstu import normal_init
+from repro_torch.core.promote import matmul
 
 
 def mlp_init(gen: torch.Generator, dims: Sequence[int], dtype=torch.float32,
@@ -25,7 +26,7 @@ def mlp_apply(params: Dict, x: torch.Tensor,
               final_activation: Optional[Callable] = None) -> torch.Tensor:
     n = len(params["layers"])
     for i, lyr in enumerate(params["layers"]):
-        x = x @ lyr["w"] + lyr["b"]
+        x = matmul(x, lyr["w"]) + lyr["b"]
         if i < n - 1:
             x = activation(x)
         elif final_activation is not None:

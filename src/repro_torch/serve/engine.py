@@ -23,9 +23,11 @@ port of ``repro/serve/engine.py``).
     every miss recomputes from empty through the same prefix path.
 
 Batches are packed on the host and moved to ``device`` once; scores come
-back to the host as numpy arrays. User states and cached user-tower rows
-live on the host as numpy; per batch, each state leaf is stacked and copied
-to the card once, and copied back once.
+back to the host as float32 numpy arrays (a bf16 model's scores widened on
+the host). User states and cached user-tower rows live on the host as numpy
+(:func:`host_copy`: a bf16 tensor as its bits, two bytes an element, since
+numpy has no bfloat16); per batch, each state leaf is stacked and copied to
+the card once, and copied back once, bit for bit.
 
 Observability (``repro_torch.obs``) mirrors the reference: the engine
 registers its ``snapshot`` as ``serve.engine``; in ``metrics`` mode each
@@ -59,6 +61,28 @@ from repro_torch.serve.adapter import ServeAdapter
 from repro_torch.serve.bucketing import BucketLadder, BucketStats
 from repro_torch.serve.user_cache import (StateProbe, UserStateStore,
                                           UserTowerCache, request_key)
+
+
+# numpy has no bfloat16: a bf16 tensor's host copy holds its bits under a
+# one-field dtype that names them, so a store row knows what it holds
+BF16_BITS = np.dtype([("bfloat16", np.uint16)])
+
+
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to host numpy (a bf16 tensor as its bits, in
+    :data:`BF16_BITS`)."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
+
+
+def device_copy(a: np.ndarray, device) -> torch.Tensor:
+    """The inverse of :func:`host_copy`, onto ``device``: the same bits."""
+    if a.dtype == BF16_BITS:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 class ScoreError:
@@ -499,7 +523,7 @@ class ScoringEngine:
         faults.maybe_fail("engine.score")   # injected forward failure
         with use_backend(self.attn_backend), torch.inference_mode():
             scores = self._score_batch_device(batch, samples, plan)
-        out = scores.detach().to("cpu").numpy()
+        out = scores.detach().to("cpu").float().numpy()
         self._score_tail = out.shape[1:]
         return out
 
@@ -520,11 +544,11 @@ class ScoringEngine:
             u_host = np.zeros((batch.b_ro,) + any_row.shape, any_row.dtype)
             for row, v in cached.items():
                 u_host[row] = v
-            user = torch.from_numpy(u_host).to(self.device)
+            user = device_copy(u_host, self.device)
             self.stats.inc("n_full_cache_batches")
         else:
             user = self._user(self.params, batch)
-            u_host = user.detach().to("cpu").numpy()
+            u_host = host_copy(user)
             for row, k in keys.items():
                 self.cache.put(k, u_host[row], epoch)
         return self._from_user(self.params, batch, user)
@@ -578,14 +602,13 @@ class ScoringEngine:
         template = self._state_template
         rows = [probes[r].state if r in probes and probes[r].state is not None
                 else template for r in range(b_ro)]
-        return template._make(torch.from_numpy(np.stack(leaves)).to(
-            self.device) for leaves in zip(*rows))
+        return template._make(device_copy(np.stack(leaves), self.device)
+                              for leaves in zip(*rows))
 
     @staticmethod
     def _states_to_host(state):
         """The state record with each leaf copied to host numpy once."""
-        return state._make(leaf.detach().to("cpu").numpy()
-                           for leaf in state)
+        return state._make(host_copy(leaf) for leaf in state)
 
     def _put_states(self, samples: List[ROOSample], plan: BatchPlan,
                     probes: Dict[int, StateProbe], new_host,
