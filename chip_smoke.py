@@ -341,6 +341,34 @@ Phases (any failure exits non-zero and prints no result):
                    through B1-B3 against the CPU; requests/s and steps/s
                    beside the fp32 phases'; bf16 and fp32 kernel times in
                    turns at the same shapes
+ 25. bf16 bags   — (runs after phase 17's other archs, before the times
+                   phases and phases 18-23) the bag models with bf16 tables
+                   and bf16 state at rest, each wrapper's operand dtypes
+                   recorded: dlrm-mlperf at the 2**21 cap in bf16 (4.0 GB of
+                   tables) scores 16 batches of 128 / 512 (B5 2 a forward
+                   in bf16, B7 1 on fp32 operands: a bf16 dlrm's bottom MLP
+                   output is fp32, and the interaction promotes as the
+                   reference's concatenation does), vs the plain backends
+                   and, at the 2**14 cap, the CPU, and the impression-level
+                   forward (B7 once, fp32) vs ROO; 20 dense training steps
+                   of 2,048 / 8,192 and 20 on sparse rows (B5 2, B6 2, B7 1
+                   a step, no skipped step, each step's loss vs the plain
+                   backends on its own params, the tables bf16 and on
+                   sparse rows only rows the batches name moved), steps/s
+                   and peak memory beside the fp32 phases'; roo-lsr
+                   ``userarch`` and ``baseline`` in bf16 serving stateless
+                   and through the user-tower cache (B5 = batches; pass 2
+                   none) and training 20 steps, and the two-tower ``"mlp"``
+                   tower 20 steps (B5 = steps + NE, B6 = steps), each vs the
+                   plain backends and the CPU and a second run bit for bit;
+                   a bf16 hstu-gr Trainer killed after step 12 and restarted
+                   from its bf16 checkpoint, bit for bit the uninterrupted
+                   run, the checkpoint's bytes beside an fp32 state's, and
+                   params_to_numpy of the bf16 tree and back bit for bit;
+                   B5 / B6 in bf16 timed at dlrm's scoring and training
+                   shapes and at lsr's beside the fp32 kernel, plain, the
+                   library calls and the bound at 2-byte rows. bf16
+                   tolerance: 2e-2 (atol and rtol), the reference's
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
 matmuls and cuDNN; kernel and plain versions then differ only in summation
@@ -1335,8 +1363,9 @@ def phase_serve(kmod, device) -> dict:
                 requests=requests, scores=scores)
 
 
-def max_diff_ok(got, want, what: str) -> float:
-    """Largest |got - want| over aligned score lists; fails beyond 1e-4."""
+def max_diff_ok(got, want, what: str, tol: float = LOGIT_TOL) -> float:
+    """Largest |got - want| over aligned score lists; fails beyond ``tol``
+    (atol and rtol; 1e-4 by default)."""
     import numpy as np
     from repro_torch.serve.engine import ScoreError
     if len(got) != len(want) or any(isinstance(g, ScoreError)
@@ -1344,8 +1373,7 @@ def max_diff_ok(got, want, what: str) -> float:
         raise SystemExit(f"{what}: misaligned results or a ScoreError")
     diff = max(float(np.abs(a - b).max(initial=0.0))
                for a, b in zip(got, want))
-    if not all(a.shape == b.shape and np.allclose(a, b, atol=LOGIT_TOL,
-                                                  rtol=LOGIT_TOL)
+    if not all(a.shape == b.shape and np.allclose(a, b, atol=tol, rtol=tol)
                for a, b in zip(got, want)):
         raise SystemExit(f"{what}: scores disagree (max |diff| {diff:.3e})")
     return diff
@@ -2607,19 +2635,22 @@ def bound_bag(x, which: str) -> tuple:
     that repeats need not move twice), the ids and lengths, the (B, D)
     output; its operations one add per kept element (and a divide per
     output). B6 bytes: g, the ids and lengths read, all B·L·D rows and B·L
-    ids written; one multiply per row element."""
+    ids written; one multiply per row element. Rows, outputs, g and the
+    COO rows at the table's element size (2 bytes in bf16), ids and
+    lengths at 4."""
     import torch
     b, l = x["ids"].shape
     v, d = x["table"].shape
+    es = x["table"].element_size()
     n = x["lens"].clamp(0, l)
     kept = int(n.sum())
     if which == "fwd":
         valid = torch.arange(l, device=n.device)[None, :] < n[:, None]
         rows = int(x["ids"].long().clamp(0, v - 1)[valid].unique().numel())
-        n_bytes = 4 * (rows * d + b * l + b + b * d)
+        n_bytes = es * (rows * d + b * d) + 4 * (b * l + b)
         ops = kept * d + b * d
     else:
-        n_bytes = 4 * (b * d + b * l + b + b * l * d + b * l)
+        n_bytes = es * (b * d + b * l * d) + 4 * (b * l + b + b * l)
         ops = b * l * d
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -3102,10 +3133,11 @@ def dlrm_spec(seed: int, b_ro: int, b_nro: int):
                                     "batcher.b_nro": b_nro})
 
 
-def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8):
+def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8,
+               dtype=None):
     """dlrm-mlperf training: the scenario's optimizer and BCE loss on
     ``synthetic_dlrm_batches`` (made on the host, copied per step); params
-    from a generator on ``init_device``."""
+    from a generator on ``init_device`` (in ``dtype``: fp32 by default)."""
     import torch
     from repro_torch.models.dlrm import dlrm_forward_roo, dlrm_init
     from repro_torch.scenario.build import synthetic_dlrm_batches
@@ -3113,7 +3145,7 @@ def dlrm_setup(cfg, b_ro, b_nro, device, init_device, seed=1, n_batches=8):
 
     def init():
         return dlrm_init(torch.Generator(device=init_device).manual_seed(0),
-                         cfg, device=device)
+                         cfg, dtype=dtype or torch.float32, device=device)
     return dict(
         cfg=cfg, batches=synthetic_dlrm_batches(
             dlrm_spec(seed, b_ro, b_nro), cfg, n_batches, device="cpu"),
@@ -3412,11 +3444,11 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
                 breakdown=breakdown)
 
 
-def dlrm_sparse_setup(cfg, b_ro, b_nro, device, init_device):
+def dlrm_sparse_setup(cfg, b_ro, b_nro, device, init_device, dtype=None):
     """``dlrm_setup`` on sparse rows: the batches' ids declared per table
     by ``dlrm_table_ids``."""
     from repro_torch.models.dlrm import dlrm_table_ids
-    setup = dlrm_setup(cfg, b_ro, b_nro, device, init_device)
+    setup = dlrm_setup(cfg, b_ro, b_nro, device, init_device, dtype=dtype)
     return dict(setup, table_ids=lambda b: dlrm_table_ids(
         cfg, b["ro_ids"], b["nro_ids"]))
 
@@ -3816,13 +3848,13 @@ def shared_init(init):
     return once
 
 
-def tt_setup(device, kind="esr", hstu=True):
+def tt_setup(device, kind="esr", hstu=True, dtype=None):
     """roo-esr / roo-retrieval at ``esr_config`` / ``retrieval_config``
     width in ``"hstu"`` or ``"mlp"`` user-tower mode (seeded random
     params, made once), the scenario's optimizer, ESR's NE metric, the
     train batches, ``two_tower_table_ids`` for sparse rows, and the
     serving halves (retrieval scores: the reference scenario's
-    ``_fanout_scores``)."""
+    ``_fanout_scores``); params in ``dtype`` (fp32 by default)."""
     import torch
     from repro_torch.configs.roo_models import esr_config, retrieval_config
     from repro_torch.models import two_tower as tt
@@ -3844,7 +3876,8 @@ def tt_setup(device, kind="esr", hstu=True):
         cfg=cfg, batches=train_batches(cfg.n_items, cfg.hist_len), loss=loss,
         opt=mixed_optimizer(), ne=ne,
         init=shared_init(lambda: tt.two_tower_init(
-            torch.Generator().manual_seed(0), cfg, device=device)),
+            torch.Generator().manual_seed(0), cfg,
+            dtype=dtype or torch.float32, device=device)),
         sparse_ids=lambda b: tt.two_tower_table_ids(cfg, b),
         score=lambda p, b: from_user(p, b, user_fn(p, b)), user_fn=user_fn,
         score_from_user=from_user,
@@ -3925,7 +3958,7 @@ def expected_train_launches(route: str, n_layers: int, steps: int,
 
 
 def phase_arch_train(tag, make_setup, route, mods, device, card,
-                     sparse=True, steps=20) -> dict:
+                     sparse=True, steps=20, tol=None, profile=True) -> dict:
     """One arch's Trainer, ``steps`` steps dense and (``sparse``) on sparse
     rows, from one shared init tree: the launch counts of ``route``
     (``expected_train_launches``), no skipped step, each step's loss
@@ -3934,8 +3967,10 @@ def phase_arch_train(tag, make_setup, route, mods, device, card,
     and the densified gradients vs the dense path's after the run; a
     second run from the same tree bit for bit; steps/s of a third run.
     The last mode run (sparse where there is one) also gets a per-stage
-    breakdown and the card's busy share (``busy_share``). Returns per mode
-    the launches and rates."""
+    breakdown and the card's busy share (``busy_share``) unless
+    ``profile`` is false. Losses are held at atol 1e-6 / rtol LOSS_TOL, or
+    at ``tol`` (atol and rtol) where given. Returns per mode the launches
+    and rates."""
     import numpy as np
     import torch
     from repro_torch.tree import tree_map
@@ -3976,7 +4011,10 @@ def phase_arch_train(tag, make_setup, route, mods, device, card,
                           ("the CPU", "cpu")):
             other = torch.stack(shadows[key]).cpu()
             diff = float((losses - other).abs().max())
-            ok = torch.allclose(losses, other, atol=1e-6, rtol=LOSS_TOL)
+            ok = torch.allclose(losses, other, atol=1e-6, rtol=LOSS_TOL) \
+                if tol is None else torch.allclose(losses.float(),
+                                                   other.float(), atol=tol,
+                                                   rtol=tol)
             print(f"[{tag}] {mode}: per-step losses vs {what} on the same "
                   f"params and batch: max|diff| {diff:.3e} ok={ok}")
             if not ok:
@@ -4008,7 +4046,7 @@ def phase_arch_train(tag, make_setup, route, mods, device, card,
               f"({steps / wall:.2f} steps/s, "
               f"{steps * req_per_batch / wall:.1f} requests/s; Trainer.run "
               f"incl. init and {n_metric} NE forwards)")
-        if mode != modes[-1]:
+        if mode != modes[-1] or not profile:
             continue
         (parts,) = step_breakdown(run, device, state, steps=10, rounds=1)
         busy = busy_share(lambda: run_trainer(run, device, 10,
@@ -4073,14 +4111,15 @@ def busy_text(b: dict, what: str = "a 10-step run") -> str:
 
 
 def phase_arch_serve(tag, setup, route, mods, device, card,
-                     cache=False) -> dict:
+                     cache=False, tol=LOGIT_TOL) -> dict:
     """One arch's stateless ``ROOServer`` over the simulated stream (16
     batches of 64 x 512): no failed batch, scores aligned and finite,
-    launches (hstu tower: B1 = n_layers x batches; none elsewhere) and
-    scores within 1e-4 of the plain backends on the card and of a CPU
-    server; with ``cache`` the user-tower cache over the stream twice
-    (pass 1: B1 = n_layers x computed batches; pass 2 all full-cache, B1
-    0, the same scores). Returns the launches and rates."""
+    launches (hstu tower: B1 = n_layers x batches; the history bag: B5 =
+    batches; none elsewhere) and scores within ``tol`` (1e-4) of the
+    plain backends on the card and of a CPU server; with ``cache`` the
+    user-tower cache over the stream twice (pass 1: B1 = n_layers x, or
+    B5 = 1 x, computed batches; pass 2 all full-cache, no launch, the same
+    scores). Returns the launches and rates."""
     import numpy as np
     from repro_torch.interop import params_from_numpy, params_to_numpy
     from repro_torch.kernels import dispatch
@@ -4102,12 +4141,14 @@ def phase_arch_serve(tag, setup, route, mods, device, card,
           f"({len(requests) / wall:.1f} requests/s), {st.n_batches} batches "
           f"{st.buckets.snapshot()['counts']}; launches {got}")
     if st.n_failed_batches or len(scores) != len(requests) or any(
-            s.shape != (r.num_impressions,) or not np.isfinite(s).all()
+            s.shape != (r.num_impressions,) + setup.get("score_shape", ())
+            or not np.isfinite(s).all()
             for r, s in zip(requests, scores)):
         raise SystemExit(f"{tag}: a failed batch, or scores misaligned or "
                          f"not finite")
     want = dict.fromkeys(got, 0)
-    want["b1"] = n_layers * st.n_batches
+    key, per_batch = ("b5", 1) if route == "bag" else ("b1", n_layers)
+    want[key] = per_batch * st.n_batches
     if got != want:
         raise SystemExit(f"{tag}: launches {got} are not {want}")
     dispatch.set_default_backend("torch-dense")
@@ -4121,15 +4162,16 @@ def phase_arch_serve(tag, setup, route, mods, device, card,
     if all_counts(mods) != got:
         raise SystemExit(f"{tag}: the plain-backend server launched a "
                          f"kernel")
-    d_plain = max_diff_ok(scores, plain, f"{tag} vs the plain backends")
+    d_plain = max_diff_ok(scores, plain, f"{tag} vs the plain backends",
+                          tol)
     cpu_params = params_from_numpy(params_to_numpy(params), "cpu")
     cpu = ROOServer(cpu_params, score, serve_cfg,
                     device="cpu").score_requests(requests[:48])
-    d_cpu = max_diff_ok(scores[:48], cpu, f"{tag} vs a CPU server")
+    d_cpu = max_diff_ok(scores[:48], cpu, f"{tag} vs a CPU server", tol)
     print(f"[{tag}] max|card - plain backends| over scores {d_plain:.3e}; "
           f"max|card - CPU| over 48 requests {d_cpu:.3e}")
     out = dict(launches=got, requests_per_s=len(requests) / wall,
-               n_batches=st.n_batches)
+               n_batches=st.n_batches, max_abs_err=max(d_plain, d_cpu))
     if not cache:
         return out
     cached = ROOServer(
@@ -4141,27 +4183,30 @@ def phase_arch_serve(tag, setup, route, mods, device, card,
     reset_counts(mods)
     first, first_s = serve_waves(cached, [requests])
     cs = cached.stats
-    batches_1, full_1, b1_1 = (cs.n_batches, cs.n_full_cache_batches,
-                               all_counts(mods)["b1"])
+    batches_1, full_1, n_1 = (cs.n_batches, cs.n_full_cache_batches,
+                              all_counts(mods)[key])
     second, second_s = serve_waves(cached, [requests])
     batches_2 = cs.n_batches - batches_1
     full_2 = cs.n_full_cache_batches - full_1
-    b1_2 = all_counts(mods)["b1"] - b1_1
+    n_2 = all_counts(mods)[key] - n_1
+    name = key.upper()
     print(f"[{tag} cache] pass 1: {first_s * 1e3:.1f} ms "
           f"({len(requests) / first_s:.1f} requests/s), {batches_1} "
-          f"batches, {full_1} full-cache, B1 {b1_1}; pass 2: "
+          f"batches, {full_1} full-cache, {name} {n_1}; pass 2: "
           f"{second_s * 1e3:.1f} ms ({len(requests) / second_s:.1f} "
-          f"requests/s), {batches_2} batches, {full_2} full-cache, B1 "
-          f"{b1_2}")
-    if full_2 != batches_2 or batches_2 == 0 or b1_2 \
-            or b1_1 != n_layers * (batches_1 - full_1) \
+          f"requests/s), {batches_2} batches, {full_2} full-cache, {name} "
+          f"{n_2}")
+    if full_2 != batches_2 or batches_2 == 0 or n_2 \
+            or n_1 != per_batch * (batches_1 - full_1) \
             or cs.n_failed_batches:
         raise SystemExit(f"{tag} cache: the second pass was not all "
-                         f"full-cache with 0 B1 launches, or pass 1 "
-                         f"launched B1 other than n_layers x computed "
-                         f"batches")
-    d_pass = max_diff_ok(second, first, f"{tag} cache pass 2 vs pass 1")
-    d_stateless = max_diff_ok(first, scores, f"{tag} cache vs stateless")
+                         f"full-cache with 0 {name} launches, or pass 1 "
+                         f"launched {name} other than {per_batch} x "
+                         f"computed batches")
+    d_pass = max_diff_ok(second, first, f"{tag} cache pass 2 vs pass 1",
+                         tol)
+    d_stateless = max_diff_ok(first, scores, f"{tag} cache vs stateless",
+                              tol)
     print(f"[{tag} cache] max|pass 2 - pass 1| {d_pass:.3e}, max|cache "
           f"path - stateless| {d_stateless:.3e}")
     return dict(out, cached_requests_per_s=len(requests) / second_s)
@@ -7495,6 +7540,714 @@ def phase_bf16(kmod, pmod, bmod, device, card: str, f32: dict) -> dict:
     return dict(worst=worst, serve=serve, train=train, times=times)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: bf16 bags and bf16 state
+# ---------------------------------------------------------------------------
+
+BF16_BAG_TOL = 2e-2           # bf16 bag models' logits, scores and losses vs
+                              # the plain backends and the CPU (atol and
+                              # rtol: the reference's bf16 tolerance)
+
+
+@contextlib.contextmanager
+def operand_dtypes(emod, dmod):
+    """While the block runs, records the dtype of each B5 launch's tables,
+    each B6 launch's g and each B7 launch's two operands (``seen["b5" |
+    "b6" | "b7"]``): the raw wrappers, which the autograd Functions look up
+    at call time, wrapped; the launch counts are the wrappers' own."""
+    seen = {"b5": [], "b6": [], "b7": []}
+    fwd = emod.embedding_bag_grouped_fwd_cuda
+    coo = emod.embedding_bag_grouped_coo_rows_cuda
+    dot = dmod.dot_interaction_cuda
+
+    def fwd_seen(tables, *args, **kw):
+        seen["b5"].append(tables[0].dtype)
+        return fwd(tables, *args, **kw)
+
+    def coo_seen(g, *args, **kw):
+        seen["b6"].append(g.dtype)
+        return coo(g, *args, **kw)
+
+    def dot_seen(dense, sparse, *args, **kw):
+        seen["b7"].append((dense.dtype, sparse.dtype))
+        return dot(dense, sparse, *args, **kw)
+    emod.embedding_bag_grouped_fwd_cuda = fwd_seen
+    emod.embedding_bag_grouped_coo_rows_cuda = coo_seen
+    dmod.dot_interaction_cuda = dot_seen
+    try:
+        yield seen
+    finally:
+        emod.embedding_bag_grouped_fwd_cuda = fwd
+        emod.embedding_bag_grouped_coo_rows_cuda = coo
+        dmod.dot_interaction_cuda = dot
+
+
+def check_operand_dtypes(tag: str, seen: dict) -> None:
+    """Every recorded B5 / B6 launch in bf16, every B7 launch on two fp32
+    operands (a bf16 dlrm's interaction promotes, as the reference's)."""
+    import torch
+    bags = seen["b5"] + seen["b6"]
+    print(f"[{tag}] operand dtypes: B5 {sorted(set(map(str, seen['b5'])))} "
+          f"x {len(seen['b5'])}, B6 {sorted(set(map(str, seen['b6'])))} x "
+          f"{len(seen['b6'])}, B7 {sorted(set(map(str, seen['b7'])))} x "
+          f"{len(seen['b7'])}")
+    if any(d != torch.bfloat16 for d in bags) or any(
+            pair != (torch.float32, torch.float32) for pair in seen["b7"]):
+        raise SystemExit(f"{tag}: a bag kernel launched on other than bf16 "
+                         f"operands, or B7 on other than two fp32 ones")
+
+
+def bag_close(tag: str, got, want) -> float:
+    """max |got - want| of two tensors (or lists of them) in fp32; fails
+    beyond BF16_BAG_TOL (atol and rtol)."""
+    import torch
+    pairs = list(zip(got, want)) if isinstance(got, list) else [(got, want)]
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    ok = all(a.shape == b.shape and torch.allclose(
+        a.float(), b.float(), atol=BF16_BAG_TOL, rtol=BF16_BAG_TOL)
+        for a, b in pairs)
+    print(f"[{tag}] max|diff| {diff:.3e} ok={ok}")
+    if not ok:
+        raise SystemExit(f"{tag}: disagrees beyond {BF16_BAG_TOL}")
+    return diff
+
+
+def phase_bf16_dlrm_score(dmod, emod, hstu_mods, device, card: str,
+                          f32: dict) -> dict:
+    """dlrm-mlperf scoring with bf16 tables (phase 25a): 16 batches at
+    serve_p99 (128 / 512) through B5 in bf16 (one grouped launch a side)
+    and B7 in fp32 (the bottom MLP's output is fp32, so the interaction
+    promotes, as the reference's concatenation does); logits vs the plain
+    backends on the card and, at DLRM_CPU_CAP, the CPU; the
+    impression-level forward (B7 once, on fp32 operands: C10) vs ROO;
+    impressions/s beside the fp32 phase's."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.dlrm import (dlrm_forward_impression,
+                                         dlrm_forward_roo, dlrm_init)
+    from repro_torch.scenario.build import synthetic_dlrm_batches
+    from repro_torch.tree import tree_map
+    tag, bf16 = "bf16 dlrm score", torch.bfloat16
+    cfg = dlrm_config(DLRM_CAP)
+    n_batches, b_ro, b_nro = 16, 128, 512
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = dlrm_init(torch.Generator(device=device).manual_seed(0), cfg,
+                       dtype=bf16, device=device)
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in params["tables"].values())
+    batches = synthetic_dlrm_batches(dlrm_spec(0, b_ro, b_nro), cfg,
+                                     n_batches, device=device)
+    score = lambda b: dlrm_forward_roo(params, cfg, *dlrm_roo_args(b))
+    print(f"[{tag}] {dlrm_describe(cfg)}; in bf16 {table_bytes} B of tables "
+          f"({table_bytes / 1e9:.2f} GB); {n_batches} batches of {b_ro} "
+          f"requests / {b_nro} impressions")
+    with torch.no_grad(), operand_dtypes(emod, dmod) as seen:
+        score(batches[0])                                     # warm-up
+        torch.cuda.synchronize()
+        reset_counts((dmod, emod) + hstu_mods)
+        t0 = time.perf_counter()
+        logits = [score(b) for b in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(b7=dmod.launch_count, b5=emod.fwd_launch_count,
+                        b6=emod.coo_launch_count,
+                        hstu=hstu_counts(*hstu_mods))
+        print(f"[{tag}] {n_batches} ROO forwards in {wall * 1e3:.1f} ms: "
+              f"{n_batches * b_nro / wall:.1f} impressions/s (fp32 phase "
+              f"{f32['impressions_per_s']:.1f}); launches {launches}; logits "
+              f"{logits[0].dtype}")
+        if launches["b7"] != n_batches or launches["b5"] != 2 * n_batches \
+                or launches["b6"] or any(launches["hstu"]):
+            raise SystemExit(f"{tag}: launches are not B7 1 and B5 2 a "
+                             f"forward, B1-B4 and B6 0")
+        if any(x.shape != (b_nro,) or not bool(torch.isfinite(x).all())
+               for x in logits):
+            raise SystemExit(f"{tag}: logits of the wrong shape or not "
+                             f"finite")
+        with dispatch.use_dot_backend("torch"), \
+                dispatch.use_emb_backend("torch"):
+            plain = [score(b) for b in batches]
+        torch.cuda.synchronize()
+        if (dmod.launch_count, emod.fwd_launch_count) != (launches["b7"],
+                                                          launches["b5"]):
+            raise SystemExit(f"{tag}: the plain backends launched a kernel")
+        worst = bag_close(f"{tag} kernels vs plain backends over "
+                           f"{n_batches * b_nro} logits", logits, plain)
+
+        b = batches[0]
+        seg = b["seg"].long()
+        before = (dmod.launch_count, emod.fwd_launch_count)
+        imp = dlrm_forward_impression(
+            params, cfg, b["ro_dense"][seg],
+            torch.cat([b["ro_ids"][seg], b["nro_ids"]], 1),
+            torch.cat([b["ro_len"][seg], b["nro_len"]], 1))
+        torch.cuda.synchronize()
+        grew = (dmod.launch_count - before[0],
+                emod.fwd_launch_count - before[1])
+        print(f"[{tag}] the impression-level forward launched B7, B5 {grew}; "
+              f"B7's operands {seen['b7'][-1]}")
+        if grew != (1, 1):
+            raise SystemExit(f"{tag}: the impression-level forward did not "
+                             f"launch B7 once and B5 once")
+        bag_close(f"{tag} impression-level vs ROO logits", imp, logits[0])
+    check_operand_dtypes(tag, seen)
+    peak = torch.cuda.max_memory_allocated()
+    del params, batches, logits, plain
+    torch.cuda.empty_cache()
+
+    # the same widths at a 2**14-row cap: the card against the CPU
+    small = dlrm_config(DLRM_CPU_CAP)
+    sp = dlrm_init(torch.Generator(device=device).manual_seed(0), small,
+                   dtype=bf16, device=device)
+    sb = synthetic_dlrm_batches(dlrm_spec(0, b_ro, b_nro), small, 2,
+                                device=device)
+    cpu_p = tree_map(lambda t: t.cpu(), sp)
+    with torch.no_grad():
+        card_l = [dlrm_forward_roo(sp, small, *dlrm_roo_args(x)) for x in sb]
+        cpu_l = [dlrm_forward_roo(cpu_p, small, *dlrm_roo_args(
+            batch_to(x, "cpu"))) for x in sb]
+    worst = max(worst, bag_close(
+        f"{tag} card vs CPU at a {DLRM_CPU_CAP}-row cap, 2 batches",
+        [x.cpu() for x in card_l], cpu_l))
+    print(f"[{tag}] {card}: {n_batches * b_nro / wall:.1f} impressions/s, "
+          f"{n_batches * b_ro / wall:.1f} requests/s (fp32 phase "
+          f"{f32['impressions_per_s']:.1f} / {f32['requests_per_s']:.1f}); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB")
+    return dict(launches=launches, impressions_per_s=n_batches * b_nro / wall,
+                peak=peak, max_abs_err=worst)
+
+
+def phase_bf16_dlrm_train(dmod, emod, hstu_mods, device, card: str,
+                          f32: dict, sparse: bool) -> dict:
+    """dlrm-mlperf training with bf16 tables (phase 25b, and 25c on sparse
+    rows): 20 steps of 2,048 / 8,192 with the scenario's mixed optimizer;
+    B5 2, B6 2 and B7 1 a step, the bags in bf16 and B7 on fp32 operands;
+    no skipped step; each step's loss within BF16_BAG_TOL of the plain
+    backends on that step's own params; the tables bf16 at the end (on
+    sparse rows after their in-place row updates, only some rows moved);
+    steps/s, peak memory and a per-step breakdown beside the fp32
+    phase's."""
+    import torch
+    from repro_torch.kernels import dispatch
+    tag = f"bf16 dlrm {'sparse ' if sparse else ''}train"
+    bf16 = torch.bfloat16
+    cfg = dlrm_config(DLRM_CAP)
+    steps, b_ro, b_nro = 20, 2048, 8192
+    make = dlrm_sparse_setup if sparse else dlrm_setup
+    setup = make(cfg, b_ro, b_nro, device, device, dtype=bf16)
+    plain = []
+
+    def shadow(p, b, gen):
+        with dispatch.use_dot_backend("torch"), \
+                dispatch.use_emb_backend("torch"):
+            plain.append(setup["loss"](p, b, None).detach())
+    reset_counts((dmod, emod) + hstu_mods)
+    with operand_dtypes(emod, dmod) as seen:
+        trainer, state, losses = run_trainer(dict(setup, shadow=shadow),
+                                             device, steps)
+    torch.cuda.synchronize()
+    got = (dmod.launch_count, emod.fwd_launch_count,
+           emod.coo_launch_count) + hstu_counts(*hstu_mods)
+    print(f"[{tag}] {dlrm_describe(cfg)}; {steps} steps of {b_ro} / {b_nro}"
+          f": launches B7 {got[0]} B5 {got[1]} B6 {got[2]} B1-B4 "
+          f"{got[3:]}; skipped {trainer.skipped_steps}")
+    if got[:3] != (steps, 2 * steps, 2 * steps) or any(got[3:]):
+        raise SystemExit(f"{tag}: launches are not B7 = steps, B5 = B6 = "
+                         f"2 x steps, B1-B4 0")
+    if int(state["step"]) != steps or len(losses) != steps \
+            or not bool(torch.isfinite(losses).all()) \
+            or trainer.skipped_steps:
+        raise SystemExit(f"{tag}: wrong step count, a skipped step or a "
+                         f"non-finite loss")
+    check_operand_dtypes(tag, seen)
+    worst = bag_close(f"{tag} per-step losses vs the plain backends on the "
+                       f"same params and batch", losses,
+                       torch.stack(plain).cpu())
+    print(f"[{tag}] losses {[round(float(v), 5) for v in losses]}")
+    tables = state["params"]["tables"]
+    if any(t.dtype != bf16 for t in tables.values()):
+        raise SystemExit(f"{tag}: a table is no longer bf16")
+    if sparse:
+        # the rows of t0 the steps moved, against the rows their batches
+        # name (field 0 is t0's)
+        t0 = setup["init"]()["tables"]["t0"]
+        named = torch.zeros(t0.shape[0], dtype=torch.bool, device=device)
+        for i in range(steps):
+            ids = setup["batches"][i % len(setup["batches"])]["ro_ids"]
+            named[ids[:, 0].reshape(-1).long().clamp(0, t0.shape[0] - 1)
+                  .to(device)] = True
+        moved = (tables["t0"] != t0).any(1)
+        print(f"[{tag}] rows of t0 ({t0.shape[0]} rows) moved in place: "
+              f"{int(moved.sum())}, named by the steps' batches "
+              f"{int(named.sum())}")
+        if not bool(moved.any()) or bool((moved & ~named).any()):
+            raise SystemExit(f"{tag}: the sparse steps moved no row of t0, "
+                             f"or a row no batch named")
+        del t0, named, moved
+    del state, tables
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, _ = run_trainer(setup, device, steps, halt_after_skips=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {card}: {steps} steps in {wall * 1e3:.1f} ms "
+          f"({steps / wall:.2f} steps/s, {steps * b_nro / wall:.1f} "
+          f"impressions/s; Trainer.run incl. init); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; the fp32 phase {f32['steps_per_s']:.2f} "
+          f"steps/s, {f32['peak'] / 2 ** 30:.2f} GiB")
+    (parts,) = step_breakdown(setup, device, state, steps=10, rounds=1)
+    print(f"[{tag}] {card}: breakdown (ms per step, card synchronised after "
+          f"each stage): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in parts.items()))
+    del state
+    torch.cuda.empty_cache()
+    return dict(launches=dict(b7=got[0], b5=got[1], b6=got[2]),
+                steps_per_s=steps / wall, peak=peak, max_abs_err=worst,
+                breakdown=parts)
+
+
+def lsr_setup(device, mode: str, dtype=None):
+    """roo-lsr at lsr_config width in ``mode`` for ``phase_arch_serve`` /
+    ``phase_arch_train``: :func:`lsr_train_setup` plus the serving halves
+    (the user-tower cache's split), ``lsr_table_ids``, and params in
+    ``dtype`` (fp32 by default) made once."""
+    import torch
+    from repro_torch.models import lsr
+    setup = lsr_train_setup(device, mode)
+    cfg = setup["cfg"]
+    return dict(
+        setup, init=shared_init(lambda: lsr.lsr_init(
+            torch.Generator().manual_seed(0), cfg,
+            dtype=dtype or torch.float32, device=device)),
+        sparse_ids=lambda b: lsr.lsr_table_ids(cfg, b),
+        score=lambda p, b: lsr.lsr_logits_roo(p, cfg, b),
+        score_shape=(cfg.n_tasks,),
+        user_fn=lambda p, b: lsr.lsr_user_repr(p, cfg, b),
+        score_from_user=lambda p, b, u: lsr.lsr_logits_from_user(p, cfg, b,
+                                                                 u),
+        describe=(f"roo-lsr mode={cfg.mode} items={cfg.n_items} "
+                  f"embed_dim={cfg.embed_dim} hist={cfg.hist_len}, params "
+                  f"{dtype or torch.float32}"))
+
+
+def phase_bf16_bag_models(mods, device, card: str, f32: dict) -> dict:
+    """roo-lsr ``userarch`` and ``baseline`` with bf16 params (phase 25d):
+    the stateless server and the user-tower cache over the 1,000 requests
+    (B5 = batches; pass 2 all full-cache), then 20 Trainer steps (B5 =
+    steps + NE forwards, B6 = steps), then the two-tower ``"mlp"`` user
+    tower (roo-esr) in bf16 for 20 steps; each against the plain backends
+    on the card and the CPU at BF16_BAG_TOL, a second run bit for bit, the
+    bags in bf16 and no B7."""
+    import torch
+    emod, dmod = mods[0], mods[4]
+    bf16 = torch.bfloat16
+    out = {}
+    with operand_dtypes(emod, dmod) as seen:
+        for mode in ("userarch", "baseline"):
+            out[mode, "serve"] = phase_arch_serve(
+                f"bf16 lsr {mode} serve", lsr_setup(device, mode, bf16),
+                "bag", mods, device, card, cache=True, tol=BF16_BAG_TOL)
+            out[mode, "train"] = phase_arch_train(
+                f"bf16 lsr {mode} train",
+                lambda d, m=mode: lsr_setup(d, m, bf16), "bag", mods, device,
+                card, sparse=False, tol=BF16_BAG_TOL, profile=False)["dense"]
+        out["mlp"] = phase_arch_train(
+            "bf16 esr mlp train",
+            lambda d: tt_setup(d, "esr", hstu=False, dtype=bf16), "bag",
+            mods, device, card, sparse=False, tol=BF16_BAG_TOL,
+            profile=False)["dense"]
+    if seen["b7"] or not seen["b5"] or not seen["b6"]:
+        raise SystemExit("bf16 bag models: B7 launched, or B5 / B6 did not")
+    check_operand_dtypes("bf16 bag models", seen)
+    print(f"[bf16 bag models] {card}: lsr userarch serving "
+          f"{out['userarch', 'serve']['requests_per_s']:.1f} requests/s "
+          f"(fp32 phase {f32['lsr_serve']['requests_per_s']:.1f}), training "
+          f"{out['userarch', 'train']['steps_per_s']:.2f} steps/s (fp32 "
+          f"{f32['lsr_train']['steps_per_s']:.2f}); baseline serving "
+          f"{out['baseline', 'serve']['requests_per_s']:.1f}, training "
+          f"{out['baseline', 'train']['steps_per_s']:.2f}; esr mlp training "
+          f"{out['mlp']['steps_per_s']:.2f} steps/s (fp32 "
+          f"{f32['esr_mlp']['steps_per_s']:.2f})")
+    return out
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_bf16_state(kmod, pmod, bmod, device, card: str) -> dict:
+    """bf16 state on the card (phase 25e): a bf16 hstu-gr Trainer with a
+    checkpoint every 4 steps, stopped after step 12 and restarted, against
+    an uninterrupted run: losses, params, optimizer state and step bit for
+    bit, params still bf16; the checkpoint's bytes beside an fp32 state's;
+    ``params_to_numpy`` of the bf16 tree and back, bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.host import BF16_BITS
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.models.gr import gr_init
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import leaves
+    tag, bf16, steps, kill = "bf16 state", torch.bfloat16, 20, 12
+    setup = train_setup(device)
+    cfg = setup["cfg"]
+    n_layers = cfg.hstu.n_layers
+    setup["init"] = lambda: gr_init(torch.Generator().manual_seed(0), cfg,
+                                    dtype=bf16, device=device)
+    ckpt_dir = ROOT / "build" / "chip_smoke_bf16_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    reset_counts((kmod, pmod, bmod))
+    whole_t, whole, losses = run_trainer(setup, device, steps)
+    first_t, _, first = run_trainer(setup, device, steps,
+                                    ckpt_dir=str(ckpt_dir), stop_after=kill)
+    mgr = CheckpointManager(str(ckpt_dir))
+    saved = mgr.latest_step()
+    ck_bytes = dir_bytes(mgr._path(saved))
+    rest_t, resumed, rest = run_trainer(setup, device, steps,
+                                        ckpt_dir=str(ckpt_dir))
+    torch.cuda.synchronize()
+    n_ne = sum(1 for t in (whole_t, first_t, rest_t) for row in t.history
+               if "ne" in row)
+    got = hstu_counts(kmod, pmod, bmod)
+    n_steps = steps + kill + (steps - kill)
+    print(f"[{tag}] {steps} bf16 hstu-gr steps, and {kill} + a restart from "
+          f"step {saved} to {steps}: launches B1-B4 {got}; {n_ne} NE "
+          f"forwards")
+    if got != (n_layers * (n_steps + n_ne), n_layers * n_steps,
+               n_layers * n_steps, 0) or saved != kill:
+        raise SystemExit(f"{tag}: launches are not B2 = B3 = n_layers x "
+                         f"steps run, B1 = n_layers x (steps + NE), B4 0, "
+                         f"or the last checkpoint is not step {kill}")
+    same_losses = torch.equal(torch.cat([first, rest]), losses)
+    pairs = list(zip(leaves({k: resumed[k] for k in ("params", "opt",
+                                                      "step")}),
+                     leaves({k: whole[k] for k in ("params", "opt",
+                                                   "step")})))
+    same_state = all(a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16) if a.dtype == bf16 else a,
+        b.view(torch.int16) if b.dtype == bf16 else b) for a, b in pairs)
+    n_bf16 = sum(a.dtype == bf16 for a, _ in pairs)
+    print(f"[{tag}] kill at step {kill} + restart vs uninterrupted: "
+          f"losses bit for bit {same_losses}, params / opt / step bit for "
+          f"bit {same_state} ({len(pairs)} leaves, {n_bf16} bf16)")
+    if not (same_losses and same_state) or n_bf16 == 0:
+        raise SystemExit(f"{tag}: the restarted bf16 run is not the "
+                         f"uninterrupted run bit for bit")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    f32_params = gr_init(torch.Generator().manual_seed(0), cfg,
+                         device=device)
+    f32_state = {"params": f32_params, "opt": setup["opt"].init(f32_params),
+                 "step": torch.zeros((), dtype=torch.int32),
+                 "rng": torch.tensor(0, dtype=torch.int64)}
+    CheckpointManager(str(ckpt_dir)).save(saved, f32_state)
+    f32_bytes = dir_bytes(ckpt_dir / f"step_{saved:012d}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"[{tag}] checkpoint of step {saved}: bf16 state {ck_bytes} B, "
+          f"the fp32 state of the same model {f32_bytes} B "
+          f"({ck_bytes / f32_bytes:.3f}x)")
+
+    host = params_to_numpy(whole["params"])
+    back = params_from_numpy(host, device)
+    n_bits = sum(a.dtype == BF16_BITS for a in leaves(host))
+    same = all(a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16) if a.dtype == bf16 else a,
+        b.view(torch.int16) if b.dtype == bf16 else b)
+        for a, b in zip(leaves(back), leaves(whole["params"])))
+    print(f"[{tag}] params_to_numpy / params_from_numpy of the bf16 tree: "
+          f"{n_bits} leaves as BF16_BITS, back on the card bit for bit "
+          f"{same}")
+    if not same or n_bits == 0:
+        raise SystemExit(f"{tag}: the bf16 tree does not cross to numpy and "
+                         f"back bit for bit")
+    return dict(launches=dict(b1=got[0], b2=got[1], b3=got[2]),
+                ckpt_bytes=ck_bytes, f32_ckpt_bytes=f32_bytes)
+
+
+def bf16_bag_case(emod, tables, ids, lens, g, pooling, vocabs, grouped):
+    """The calls phase_bf16_bag_times times for one case: B5 and B6 on the
+    bf16 operands and on the same values in fp32, the plain versions on
+    the bf16 operands, and the library calls on the bf16 tables (F
+    ``F.embedding_bag`` calls; for B6 the backward of ``sparse=True``
+    ones, the per-slot COO rows)."""
+    import torch
+    import torch.nn.functional as F
+    f32 = [t.float() for t in tables]
+    g32 = g.float()
+    if grouped:
+        fwd = lambda ts: emod.embedding_bag_grouped_fwd_cuda(ts, ids, lens,
+                                                             pooling)
+        coo = lambda gg: emod.embedding_bag_grouped_coo_rows_cuda(
+            gg, ids, lens, vocabs, pooling)
+        fwd_plain = lambda: emod.embedding_bag_grouped_plain(tables, ids,
+                                                             lens, pooling)
+        coo_plain = lambda: emod.embedding_bag_grouped_coo_rows_plain(
+            g, ids, lens, vocabs, pooling)
+        views = [(ids[:, j, :], lens[:, j], g[:, j, :].contiguous())
+                 for j in range(len(tables))]
+    else:
+        fwd = lambda ts: emod.embedding_bag_fwd_cuda(ts[0], ids, lens,
+                                                     pooling)
+        coo = lambda gg: emod.embedding_bag_coo_rows_cuda(
+            gg, ids, lens, vocabs[0], pooling)
+        fwd_plain = lambda: emod.embedding_bag_fwd_plain(tables[0], ids,
+                                                         lens, pooling)
+        coo_plain = lambda: emod.embedding_bag_coo_rows_plain(
+            g, ids, lens, vocabs[0], pooling)
+        views = [(ids, lens, g)]
+    flat, offsets = [], []
+    for (i, n, _), v in zip(views, vocabs):
+        n = n.clamp(0, i.shape[1])
+        valid = torch.arange(i.shape[1], device=i.device)[None, :] < n[:, None]
+        flat.append(i.clamp(0, v - 1)[valid].long())
+        offsets.append((torch.cumsum(n, 0) - n).long())
+    lib_fwd = lambda: [F.embedding_bag(fl, t, off, mode=pooling)
+                       for fl, t, off in zip(flat, tables, offsets)]
+    tg = [t.detach().requires_grad_(True) for t in tables]
+    lib_out = [F.embedding_bag(fl, t, off, mode=pooling, sparse=True)
+               for fl, t, off in zip(flat, tg, offsets)]
+    lib_bwd = lambda: torch.autograd.grad(lib_out, tg,
+                                          [gv for _, _, gv in views],
+                                          retain_graph=True)
+    return dict(fwd=lambda: fwd(tables), fwd_f32=lambda: fwd(f32),
+                fwd_plain=fwd_plain, coo=lambda: coo(g),
+                coo_f32=lambda: coo(g32), coo_plain=coo_plain,
+                lib_fwd=lib_fwd, lib_bwd=lib_bwd, keep=(tg, lib_out))
+
+
+def phase_bf16_bag_times(emod, device, card: str) -> dict:
+    """B5 and B6 in bf16 (phase 25f) at dlrm-mlperf's scoring and training
+    shapes (each side's 13 one-hot fields, D 128, sum, vocabs capped at
+    DLRM_CAP) and at lsr's (B 32, L 64, D 64, mean, 50,000 rows, F 1),
+    beside the fp32 kernel on the same values, the plain version and the
+    library calls on the same bf16 tables, and the bound at 2-byte rows;
+    max |kernel - plain| on the bf16 operands. Returns the numbers by
+    (case, "fwd" | "coo")."""
+    import torch
+    bf16 = torch.bfloat16
+    out = {}
+    cases = []
+    x = bag_inputs(BAG_SHAPES["train B32 L64 D64"], 60, device, dtype=bf16)
+    cases.append(("lsr", "lsr B32 L64 D64 V50000 mean", [x["table"]],
+                  x["ids"], x["lens"], x["g"], "mean", [x["v"]], False))
+    for side in ("RO", "NRO"):
+        vocabs = dlrm_side_vocabs(side.lower())
+        gen = torch.Generator(device=device).manual_seed(63)
+        tables = [(0.01 * torch.randn((v, 128), generator=gen,
+                                      device=device)).to(bf16)
+                  for v in vocabs]
+        for stage, b in (("score", 128 if side == "RO" else 512),
+                         ("train", 2048 if side == "RO" else 8192)):
+            ids = torch.stack([torch.randint(0, v, (b, 1), generator=gen,
+                                             device=device,
+                                             dtype=torch.int32)
+                               for v in vocabs], 1)
+            lens = torch.ones((b, 13), dtype=torch.int32, device=device)
+            g = torch.randn((b, 13, 128), generator=gen,
+                            device=device).to(bf16)
+            cases.append((f"{side} {stage}", f"dlrm {stage} {side} side B{b} "
+                          f"F13 L1 D128 sum", tables, ids, lens, g, "sum",
+                          vocabs, True))
+    for key, label, tables, ids, lens, g, pooling, vocabs, grouped in cases:
+        c = bf16_bag_case(emod, tables, ids, lens, g, pooling, vocabs,
+                          grouped)
+        with torch.no_grad():
+            got, plain = c["fwd"](), c["fwd_plain"]()
+            lib = c["lib_fwd"]()
+            err_fwd = float((got.float() - plain.float()).abs().max())
+            lib = torch.stack(lib, 1) if grouped else lib[0]
+            err_lib = float((got.float() - lib.float()).abs().max())
+            (cids, rows), (pids, prows) = c["coo"](), c["coo_plain"]()
+            err_coo = float((rows.float() - prows.float()).abs().max())
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or rows.dtype != bf16 \
+                or not torch.equal(cids, pids) \
+                or not all(torch.allclose(a.float(), b.float(),
+                                          atol=BF16_ATOL, rtol=BF16_RTOL)
+                           for a, b in ((got, plain), (got, lib),
+                                        (rows, prows))):
+            raise SystemExit(f"bf16 bag times {label}: B5 / B6 disagree with "
+                             f"their plain versions or the library, or are "
+                             f"not bf16 (B5 {err_fwd:.3e}, library "
+                             f"{err_lib:.3e}, B6 rows {err_coo:.3e})")
+        ms = {k: labelled_device_ms(f"{label} {k}", c[k], iters)
+              for k, iters in (("fwd_plain", 6), ("fwd", 200),
+                               ("fwd_f32", 200), ("lib_fwd", 10),
+                               ("coo_plain", 6), ("coo", 200),
+                               ("coo_f32", 200))}
+        try:
+            ms["lib_bwd"], how = device_ms(c["lib_bwd"], 8), "device"
+        except SystemExit:
+            ms["lib_bwd"], how = None, (
+                f"no device time: it synchronises the host; host-issued "
+                f"{call_ms(c['lib_bwd'], 8, warmup=2):.5f} ms")
+        x = dict(tables=tables, ids=ids if grouped else ids[:, None, :],
+                 lens=lens if grouped else lens[:, None])
+        for which, name, lib_key in (("fwd", "B5", "lib_fwd"),
+                                     ("coo", "B6", "lib_bwd")):
+            bound_ms, bound_by, n_bytes, ops = bound_group(x, which)
+            print(f"[bf16 bag times] {card}: {name} bf16 {label}, device "
+                  f"time per call: kernel {ms[which]:.5f} ms, the fp32 "
+                  f"kernel on the same values {ms[which + '_f32']:.5f} ms "
+                  f"({ms[which] / ms[which + '_f32']:.2f}x), plain torch "
+                  f"{ms[which + '_plain']:.5f} ms; bound {bound_ms:.5f} ms "
+                  f"({bound_by}: {n_bytes} B at 2-byte rows, {ops} FLOP); "
+                  f"library ({len(tables)} call(s)"
+                  + (f", sparse backward: {how}) " if which == "coo" else ") ")
+                  + ("-" if ms[lib_key] is None else f"{ms[lib_key]:.5f} ms")
+                  + f"; max|kernel - plain| "
+                  f"{err_fwd if which == 'fwd' else err_coo:.3e}")
+            out[key, which] = dict(
+                ms=ms[which], plain_ms=ms[which + "_plain"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=ms[lib_key], f32_ms=ms[which + "_f32"],
+                max_abs_err=err_fwd if which == "fwd" else err_coo)
+        del c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_densify(device, card: str) -> dict:
+    """``SparseRows.to_dense`` on bf16 rows, route by route (phase 25): the
+    one-hot float64 product (8,192 ids into 4 rows, rounded once to bf16),
+    aten's embedding backward (2,048 ids into 50,000 rows) and the sorted
+    ``index_put_`` (8,192 ids into 108 rows, and into a DLRM_CAP-row
+    table). Two calls must give the same bits; each is printed against the
+    exact sum rounded once to bf16 (an fp64 ``index_add_`` of bf16 values,
+    exact at these sizes), not gated: the aten routes add in fp32."""
+    import torch
+    from repro_torch.embeddings.sparse import SparseRows
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(64)
+    out = {}
+    for route, n, v in (("one-hot product", 8192, 4),
+                        ("aten embedding backward", 2048, 50000),
+                        ("sorted index_put_", 8192, 108),
+                        ("sorted index_put_", 8192, DLRM_CAP)):
+        ids = torch.randint(0, v, (n,), generator=gen, device=device,
+                            dtype=torch.int32)
+        rows = torch.randn((n, 128), generator=gen, device=device).to(bf16)
+        a = SparseRows(ids, rows, v).to_dense()
+        b = SparseRows(ids, rows, v).to_dense()
+        exact = torch.zeros((v, 128), dtype=torch.float64,
+                            device=device).index_add_(
+            0, ids.long(), rows.double()).to(bf16)
+        same = a.dtype == bf16 and torch.equal(a.view(torch.int16),
+                                               b.view(torch.int16))
+        off = int((a.view(torch.int16) != exact.view(torch.int16)).sum())
+        worst = float((a.float() - exact.float()).abs().max())
+        print(f"[bf16 densify] {card}: {route}, {n} ids into {v} rows of "
+              f"128, bf16: two calls bit for bit {same}; vs the exact sum "
+              f"rounded once {off} of {v * 128} elements differ, max|diff| "
+              f"{worst:.3e}")
+        if not same:
+            raise SystemExit(f"bf16 densify: the {route} route over {v} rows "
+                             f"is not bf16 or not bitwise on repeat")
+        out[route, v] = dict(same=same, off=off, max_abs=worst)
+        del a, b, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_bags(mods, device, card: str, f32: dict) -> dict:
+    """Phase 25: the bag models with bf16 tables and bf16 state at rest
+    (module note); ``f32`` holds the fp32 phases' results to print
+    beside."""
+    import torch
+    emod, kmod, pmod, bmod, dmod = mods
+    hstu_mods = (kmod, pmod, bmod)
+    t0 = time.perf_counter()
+    score = phase_bf16_dlrm_score(dmod, emod, hstu_mods, device, card,
+                                  f32["dlrm_score"])
+    train = phase_bf16_dlrm_train(dmod, emod, hstu_mods, device, card,
+                                  f32["dlrm_train"], sparse=False)
+    sparse = phase_bf16_dlrm_train(dmod, emod, hstu_mods, device, card,
+                                   f32["dlrm_sparse"], sparse=True)
+    models = phase_bf16_bag_models(mods, device, card, f32)
+    state = phase_bf16_state(kmod, pmod, bmod, device, card)
+    densify = phase_bf16_densify(device, card)
+    times = phase_bf16_bag_times(emod, device, card)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[bf16 bags] {card}: phase 25 in {wall:.1f} s")
+    return dict(score=score, train=train, sparse=sparse, models=models,
+                state=state, densify=densify, times=times, wall_s=wall)
+
+
+def bf16_bag_entries(bags16, dot_times, worst_dot, bf_times,
+                     bf_worst) -> list:
+    """The kernels JSON line's entries for phase 25's main paths: B5 / B6
+    in bf16 in dlrm (a side's launches beside that side's bf16 times),
+    roo-lsr and the "mlp" tower (lsr's shape), B7 in fp32 inside bf16 dlrm
+    (the fp32 times at the same shapes) and B1-B3 in bf16 in the
+    kill-and-restart run (phase 24's bf16 times)."""
+    times, models = bags16["times"], bags16["models"]
+    bag = dict(route="cuda",
+               source="src/repro_torch/kernels/csrc/embedding_bag.cu")
+    kernels = (("embedding_bag_fwd_grouped", 48, "b5", "fwd"),
+               ("embedding_bag_bwd_coo_grouped", 74, "b6", "coo"))
+    dlrm = (("scoring", "score", bags16["score"]),
+            ("training", "train", bags16["train"]),
+            ("sparse training; times at the dense step's operands", "train",
+             bags16["sparse"]))
+    lsr = (("roo-lsr userarch serving", models["userarch", "serve"]),
+           ("roo-lsr baseline serving", models["baseline", "serve"]),
+           ("roo-lsr userarch training", models["userarch", "train"]),
+           ("roo-lsr baseline training", models["baseline", "train"]),
+           ("roo-esr mlp user tower training", models["mlp"]))
+    out = []
+    for name, line, key, which in kernels:
+        replaces = f"src/repro/kernels/embedding_bag.py:{line}"
+        for what, stage, run in dlrm:
+            if key == "b6" and stage == "score":
+                continue                   # scoring launches no B6
+            for side in ("RO", "NRO"):
+                # one grouped launch a side a forward / backward
+                out.append(dict(
+                    bag, name=f"{name} (bf16 dlrm {what}, {side} side)",
+                    replaces=replaces, launches=run["launches"][key] // 2,
+                    **{k: v for k, v in times[f"{side} {stage}",
+                                              which].items()
+                       if k != "f32_ms"}))
+        for what, run in lsr:
+            if key == "b6" and "training" not in what:
+                continue
+            out.append(dict(
+                bag, name=f"{name} (bf16 {what}; times at lsr's B 32, L 64, "
+                          f"D 64 mean bag over 50,000 rows)",
+                replaces=replaces, launches=run["launches"][key],
+                **{k: v for k, v in times["lsr", which].items()
+                   if k != "f32_ms"}))
+    for what, stage, run in dlrm:
+        out.append(dict(
+            name=f"dot_interaction_fwd (bf16 dlrm {what}: fp32 operands, as "
+                 f"the reference promotes)", route="cuda",
+            source="src/repro_torch/kernels/csrc/dot_interaction.cu",
+            replaces="src/repro/kernels/dot_interaction.py:22",
+            launches=run["launches"]["b7"], max_abs_err=worst_dot,
+            **dot_times[stage]))
+    for name, src, line, key, which, times_key in (
+            ("hstu_attention_fwd", "hstu_attention_fwd.cu", 80, "b1", "b1",
+             "train"),
+            ("hstu_attention_bwd_dq", "hstu_attention_bwd.cu", 108, "b2",
+             "dq", "dq"),
+            ("hstu_attention_bwd_dkv", "hstu_attention_bwd.cu", 170, "b3",
+             "dkv", "dkv")):
+        out.append(dict(
+            name=f"{name} (bf16 hstu-gr kill and restart from a bf16 "
+                 f"checkpoint)", route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/hstu_attention.py:{line}",
+            launches=bags16["state"]["launches"][key],
+            max_abs_err=bf_worst[which],
+            **{k: v for k, v in bf_times[times_key].items()
+               if k != "f32_ms"}, library_ms=None))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7582,6 +8335,12 @@ def main() -> int:
                                   card)
     dlrm_sparse = phase_dlrm_sparse_train(dmod, emod, (kmod, pmod, bmod),
                                           device, card, dlrm_train)
+    # the bag models with bf16 tables and bf16 state at rest (phase 25),
+    # beside the fp32 phases above
+    bags16 = phase_bf16_bags(mods, device, card, dict(
+        dlrm_score=dlrm_score, dlrm_train=dlrm_train,
+        dlrm_sparse=dlrm_sparse, lsr_serve=lsr_serve, lsr_train=lsr_train,
+        esr_mlp=esr_mlp_train["dense"]))
     times = phase_times(kmod, device, card)
     ptimes = phase_prefix_times(pmod, device, card)
     btimes = phase_bwd_times(bmod, device, card)
@@ -7904,7 +8663,9 @@ def main() -> int:
         "library_ms": None}
         for name, line, key, which in (
             ("hstu_attention_bwd_dq", 108, "b2", "dq"),
-            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))]}))
+            ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))]
+        + bf16_bag_entries(bags16, dot_times, worst_dot, bf_times,
+                           bf_worst)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ not cross: the two packages' generators differ. Under an SPMD plan
 model's own spec tree such as ``lm_param_specs``) and
 :func:`params_off_plan` gathers them back. The
 LM's and MACE's trees and the LM's decode cache (``{k, v, pos}``) cross
-like any other tree; bfloat16 leaves by their bits.
+like any other tree. bfloat16 leaves cross by their bits: the port hands
+them out as ``repro_torch.host.BF16_BITS`` arrays (numpy has no bfloat16)
+and takes those or the reference's ``ml_dtypes`` arrays; a round trip is
+bit for bit.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import spmd
+from repro_torch.host import device_copy, host_copy
 from repro_torch.models.gr import GRUserState
 from repro_torch.tree import leaves, tree_map
 
@@ -30,12 +34,9 @@ from repro_torch.tree import leaves, tree_map
 def tensor_from_numpy(a: Any, device="cuda") -> torch.Tensor:
     """One numpy array (or scalar) -> a tensor on ``device``, copied. A
     bfloat16 array (the reference's ``ml_dtypes`` dtype, e.g. a bf16
-    parameter or the LM's KV cache) crosses by its bits."""
-    a = np.array(a, copy=True)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
-            device)
-    return torch.from_numpy(a).to(device)
+    parameter or the LM's KV cache, or the port's ``BF16_BITS``) crosses
+    by its bits."""
+    return device_copy(np.array(a, copy=True), device)
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
@@ -49,12 +50,13 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The port's tree of tensors -> the same tree of numpy arrays."""
+    """The port's tree of tensors -> the same tree of numpy arrays (bf16
+    leaves as their bits, ``BF16_BITS``; a CPU leaf's array is a view)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().to("cpu").numpy()
+    return host_copy(tree)
 
 
 def gr_state_from_numpy(state: Any, device="cuda") -> GRUserState:
@@ -62,14 +64,15 @@ def gr_state_from_numpy(state: Any, device="cuda") -> GRUserState:
     ``GRUserState`` after ``tree_map(np.asarray, ...)`` — -> the port's
     :class:`GRUserState` of tensors on ``device``."""
     k, v, length = state
-    return GRUserState(*(torch.from_numpy(np.array(a, copy=True)).to(device)
+    return GRUserState(*(tensor_from_numpy(a, device)
                          for a in (k, v, length)))
 
 
 def gr_state_to_numpy(state: GRUserState) -> GRUserState:
     """The port's state -> the same record of numpy arrays (the reference's
-    ``GRUserState(*gr_state_to_numpy(s))`` takes it as is)."""
-    return GRUserState(*(a.detach().to("cpu").numpy() for a in state))
+    ``GRUserState(*gr_state_to_numpy(s))`` takes it as is; a bf16 state's
+    k and v as their bits, ``BF16_BITS``)."""
+    return GRUserState(*(host_copy(a) for a in state))
 
 
 TRAIN_STATE_KEYS = ("params", "opt", "step")

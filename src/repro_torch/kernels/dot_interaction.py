@@ -103,15 +103,17 @@ def dot_interaction_cuda(dense_out: torch.Tensor, sparse_embs: torch.Tensor,
     take and on an input that requires grad under grad mode."""
     global launch_count
     refuse_grad("dot_interaction_cuda", dense_out, sparse_embs)
+    # no quiet cast: a caller that mixes dtypes promotes first, as
+    # models/interactions.py does
+    if dense_out.dtype not in DTYPES or sparse_embs.dtype != dense_out.dtype:
+        raise TypeError(f"dense_out and sparse_embs must share one dtype, "
+                        f"fp32 or bf16; got {dense_out.dtype} and "
+                        f"{sparse_embs.dtype}")
     if dense_out.device.type != "cuda" or sparse_embs.device != \
             dense_out.device:
         raise ValueError(f"the dot-interaction CUDA kernel needs both inputs "
                          f"on one CUDA device, got {dense_out.device} and "
                          f"{sparse_embs.device}")
-    if dense_out.dtype not in DTYPES or sparse_embs.dtype != dense_out.dtype:
-        raise TypeError(f"dense_out and sparse_embs must share one dtype, "
-                        f"fp32 or bf16; got {dense_out.dtype} and "
-                        f"{sparse_embs.dtype}")
     if dense_out.dim() != 2 or sparse_embs.dim() != 3 \
             or sparse_embs.shape[0] != dense_out.shape[0] \
             or sparse_embs.shape[2] != dense_out.shape[1]:

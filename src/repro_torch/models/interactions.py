@@ -6,7 +6,11 @@ output and the sparse embeddings, lower triangle flattened, dense output
 first). The reference computes it with a plain einsum, the oracle of its
 Pallas kernel; the port routes it through the kernel's entry point
 (``kernels/dot_interaction.py``), so on a CUDA tensor it runs B7 and on a
-CPU tensor the plain version.
+CPU tensor the plain version. The reference concatenates the two operands
+first, which promotes them: a bf16 DLRM's fp32 bottom-MLP output beside
+its bf16 bags interacts in fp32. The port casts both to the promoted dtype
+before the kernel, whose operands share one dtype; the cast's backward
+hands each operand its gradient in its own dtype, as the reference's does.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.hstu import normal_init
-from repro_torch.core.promote import matmul
+from repro_torch.core.promote import matmul, promoted
 from repro_torch.kernels import dot_interaction as _dot
 
 
@@ -26,6 +30,7 @@ def dot_interaction(dense_out: torch.Tensor, sparse_embs: torch.Tensor,
     Returns (B, D + F'*(F'+offset)//2) where F' = F+1 (dense row included),
     offset -1 (strict lower triangle) or 0 under ``self_interaction``.
     """
+    dense_out, sparse_embs = promoted(dense_out, sparse_embs)
     return _dot.dot_interaction(dense_out, sparse_embs,
                                 self_interaction=self_interaction)
 

@@ -25,9 +25,9 @@ port of ``repro/serve/engine.py``).
 Batches are packed on the host and moved to ``device`` once; scores come
 back to the host as float32 numpy arrays (a bf16 model's scores widened on
 the host). User states and cached user-tower rows live on the host as numpy
-(:func:`host_copy`: a bf16 tensor as its bits, two bytes an element, since
-numpy has no bfloat16); per batch, each state leaf is stacked and copied to
-the card once, and copied back once, bit for bit.
+(``repro_torch.host.host_copy``: a bf16 tensor as its bits, two bytes an
+element, since numpy has no bfloat16); per batch, each state leaf is
+stacked and copied to the card once, and copied back once, bit for bit.
 
 Observability (``repro_torch.obs``) mirrors the reference: the engine
 registers its ``snapshot`` as ``serve.engine``; in ``metrics`` mode each
@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.core.joiner import ROOSample
 from repro_torch.data.batcher import BatchPlan, BatcherConfig, ROOBatcher
+from repro_torch.host import BF16_BITS, device_copy, host_copy  # noqa: F401
 from repro_torch.kernels.dispatch import use_backend
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import metrics as obs_metrics
@@ -61,28 +62,6 @@ from repro_torch.serve.adapter import ServeAdapter
 from repro_torch.serve.bucketing import BucketLadder, BucketStats
 from repro_torch.serve.user_cache import (StateProbe, UserStateStore,
                                           UserTowerCache, request_key)
-
-
-# numpy has no bfloat16: a bf16 tensor's host copy holds its bits under a
-# one-field dtype that names them, so a store row knows what it holds
-BF16_BITS = np.dtype([("bfloat16", np.uint16)])
-
-
-def host_copy(t: torch.Tensor) -> np.ndarray:
-    """``t`` copied to host numpy (a bf16 tensor as its bits, in
-    :data:`BF16_BITS`)."""
-    t = t.detach().to("cpu")
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(BF16_BITS)
-    return t.numpy()
-
-
-def device_copy(a: np.ndarray, device) -> torch.Tensor:
-    """The inverse of :func:`host_copy`, onto ``device``: the same bits."""
-    if a.dtype == BF16_BITS:
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
 
 
 class ScoreError:

@@ -14,6 +14,13 @@
 A state is a tree of tensors (``repro_torch.tree``). Leaves are numbered in
 the reference's flatten order and saved as numpy arrays (``arrays.npz``);
 the tree's shape goes to ``structure.json``. Restore returns CPU tensors.
+A bf16 leaf is written as the reference writes one (numpy has no
+bfloat16): its bytes as ``uint8`` (a 0-d leaf: two raw bytes) in one
+full-extent shard ``a{i}.s0`` under a ``sharding.json`` entry of dtype
+``bfloat16``, and comes back as a ``torch.bfloat16`` tensor of the same
+bits. A checkpoint with such entries also gets ``treedef.pkl`` (below), so
+the reference restores it; the port restores a checkpoint the reference
+wrote from its ``treedef.pkl``, read without importing ``jax``.
 The ``ckpt.write`` fault site mirrors the reference's: ``torn`` stops the
 writer between the payload and the commit (the ``.tmp`` dir stays, no
 ``meta.json``), ``corrupt`` flips a byte of the committed ``arrays.npz``
@@ -25,10 +32,10 @@ of the dense leaves, the tables' row blocks), and rank 0 writes the
 reference's sharded layout: a leaf with a spec gets a ``sharding.json``
 entry (global shape, dtype, spec, shards) and one ``a{i}.s{k}`` array a
 block of the mesh, with its ``index`` ranges on every dim (a 2-D block of
-an FSDP x TP leaf; a leaf held whole: one shard of the whole extent), the
-rest ``a{i}``; ``treedef.pkl`` holds the tree as
-the reference's ``jax`` (0.9) pickles a ``PyTreeDef``, written opcode by
-opcode here without importing it. So the reference's
+an FSDP x TP leaf; a leaf held whole: one shard of the whole extent; a
+bf16 block as its bytes), the rest ``a{i}``; ``treedef.pkl`` holds the
+tree as the reference's ``jax`` (0.9) pickles a ``PyTreeDef``, written
+opcode by opcode here without importing it. So the reference's
 ``CheckpointManager.restore()`` reassembles a port checkpoint on one
 device. ``restore`` reassembles the global tree; ``saved_specs`` reads
 the specs back; ``restore_sharded(plan)`` re-applies each saved spec on
@@ -42,6 +49,7 @@ import io
 import itertools
 import json
 import os
+import pickle
 import shutil
 import threading
 import time
@@ -51,6 +59,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.host import BF16_BITS, bf16_bits, host_copy
 from repro_torch.reliability import faults
 from repro_torch.tree import leaves, unflatten
 
@@ -156,36 +165,122 @@ def _spec_to_json(spec) -> Optional[list]:
 
 
 def _host(x) -> np.ndarray:
-    return (x.detach().to("cpu").numpy().copy()
-            if isinstance(x, torch.Tensor) else np.asarray(x))
+    return (host_copy(x).copy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
 
 
-def _sharded_payload(flat: list, spec_leaves: list, mesh_shape: dict):
-    """(arrays, manifest) of the reference's sharded layout for global
-    leaves and their specs (module note): one shard a block of the mesh,
-    blocks in row-major order of their dims' block indices."""
+def _stored_bf16(block: np.ndarray) -> np.ndarray:
+    """A block of bf16 bits as the reference stores one in npz: its bytes
+    (``uint8``, the last dim doubled), or a 0-d leaf's two raw bytes
+    (``V2``, which npz keeps as they are)."""
+    bits = bf16_bits(block)
+    return bits.view(np.uint8) if bits.ndim else bits.view("V2")
+
+
+def _leaf_payload(i: int, arr: np.ndarray, spec, mesh_shape: dict):
+    """(npz arrays, manifest entry or None) of global leaf ``i``: one
+    shard a block of the mesh along the dims ``spec`` splits, blocks in
+    row-major order of their dims' block indices. A leaf no spec splits is
+    ``a{i}`` with no entry, unless it is bf16: that leaf is one
+    full-extent shard under an entry, as the reference writes it, so that
+    its dtype survives npz."""
+    bf16 = arr.dtype == BF16_BITS
+    split = spec is not None and any(e is not None for e in spec)
+    if not (split or bf16):
+        return {f"a{i}": arr}, None
+    counts = []
+    for dim in range(arr.ndim):
+        e = spec[dim] if split and dim < len(spec) else None
+        names = () if e is None else ((e,) if isinstance(e, str) else e)
+        counts.append(int(np.prod([mesh_shape[a] for a in names])))
+    host: Dict[str, np.ndarray] = {}
+    shards = []
+    for k, blk in enumerate(itertools.product(*map(range, counts))):
+        index = [[b * (d // c), (b + 1) * (d // c)]
+                 for b, c, d in zip(blk, counts, arr.shape)]
+        key = f"a{i}.s{k}"
+        block = arr[tuple(slice(a, b) for a, b in index)] if index else arr
+        host[key] = _stored_bf16(block) if bf16 else block
+        shards.append({"key": key, "index": index})
+    entry = {"shape": list(arr.shape),
+             "dtype": "bfloat16" if bf16 else str(arr.dtype),
+             "spec": None if spec is None else _spec_to_json(spec),
+             "shards": shards}
+    return host, entry
+
+
+def _payload(flat: list, spec_leaves: list, mesh_shape: dict):
+    """(arrays, manifest) of global leaves and their specs (None: saved
+    without a plan) in the reference's layout (module note)."""
     host: Dict[str, np.ndarray] = {}
     manifest: Dict[str, dict] = {}
     for i, (x, spec) in enumerate(zip(flat, spec_leaves)):
-        arr = _host(x)
-        if not any(e is not None for e in spec):
-            host[f"a{i}"] = arr
-            continue
-        counts = []
-        for dim, d in enumerate(arr.shape):
-            e = spec[dim] if dim < len(spec) else None
-            names = () if e is None else ((e,) if isinstance(e, str) else e)
-            counts.append(int(np.prod([mesh_shape[a] for a in names])))
-        shards = []
-        for k, blk in enumerate(itertools.product(*map(range, counts))):
-            index = [[b * (d // c), (b + 1) * (d // c)]
-                     for b, c, d in zip(blk, counts, arr.shape)]
-            key = f"a{i}.s{k}"
-            host[key] = arr[tuple(slice(a, b) for a, b in index)]
-            shards.append({"key": key, "index": index})
-        manifest[str(i)] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
-                            "spec": _spec_to_json(spec), "shards": shards}
+        arrays, entry = _leaf_payload(i, _host(x), spec, mesh_shape)
+        host.update(arrays)
+        if entry is not None:
+            manifest[str(i)] = entry
     return host, manifest
+
+
+def _leaf_from_entry(entry: dict, data) -> torch.Tensor:
+    """A leaf reassembled from its manifest entry's shards. ``bfloat16``
+    (the reference's ``ml_dtypes`` name, which numpy alone cannot parse)
+    comes back as a ``torch.bfloat16`` tensor of the stored bits."""
+    name = entry["dtype"]
+    bf16 = name == "bfloat16"
+    try:
+        dtype = np.dtype(np.uint16 if bf16 else name)
+    except TypeError:
+        raise TypeError(f"checkpoint leaf of dtype {name!r}: the port reads "
+                        f"numpy's dtypes and bfloat16") from None
+    out = np.empty(tuple(entry["shape"]), dtype=dtype)
+    for sh in entry["shards"]:
+        block = data[sh["key"]]
+        out[tuple(slice(a, b) for a, b in sh["index"])] = (
+            bf16_bits(block) if bf16 else block)
+    t = torch.from_numpy(out)
+    return t.view(torch.int16).view(torch.bfloat16) if bf16 else t
+
+
+class _PickledTreeDef:
+    """Stands in for the reference's ``PyTreeDef`` while its pickle is
+    read: keeps the node records, imports nothing of ``jax``."""
+
+    def __setstate__(self, state) -> None:
+        self.nodes = state[1]
+
+
+class _TreeDefUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if name == "PyTreeDef":
+            return _PickledTreeDef
+        if name == "default_registry":
+            return None
+        raise pickle.UnpicklingError(
+            f"treedef.pkl names {module}.{name}, not a PyTreeDef")
+
+
+def _like_from_treedef(blob: bytes) -> Any:
+    """The tree shape (leaf slots 0) that a ``treedef.pkl`` holds: the
+    reference's post-order node records rebuilt into dicts and lists."""
+    nodes = _TreeDefUnpickler(io.BytesIO(blob)).load().nodes
+    stack: list = []
+    for kind, arity, data, *_ in nodes:
+        kids = stack[len(stack) - arity:]
+        del stack[len(stack) - arity:]
+        if kind == _LEAF:
+            stack.append(0)
+        elif kind == _NONE_NODE:
+            stack.append(None)
+        elif kind == _DICT_NODE:
+            stack.append(dict(zip(data, kids)))
+        elif kind in (_LIST_NODE, _TUPLE_NODE):
+            stack.append(kids)
+        else:
+            raise ValueError(f"treedef.pkl holds a node of kind {kind}; the "
+                             f"port reads dicts, lists, tuples and None")
+    (root,) = stack
+    return root
 
 
 class CheckpointManager:
@@ -227,11 +322,11 @@ class CheckpointManager:
             if dist.get_rank() != 0:
                 return
             flat = leaves(state)
-            host, sharded_manifest = _sharded_payload(
+            host, sharded_manifest = _payload(
                 flat, leaves(specs, is_leaf=spmd.is_spec), plan.mesh.shape)
         else:
             flat = leaves(state)
-            host = {f"a{i}": _host(x) for i, x in enumerate(flat)}
+            host, sharded_manifest = _payload(flat, [None] * len(flat), {})
         structure = json.dumps(_skeleton(state)).encode("utf-8")
         treedef = jax_treedef_pickle(state) if sharded_manifest else None
 
@@ -356,23 +451,21 @@ class CheckpointManager:
                 f"checkpoint step {step} in {self.dir} failed integrity "
                 f"verification (crc mismatch or missing payload)")
         path = self._path(step)
-        with open(os.path.join(path, "structure.json")) as f:
-            like = _from_skeleton(json.load(f))
+        if os.path.exists(os.path.join(path, "structure.json")):
+            with open(os.path.join(path, "structure.json")) as f:
+                like = _from_skeleton(json.load(f))
+        else:                       # written by the reference
+            with open(os.path.join(path, "treedef.pkl"), "rb") as f:
+                like = _like_from_treedef(f.read())
         manifest = self._load_manifest(path)
         n = len(leaves(like))
         flat = []
         with np.load(os.path.join(path, "arrays.npz")) as data:
             for i in range(n):
                 entry = manifest.get(str(i))
-                if entry is None:
-                    flat.append(torch.from_numpy(np.array(data[f"a{i}"])))
-                    continue
-                out = np.empty(tuple(entry["shape"]),
-                               dtype=np.dtype(entry["dtype"]))
-                for sh in entry["shards"]:
-                    out[tuple(slice(a, b) for a, b in sh["index"])] = \
-                        data[sh["key"]]
-                flat.append(torch.from_numpy(out))
+                flat.append(torch.from_numpy(np.array(data[f"a{i}"]))
+                            if entry is None
+                            else _leaf_from_entry(entry, data))
         return unflatten(like, flat)
 
     def _load_manifest(self, path: str) -> Dict[str, dict]:

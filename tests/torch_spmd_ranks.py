@@ -604,6 +604,59 @@ def fsdp_rank(rank: int, out: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# test_torch_bf16_state.py
+# ---------------------------------------------------------------------------
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def bf16_ckpt_rank(rank: int, out: str) -> None:
+    """A bf16 roo-lsr state under a 1 x 2 plan: 2 Trainer steps and a
+    checkpoint at step 2 into ``ck`` (rank 0 writes it, and
+    ``bf16_ckpt.npz``: the gathered params, opt and step by path, bf16 as
+    its bits). Each rank then restores with ``restore_sharded`` and
+    ``restore_resharded`` and checks its blocks against its live ones bit
+    for bit (``bf16_restores_r{rank}.npz``)."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import leaves
+    plan = plan_for_mesh(make_test_mesh(1, 2))
+    cfg = lsr_cfg()
+    params = lsr_init(torch.Generator().manual_seed(0), cfg,
+                      dtype=torch.bfloat16, device="cpu")
+    ck = os.path.join(out, "ck")
+    trainer = Trainer(lambda p, b, g: lsr_loss(p, cfg, b, plan=plan),
+                      optimizer(), TrainLoopConfig(total_steps=2, log_every=1,
+                                                   ckpt_dir=ck, ckpt_every=2),
+                      lambda: params, device="cpu", plan=plan)
+    state = trainer.run(cycling(batches(), spmd.make_batch_placer(plan, 0)),
+                        seed=7)
+    keys = ("params", "opt", "step")
+    full = trainer.gather_state(state)
+    if rank == 0:
+        flat = {}
+        for path, leaf in flatten_with_path({k: full[k] for k in keys}):
+            flat["/".join(p.strip("[]'") for p in path)] = (
+                leaf.view(torch.int16).numpy().view(np.uint16)
+                if leaf.dtype == torch.bfloat16 else leaf.numpy())
+        save_npz(os.path.join(out, "bf16_ckpt.npz"), **flat)
+    dist.barrier()
+    mgr = CheckpointManager(ck)
+    live = leaves({k: state[k] for k in keys})
+    same = [all(_same_bits(a, b) for a, b in zip(
+                leaves({k: got[k] for k in keys}), live))
+            for got in (mgr.restore_sharded(plan),
+                        mgr.restore_resharded(trainer._specs, plan))]
+    save_npz(os.path.join(out, f"bf16_restores_r{rank}.npz"),
+             same=np.asarray(same))
+    dist.barrier()
+
+
+# ---------------------------------------------------------------------------
 # the dry-run cells: test_torch_cells.py, test_torch_dryrun.py and
 # test_torch_cells_spmd.py (torch_ref_cells.py runs the reference's side
 # and imports the tables below)
