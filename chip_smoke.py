@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no result):
                    (registers / shared memory from -Xptxas -v; B2's and B3's
                    registers and spills per D template, none at D 32; B7's
                    per dtype, row blocks and load path, none in the main
-                   path's fp32, 2 row blocks, 16-byte template)
+                   path's fp32, 2 row blocks, 16-byte template; B5's per
+                   path, dtype, lane width and pooling, none in the deep
+                   kernel's or the short 16-byte ones)
   3. kernels     — each kernel against its plain torch version on the card,
                    reached through dispatch's auto backend: the HSTU forward
                    (B1) at the serving shape and ragged / wide / causal
@@ -45,7 +47,8 @@ Phases (any failure exits non-zero and prints no result):
                    of the plain version, B6's rows and ids equal to the
                    plain COO function, two backward calls bitwise equal;
                    the padded bag under REPRO_TORCH_EMB_DEDUP=always still
-                   launches B5 and B6; the raw wrappers refuse a
+                   launches B5 and B6; the long-bag sweep (below) through
+                   ``embedding_bag``; the raw wrappers refuse a
                    grad-requiring input and launch nothing. Then the
                    grouped launch (B5 and B6 over all fields of a lookup)
                    through ``GroupedEmbeddingBagFn``: dlrm-mlperf's RO and
@@ -61,7 +64,18 @@ Phases (any failure exits non-zero and prints no result):
                    one B5 and one B6 launch a call; the 16-byte and
                    one-element load paths bit for bit, strided int64 ids,
                    forced dedup (still one grouped launch each way), the
-                   raw grouped wrappers' refusals
+                   long-bag sweep through ``embedding_bag_grouped`` at
+                   F = 3, and every B5 launch the host can choose reached
+                   over the phase; the raw grouped wrappers' refusals. The
+                   long-bag sweep: B 1, 8, 32, 64, 192, 2,048 x L 5, 50,
+                   64, 200 x D 8, 32, 64, 128 (and bf16 D 256, short
+                   one-element and 16-byte bags), fp32 and bf16, sum /
+                   mean / max: equal to the slot-ordered adds bit for bit
+                   (sum, mean), to plain within BAG_TOL (fp32 sum and mean:
+                   + RTOL x the bag of the rows' magnitudes; bf16:
+                   BF16_ATOL / BF16_RTOL), grouped to its F = 1 stack bit
+                   for bit; each shape's launch (VEC, U, threads a block,
+                   blocks) printed
   6. dot kernels — the DLRM dot interaction (B7) through dispatch's auto
                    backend against its plain version, with and without the
                    diagonal, at the dlrm-mlperf scoring (512, 26, 128) and
@@ -366,8 +380,9 @@ Phases (any failure exits non-zero and prints no result):
                    run, the checkpoint's bytes beside an fp32 state's, and
                    params_to_numpy of the bf16 tree and back bit for bit;
                    B5 / B6 in bf16 timed at dlrm's scoring and training
-                   shapes and at lsr's beside the fp32 kernel, plain, the
-                   library calls and the bound at 2-byte rows. bf16
+                   shapes and at lsr's (B 32, 64 and 192) beside the fp32
+                   kernel, plain, the library calls and the bound at
+                   2-byte rows. bf16
                    tolerance: 2e-2 (atol and rtol), the reference's
 
 Numerics: the reference is fp32 end to end, so TF32 is switched off for
@@ -597,6 +612,18 @@ def phase_build(kmods) -> None:
     if len(dot) != 16 or dot.get(("fp32", 2, True), (0, 1))[1]:
         raise SystemExit("B7's main-path template (fp32, 2 row blocks, "
                          "16-byte loads) spills or a template is missing")
+    bag = bag_registers("\n".join(log for _, log in built))
+    for (path, dtype, vec, pool), (regs, spill) in sorted(bag.items()):
+        print(f"[build] B5 {path} {dtype} VEC {vec} "
+              f"{('sum', 'mean', 'max')[pool]}: {regs} registers, {spill} "
+              f"bytes spilled")
+    if len(bag) != 42 or any(spill for (path, _, vec, _), (_, spill)
+                             in bag.items()
+                             if path == "deep" or (path == "short"
+                                                   and vec > 1)):
+        raise SystemExit("a main-path B5 template (the deep kernel's, the "
+                         "short 16-byte ones) spills, or a template is "
+                         "missing")
 
 
 def ptxas_registers(log: str, key) -> dict:
@@ -635,6 +662,24 @@ def hstu_registers(log: str) -> dict:
                       r"ILi(\d+)E(f|13__nv_bfloat16)E", name)
         return ((names[k.group(1)], int(k.group(2)),
                  "fp32" if k.group(3) == "f" else "bf16") if k else None)
+    return ptxas_registers(log, key)
+
+
+def bag_registers(log: str) -> dict:
+    """{(short | long | deep, fp32 | bf16, VEC, pooling code): (registers,
+    spill bytes)} of B5's templates."""
+    import re
+
+    def key(name):
+        k = re.search(r"embedding_bag_fwd_(deep|grouped)_kernelI"
+                      r"(f|13__nv_bfloat16)Li(\d+)ELi(\d)E(?:Li\d+ELb([01]))?",
+                      name)
+        if not k:
+            return None
+        path = ("deep" if k.group(1) == "deep"
+                else "short" if k.group(5) == "1" else "long")
+        return (path, "fp32" if k.group(2) == "f" else "bf16",
+                int(k.group(3)), int(k.group(4)))
     return ptxas_registers(log, key)
 
 
@@ -1882,6 +1927,9 @@ def phase_bag_kernels(emod, device) -> dict:
     finally:
         del os.environ[collection.DEDUP_KNOB.env_var]
 
+    # B5's every launch over the long-bag sweep, as the models call it
+    bag_sweep(emod, device, grouped=False)
+
     # the raw wrappers build outputs outside autograd: refused under grad,
     # before any launch
     x = bag_inputs(BAG_SHAPES["D8"], 51, device)
@@ -1943,25 +1991,151 @@ def group_inputs(b, l, d, vocabs, seed, device, dtype=None, scale=0.02,
     return out
 
 
-def ordered_bags(tables, ids, lens, pooling):
-    """Sum or mean bags added slot by slot in slot order, in fp32 with one
-    rounding per add, then rounded to the table's dtype and divided there:
-    B5's order of operations, so its output must equal this bit for bit."""
+def ordered_sums(tables, ids, lens) -> list:
+    """Each field's bags added slot by slot in slot order, in fp32 with one
+    rounding per add (B5's order of operations), not yet rounded."""
     import torch
     b, _, l = ids.shape
-    outs = []
+    sums = []
     for j, t in enumerate(tables):
         n = lens[:, j].clamp(0, l)
         acc = torch.zeros((b, t.shape[1]), device=t.device)
         for s in range(l):
             row = t[ids[:, j, s].long().clamp(0, t.shape[0] - 1)].float()
             acc = torch.where((s < n)[:, None], acc + row, acc)
+        sums.append(acc)
+    return sums
+
+
+def ordered_bags(tables, ids, lens, pooling, sums=None):
+    """Sum or mean bags added slot by slot in slot order, in fp32 with one
+    rounding per add, then rounded to the table's dtype and divided there:
+    B5's order of operations, so its output must equal this bit for bit.
+    ``sums``: ``ordered_sums`` of the same inputs, if already made."""
+    import torch
+    sums = ordered_sums(tables, ids, lens) if sums is None else sums
+    outs = []
+    for j, (t, acc) in enumerate(zip(tables, sums)):
         r = acc.to(t.dtype)
         if pooling == "mean":
             den = lens[:, j].clamp(min=1).to(t.dtype).float()
             r = (r.float() / den[:, None]).to(t.dtype)
         outs.append(r)
     return torch.stack(outs, 1)
+
+
+# B5's launches as embedding_bag.fwd_plan names them, (VEC, U, threads a
+# block), by dtype: the short and long paths' 16-byte and one-element
+# templates and the deep kernel's 4-, 8- and 16-byte lanes (the source's
+# launch_fwd_plan). Phase 5 reaches each of them.
+def b5_launches(dtype) -> set:
+    import torch
+    esz = 4 if dtype == torch.float32 else 2
+    return ({(16 // esz, 4, 128), (1, 4, 128), (16 // esz, 8, 128),
+             (1, 8, 128)}
+            | {(size // esz, 64, 32) for size in (4, 8, 16)})
+
+
+# the long-bag sweep (phase 5): every (B, L, D) of the grid, plus a bf16
+# D 256 (16-byte deep lanes), short one-element bags (L 4 and 1, D 18) and
+# short 16-byte ones (L 2, D 64)
+BAG_SWEEP = dict(B=(1, 8, 32, 64, 192, 2048), L=(5, 50, 64, 200),
+                 D=(8, 32, 64, 128))
+BAG_SWEEP_EDGES = ((32, 64, 256), (192, 50, 256), (64, 4, 18), (64, 1, 18),
+                   (64, 2, 64))
+
+
+def bag_sweep(emod, device, grouped: bool) -> set:
+    """B5 over BAG_SWEEP in fp32 (tables at std 0.02) and bf16 (std 1),
+    sum / mean / max, ragged lengths with zeros, full bags and bags past
+    L, out-of-range ids: through ``embedding_bag`` at F = 1 (dispatch's
+    auto backend: what the models call) or, ``grouped``, through
+    ``embedding_bag_grouped`` at F = 3, held bit for bit to the stack of
+    its F = 1 launches. Sum and mean equal ``ordered_bags`` bit for bit;
+    against the plain version, max is within BAG_TOL, fp32 sum and mean
+    (up to 200 adds in another order) within BAG_TOL + RTOL times the same
+    bag of the rows' magnitudes, bf16 within BF16_ATOL / BF16_RTOL. Prints
+    each shape's launch (``fwd_plan``); returns the (dtype, VEC, U,
+    threads) launches seen."""
+    import itertools
+
+    import torch
+    vocabs = [5000, 977, 3] if grouped else [5000]
+    f = len(vocabs)
+    tag = "grouped F3" if grouped else "F1"
+    seen, n = set(), 0
+    shapes = list(itertools.product(BAG_SWEEP["B"], BAG_SWEEP["L"],
+                                    BAG_SWEEP["D"])) + list(BAG_SWEEP_EDGES)
+    for dtype, scale in ((torch.float32, 0.02), (torch.bfloat16, 1.0)):
+        plans = {}
+        for i, (b, l, d) in enumerate(shapes):
+            if d == 256 and dtype == torch.float32:
+                continue
+            x = group_inputs(b, l, d, vocabs, 200 + i, device, dtype, scale)
+            tables, ids, lens = x["tables"], x["ids"], x["lens"]
+            plan = emod.fwd_plan(f, b, l, d, dtype)
+            launch = (plan["vec"], plan["u"], plan["threads"])
+            seen.add((dtype, *launch))
+            plans.setdefault((l, d, launch), []).append(
+                f"B{b}: {plan['blocks']}")
+            sums = ordered_sums(tables, ids, lens)
+            for pooling in ("sum", "mean", "max"):
+                before = emod.fwd_launch_count
+                if grouped:
+                    got = emod.embedding_bag_grouped(tables, ids, lens,
+                                                     pooling)
+                    plain = emod.embedding_bag_grouped_plain(tables, ids,
+                                                             lens, pooling)
+                else:
+                    got = emod.embedding_bag(tables[0], ids[:, 0, :],
+                                             lens[:, 0], pooling)[:, None]
+                    plain = emod.embedding_bag_fwd_plain(
+                        tables[0], ids[:, 0, :], lens[:, 0],
+                        pooling)[:, None]
+                launched = emod.fwd_launch_count - before
+                same = True
+                if grouped:
+                    before = emod.fwd_launch_count
+                    single = torch.stack([emod.embedding_bag_fwd_cuda(
+                        t, ids[:, j, :], lens[:, j], pooling)
+                        for j, t in enumerate(tables)], 1)
+                    same = (torch.equal(got, single)
+                            and emod.fwd_launch_count - before == f)
+                if dtype == torch.float32 and pooling == "max":
+                    close = bool(((got - plain).abs() <= BAG_TOL).all())
+                elif dtype == torch.float32:
+                    # up to 200 adds in another order than plain's: within
+                    # BAG_TOL + RTOL times the bag of the rows' magnitudes
+                    mags = (emod.embedding_bag_grouped_plain(
+                        [t.abs() for t in tables], ids, lens, pooling)
+                        if grouped else emod.embedding_bag_fwd_plain(
+                            tables[0].abs(), ids[:, 0, :], lens[:, 0],
+                            pooling)[:, None])
+                    close = bool(((got - plain).abs()
+                                  <= BAG_TOL + RTOL * mags).all())
+                else:
+                    close = got.dtype == dtype and torch.allclose(
+                        got.float(), plain.float(), atol=BF16_ATOL,
+                        rtol=BF16_RTOL)
+                in_order = pooling == "max" or torch.equal(
+                    got, ordered_bags(tables, ids, lens, pooling, sums))
+                n += 1
+                if not (launched == 1 and same and close and in_order):
+                    err = float((got.float() - plain.float()).abs().max())
+                    raise SystemExit(
+                        f"bag sweep {tag} {dtype} B{b} L{l} D{d} {pooling} "
+                        f"(launch {launch}): launches {launched}, == F=1 "
+                        f"stack {same}, max|B5-plain| {err:.3e} within "
+                        f"tolerance {close}, in slot order {in_order}")
+            del x, tables, sums
+        for (l, d, launch), blocks in sorted(plans.items()):
+            print(f"[bag sweep] {tag} {dtype} L{l} D{d}: (VEC, U, threads a "
+                  f"block) {launch}, blocks " + ", ".join(blocks))
+    torch.cuda.empty_cache()
+    print(f"[bag sweep] {tag}: {n} launches, each equal to plain and (sum, "
+          f"mean) to slot-ordered fp32 adds bit for bit"
+          + (", and to its F = 1 stack bit for bit" if grouped else ""))
+    return seen
 
 
 def group_cases() -> dict:
@@ -2016,12 +2190,15 @@ def phase_grouped_bag_kernels(emod, device) -> dict:
     import torch
     from repro_torch.embeddings import collection
     worst = {"fwd": 0.0, "coo": 0.0}
+    seen = set()        # B5's launches, (dtype, VEC, U, threads)
     for i, (name, (b, l, d, vocabs, dtype, scale, one_hot)) in enumerate(
             group_cases().items()):
         x = group_inputs(b, l, d, vocabs, 70 + i, device, dtype, scale,
                          one_hot)
         tables, ids, lens, g = x["tables"], x["ids"], x["lens"], x["g"]
         fp32 = dtype == torch.float32
+        plan = emod.fwd_plan(len(tables), b, l, d, dtype)
+        seen.add((dtype, plan["vec"], plan["u"], plan["threads"]))
         for pooling in ("sum", "mean", "max"):
             grads, counts = [], []
             for _ in range(2):
@@ -2111,6 +2288,8 @@ def phase_grouped_bag_kernels(emod, device) -> dict:
         x = group_inputs(37, 9, 128, [300, 50, 3], 90, device, dtype, scale)
         tables, ids, lens, g = x["tables"], x["ids"], x["lens"], x["g"]
         shifted = [tables[0], offset(tables[1]), tables[2]]
+        plan = emod.fwd_plan(3, 37, 9, 128, dtype, aligned=False)
+        seen.add((dtype, plan["vec"], plan["u"], plan["threads"]))
         for pooling in ("sum", "mean", "max"):
             a = emod.embedding_bag_grouped_fwd_cuda(tables, ids, lens,
                                                     pooling)
@@ -2166,6 +2345,17 @@ def phase_grouped_bag_kernels(emod, device) -> dict:
         if not ok:
             raise SystemExit(f"the dedup=always grouped bag did not run B5 "
                              f"and B6 once, or disagrees at {pooling}")
+
+    # the long-bag sweep, and every launch the host can choose reached
+    seen |= bag_sweep(emod, device, grouped=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = {launch[1:] for launch in seen if launch[0] == dtype}
+        print(f"[grouped bags] {dtype} B5 launches (VEC, U, threads) "
+              f"reached: {sorted(got)}")
+        if got != b5_launches(dtype):
+            raise SystemExit(f"phase 5 reached B5's launches {sorted(got)} "
+                             f"in {dtype}, not "
+                             f"{sorted(b5_launches(dtype))}")
 
     # the raw grouped wrappers refuse a grad-requiring input, launching
     # nothing
@@ -8021,7 +8211,8 @@ def bf16_bag_case(emod, tables, ids, lens, g, pooling, vocabs, grouped):
 def phase_bf16_bag_times(emod, device, card: str) -> dict:
     """B5 and B6 in bf16 (phase 25f) at dlrm-mlperf's scoring and training
     shapes (each side's 13 one-hot fields, D 128, sum, vocabs capped at
-    DLRM_CAP) and at lsr's (B 32, L 64, D 64, mean, 50,000 rows, F 1),
+    DLRM_CAP) and at lsr's (L 64, D 64, mean, 50,000 rows, F 1) training
+    B 32, serving B 64 and impression-level B 192,
     beside the fp32 kernel on the same values, the plain version and the
     library calls on the same bf16 tables, and the bound at 2-byte rows;
     max |kernel - plain| on the bf16 operands. Returns the numbers by
@@ -8030,9 +8221,13 @@ def phase_bf16_bag_times(emod, device, card: str) -> dict:
     bf16 = torch.bfloat16
     out = {}
     cases = []
-    x = bag_inputs(BAG_SHAPES["train B32 L64 D64"], 60, device, dtype=bf16)
-    cases.append(("lsr", "lsr B32 L64 D64 V50000 mean", [x["table"]],
-                  x["ids"], x["lens"], x["g"], "mean", [x["v"]], False))
+    for key, shape, seed in (("lsr", "train B32 L64 D64", 60),
+                             ("lsr B64", "serve B64 L64 D64", 65),
+                             ("lsr B192", "impression B192 L64 D64", 66)):
+        x = bag_inputs(BAG_SHAPES[shape], seed, device, dtype=bf16)
+        cases.append((key, f"lsr {shape.split()[1]} L64 D64 V50000 mean",
+                      [x["table"]], x["ids"], x["lens"], x["g"], "mean",
+                      [x["v"]], False))
     for side in ("RO", "NRO"):
         vocabs = dlrm_side_vocabs(side.lower())
         gen = torch.Generator(device=device).manual_seed(63)
@@ -8193,11 +8388,11 @@ def bf16_bag_entries(bags16, dot_times, worst_dot, bf_times,
             ("training", "train", bags16["train"]),
             ("sparse training; times at the dense step's operands", "train",
              bags16["sparse"]))
-    lsr = (("roo-lsr userarch serving", models["userarch", "serve"]),
-           ("roo-lsr baseline serving", models["baseline", "serve"]),
-           ("roo-lsr userarch training", models["userarch", "train"]),
-           ("roo-lsr baseline training", models["baseline", "train"]),
-           ("roo-esr mlp user tower training", models["mlp"]))
+    lsr = (("roo-lsr userarch serving", models["userarch", "serve"], 64),
+           ("roo-lsr baseline serving", models["baseline", "serve"], 64),
+           ("roo-lsr userarch training", models["userarch", "train"], 32),
+           ("roo-lsr baseline training", models["baseline", "train"], 32),
+           ("roo-esr mlp user tower training", models["mlp"], 32))
     out = []
     for name, line, key, which in kernels:
         replaces = f"src/repro/kernels/embedding_bag.py:{line}"
@@ -8212,14 +8407,15 @@ def bf16_bag_entries(bags16, dot_times, worst_dot, bf_times,
                     **{k: v for k, v in times[f"{side} {stage}",
                                               which].items()
                        if k != "f32_ms"}))
-        for what, run in lsr:
+        for what, run, b in lsr:
             if key == "b6" and "training" not in what:
                 continue
             out.append(dict(
-                bag, name=f"{name} (bf16 {what}; times at lsr's B 32, L 64, "
+                bag, name=f"{name} (bf16 {what}; times at lsr's B {b}, L 64, "
                           f"D 64 mean bag over 50,000 rows)",
                 replaces=replaces, launches=run["launches"][key],
-                **{k: v for k, v in times["lsr", which].items()
+                **{k: v for k, v in times["lsr" if b == 32 else f"lsr B{b}",
+                                          which].items()
                    if k != "f32_ms"}))
     for what, stage, run in dlrm:
         out.append(dict(

@@ -87,12 +87,26 @@ def _want_dedup(dedup: Optional[bool]) -> bool:
     return DEDUP_KNOB.resolve() == "always"
 
 
+def _unique_inverse(flat: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.unique(flat, return_inverse=True)``. On meta tensors (the dry
+    run: ``torch.unique`` has no meta kernel) the reference's static-size
+    contract, ``jnp.unique(flat, size=flat.size, fill_value=0,
+    return_inverse=True)``: ``flat.numel()`` distinct ids and as many
+    inverse ids, so a count sees the gather of n rows and the expansion of
+    n ids that the reference's compiled step runs."""
+    if flat.device.type == "meta":
+        return (torch.empty_like(flat),
+                torch.empty(flat.shape, dtype=torch.long, device="meta"))
+    return torch.unique(flat, return_inverse=True)
+
+
 def dedup_gather(table: torch.Tensor, ids: torch.Tensor,
                  row_gather=None) -> torch.Tensor:
     """``table[ids]`` with each distinct id read once; ids pre-clipped.
     ``row_gather(uids) -> (n_ids, D)`` overrides how the distinct rows are
     fetched (a sharded gather, say)."""
-    uids, inv = torch.unique(ids.reshape(-1), return_inverse=True)
+    uids, inv = _unique_inverse(ids.reshape(-1))
     rows = (gather_rows(table, uids) if row_gather is None
             else row_gather(uids))
     return gather_rows(rows, inv).reshape(tuple(ids.shape)
@@ -151,7 +165,7 @@ def seq_lookup(table: Table, ids: torch.Tensor, *,
         from repro_torch.embeddings.sharded import sharded_seq_lookup
         clipped = torch.clamp(ids.long(), 0, v - 1)
         if _want_dedup(dedup) or _compress_active():
-            uids, inv = torch.unique(clipped.reshape(-1), return_inverse=True)
+            uids, inv = _unique_inverse(clipped.reshape(-1))
             rows = sharded_seq_lookup(table, uids, plan=plan, vocab=v,
                                       stats_shape=tuple(clipped.shape),
                                       stats_dedup=True)
@@ -239,8 +253,8 @@ def _model_chunk(out: torch.Tensor, plan) -> torch.Tensor:
 def _distinct_rows(table: torch.Tensor, ids: torch.Tensor,
                    vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The rows of the distinct clipped ids, and the ids into them."""
-    uids, inv = torch.unique(torch.clamp(ids.long(), 0, vocab - 1),
-                             return_inverse=True)
+    uids, inv = _unique_inverse(torch.clamp(ids.long(), 0, vocab - 1)
+                               .reshape(-1))
     return gather_rows(table, uids), inv.reshape(ids.shape)
 
 

@@ -27,20 +27,38 @@
 //    synchronisation. ids and lengths are read through their strides, so a
 //    field's slice needs no copy, and B5 writes the (B, F, D) output the
 //    model consumes, so no stack follows.
-//  - Grid (bag blocks, F). A bag (b, f) belongs to a power-of-two group of
-//    lanes of one warp (all 32 at D 128 fp32): lane c owns columns
-//    [c*VEC, (c+1)*VEC) and reads a row's share with one 16-byte
-//    ld.global.nc.v4 (4 fp32 or 8 bf16). A round loads the rows of U slots
-//    (all of a bag up to L 4, else 8) before adding any of them, and reads
-//    the next U ids while those rows are in flight; the adds run in slot
-//    order l = 0, 1, ... in fp32 with one rounding each, so every output
-//    equals that of a plain per-slot loop (and of the per-field kernel this
-//    replaces) bit for bit. B6 gives a slot row the same lane
-//    group and writes it with 16-byte stores.
-//  - The 16-byte path runs when D is a multiple of the vector width and
-//    every table and the output (B6: g and the rows) are 16-byte aligned;
-//    otherwise one element a lane. The choice is per launch and does not
-//    change any result.
+//  - Every launch adds a bag's rows in slot order l = 0, 1, ... in fp32
+//    with one rounding each, so every output equals that of a plain
+//    per-slot loop (and of the per-field kernel this replaces) bit for
+//    bit, whatever the launch. The host picks the launch from L, D, the
+//    dtype and the alignment (fwd_plan); none changes a result.
+//  - Short bags (L <= 4: dlrm's one-hot fields), and long ones whose rows
+//    are under 128 bytes: grid (bag blocks, F), blocks of four warps, a bag
+//    to a power-of-two group of lanes of one warp (all 32 at D 128 fp32):
+//    lane c owns columns [c*VEC, (c+1)*VEC) and reads a row's share with
+//    one 16-byte ld.global.nc.v4 (4 fp32 or 8 bf16). A round loads the rows
+//    of U slots (all of a short bag, else 8) before adding any of them, and
+//    reads the next U ids while those rows are in flight.
+//  - Long bags of rows of 128 bytes or more (LSR's history: 64 slots of
+//    D 64; the deep kernel): grid (B, F), one warp a bag, a block each.
+//    At LSR's 32 to 192 bags a launch is bound by rounds of load latency
+//    on few SMs, not by bytes, so a round covers 64 slots and every row of
+//    it is in flight at once. Each lane loads one id of each 32
+//    (coalesced), the warp shares them through shared memory and copies
+//    the round's rows into shared memory with 16-byte cp.async,
+//    32 / (2*BYTES) rows an instruction: copies hold no registers, so the
+//    depth does not rest on the registers the compiler allots (with the
+//    rows held in registers, how many loads stayed in flight changed from
+//    one small edit of the source to the next). Lane c then adds columns
+//    [c*VEC, (c+1)*VEC) of each row from shared memory, BYTES = VEC*size
+//    the narrowest of 4, 8 and 16 that covers a row in one pass of the
+//    warp (D 64: 4 bytes of bf16, 8 of fp32).
+//  - B6 gives a slot row a lane group as B5's short path does and writes
+//    it with 16-byte stores.
+//  - The 16-byte (and deep) paths run when D is a multiple of the 16-byte
+//    vector and every table and the output (B6: g and the rows) are
+//    16-byte aligned; otherwise one element a lane, 8 rows ahead (B5) in
+//    blocks of four warps.
 //
 // Numerics follow the reference's op order: the sum is rounded to the
 // table's dtype, then divided by max(len, 1) in that dtype; max starts at
@@ -55,6 +73,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -62,6 +81,8 @@ constexpr int kMaxFields = 64;   // fields in one launch (dlrm: 13 a side)
 constexpr int kThreads = 128;    // threads a block (four warps)
 constexpr int kShortBag = 4;     // bags up to this L load all rows at once
 constexpr int kLongBag = 8;      // longer bags: rows loaded ahead of adds
+constexpr int kDeepBag = 64;     // the deep kernel's slots a round
+constexpr int kDeepRow = 128;    // bytes of a row from which it runs
 
 enum Pooling { kSum = 0, kMean = 1, kMax = 2 };
 
@@ -116,7 +137,8 @@ __device__ __forceinline__ int clip_id(int id, int V) {
 }
 
 // VEC consecutive elements of T, loaded (read-only path) or stored as fp32
-// values; VEC * sizeof(T) is 16 bytes or one element
+// values; VEC * sizeof(T) is 16 bytes or one element (and 8 or 4 bytes for
+// the deep kernel's stores)
 template <typename T, int VEC>
 struct Vec;
 
@@ -145,6 +167,13 @@ struct Vec<float, 1> {
 };
 
 template <>
+struct Vec<float, 2> {
+  static __device__ __forceinline__ void store(float* p, const float* x) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+};
+
+template <>
 struct Vec<__nv_bfloat16, 8> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               float* x) {
@@ -165,6 +194,22 @@ struct Vec<__nv_bfloat16, 8> {
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i],
                                                              x[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = v;
+  }
+};
+
+// 8 and 4 bytes of bf16, stored
+template <int VEC>
+struct Vec<__nv_bfloat16, VEC> {
+  static_assert(VEC == 4 || VEC == 2, "8 or 4 bytes of bf16");
+  using Word = typename std::conditional<VEC == 4, uint2, unsigned>::type;
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* x) {
+    Word v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i)
+      h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    *reinterpret_cast<Word*>(p) = v;
   }
 };
 
@@ -263,6 +308,159 @@ embedding_bag_fwd_grouped_kernel(const BagGroup grp,
   }
 }
 
+// B5's deep kernel: a block is one warp and one bag; a round stages the
+// rows of kDeepBag slots in shared memory (at most 32 KB)
+constexpr int kDeepThreads = 32;
+
+template <int BYTES>
+struct Words;
+template <>
+struct Words<4> {
+  using type = unsigned;
+};
+template <>
+struct Words<8> {
+  using type = uint2;
+};
+template <>
+struct Words<16> {
+  using type = uint4;
+};
+
+// an asynchronous 16-byte copy from global to shared memory (L2 only)
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a lane's VEC elements of T, staged in shared memory, as fp32 (bf16 to
+// fp32 is exact: the 16 bits on top of 16 zero bits)
+template <typename T, int VEC>
+__device__ __forceinline__ void widen(const unsigned char* p, float* x) {
+  constexpr int kWords = VEC * (int)sizeof(T) / 4;
+  using W = typename Words<4 * kWords>::type;
+  const W w = *reinterpret_cast<const W*>(p);
+  const unsigned* u = reinterpret_cast<const unsigned*>(&w);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    if (sizeof(T) == 4) {
+      x[i] = __uint_as_float(u[i]);
+    } else {
+      x[2 * i] = __uint_as_float(u[i] << 16);
+      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+}
+
+// B5 on a small grid (fwd_plan's deep path): grid (B, F), one warp a bag,
+// lane s owning columns c0 + [s*VEC, (s+1)*VEC) of each pass over a slab
+// of 32*VEC columns (32*BYTES bytes of a row). A round covers U slots:
+//  - each lane loads the ids of slots base + s, base + s + 32 (coalesced,
+//    clamped at L - 1, none waiting on the length) into shared memory;
+//  - the warp copies the round's slabs into shared memory with 16-byte
+//    asynchronous copies, 32 / (2*BYTES) rows an instruction (a D-64 bf16
+//    row is 8 lanes' copy): every row of the round is in flight at once,
+//    whatever registers the compiler gives the kernel;
+//  - each lane adds its columns of the U rows in slot order.
+// The next round's ids load while the rows fly. A lane past D adds what
+// it finds and stores nothing.
+template <typename T, int VEC, int POOL>
+__global__ void __launch_bounds__(kDeepThreads)
+embedding_bag_fwd_deep_kernel(const BagGroup grp,
+                              const int32_t* __restrict__ ids,
+                              const int32_t* __restrict__ lengths,
+                              T* __restrict__ out) {
+  constexpr int U = kDeepBag;
+  constexpr int K = (U + 31) / 32;   // ids a lane loads a round
+  constexpr int BYTES = VEC * (int)sizeof(T);
+  constexpr int SLAB = 32 * BYTES;   // bytes of a row a pass covers
+  constexpr int CHUNKS = SLAB / 16;  // 16-byte copies a slab
+  constexpr int ROWS = 32 / CHUNKS;  // rows a copy instruction covers
+  __shared__ __align__(16) unsigned char rows[U][SLAB];
+  __shared__ __align__(16) int slot_ids[K * 32];
+  const int f = blockIdx.y;
+  const int b = blockIdx.x;
+  const int s = threadIdx.x;
+  const int chunk = s % CHUNKS;      // this lane's copy of a slab ...
+  const int first = s / CHUNKS;      // ... in rows first, first + ROWS, ...
+  const T* table = static_cast<const T*>(grp.tables[f]);
+  const int V = grp.vocab[f];
+  const int D = grp.D;
+  const int L = grp.L;
+  const int len = lengths[b * grp.len_stride[0] + f * grp.len_stride[1]];
+  const int n = min(max(len, 0), L);
+  const int32_t* bag = ids + b * grp.ids_stride[0] + f * grp.ids_stride[1];
+  const long long sl = grp.ids_stride[2];
+  const unsigned row_bytes = (unsigned)D * sizeof(T);
+  T* o = out + ((long long)b * gridDim.y + f) * D;
+  for (int c0 = 0; c0 < D; c0 += 32 * VEC) {
+    const unsigned at = c0 * (unsigned)sizeof(T) + 16 * chunk;
+    const bool copies = at < row_bytes;  // a chunk inside the row
+    const char* src = reinterpret_cast<const char*>(table) + at;
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = POOL == kMax ? lowest<T>() : 0.0f;
+    int next[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      next[k] = clip_id(bag[min(s + 32 * k, L - 1) * sl], V);
+    for (int base = 0; base < n; base += U) {
+      const int cnt = min(n - base, U);
+      __syncwarp();                 // every lane done with the last round
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        slot_ids[32 * k + s] = next[k];
+        // the next round's ids, while this round's rows fly
+        next[k] = clip_id(bag[min(base + U + s + 32 * k, L - 1) * sl], V);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = first; j < U; j += ROWS)
+        if (copies && j < cnt)
+          copy16_async(rows[j] + 16 * chunk,
+                       src + (unsigned long long)(unsigned)slot_ids[j] *
+                                 row_bytes);
+      copies_done();
+      __syncwarp();                 // the other lanes' copies landed
+#pragma unroll
+      for (int j = 0; j < U; ++j) {  // in slot order
+        if (j < cnt) {
+          float e[VEC];
+          widen<T, VEC>(rows[j] + s * BYTES, e);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            if (POOL == kMax) {
+              acc[v] = (e[v] > acc[v] || isnan(e[v])) ? e[v] : acc[v];
+            } else {
+              acc[v] += e[v];
+            }
+          }
+        }
+      }
+    }
+    const int c = c0 + s * VEC;
+    if (c < D) {
+      float r[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        if (POOL == kMax) {
+          r[v] = round_to<T>(len > 0 ? acc[v] : 0.0f);
+        } else {
+          r[v] = round_to<T>(acc[v]);
+          if (POOL == kMean)
+            r[v] = round_to<T>(r[v] / round_to<T>((float)max(len, 1)));
+        }
+      }
+      Vec<T, VEC>::store(o + c, r);
+    }
+  }
+}
+
 // B6: grid (slot-row blocks, F); a slot row per lane group
 template <typename T, int VEC, bool MEAN>
 __global__ void __launch_bounds__(kThreads)
@@ -317,68 +515,123 @@ int lanes_for(int chunks) {
 }
 
 // The grid for `items` bags or slot rows a field, grp.lanes lanes an item
-// and kThreads threads a block; false if it does not fit.
+// and `threads` threads a block; false if it does not fit.
 bool launch_grid(const BagGroup& grp, long long items, int n_fields,
-                 dim3* grid) {
-  const long long per_block = kThreads / grp.lanes;
+                 int threads, dim3* grid) {
+  const long long per_block = threads / grp.lanes;
   const long long blocks = (items + per_block - 1) / per_block;
   if (blocks > INT_MAX) return false;
   *grid = dim3((unsigned)blocks, (unsigned)n_fields);
   return true;
 }
 
-template <typename T, int VEC, int U, bool SHORT>
-cudaError_t launch_fwd(BagGroup grp, int n_fields, const int32_t* ids,
-                       const int32_t* lengths, T* out, int pooling,
+// B5's launch: the bytes a lane loads of a row (the deep kernel: copies a
+// pass of the warp's, 32 lanes of them), depth (kShort: all of a bag's
+// rows in one round; kLong: 8 rows ahead; kDeep: the deep kernel),
+// threads a block and lanes a bag.
+enum Depth { kShort = 0, kLong = 1, kDeep = 2 };
+struct FwdPlan {
+  int bytes, depth, threads, lanes;
+};
+
+constexpr int slots_ahead(int depth) {
+  return depth == kShort ? kShortBag : depth == kLong ? kLongBag : kDeepBag;
+}
+
+// The launch for bags of L slots and D elements of esz bytes; widest: 16
+// where the 16-byte path is open, else esz. Neither B nor F enters: the
+// deep kernel was as fast or faster than the 16-byte path from 32 to 8,192
+// bags (scripts/bag_ablations.py).
+FwdPlan fwd_plan(int L, int D, int esz, int widest) {
+  const int row = D * esz;
+  if (L <= kShortBag || widest != 16 || row < kDeepRow)
+    return FwdPlan{widest, L <= kShortBag ? kShort : kLong, kThreads,
+                   lanes_for(row / widest)};
+  // the narrowest of 16, 8 and 4 bytes a lane that covers a row in one
+  // pass of the warp
+  int bytes = 16;
+  while (bytes > 4 && row / (bytes / 2) <= 32) bytes /= 2;
+  return FwdPlan{bytes, kDeep, kDeepThreads, kDeepThreads};
+}
+
+template <typename T, int VEC, int DEPTH, int POOL>
+void launch_fwd_kernel(const BagGroup& grp, dim3 grid, int threads,
+                       const int32_t* ids, const int32_t* lengths, T* out,
                        cudaStream_t stream) {
-  grp.lanes = lanes_for(grp.D / VEC);
+  if constexpr (DEPTH == kDeep)
+    embedding_bag_fwd_deep_kernel<T, VEC, POOL>
+        <<<grid, threads, 0, stream>>>(grp, ids, lengths, out);
+  else
+    embedding_bag_fwd_grouped_kernel<T, VEC, POOL, slots_ahead(DEPTH),
+                                     DEPTH == kShort>
+        <<<grid, threads, 0, stream>>>(grp, ids, lengths, out);
+}
+
+template <typename T, int VEC, int DEPTH>
+cudaError_t launch_fwd(BagGroup grp, const FwdPlan& plan, int n_fields,
+                       const int32_t* ids, const int32_t* lengths, T* out,
+                       int pooling, cudaStream_t stream) {
+  grp.lanes = plan.lanes;
   dim3 grid;
-  if (!launch_grid(grp, grp.B, n_fields, &grid))
+  if (!launch_grid(grp, grp.B, n_fields, plan.threads, &grid))
     return cudaErrorInvalidConfiguration;
   if (pooling == kSum) {
-    embedding_bag_fwd_grouped_kernel<T, VEC, kSum, U, SHORT>
-        <<<grid, kThreads, 0, stream>>>(grp, ids, lengths, out);
+    launch_fwd_kernel<T, VEC, DEPTH, kSum>(grp, grid, plan.threads, ids,
+                                           lengths, out, stream);
   } else if (pooling == kMean) {
-    embedding_bag_fwd_grouped_kernel<T, VEC, kMean, U, SHORT>
-        <<<grid, kThreads, 0, stream>>>(grp, ids, lengths, out);
+    launch_fwd_kernel<T, VEC, DEPTH, kMean>(grp, grid, plan.threads, ids,
+                                            lengths, out, stream);
   } else if (pooling == kMax) {
-    embedding_bag_fwd_grouped_kernel<T, VEC, kMax, U, SHORT>
-        <<<grid, kThreads, 0, stream>>>(grp, ids, lengths, out);
+    launch_fwd_kernel<T, VEC, DEPTH, kMax>(grp, grid, plan.threads, ids,
+                                           lengths, out, stream);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// Short bags (dlrm's one- and two-hot fields) load all their rows at once
-// with few registers, so more warps fit an SM; long ones (LSR's history of
-// 64) load 8 rows ahead of their adds. scripts/bag_ablations.py times the
-// other depths at both.
-template <typename T, int VEC>
-cudaError_t launch_fwd_depth(const BagGroup& grp, int n_fields,
-                             const int32_t* ids, const int32_t* lengths,
-                             T* out, int pooling, cudaStream_t stream) {
-  if (grp.L <= kShortBag)
-    return launch_fwd<T, VEC, kShortBag, true>(grp, n_fields, ids, lengths,
-                                               out, pooling, stream);
-  return launch_fwd<T, VEC, kLongBag, false>(grp, n_fields, ids, lengths,
-                                             out, pooling, stream);
+// the template of a plan: 16-byte or one-element loads at the short and
+// long depths, 16, 8 or 4 bytes at the deep one
+template <typename T>
+cudaError_t launch_fwd_plan(const BagGroup& grp, const FwdPlan& plan,
+                            int n_fields, const int32_t* ids,
+                            const int32_t* lengths, T* out, int pooling,
+                            cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const auto args = [&](auto launch) {
+    return launch(grp, plan, n_fields, ids, lengths, out, pooling, stream);
+  };
+  if (plan.depth == kDeep) {
+    if (plan.bytes == 16) return args(launch_fwd<T, kVec, kDeep>);
+    if (plan.bytes == 8) return args(launch_fwd<T, kVec / 2, kDeep>);
+    if (plan.bytes == 4) return args(launch_fwd<T, kVec / 4, kDeep>);
+    return cudaErrorInvalidValue;
+  }
+  if (plan.bytes == 16)
+    return plan.depth == kShort ? args(launch_fwd<T, kVec, kShort>)
+                                : args(launch_fwd<T, kVec, kLong>);
+  return plan.depth == kShort ? args(launch_fwd<T, 1, kShort>)
+                              : args(launch_fwd<T, 1, kLong>);
+}
+
+template <typename T>
+bool fwd_vec16(const BagGroup& grp, int n_fields, const void* out) {
+  bool vec = grp.D % (16 / sizeof(T)) == 0 && aligned16(out);
+  for (int f = 0; f < n_fields; ++f) vec = vec && aligned16(grp.tables[f]);
+  return vec;
 }
 
 template <typename T>
 cudaError_t fwd_dtype(const BagGroup& grp, int n_fields, const void* ids,
                       const void* lengths, void* out, int pooling,
                       cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  bool vec = grp.D % kVec == 0 && aligned16(out);
-  for (int f = 0; f < n_fields; ++f) vec = vec && aligned16(grp.tables[f]);
-  const int32_t* i = static_cast<const int32_t*>(ids);
-  const int32_t* n = static_cast<const int32_t*>(lengths);
-  T* o = static_cast<T*>(out);
-  return vec ? launch_fwd_depth<T, kVec>(grp, n_fields, i, n, o, pooling,
-                                         stream)
-             : launch_fwd_depth<T, 1>(grp, n_fields, i, n, o, pooling,
-                                      stream);
+  const int esz = (int)sizeof(T);
+  const FwdPlan plan = fwd_plan(grp.L, grp.D, esz,
+                                fwd_vec16<T>(grp, n_fields, out) ? 16 : esz);
+  return launch_fwd_plan<T>(grp, plan, n_fields,
+                            static_cast<const int32_t*>(ids),
+                            static_cast<const int32_t*>(lengths),
+                            static_cast<T*>(out), pooling, stream);
 }
 
 template <typename T, int VEC>
@@ -387,7 +640,7 @@ cudaError_t launch_bwd(BagGroup grp, int n_fields, const T* g,
                        int32_t* out_ids, int mean, cudaStream_t stream) {
   grp.lanes = lanes_for(grp.D / VEC);
   dim3 grid;
-  if (!launch_grid(grp, (long long)grp.B * grp.L, n_fields, &grid))
+  if (!launch_grid(grp, (long long)grp.B * grp.L, n_fields, kThreads, &grid))
     return cudaErrorInvalidConfiguration;
   if (mean) {
     embedding_bag_bwd_coo_grouped_kernel<T, VEC, true>
@@ -464,6 +717,27 @@ int embedding_bag_fwd_grouped(const void* const* tables, const int* vocabs,
     return (int)fwd_dtype<__nv_bfloat16>(grp, n_fields, ids, lengths, out,
                                          pooling, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch B5 makes for a group of n_fields fields, B bags, L slots and
+// D columns of dtype (0 fp32, 1 bf16) whose tables and output are 16-byte
+// aligned (aligned != 0) or not: out[0..4] = the elements a lane adds of
+// a row (VEC), the rows a round loads before adding them (U), threads a
+// block, blocks, lanes a bag.
+int embedding_bag_fwd_plan(int n_fields, int B, int L, int D, int dtype,
+                           int aligned, int* out) {
+  if (n_fields < 1 || B < 1 || L < 0 || D < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int esz = dtype == 0 ? 4 : 2;
+  const bool vec = aligned && D % (16 / esz) == 0;
+  const FwdPlan p = fwd_plan(L, D, esz, vec ? 16 : esz);
+  const int per_block = p.threads / p.lanes;
+  out[0] = p.bytes / esz;
+  out[1] = slots_ahead(p.depth);
+  out[2] = p.threads;
+  out[3] = (B + per_block - 1) / per_block * n_fields;
+  out[4] = p.lanes;
+  return (int)cudaSuccess;
 }
 
 // B6 over a group. g: contiguous (B, n_fields, D), the grouped output's

@@ -87,10 +87,30 @@ def _load():
             vp, ints, i, vp, strides, vp, strides, vp, vp] + [i] * 5 + [vp]
         lib.embedding_bag_fwd_grouped.restype = i
         lib.embedding_bag_bwd_coo_grouped.restype = i
+        lib.embedding_bag_fwd_plan.argtypes = [i] * 6 + [ints]
+        lib.embedding_bag_fwd_plan.restype = i
         lib.embedding_bag_error_string.argtypes = [i]
         lib.embedding_bag_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def fwd_plan(n_fields: int, b: int, l: int, d: int, dtype: torch.dtype,
+             aligned: bool = True) -> dict:
+    """The launch B5 makes for a group of ``n_fields`` fields, ``b`` bags of
+    ``l`` slots and ``d`` columns of ``dtype``, its tables and output
+    16-byte aligned or not (the source's ``fwd_plan``): ``vec`` (the
+    elements a lane adds of a row), ``u`` (the rows a round loads before
+    adding any), ``threads`` a block, ``blocks``, ``lanes`` a bag. Asks the
+    built library, so it needs ``nvcc``; no launch."""
+    import ctypes
+    out = (ctypes.c_int * 5)()
+    err = _load().embedding_bag_fwd_plan(n_fields, b, l, d, DTYPES[dtype],
+                                         int(aligned), out)
+    if err != 0:
+        raise ValueError(f"embedding_bag_fwd_plan: {n_fields} fields, B {b}, "
+                         f"L {l}, D {d}, {dtype}: error {err}")
+    return dict(zip(("vec", "u", "threads", "blocks", "lanes"), out))
 
 
 def _check_tables(name: str, tables: Sequence[torch.Tensor]

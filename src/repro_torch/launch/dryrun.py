@@ -76,10 +76,6 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
                                          link_bandwidth)
     from repro_torch.launch.op_analysis import analyze
 
-    from repro_torch.embeddings.collection import DEDUP_KNOB
-    if DEDUP_KNOB.resolve() == "always":
-        raise ValueError("the dry run cannot force emb_dedup=always: "
-                         "torch.unique has no meta kernel")
     t0 = time.time()
     spec = mesh_spec or ("2x16x16" if multi_pod else "16x16")
     mesh = _world_and_mesh(spec)

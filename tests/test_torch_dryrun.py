@@ -33,6 +33,13 @@ form (:func:`_mace_step_flops`: each product of the step, counted as
 that the plan route splits the one-device count 8 ways, and bounds the gap
 to the reference.
 
+``emb_dedup=always`` (``REPRO_TORCH_EMB_DEDUP`` / ``REPRO_EMB_DEDUP``)
+runs on both sides for ``torch_spmd_ranks.DEDUP_CELL``: the port's meta
+``torch.unique`` takes the reference's static-size contract (n distinct
+ids and n inverse ids), so its FLOPs are the reference's under ``always``
+plus the cell's named term, and its bytes exceed the ``never`` run's by
+the n-row gathers of the distinct rows.
+
 The CLI's ``--opt-level`` reaches the LM's opt levels: granite train_4k
 ``flash`` (q-chunked attention) runs the same products with a lower peak.
 
@@ -86,10 +93,25 @@ def runs(tmp_path_factory):
                                     "train_4k", "--opt-level", "flash"],
                              env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True)
+    ref_dedup = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_ref_cells.py"),
+         "dryrun_dedup", str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    dedup = {policy: subprocess.Popen(
+        dry[:-2] + ["--out", str(out / policy), "--mesh", "2x4", "--cells",
+                    _cells_arg([R.DEDUP_CELL])],
+        env=dict(env, REPRO_TORCH_EMB_DEDUP=policy), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for policy in ("always", "never")}
     port = subprocess.run(dry + ["--mesh", "2x4", "--cells",
                                  _cells_arg(R.DRYRUN_CELLS)],
                           env=env, capture_output=True, text=True,
                           timeout=600)
+    for policy, proc in dedup.items():
+        d_out, d_err = proc.communicate(timeout=600)
+        assert proc.returncode == 0 and d_out.startswith("OK "), \
+            policy + d_err[-3000:]
+    d_out, d_err = ref_dedup.communicate(timeout=600)
+    assert "REF_DRYRUN_DEDUP_DONE" in d_out, d_err[-3000:]
     o_out, o_err = one.communicate(timeout=600)
     f_out, f_err = flash.communicate(timeout=600)
     r_out, r_err = ref.communicate(timeout=600)
@@ -101,6 +123,11 @@ def runs(tmp_path_factory):
     got = {f"{a}/{s}/{lv}": _port_json(out, "2x4", a, s, lv)
            for a, s, lv in R.DRYRUN_CELLS}
     return {"out": out, "port": got, "ref": ref_res, "stdout": port.stdout,
+            "dedup": {policy: _port_json(out / policy, "2x4",
+                                         *R.DEDUP_CELL)
+                      for policy in dedup},
+            "ref_dedup": json.loads(
+                (out / "ref_dryrun_dedup.json").read_text()),
             "mace_1x1": _port_json(out, "1x1", "mace", "molecule",
                                    "baseline"),
             "granite_flash": _port_json(out, "2x4", "granite-moe-3b-a800m",
@@ -187,6 +214,38 @@ TERMS = {"mind/serve_p99/baseline": _mind_last_update,
 def test_flops_are_the_references_plus_the_named_term(runs, tag):
     got, want = _flops(runs, tag)
     assert got == pytest.approx(want + TERMS[tag](), rel=0.005)
+
+
+def test_dedup_always_flops_are_the_references_plus_the_named_term(runs):
+    tag = "/".join(R.DEDUP_CELL)
+    got = runs["dedup"]["always"]["cost_analysis"]["flops"]
+    want = runs["ref_dedup"][tag]["flops"]
+    assert got == pytest.approx(want + TERMS[tag](), rel=0.005)
+    # deduplication adds gathers, which count no FLOPs, on either side
+    assert want == runs["ref"][tag]["flops"]
+    assert got == runs["dedup"]["never"]["cost_analysis"]["flops"]
+
+
+def test_dedup_always_counts_the_distinct_rows_gathers(runs):
+    from repro_torch.configs.recsys_cells import RECSYS_SHAPES
+    from repro_torch.models.dlrm import DLRMConfig
+    tag = "/".join(R.DEDUP_CELL)
+    default = runs["port"][tag]
+    always, never = runs["dedup"]["always"], runs["dedup"]["never"]
+    # never is the default route, unchanged
+    assert never["cost_analysis"] == default["cost_analysis"]
+    assert never["memory_analysis"] == default["memory_analysis"]
+    # always adds, per deduplicated field of n ids, the gather of its n
+    # distinct rows (read and written) and their n ids; at most every
+    # field's, and its inverse ids' gather besides
+    cfg, shape = DLRMConfig(), RECSYS_SHAPES[R.DEDUP_CELL[1]]
+    n_ro, n_nro = shape["b_ro"] // N_DATA, shape["b_nro"] // N_DATA
+    n_fields = cfg.n_ro_fields
+    ids = n_ro * n_fields + n_nro * (cfg.n_sparse - n_fields)
+    one_gather = ids * (2 * cfg.embed_dim * 4 + 8)
+    extra = (always["cost_analysis"]["bytes_accessed"]
+             - never["cost_analysis"]["bytes_accessed"])
+    assert 0 < extra <= 2 * one_gather
 
 
 def _counted(fn, *shapes, grads):

@@ -18,6 +18,9 @@ Jobs:
   * ``dryrun``: the seven cells of ``torch_spmd_ranks.DRYRUN_CELLS`` lowered,
     compiled and analyzed (``hlo_analysis``) on a 2 x 4 mesh of 8 forced
     host devices -> ``ref_dryrun.json``;
+  * ``dryrun_dedup``: ``dryrun`` on ``torch_spmd_ranks.DEDUP_CELL`` with
+    ``REPRO_EMB_DEDUP=always`` (every lookup deduplicated through the
+    static-size ``jnp.unique``) -> ``ref_dryrun_dedup.json``;
   * ``spmd``: the MIND, BERT4Rec and DIEN cell losses, gradients and
     serving outputs at ``torch_spmd_ranks``' small shapes on a 2 x 2 mesh
     of 4 forced host devices, on the inputs and params that
@@ -28,7 +31,9 @@ import os
 import sys
 
 JOB = sys.argv[1] if __name__ == "__main__" else None
-_DEVICES = {"cells": 256, "dryrun": 8, "spmd": 4}
+_DEVICES = {"cells": 256, "dryrun": 8, "dryrun_dedup": 8, "spmd": 4}
+if JOB == "dryrun_dedup":
+    os.environ["REPRO_EMB_DEDUP"] = "always"
 if JOB in _DEVICES:
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
@@ -124,13 +129,13 @@ def run_cells(out):
         json.dump(mod, f)
 
 
-def run_dryrun(out):
+def run_dryrun(out, cells=None, name="ref_dryrun.json"):
     from repro.distributed.sharding import plan_for_mesh
     from repro.launch.hlo_analysis import analyze
     mesh = auto_mesh((2, 4), ("data", "model"))
     plan = plan_for_mesh(mesh)
     res = {}
-    for arch, shape, level in R.DRYRUN_CELLS:
+    for arch, shape, level in cells or R.DRYRUN_CELLS:
         cell = build(arch, shape, level, plan)
         st_sh, in_sh = cell.shardings(plan)
         with mesh:
@@ -144,8 +149,12 @@ def run_dryrun(out):
             "memory_bytes": a["memory_bytes"],
             "argument_bytes": int(m.argument_size_in_bytes),
             "model_flops": float(cell.model_flops)}
-    with open(os.path.join(out, "ref_dryrun.json"), "w") as f:
+    with open(os.path.join(out, name), "w") as f:
         json.dump(res, f)
+
+
+def run_dryrun_dedup(out):
+    run_dryrun(out, [R.DEDUP_CELL], "ref_dryrun_dedup.json")
 
 
 def ref_cell(rc, arch, shape, plan):
@@ -203,5 +212,6 @@ def run_spmd(out):
 
 if __name__ == "__main__":
     out_dir = sys.argv[2]
-    {"cells": run_cells, "dryrun": run_dryrun, "spmd": run_spmd}[JOB](out_dir)
+    {"cells": run_cells, "dryrun": run_dryrun,
+     "dryrun_dedup": run_dryrun_dedup, "spmd": run_spmd}[JOB](out_dir)
     print(f"REF_{JOB.upper()}_DONE")

@@ -670,6 +670,9 @@ DRYRUN_CELLS = [("mace", "molecule", "baseline"),
                 ("dlrm-mlperf", "train_batch", "impression"),
                 ("starcoder2-15b", "decode_32k", "baseline"),
                 ("granite-moe-3b-a800m", "train_4k", "baseline")]
+# the cell the dry run also runs with every lookup deduplicated
+# (emb_dedup=always), on both sides
+DEDUP_CELL = ("dlrm-mlperf", "serve_p99", "baseline")
 
 # opt levels beyond baseline (the LM family's through build_lm_cell)
 OPT_LEVELS = {"dlrm-mlperf": ("impression", "opt", "opt2"),
