@@ -72,6 +72,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.tree import leaves, tree_map, unflatten
 
 # the most ids for which aten's embedding backward sums duplicates in a
@@ -183,18 +184,28 @@ class SparseRows:
     def to_dense(self) -> torch.Tensor:
         """Densify to the ``(vocab, D)`` scatter-add of the rows; the
         sentinel drops (it lands in the extra row of a ``vocab + 1``
-        buffer, which is cut off)."""
+        buffer, which is cut off). Traced as the device-timed span
+        ``sparse.to_dense`` with its ``route`` and ``n_ids``."""
         on_card = self.rows.device.type == "cuda"
+        n_ids = self.ids.numel()
         if on_card and self.vocab < ONE_HOT_MAX_ROWS:
-            return one_hot_sum(self.ids, self.rows, self.vocab)
-        if not on_card or self.ids.numel() <= FIXED_ORDER_MAX_IDS:
-            out = torch.ops.aten.embedding_dense_backward(
-                self.rows, self.ids, self.vocab + 1, self.vocab, False)
+            route = "one_hot"
+        elif not on_card or n_ids <= FIXED_ORDER_MAX_IDS:
+            route = "aten"
         else:
-            out = self.rows.new_zeros((self.vocab + 1,) + tuple(
-                self.rows.shape[1:]))
-            out.index_put_((self.ids,), self.rows, accumulate=True)
-        return out[:self.vocab]
+            route = "index_put"
+        with obs_trace.span("sparse.to_dense", device=True, route=route,
+                            n_ids=n_ids):
+            if route == "one_hot":
+                return one_hot_sum(self.ids, self.rows, self.vocab)
+            if route == "aten":
+                out = torch.ops.aten.embedding_dense_backward(
+                    self.rows, self.ids, self.vocab + 1, self.vocab, False)
+            else:
+                out = self.rows.new_zeros((self.vocab + 1,) + tuple(
+                    self.rows.shape[1:]))
+                out.index_put_((self.ids,), self.rows, accumulate=True)
+            return out[:self.vocab]
 
 
 def is_sparse(x) -> bool:
@@ -408,7 +419,10 @@ def make_sparse_value_and_grad(loss_fn: Callable, table_ids_fn: Callable,
     ``Trainer`` as ``value_and_grad_fn``.
     """
     def vag(params, batch, gen):
-        loss, tape = sparse_forward(loss_fn, table_ids_fn, params, batch,
-                                    gen, min_vocab)
-        return loss.detach(), sparse_grads(loss, tape)
+        with obs_trace.span("train.forward", device=True):
+            loss, tape = sparse_forward(loss_fn, table_ids_fn, params, batch,
+                                        gen, min_vocab)
+        with obs_trace.span("train.backward", device=True):
+            grads = sparse_grads(loss, tape)
+        return loss.detach(), grads
     return vag

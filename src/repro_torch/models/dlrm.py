@@ -15,7 +15,10 @@ the interaction runs B7. Sparse-row training declares each batch's ids
 per table with ``dlrm_table_ids`` (for
 ``embeddings.sparse.make_sparse_value_and_grad``): the tables of at least
 64 rows are then gathered ``GatheredTable``s, which the grouped lookup
-takes beside the dense tiny tables, still one group a side.
+takes beside the dense tiny tables, still one group a side. In ``trace``
+mode ``dlrm_forward_roo`` is the device-timed span ``dlrm.forward``, and
+the interaction (the two concatenations, the fanout and B7)
+``dlrm.interaction`` (``obs.trace``).
 
 Under an SPMD ``plan`` (the reference's ``out_sharded=True`` route) each
 model rank works on a D / n_model slice: the tables the plan row-shards
@@ -45,6 +48,7 @@ from repro_torch.embeddings.collection import (EmbeddingCollection,
                                                bag_lookup_dense_grouped)
 from repro_torch.models.interactions import dot_interaction
 from repro_torch.models.mlp import mlp_apply, mlp_flops, mlp_init
+from repro_torch.obs import trace as obs_trace
 
 # MLPerf Criteo-1TB row counts (the capped variant of the reference v1
 # benchmark): 187,767,399 rows in all, 96.1 GB in fp32 at dim 128.
@@ -172,22 +176,23 @@ def dlrm_forward_from_embs(params: Dict, cfg: DLRMConfig,
     rows instead of the full tables.
     """
     dense_out = mlp_apply(params["bot_mlp"], ro_dense)            # (B_RO, D)
-    if not _sliced(cfg, plan):
-        ro_pack = torch.cat([dense_out[:, None, :], ro_embs], dim=1)
-        ro_at_nro = fanout(ro_pack, segment_ids)                  # one fanout
-        sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
-        z = dot_interaction(ro_at_nro[:, 0, :], sparse)
-        return mlp_apply(params["top_mlp"], z)[:, 0]
-    n = spmd.model_shard_count(plan)
-    dense_slice = coll.slice_cols(dense_out, spmd.model_group(plan), n,
-                                  spmd.model_index(plan))
-    ro_pack = torch.cat([dense_slice[:, None, :], ro_embs], dim=1)
-    ro_at_nro = fanout(ro_pack, segment_ids)
-    sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
-    # B7 on the D slice: its pairs are this slice's part of T·Tᵀ
-    part = dot_interaction(ro_at_nro[:, 0, :], sparse)
-    pairs = spmd.model_sum(part[:, cfg.embed_dim // n:], plan)
-    z = torch.cat([fanout(dense_out, segment_ids), pairs], dim=1)
+    with obs_trace.span("dlrm.interaction", device=True):
+        if not _sliced(cfg, plan):
+            ro_pack = torch.cat([dense_out[:, None, :], ro_embs], dim=1)
+            ro_at_nro = fanout(ro_pack, segment_ids)              # one fanout
+            sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
+            z = dot_interaction(ro_at_nro[:, 0, :], sparse)
+        else:
+            n = spmd.model_shard_count(plan)
+            dense_slice = coll.slice_cols(dense_out, spmd.model_group(plan),
+                                          n, spmd.model_index(plan))
+            ro_pack = torch.cat([dense_slice[:, None, :], ro_embs], dim=1)
+            ro_at_nro = fanout(ro_pack, segment_ids)
+            sparse = torch.cat([ro_at_nro[:, 1:, :], nro_embs], dim=1)
+            # B7 on the D slice: its pairs are this slice's part of T·Tᵀ
+            part = dot_interaction(ro_at_nro[:, 0, :], sparse)
+            pairs = spmd.model_sum(part[:, cfg.embed_dim // n:], plan)
+            z = torch.cat([fanout(dense_out, segment_ids), pairs], dim=1)
     return mlp_apply(params["top_mlp"], z)[:, 0]
 
 
@@ -200,13 +205,14 @@ def dlrm_forward_roo(params: Dict, cfg: DLRMConfig, ro_dense: torch.Tensor,
     ro_dense: (B_RO, n_dense); ro_ids: (B_RO, n_ro_fields, mh);
     nro_ids: (B_NRO, n_nro_fields, mh). Returns (B_NRO,) logits.
     """
-    ro_embs = _field_lookup(params, ro_ids, ro_lengths,
-                            range(cfg.n_ro_fields), cfg=cfg, plan=plan)
-    nro_embs = _field_lookup(params, nro_ids, nro_lengths,
-                             range(cfg.n_ro_fields, cfg.n_sparse), cfg=cfg,
-                             plan=plan)
-    return dlrm_forward_from_embs(params, cfg, ro_dense, ro_embs, nro_embs,
-                                  segment_ids, plan)
+    with obs_trace.span("dlrm.forward", device=True):
+        ro_embs = _field_lookup(params, ro_ids, ro_lengths,
+                                range(cfg.n_ro_fields), cfg=cfg, plan=plan)
+        nro_embs = _field_lookup(params, nro_ids, nro_lengths,
+                                 range(cfg.n_ro_fields, cfg.n_sparse),
+                                 cfg=cfg, plan=plan)
+        return dlrm_forward_from_embs(params, cfg, ro_dense, ro_embs,
+                                      nro_embs, segment_ids, plan)
 
 
 def dlrm_forward_impression(params: Dict, cfg: DLRMConfig,

@@ -71,8 +71,12 @@ writes the reference's sharded layout (``train/checkpoint.py``).
 Observability and faults mirror the reference: the Trainer registers its
 ``snapshot`` as ``train``; in ``trace`` mode each step is a ``train.step``
 span over ``train.data`` (the next batch), ``train.compute`` (the step's
-dispatch only: no span synchronizes the card), and at logging and
-checkpoint steps ``train.log`` / ``train.checkpoint``; each logging step
+dispatch and the syncs it holds: no span synchronizes the card), and at
+logging and checkpoint steps ``train.log`` / ``train.checkpoint``; inside
+``train.compute`` the device-timed phases (``obs.trace``'s
+``device=True``) ``train.forward`` and ``train.backward`` (one pair a
+microbatch, from ``value_and_grad`` or the sparse one) and
+``train.optimizer`` (the guard's norm, the update and the guard); each logging step
 offers a telemetry line (``train.log``). The ``train.batch`` fault site
 (kind ``nan``) fills the batch's first float leaf with NaNs on its device,
 which the non-finite guard then skips. ``run(on_checkpoint=)`` is called
@@ -145,12 +149,14 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     """``(params, batch, gen) -> (loss, grads)`` by autograd; ``grads`` has
     the params' tree shape (zeros for a leaf the loss does not use)."""
     def vag(params, batch, gen):
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss = loss_fn(unflatten(params, flat), batch, gen)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        return loss.detach(), unflatten(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(flat, grads)])
+        with obs_trace.span("train.forward", device=True):
+            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+            loss = loss_fn(unflatten(params, flat), batch, gen)
+        with obs_trace.span("train.backward", device=True):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = unflatten(params, [torch.zeros_like(p) if g is None else g
+                                       for p, g in zip(flat, grads)])
+        return loss.detach(), grads
     return vag
 
 
@@ -247,41 +253,43 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
             grads, new_ef = _comms.ef_compress_step(
                 grads, state["comms_ef"], comms_mode, comms_block)
 
-        g_leaves = leaves(grads, is_leaf=is_sparse)
-        if spmd_on:
-            # each leaf's squares summed over the axes it is split on, once
-            gnorm = torch.sqrt(spmd.grad_sq_norm(g_leaves, p_specs, plan,
-                                                 sq_sum) + 1e-20)
-        else:
-            gnorm = torch.sqrt(sum(sq_sum(g) for g in g_leaves) + 1e-20)
-        # non-finite guard: a NaN/Inf loss or gradient must not poison the
-        # parameters — keep the old params/opt for this step (the step
-        # counter still advances so data alignment is unchanged) and
-        # surface the skip in the metrics
-        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        # with SparseRows grads the optimizer writes the touched rows in
-        # place under the guard, and returns those tensors as they are
-        sparse = {"ok": ok} if any(map(is_sparse, g_leaves)) else {}
-        if spmd_on:
-            # a clip norm is the whole gradient's (over the mesh), of
-            # whichever leaves an optimizer is handed
-            spec_of = {id(p): sp for p, sp in zip(
-                leaves(params), leaves(p_specs, is_leaf=spmd.is_spec))}
-            sparse["sq_norm"] = lambda gl, pl: spmd.grad_sq_norm(
-                gl, [spec_of[id(p)] for p in pl], plan, sq_sum)
-        new_params, new_opt = opt.update(grads, state["opt"], params,
-                                         **sparse)
+        # the guard's norm, the update and the guard: one device-timed phase
+        with obs_trace.span("train.optimizer", device=True):
+            g_leaves = leaves(grads, is_leaf=is_sparse)
+            if spmd_on:
+                # each leaf's squares summed over the axes it is split on, once
+                gnorm = torch.sqrt(spmd.grad_sq_norm(g_leaves, p_specs, plan,
+                                                     sq_sum) + 1e-20)
+            else:
+                gnorm = torch.sqrt(sum(sq_sum(g) for g in g_leaves) + 1e-20)
+            # non-finite guard: a NaN/Inf loss or gradient must not poison the
+            # parameters — keep the old params/opt for this step (the step
+            # counter still advances so data alignment is unchanged) and
+            # surface the skip in the metrics
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            # with SparseRows grads the optimizer writes the touched rows in
+            # place under the guard, and returns those tensors as they are
+            sparse = {"ok": ok} if any(map(is_sparse, g_leaves)) else {}
+            if spmd_on:
+                # a clip norm is the whole gradient's (over the mesh), of
+                # whichever leaves an optimizer is handed
+                spec_of = {id(p): sp for p, sp in zip(
+                    leaves(params), leaves(p_specs, is_leaf=spmd.is_spec))}
+                sparse["sq_norm"] = lambda gl, pl: spmd.grad_sq_norm(
+                    gl, [spec_of[id(p)] for p in pl], plan, sq_sum)
+            new_params, new_opt = opt.update(grads, state["opt"], params,
+                                             **sparse)
 
-        def keep(new, old):
-            return new if new is old else torch.where(ok, new, old)
-        new_state = {**state,
-                     "params": tree_map(keep, new_params, params),
-                     "opt": tree_map(keep, new_opt, state["opt"]),
-                     "step": state["step"] + 1}
-        if new_ef is not None:
-            # the residual reverts with params on a skipped step
-            new_state["comms_ef"] = tree_map(keep, new_ef,
-                                             state["comms_ef"])
+            def keep(new, old):
+                return new if new is old else torch.where(ok, new, old)
+            new_state = {**state,
+                         "params": tree_map(keep, new_params, params),
+                         "opt": tree_map(keep, new_opt, state["opt"]),
+                         "step": state["step"] + 1}
+            if new_ef is not None:
+                # the residual reverts with params on a skipped step
+                new_state["comms_ef"] = tree_map(keep, new_ef,
+                                                 state["comms_ef"])
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "skipped": (~ok).to(torch.int32)}
 
@@ -412,8 +420,10 @@ class Trainer:
                     spec = faults.fire("train.batch")
                     if spec is not None and spec.kind == "nan":
                         batch = _poison_batch(batch)
-                # dispatch only: the card's work overlaps the next data span
-                # and is drained by the read inside the train.log span
+                # host time: the step's dispatch and the syncs it holds; the
+                # card's work runs on into the next data span (the device
+                # time of its phases is on train.forward / backward /
+                # optimizer)
                 with obs_trace.span("train.compute", step=step + 1):
                     state, metrics = self.step_fn(state, batch, base, step)
                 self._last_step = step + 1

@@ -240,17 +240,26 @@ class TestTrace:
         assert any(e["name"] == "deco.fn"
                    for e in obs_trace.get_tracer().events())
 
-    def test_device_trace(self, tmp_path):
+    def test_device_trace(self, tmp_path, trace_on):
         """``logdir=None`` is a no-op; with a directory the region's
         ``torch.profiler`` trace lands there as Chrome JSON (CPU ops
-        here; the card's kernels on the card, chip_smoke.py)."""
+        here; the card's kernels on the card, chip_smoke.py), with the
+        program's spans of the region beside them; a profiler already
+        running makes it raise instead of yielding None."""
         with obs_trace.device_trace(None) as path:
             assert path is None
         with obs_trace.device_trace(str(tmp_path / "dev")) as path:
-            torch.ones(8).add_(1).sum()
+            with obs_trace.span("dev.region"):
+                torch.ones(8).add_(1).sum()
         doc = json.loads(Path(path).read_text())
         assert Path(path).parent == tmp_path / "dev"
         assert doc["traceEvents"]
+        assert [e["name"] for e in doc["traceEvents"]].count("dev.region") \
+            == 1
+        with pytest.raises(RuntimeError):
+            with obs_trace.device_trace(str(tmp_path / "a")):
+                with obs_trace.device_trace(str(tmp_path / "b")):
+                    pass
 
 
 def mk_request(uid, item_ids):
@@ -337,7 +346,8 @@ class TestEngineTracePropagation:
         del cache, store
 
     def test_train_spans_nest_without_a_sync(self, trace_on, monkeypatch):
-        """train.step holds train.data and train.compute; logging and
+        """train.step holds train.data and train.compute, which holds
+        train.forward, train.backward and train.optimizer; logging and
         checkpoint steps add train.log / train.checkpoint. No span reads
         the device: the loop never calls ``torch.cuda.synchronize``."""
         from repro_torch.train.loop import Trainer, TrainLoopConfig
@@ -359,6 +369,64 @@ class TestEngineTracePropagation:
         steps = [e for e in obs_trace.get_tracer().events()
                  if e["name"] == "train.step"]
         assert [e["args"]["step"] for e in steps] == [1, 2, 3, 4]
+        assert_phases_nest(obs_trace.get_tracer().events(), 4, 1)
+
+    @pytest.mark.parametrize("sparse", [False, True])
+    @pytest.mark.parametrize("microbatches", [1, 2])
+    def test_train_phase_spans(self, trace_on, monkeypatch, sparse,
+                               microbatches):
+        """Dense and sparse ``value_and_grad``, with and without
+        microbatches: a forward and a backward span a microbatch and one
+        optimizer span a step, all inside the step's train.compute, and
+        no wait on the card or on an event."""
+        from repro_torch.embeddings import collection as ec
+        from repro_torch.embeddings.sparse import make_sparse_value_and_grad
+        from repro_torch.train.loop import Trainer, TrainLoopConfig
+        from repro_torch.train.optim import (adam, default_is_embedding,
+                                             make_mixed, rowwise_adagrad)
+
+        def no_wait(*a, **k):
+            raise AssertionError("a span waited on the card")
+        monkeypatch.setattr(torch.cuda, "synchronize", no_wait)
+        monkeypatch.setattr(torch.cuda.Event, "synchronize", no_wait)
+
+        def loss(p, b, g):
+            e = ec.bag_lookup_dense(p["emb"], b["ids"], b["lens"], "sum")
+            return torch.sum((e @ p["w"]) ** 2)
+        gen = torch.Generator().manual_seed(0)
+        mb = (microbatches,) if microbatches > 1 else ()
+        batch = {"ids": torch.randint(0, 64, mb + (6, 3), generator=gen),
+                 "lens": torch.full(mb + (6,), 3)}
+        vag = make_sparse_value_and_grad(
+            loss, lambda b: {"emb": b["ids"]}) if sparse else None
+        trainer = Trainer(
+            loss, make_mixed(adam(1e-2), rowwise_adagrad(1e-2),
+                             default_is_embedding),
+            TrainLoopConfig(total_steps=3, log_every=100,
+                            microbatches=microbatches),
+            lambda: {"emb": torch.randn(64, 4, generator=gen),
+                     "w": torch.randn(4, generator=gen)},
+            value_and_grad_fn=vag, device="cpu")
+        trainer.run(lambda s: iter([batch] * 3), 0)
+        assert_phases_nest(obs_trace.get_tracer().events(), 3, microbatches)
+
+
+def assert_phases_nest(events, n_steps, microbatches):
+    """Each train.compute holds ``microbatches`` train.forward /
+    train.backward pairs, in that order, then one train.optimizer."""
+    computes = [e for e in events if e["name"] == "train.compute"]
+    assert len(computes) == n_steps
+    for c in computes:
+        inside = sorted((e for e in events
+                         if e["name"] in ("train.forward", "train.backward",
+                                          "train.optimizer")
+                         and c["ts"] <= e["ts"]
+                         and e["ts"] + e["dur"] <= c["ts"] + c["dur"]),
+                        key=lambda e: e["ts"])
+        assert [e["name"] for e in inside] == \
+            ["train.forward", "train.backward"] * microbatches + \
+            ["train.optimizer"]
+        assert all("device_ms" not in e["args"] for e in inside)  # no card
 
 
 class TestEmitter:
