@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result):
                    per dtype, row blocks and load path, none in the main
                    path's fp32, 2 row blocks, 16-byte template; B5's per
                    path, dtype, lane width and pooling, none in the deep
-                   kernel's or the short 16-byte ones)
+                   kernel's or the short 16-byte ones; the segmented
+                   merge's per pass, dtype and lane width, all 8 there,
+                   none spilling in the 16-byte ones)
   3. kernels     — each kernel against its plain torch version on the card,
                    reached through dispatch's auto backend: the HSTU forward
                    (B1) at the serving shape and ragged / wide / causal
@@ -139,7 +141,10 @@ Phases (any failure exits non-zero and prints no result):
                    impressions/s, requests/s and peak memory
  14. dlrm train  — the dlrm-mlperf Trainer (Adam + row-wise Adagrad, dense
                    table gradients) takes 20 steps of 2,048 requests /
-                   8,192 impressions: B7 20, B5 = B6 = 40, B1-B4 0, no
+                   8,192 impressions: B7 20, B5 = B6 = 40, the segmented
+                   merge 200 (``dlrm_merges``: the 10 NRO fields of 64
+                   rows or more, past 3,072 ids, a step; the plain-backend
+                   run's gathers take it as often), B1-B4 0, no
                    skipped step; losses vs the plain backends on the card,
                    and at a 2**14-row cap (64 / 256, 10 steps) vs the CPU;
                    steps/s, impressions/s, a per-step breakdown, peak
@@ -153,14 +158,15 @@ Phases (any failure exits non-zero and prints no result):
                    steps + NE, B6 = steps) and dlrm-mlperf 20 steps on the
                    dense phase's capped config and batches (B7 20, B5 = B6
                    = 40: the grouped bags over the gathered rows and the
-                   dense tiny tables); every table of 64 rows or more gets
-                   a SparseRows of one row per declared id and no (V, D)
-                   gradient; each step's loss vs the dense tables on the
-                   plain backends and on the CPU (dlrm: at a 2**14-row cap)
-                   on the same params and batch; densified gradients vs the
-                   dense path's; a second run bit for bit (losses and
-                   params); steps/s, breakdown and (dlrm) peak memory
-                   beside the dense phase's
+                   dense tiny tables; the segmented merge 200, into the
+                   NRO side's gathered rows); every table of 64 rows or
+                   more gets a SparseRows of one row per declared id and
+                   no (V, D) gradient; each step's loss vs the dense
+                   tables on the plain backends and on the CPU (dlrm: at a
+                   2**14-row cap) on the same params and batch; densified
+                   gradients vs the dense path's; a second run bit for bit
+                   (losses and params); steps/s, breakdown and (dlrm) peak
+                   memory beside the dense phase's
  16. times       — each kernel vs its plain version (CUDA events; device
                    time with the host run ahead, and host-issued call time)
                    beside its bound, the bag kernels also beside one
@@ -184,7 +190,10 @@ Phases (any failure exits non-zero and prints no result):
                    F.embedding_bag calls; SparseRows.to_dense of 8,192
                    ids into dlrm's tiny tables (4, 14, 36 rows: the
                    one-hot product) and into a 108-row table's gathered
-                   rows, beside the sorted index_put_
+                   rows, beside the sorted index_put_; the segmented
+                   merge at the dlrm training cell's three shapes under
+                   Zipf 1.05 and uniform ids, bit for bit on repeat and
+                   against plain, beside index_put_, plain and its bound
 
  17. other archs — after the roo-lsr phases, the remaining recsys archs at
                    the reference scenario's registered shapes (50,000
@@ -612,6 +621,14 @@ def phase_build(kmods) -> None:
     if len(dot) != 16 or dot.get(("fp32", 2, True), (0, 1))[1]:
         raise SystemExit("B7's main-path template (fp32, 2 row blocks, "
                          "16-byte loads) spills or a template is missing")
+    merge = merge_registers("\n".join(log for _, log in built))
+    for (which, dtype, vec), (regs, spill) in sorted(merge.items()):
+        print(f"[build] segment merge {which} {dtype} VEC {vec}: {regs} "
+              f"registers, {spill} bytes spilled")
+    if len(merge) != 8 or any(spill for (_, _, vec), (_, spill)
+                              in merge.items() if vec > 1):
+        raise SystemExit("a 16-byte segmented-merge template (the main "
+                         "path's) spills, or a template is missing")
     bag = bag_registers("\n".join(log for _, log in built))
     for (path, dtype, vec, pool), (regs, spill) in sorted(bag.items()):
         print(f"[build] B5 {path} {dtype} VEC {vec} "
@@ -3304,6 +3321,19 @@ def dlrm_config(cap: int):
     return DLRMConfig(vocabs=tuple(min(v, cap) for v in MLPERF_VOCABS))
 
 
+def dlrm_merges(cfg, b_ro: int, b_nro: int) -> int:
+    """The segmented merges one dlrm training step launches, from the
+    configuration alone: B6's densify (``SparseRows.to_dense``) of each
+    field of at least 64 rows (on sparse rows its gathered N + 1 rows)
+    whose side's batch holds more than 3,072 ids."""
+    from repro_torch.embeddings.sparse import (FIXED_ORDER_MAX_IDS,
+                                               ONE_HOT_MAX_ROWS)
+    return sum(
+        cfg.padded_vocab(v) >= ONE_HOT_MAX_ROWS
+        and (b_ro if i < cfg.n_ro_fields else b_nro) * cfg.multi_hot
+        > FIXED_ORDER_MAX_IDS for i, v in enumerate(cfg.vocabs))
+
+
 def hstu_counts(kmod, pmod, bmod) -> tuple:
     """Launches of B1, B2, B3 and B4 since their last reset."""
     return (kmod.launch_count, bmod.dq_launch_count, bmod.dkv_launch_count,
@@ -3480,7 +3510,8 @@ def trajectory_diff(what, losses, other) -> None:
           f"{first}; per step {[float(f'{x:.3g}') for x in diff]}")
 
 
-def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
+def phase_dlrm_train(dmod, emod, smod, hstu_mods, device, card: str
+                     ) -> dict:
     """dlrm-mlperf training, 20 steps at the dry-run's train_batch per card
     (B_RO 2,048 / B_NRO 8,192) with dense table gradients, through B5, B6
     and B7: launch counts, no skipped step; at every step the loss of the
@@ -3508,25 +3539,28 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
 
     def counts():
         return (dmod.launch_count, emod.fwd_launch_count,
-                emod.coo_launch_count) + hstu_counts(*hstu_mods)
+                emod.coo_launch_count, smod.launch_count) \
+            + hstu_counts(*hstu_mods)
 
     def plain_loss(p, b):
         with dispatch.use_dot_backend("torch"), \
                 dispatch.use_emb_backend("torch"):
             return setup["loss"](p, b, None)
 
-    for m in (dmod, emod) + hstu_mods:
+    merges = steps * dlrm_merges(cfg, b_ro, b_nro)
+    for m in (dmod, emod, smod) + hstu_mods:
         m.reset_launch_count()
     traced, plain_losses = shadowed(setup, plain_loss)
     trainer, state, losses = run_trainer(traced, device, steps)
     torch.cuda.synchronize()
     got = counts()
-    print(f"[dlrm train] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} B1-B4 "
-          f"{got[3:]}; skipped steps {trainer.skipped_steps}; history "
-          f"{trainer.history}")
-    if got[:3] != (steps, 2 * steps, 2 * steps) or any(got[3:]):
-        raise SystemExit("dlrm train: launches are not B7 = steps, B5 = B6 "
-                         "= 2 x steps (one grouped launch a side), B1-B4 0")
+    print(f"[dlrm train] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} "
+          f"segment merge {got[3]} B1-B4 {got[4:]}; skipped steps "
+          f"{trainer.skipped_steps}; history {trainer.history}")
+    if got[:4] != (steps, 2 * steps, 2 * steps, merges) or any(got[4:]):
+        raise SystemExit(f"dlrm train: launches are not B7 = steps, B5 = B6 "
+                         f"= 2 x steps (one grouped launch a side), segment "
+                         f"merge {merges} (dlrm_merges a step), B1-B4 0")
     if int(state["step"]) != steps or len(losses) != steps \
             or not bool(torch.isfinite(losses).all()) \
             or trainer.skipped_steps \
@@ -3579,9 +3613,15 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
     finally:
         dispatch.set_default_dot_backend(None)
         dispatch.set_default_emb_backend(None)
-    if counts() != before:
-        raise SystemExit("dlrm train: the plain-backend run launched a "
-                         "kernel")
+    after = counts()
+    print(f"[dlrm train] the plain-backend run: segment merge "
+          f"{after[3] - before[3]}")
+    # the plain bags' gathers densify through SparseRows.to_dense too
+    if after[:3] + after[4:] != before[:3] + before[4:] \
+            or after[3] - before[3] != merges:
+        raise SystemExit(f"dlrm train: the plain-backend run launched a "
+                         f"backend kernel, or not the segmented merge "
+                         f"{merges} times")
     trajectory_diff("the plain backends on the card", losses, free_plain)
 
     # the same widths with every table capped at 2**14 rows: at each step
@@ -3628,7 +3668,7 @@ def phase_dlrm_train(dmod, emod, hstu_mods, device, card: str) -> dict:
               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     del state
     torch.cuda.empty_cache()
-    return dict(launches=got[0], bag_launches=got[1:3],
+    return dict(launches=got[0], bag_launches=got[1:3], merges=got[3],
                 steps_per_s=steps / wall,
                 impressions_per_s=steps * b_nro / wall, peak=peak,
                 breakdown=breakdown)
@@ -3661,7 +3701,7 @@ def record_groups(emod, fn) -> list:
     return seen
 
 
-def phase_dlrm_sparse_train(dmod, emod, hstu_mods, device, card: str,
+def phase_dlrm_sparse_train(dmod, emod, smod, hstu_mods, device, card: str,
                             dense: dict) -> dict:
     """dlrm-mlperf training on sparse rows: ``phase_dlrm_train``'s capped
     config, batches and optimizer, the gradient from
@@ -3688,7 +3728,8 @@ def phase_dlrm_sparse_train(dmod, emod, hstu_mods, device, card: str,
 
     def counts():
         return (dmod.launch_count, emod.fwd_launch_count,
-                emod.coo_launch_count) + hstu_counts(*hstu_mods)
+                emod.coo_launch_count, smod.launch_count) \
+            + hstu_counts(*hstu_mods)
 
     def plain_loss(p, b):
         with dispatch.use_dot_backend("torch"), \
@@ -3696,19 +3737,21 @@ def phase_dlrm_sparse_train(dmod, emod, hstu_mods, device, card: str,
             return setup["loss"](p, b, None).detach()
 
     shadow_losses = []
-    for m in (dmod, emod) + hstu_mods:
+    merges = steps * dlrm_merges(cfg, b_ro, b_nro)
+    for m in (dmod, emod, smod) + hstu_mods:
         m.reset_launch_count()
     trainer, state, losses = run_trainer(dict(
         setup, before_step=lambda p, b: shadow_losses.append(
             plain_loss(p, b))), device, steps)
     torch.cuda.synchronize()
     got = counts()
-    print(f"[{tag}] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} B1-B4 "
-          f"{got[3:]}; skipped steps {trainer.skipped_steps}; history "
-          f"{trainer.history}")
-    if got[:3] != (steps, 2 * steps, 2 * steps) or any(got[3:]):
+    print(f"[{tag}] launches B7 {got[0]} B5 {got[1]} B6 {got[2]} segment "
+          f"merge {got[3]} B1-B4 {got[4:]}; skipped steps "
+          f"{trainer.skipped_steps}; history {trainer.history}")
+    if got[:4] != (steps, 2 * steps, 2 * steps, merges) or any(got[4:]):
         raise SystemExit(f"{tag}: launches are not B7 = steps, B5 = B6 = "
-                         f"2 x steps (one grouped launch a side), B1-B4 0")
+                         f"2 x steps (one grouped launch a side), segment "
+                         f"merge {merges} (dlrm_merges a step), B1-B4 0")
     if int(state["step"]) != steps or len(losses) != steps \
             or not bool(torch.isfinite(losses).all()) \
             or trainer.skipped_steps:
@@ -3785,7 +3828,7 @@ def phase_dlrm_sparse_train(dmod, emod, hstu_mods, device, card: str,
                          f"{peaks['steps'] / 2 ** 30:.2f} GiB is past "
                          f"{SPARSE_STEPS_PEAK_GIB} GiB: a full-table copy "
                          f"survived init")
-    out = dict(launches=got[0], bag_launches=got[1:3],
+    out = dict(launches=got[0], bag_launches=got[1:3], merges=got[3],
                steps_per_s=steps / wall,
                impressions_per_s=steps * b_nro / wall,
                peak=peaks["steps"], init_peak=peaks["init"],
@@ -3848,6 +3891,111 @@ def phase_densify_times(device, card: str) -> None:
         print(f"[times] {card}: {label}: SparseRows.to_dense {ms:.5f} ms "
               f"(max|diff| from float64 {err:.3e}, bitwise on repeat), the "
               f"sorted index_put_ {old:.5f} ms")
+
+
+MERGE_SHAPES = (   # (label, ids, table rows): the dlrm training cell's
+                   # sparse-row merges (fp32, D 128, into the N + 1
+                   # gathered rows)
+    ("impression side, a 108-row table", 65_536, 108),
+    ("impression side, a 10 M-row table", 65_536, 9_995_264),
+    ("request side, a 10 M-row table", 16_384, 9_971_200),
+)
+MERGE_LAWS = ("zipf 1.05", "uniform")
+
+
+def merge_ids(law: str, n: int, vocab: int, seed: int, device):
+    """n ids over 0..vocab-1: a bounded Zipf 1.05 law (the benchmark's
+    inverse, ranks scattered affinely) or uniform."""
+    import numpy as np
+    import torch
+    u = np.random.default_rng(seed).random(n)
+    if law == "uniform":
+        ids = np.minimum((u * vocab).astype(np.int64), vocab - 1)
+    else:
+        s = 1.05
+        h = ((vocab + 1.0) ** (1.0 - s) - 1.0) / (1.0 - s)
+        x = (1.0 + (1.0 - s) * u * h) ** (1.0 / (1.0 - s))
+        ranks = np.clip(np.floor(x).astype(np.int64) - 1, 0, vocab - 1)
+        ids = (7919 * ranks + 13) % vocab
+    return torch.from_numpy(ids).to(device)
+
+
+def merge_registers(log: str) -> dict:
+    """{(pass, fp32 | bf16, VEC): (registers, spill bytes)} of the
+    segmented merge's templates."""
+    import re
+
+    def key(name):
+        k = re.search(r"segment_merge_(chunks|spans)_kernelI"
+                      r"(f|13__nv_bfloat16)Li(\d+)E", name)
+        return ((k.group(1), "fp32" if k.group(2) == "f" else "bf16",
+                 int(k.group(3))) if k else None)
+    return ptxas_registers(log, key)
+
+
+def phase_segment_merge(smod, device, card: str) -> dict:
+    """The segmented merge (``SparseRows.to_dense``'s ``segment`` route) at
+    the dlrm training cell's shapes (:data:`MERGE_SHAPES`), under Zipf 1.05
+    and uniform ids: positions into a gathered table's N + 1 rows, fp32 D
+    128. Each case: three calls bit for bit, the kernel equal to the plain
+    version bit for bit and within 1e-5 of a float64 scatter. Times: the
+    route whole (the sort, the zero fill and the two passes), the sort and
+    the zero fill alone, ``index_put_(accumulate=True)`` on the same
+    operands (``library_ms``, the route it replaced), the plain version
+    (timed from the host: it reads counts back), and the byte bound: the
+    ids and rows read once, the (N + 1, D) output written once."""
+    import torch
+    from repro_torch.embeddings.sparse import SparseRows, gather_table
+    gen = torch.Generator(device=device).manual_seed(35)
+    d, out = 128, {}
+    for label, n, vocab in MERGE_SHAPES:
+        rows = torch.randn((n, d), generator=gen, device=device)
+        for law in MERGE_LAWS:
+            ids = merge_ids(law, n, vocab, n + vocab, device)
+            pos, _ = gather_table(torch.zeros((vocab, 1), device=device),
+                                  ids).positions(ids)
+            coo = SparseRows(pos, rows, n + 1)
+            smod.reset_launch_count()
+            got = [coo.to_dense() for _ in range(3)]
+            want = torch.zeros((n + 1, d), dtype=torch.float64,
+                               device=device).index_add_(0, pos.long(),
+                                                         rows.double())
+            err = float((got[0].double() - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            plain = smod.segment_merge_plain(pos, rows, n + 1)
+            if smod.launch_count != 3 or not all(
+                    torch.equal(got[0], g) for g in got[1:] + [plain]) \
+                    or err > 1e-5 * scale:
+                raise SystemExit(f"segment merge: {label} {law}: launches "
+                                 f"{smod.launch_count}, not bitwise on "
+                                 f"repeat or against plain, or max|diff| "
+                                 f"{err:.3e} from float64 (scale {scale})")
+            longest = int(torch.bincount(pos.long()).max())
+
+            def put():
+                o = rows.new_zeros((n + 2, d))
+                return o.index_put_((pos.long(),), rows, accumulate=True)
+            # a sort's launches x iters stay under the launch queue
+            ms = device_ms(coo.to_dense, 20)
+            sort_ms = device_ms(lambda: torch.sort(pos, stable=True), 20)
+            zero_ms = device_ms(lambda: rows.new_zeros((n + 1, d)), 20)
+            lib_ms = device_ms(put, 20)
+            plain_ms = call_ms(lambda: smod.segment_merge_plain(
+                pos, rows, n + 1), 2, warmup=1)
+            n_bytes = 4 * n + 4 * n * d + 4 * (n + 1) * d
+            bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            out[label, law] = dict(
+                ms=ms, sort_ms=sort_ms, zero_ms=zero_ms, library_ms=lib_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                bytes=n_bytes, max_abs_err=err, longest_run=longest)
+            print(f"[times] {card}: segment merge, {label}, {n} {law} ids "
+                  f"(longest run {longest}): to_dense {ms:.5f} ms (sort "
+                  f"{sort_ms:.5f}, zero fill {zero_ms:.5f}), index_put_ "
+                  f"{lib_ms:.5f} ms ({lib_ms / ms:.1f}x), plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({n_bytes} "
+                  f"B; {ms / bound_ms:.1f}x); max|diff| from float64 "
+                  f"{err:.3e}, bitwise on repeat and against plain")
+    return out
 
 
 def phase_sparse_bag_times(emod, device, card: str, groups) -> dict:
@@ -8470,7 +8618,8 @@ def main() -> int:
     from repro_torch.kernels import hstu_attention as kmod
     from repro_torch.kernels import hstu_attention_bwd as bmod
     from repro_torch.kernels import hstu_attention_prefix as pmod
-    phase_build([kmod, pmod, bmod, emod, dmod])
+    from repro_torch.kernels import segment_merge as smod
+    phase_build([kmod, pmod, bmod, emod, dmod, smod])
     worst = phase_kernels(kmod, device)
     worst_esr = phase_kernels(kmod, device, ESR_B1_SHAPES)
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
@@ -8527,10 +8676,11 @@ def main() -> int:
                              sparse=name != "bert4rec"))
     dlrm_score = phase_dlrm_score(dmod, emod, (kmod, pmod, bmod), device,
                                   card)
-    dlrm_train = phase_dlrm_train(dmod, emod, (kmod, pmod, bmod), device,
-                                  card)
-    dlrm_sparse = phase_dlrm_sparse_train(dmod, emod, (kmod, pmod, bmod),
-                                          device, card, dlrm_train)
+    dlrm_train = phase_dlrm_train(dmod, emod, smod, (kmod, pmod, bmod),
+                                  device, card)
+    dlrm_sparse = phase_dlrm_sparse_train(dmod, emod, smod,
+                                          (kmod, pmod, bmod), device, card,
+                                          dlrm_train)
     # the bag models with bf16 tables and bf16 state at rest (phase 25),
     # beside the fp32 phases above
     bags16 = phase_bf16_bags(mods, device, card, dict(
@@ -8545,6 +8695,7 @@ def main() -> int:
     grouped_times = phase_grouped_bag_times(emod, device, card)
     dot_times = phase_dot_times(dmod, device, card)
     phase_densify_times(device, card)
+    merge_times = phase_segment_merge(smod, device, card)
     sparse_bag_times = phase_sparse_bag_times(emod, device, card,
                                               dlrm_sparse["groups"])
     tt_bag_times = phase_tt_bag(emod, device, card)
@@ -8861,7 +9012,14 @@ def main() -> int:
             ("hstu_attention_bwd_dq", 108, "b2", "dq"),
             ("hstu_attention_bwd_dkv", 170, "b3", "dkv"))]
         + bf16_bag_entries(bags16, dot_times, worst_dot, bf_times,
-                           bf_worst)}))
+                           bf_worst) + [{
+        "name": f"segment_merge ({label}, {law} ids)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_merge.cu",
+        "replaces": None, "launches": dlrm_sparse["merges"],
+        **merge_times[label, law]}
+        # the cell's merges are the sparse dlrm path's: its 20 steps'
+        # launches (phase_dlrm_sparse_train asserts dlrm_merges a step)
+        for label, _, _ in MERGE_SHAPES for law in MERGE_LAWS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ card, keeps the profiler's raw events and the program's spans
 (``repro_torch.obs.trace``, moved onto the profiler's clock by
 ``Tracer.profiler_ns``), and prints, besides the run's result line:
 
-* each of the busiest kernels' device seconds by the innermost span whose
-  host interval holds the kernel's launch (spans of autograd's device
-  thread included: they nest by time);
+* the device seconds of each kernel holding at least ``KERNEL_MIN_SHARE``
+  of the window's kernel time, by the innermost span whose host interval
+  holds the kernel's launch (spans of autograd's device thread included:
+  they nest by time);
 * the window's device idle gaps, split into those in which the host sat in
   a synchronising CUDA runtime call as the card ran dry and the rest, each
   by the innermost span that launched the kernel ending the gap;
@@ -32,6 +33,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 # CUDA runtime calls that block the host until the card is done
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
+KERNEL_MIN_SHARE = 0.001   # of the window's kernel seconds: a kernel listed
 
 
 def innermost(spans, times):
@@ -51,7 +53,7 @@ def innermost(spans, times):
     return out
 
 
-def attribute(prof, tracer, t0, t1, top=12):
+def attribute(prof, tracer, t0, t1):
     from torch._C._autograd import DeviceType
     events = list(prof.profiler.kineto_results.events())
     launches, kernels, syncs = {}, [], []
@@ -82,7 +84,9 @@ def attribute(prof, tracer, t0, t1, top=12):
         d = by_kernel.setdefault(name[:90], {})
         d[where] = d.get(where, 0.0) + (e - s) / 1e9
         total[name[:90]] = total.get(name[:90], 0.0) + (e - s) / 1e9
-    busiest = sorted(total, key=lambda n: -total[n])[:top]
+    floor = KERNEL_MIN_SHARE * sum(total.values())
+    busiest = sorted((n for n in total if total[n] >= floor),
+                     key=lambda n: -total[n])
     kernel_table = {n: {"total_s": total[n], "by_span": dict(sorted(
         by_kernel[n].items(), key=lambda kv: -kv[1]))} for n in busiest}
 

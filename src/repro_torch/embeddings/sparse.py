@@ -47,10 +47,17 @@ bits on every device (``index_add_``'s float atomics on the card, and
   where aten merges duplicates warp by warp in a fixed order. Past that,
   aten switches to an algorithm whose partial sums meet in no fixed order
   (on an H100, two calls over 8,192 ids into 4 rows did not give the same
-  bits), so larger inputs take ``index_put_(..., accumulate=True)``: it
-  sorts the ids and adds each id's rows in that order (one warp walks a
-  run of one id, so long runs are slow: the one-hot product takes the
-  tiny tables).
+  bits), so larger inputs of fp32 or bf16 rows take the segmented merge
+  (``kernels/segment_merge.py``, route ``segment``): the ids sorted
+  stably, chunks of 64 sorted entries summed a warp each, a run that
+  crosses chunks finished from its chunks' partials in chunk order. A
+  warp's work does not grow with a run's length, so Zipf's longest runs
+  cost what uniform ids do. Rows of any other dtype take ``index_put_(...,
+  accumulate=True)`` (route ``index_put``), which sorts too but walks a
+  run of one id in one warp, row after row.
+
+:func:`densify_route` makes that choice from the table's height, the
+number of ids, the rows' dtype and their device.
 
 :meth:`SparseRows.merged` sums by the inverse ids through the same routes
 on an ``(N + 1, D)`` buffer, N the number of entries; the unique ids come
@@ -84,6 +91,21 @@ ONE_HOT_MAX_ROWS = 64
 # and merging a batch of COO rows to update a handful of table rows costs
 # more than the dense apply it replaces (the reference's value)
 SPARSE_MIN_VOCAB = 64
+
+
+def densify_route(vocab: int, n_ids: int, dtype: torch.dtype,
+                  device_type: str) -> str:
+    """The route :meth:`SparseRows.to_dense` takes (module note):
+    ``one_hot``, ``aten``, ``segment`` or ``index_put``."""
+    if device_type != "cuda":
+        return "aten"
+    if vocab < ONE_HOT_MAX_ROWS:
+        return "one_hot"
+    if n_ids <= FIXED_ORDER_MAX_IDS:
+        return "aten"
+    # imported here: kernels/embedding_bag.py imports this module
+    from repro_torch.kernels.segment_merge import DTYPES
+    return "segment" if dtype in DTYPES else "index_put"
 
 
 class _GatherRows(torch.autograd.Function):
@@ -183,21 +205,23 @@ class SparseRows:
 
     def to_dense(self) -> torch.Tensor:
         """Densify to the ``(vocab, D)`` scatter-add of the rows; the
-        sentinel drops (it lands in the extra row of a ``vocab + 1``
-        buffer, which is cut off). Traced as the device-timed span
-        ``sparse.to_dense`` with its ``route`` and ``n_ids``."""
-        on_card = self.rows.device.type == "cuda"
+        sentinel drops (the segmented merge skips it, the other routes land
+        it in the extra row of a ``vocab + 1`` buffer, which is cut off).
+        Traced as the device-timed span ``sparse.to_dense`` with its
+        ``route`` and ``n_ids``."""
         n_ids = self.ids.numel()
-        if on_card and self.vocab < ONE_HOT_MAX_ROWS:
-            route = "one_hot"
-        elif not on_card or n_ids <= FIXED_ORDER_MAX_IDS:
-            route = "aten"
-        else:
-            route = "index_put"
+        route = densify_route(self.vocab, n_ids, self.rows.dtype,
+                              self.rows.device.type)
         with obs_trace.span("sparse.to_dense", device=True, route=route,
                             n_ids=n_ids):
             if route == "one_hot":
                 return one_hot_sum(self.ids, self.rows, self.vocab)
+            if route == "segment":
+                from repro_torch.kernels.segment_merge import \
+                    segment_merge_cuda
+                return segment_merge_cuda(
+                    self.ids, self.rows.reshape(n_ids, -1),
+                    self.vocab).reshape(self.shape)
             if route == "aten":
                 out = torch.ops.aten.embedding_dense_backward(
                     self.rows, self.ids, self.vocab + 1, self.vocab, False)
