@@ -38,6 +38,15 @@ Phases (any failure exits non-zero and prints no result):
                    bit for bit, masked rows and columns exactly 0, all
                    finite; the forward-only prefix rung refuses a call
                    under grad
+     gr-train-long — B1, B2 and B3 at the cell's attention (B 2, H 8,
+                   S 8,256, D 128, max_rel_pos 8,256, one full and one
+                   partial history) against float64 head by head, within
+                   1.5e-4 of the largest value (plain TF32 reads 2.5e-4 or
+                   more), bit for bit on repeat, then timed beside their
+                   bounds; after the bag and dot kernels, one sparse-row
+                   step of the cell's configuration (its driver's
+                   scenario and pool, the Trainer) launches B1, B2 and B3
+                   once a layer (24 each) and the segmented merge once
   5. bag kernels — the embedding-bag forward (B5) through dispatch's auto
                    backend against its plain version, sum / mean / max, at
                    the LSR training, serving and impression-level shapes,
@@ -989,6 +998,224 @@ def phase_bwd_kernels(kmod, pmod, bmod, device) -> dict:
     if pmod.launch_count != before:
         raise SystemExit("the refused prefix call launched its kernel")
     return worst
+
+
+# gr-train-long's attention (B, H, S, D, n_hist, max_rel) and its two
+# requests, one full and one partial history
+GR_LONG = (2, 8, 8256, 128, 8192, 8256)
+GR_LONG_REQUESTS = ((8192, 64), (5003, 17))
+# a kernel's largest error against float64, as a share of the largest
+# value: its products are 3xTF32 (fp32-accurate), but the tensor cores add
+# each 8-term product into the fp32 accumulator without rounding to
+# nearest, ~3 x S / 8 = 3,100 times for a row of S 8,256. On an H100 the
+# kernels read 5.2e-5 to 7.3e-5 (drab 1.1e-6), the plain version 2.7e-6
+# to 4.7e-6 in fp32 and 2.5e-4 to 5.8e-4 in TF32: a kernel that computed
+# in TF32 fails this. A wrong rab bin shows in drab, compared bin by bin.
+GR_LONG_TOL = 1.5e-4
+
+
+def gr_long_inputs(device, seed=36) -> dict:
+    """Random q, k, v, g (B, H, S, D), rab (H, 2 max_rel + 1) and the two
+    requests' lengths at gr-train-long's attention shape."""
+    import torch
+    b, h, s, d, n_hist, max_rel = GR_LONG
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=device) * std
+    q, k, v, g = (randn(b, h, s, d) for _ in range(4))
+    rab = randn(h, 2 * max_rel + 1, std=0.1)
+    hl, tc = (torch.tensor(x, device=device)
+              for x in zip(*GR_LONG_REQUESTS))
+    return dict(q=q, k=k, v=v, g=g, rab=rab, hl=hl, tc=tc, n_hist=n_hist,
+                max_rel=max_rel)
+
+
+def gr_long_dense64(q, k, v, rab, hl, tc):
+    """One head's attention in float64, dense: q, k, v (B, S, D), rab
+    (2 max_rel + 1,)."""
+    import torch
+    from repro_torch.core.masks import roo_batch_mask
+    _, _, s, d, n_hist, max_rel = GR_LONG
+    pos = torch.arange(s, device=q.device)
+    delta = (pos[:, None] - pos[None, :]).clamp(-max_rel, max_rel) + max_rel
+    scores = q @ k.transpose(1, 2) / d ** 0.5 + rab[delta]
+    keep = roo_batch_mask(hl, tc, n_hist, s - n_hist)
+    return (torch.nn.functional.silu(scores) / s * keep) @ v
+
+
+def gr_long_with_grads(fn, q, k, v, rab, g):
+    """(out, dq, dk, dv, drab) of ``fn`` by autograd."""
+    q, k, v, rab = (x.detach().requires_grad_(True) for x in (q, k, v, rab))
+    out = fn(q, k, v, rab)
+    out.backward(g)
+    return out.detach(), q.grad, k.grad, v.grad, rab.grad
+
+
+def gr_long_kernel_errors(kmod, bmod, x) -> dict:
+    """B1, B2 and B3 at gr-train-long's attention shape: one launch each,
+    bit for bit on repeat, no gradient at a negative delta (the mask keeps
+    i >= j), and each output's largest error against float64 head by head
+    as a share of the largest value, ``{(name, head): share}``; beside it
+    (printed) the plain version's in fp32 and in TF32
+    (``hstu_attention_plain``, its gradients by autograd:
+    ``hstu_attention_bwd_plain`` sums drab through an
+    (S^2, 2 max_rel + 1) one-hot, 4.5 TB here)."""
+    import torch
+    q, k, v, g, rab, hl, tc = (x[n] for n in ("q", "k", "v", "g", "rab",
+                                              "hl", "tc"))
+    h_n, max_rel = GR_LONG[1], GR_LONG[5]
+    args = (q, k, v, rab, x["n_hist"], hl, tc, max_rel)
+    kmod.reset_launch_count()
+    bmod.reset_launch_count()
+    out = kmod.hstu_attention_cuda(*args)
+    grads = bmod.hstu_attention_bwd_cuda(*args, g)
+    if (kmod.launch_count, bmod.dq_launch_count,
+            bmod.dkv_launch_count) != (1, 1, 1):
+        raise SystemExit("gr-train-long attention: not one launch of each "
+                         "of B1, B2 and B3")
+    if not (torch.equal(out, kmod.hstu_attention_cuda(*args)) and all(
+            torch.equal(a, b) for a, b in zip(
+                grads, bmod.hstu_attention_bwd_cuda(*args, g)))):
+        raise SystemExit("gr-train-long attention: not bit for bit on "
+                         "repeat")
+    if torch.count_nonzero(grads[3][:, :max_rel]):
+        raise SystemExit("gr-train-long attention: drab at a negative "
+                         "delta")
+
+    def error(got, want) -> float:
+        return float((got.double() - want).abs().max())
+    worst = {}
+    for h in range(h_n):
+        q1, k1, v1, g1 = (t[:, h:h + 1].contiguous() for t in (q, k, v, g))
+
+        def plain(tf32):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                got = gr_long_with_grads(lambda *t: kmod.hstu_attention_plain(
+                    *t, x["n_hist"], hl, tc, max_rel), q1, k1, v1,
+                    rab[h:h + 1].contiguous(), g1)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            return (*(t[:, 0] for t in got[:4]), got[4][0])
+        p32, ptf = plain(False), plain(True)
+        want = gr_long_with_grads(
+            lambda *t: gr_long_dense64(*t, hl, tc),
+            *(t[:, 0].double() for t in (q1, k1, v1)), rab[h].double(),
+            g1[:, 0].double())
+        kern = (out[:, h], *(t[:, h] for t in grads[:3]), grads[3][h])
+        for name, a, p, t, w in zip(("out", "dq", "dk", "dv", "drab"), kern,
+                                    p32, ptf, want):
+            top = float(w.abs().max())
+            share = [error(e, w) / top for e in (a, p, t)]
+            print(f"[gr-train-long kernels] {name} h{h}: from float64, of "
+                  f"the largest |value| {top:.3e}: kernel {share[0]:.2e}, "
+                  f"plain fp32 {share[1]:.2e}, plain TF32 {share[2]:.2e}")
+            worst[name, h] = share[0]
+        del p32, ptf, want
+    return worst
+
+
+def phase_gr_long_kernels(kmod, bmod, device, card: str) -> dict:
+    """B1, B2 and B3 at gr-train-long's attention shape (B 2, H 8,
+    S 8,256, D 128, ``max_rel_pos`` 8,256) against float64 within
+    ``GR_LONG_TOL`` of the largest value (``gr_long_kernel_errors``), then
+    timed, each beside its bound. Returns ``{"b1" | "dq" | "dkv": entry}``
+    for the kernels line."""
+    x = gr_long_inputs(device)
+    worst = gr_long_kernel_errors(kmod, bmod, x)
+    bad = {f"{n} h{h}": e for (n, h), e in worst.items()
+           if not e <= GR_LONG_TOL}
+    if bad:
+        raise SystemExit(f"gr-train-long attention past {GR_LONG_TOL} of "
+                         f"the largest value: {bad}")
+    args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"], x["tc"],
+            x["max_rel"])
+    out = {}
+    for key, fn, names, how in (
+            ("b1", lambda: kmod.hstu_attention_cuda(*args), ("out",),
+             bound(x)),
+            ("dq", lambda: bmod.hstu_attention_bwd_dq_cuda(*args, x["g"]),
+             ("dq", "drab"), bound_bwd(x, "dq")),
+            ("dkv", lambda: bmod.hstu_attention_bwd_dkv_cuda(*args, x["g"]),
+             ("dk", "dv"), bound_bwd(x, "dkv"))):
+        ms = device_ms(fn, 3)
+        out[key] = {"max_err_of_largest": max(
+            e for (n, _), e in worst.items() if n in names),
+            "ms": ms, "bound_ms": how[0], "bound_by": how[1],
+            "plain_ms": None}
+        print(f"[gr-train-long kernels] {card}: {key} {ms:.3f} ms, bound "
+              f"{how[0]:.3f} ms ({how[1]}), "
+              f"{100 * how[0] / ms:.2f} % of it")
+    return out
+
+
+def gr_long_step(device, n_items: int):
+    """One sparse-row training step of gr-train-long's configuration (its
+    item table cut to ``n_items`` rows: no launch depends on it) through
+    its driver's scenario and pool and the program's ``Trainer``. Returns
+    (the configuration, the step's requests)."""
+    import torch
+    from repro_torch.scenario.build import build_model
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+    from repro_torch.train.optim import (adam, default_is_embedding,
+                                         make_mixed, rowwise_adagrad)
+    from repro_torch.tree import tree_map
+    from roobench import harness, weights
+    from roobench.drivers import gr_train
+    _, cfg, tr = harness.resolve(harness.load_bench(), "gr-train-long")
+    cfg["n_items"], tr["pool_batches"] = n_items, 1
+    spec = gr_train.spec(cfg, tr)
+    batches, groups, _ = gr_train.pool(36, cfg, tr, spec)
+    bundle = build_model(spec, torch.Generator(), sparse=True,
+                         device=device, params=weights.gr(36, cfg, device))
+    held = [bundle.params]
+    o = cfg["optimizer"]
+    trainer = Trainer(bundle.loss_fn,
+                      make_mixed(adam(o["adam"]["lr"]),
+                                 rowwise_adagrad(o["rowwise_adagrad"]["lr"]),
+                                 default_is_embedding),
+                      TrainLoopConfig(total_steps=1, log_every=10),
+                      lambda: held.pop(), value_and_grad_fn=bundle.vag_fn,
+                      device=device)
+    batch = tree_map(lambda t: t.to(device), batches[0])
+    trainer.run(lambda start: iter([batch]), seed=36)
+    torch.cuda.synchronize()
+    return cfg, groups[0]
+
+
+def gr_long_entries(kern: dict, launches: dict) -> list:
+    """The kernels line's entries for B1, B2 and B3 at gr-train-long's
+    shape: ``phase_gr_long_kernels``' errors, times and bounds beside a
+    step's launches (``phase_gr_long_step``)."""
+    shape = "B 2, H 8, S 8,256, D 128, max_rel_pos 8,256"
+    return [{
+        "name": f"{name} (gr-train-long: {shape})", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
+        "launches": launches[key], **kern[which], "library_ms": None}
+        for name, src, line, key, which in (
+            ("hstu_attention_fwd", "hstu_attention_fwd.cu", 80, "b1", "b1"),
+            ("hstu_attention_bwd_dq", "hstu_attention_bwd.cu", 108, "b2",
+             "dq"),
+            ("hstu_attention_bwd_dkv", "hstu_attention_bwd.cu", 170, "b3",
+             "dkv"))]
+
+
+def phase_gr_long_step(mods, smod, device) -> dict:
+    """One gr-train-long step (``gr_long_step``) launches B1 once a layer
+    (one step: no logging forward), B2 and B3 once each a layer, the
+    history's item merge (16,384 ids) on the segment route and nothing
+    else of the port's kernels. Returns its launches."""
+    reset_counts(mods + (smod,))
+    cfg, _ = gr_long_step(device, 1 << 20)
+    got = {**all_counts(mods), "merge": smod.launch_count}
+    n = cfg["n_layers"]
+    want = dict(b1=n, b2=n, b3=n, b4=0, b5=0, b6=0, b7=0, merge=1)
+    print(f"[gr-train-long step] launches {got}")
+    if got != want:
+        raise SystemExit(f"a gr-train-long step launched {got}, not {want}")
+    return got
 
 
 @functools.lru_cache(maxsize=None)
@@ -8624,6 +8851,8 @@ def main() -> int:
     worst_esr = phase_kernels(kmod, device, ESR_B1_SHAPES)
     worst_prefix = phase_prefix_kernels(kmod, pmod, device)
     worst_bwd = phase_bwd_kernels(kmod, pmod, bmod, device)
+    # B1-B3 at gr-train-long's shape, the cell's main-path attention
+    gr_long = phase_gr_long_kernels(kmod, bmod, device, card)
     worst_bag = phase_bag_kernels(emod, device)
     worst_grouped = phase_grouped_bag_kernels(emod, device)
     worst_dot = phase_dot_kernels(dmod, device)
@@ -8652,6 +8881,7 @@ def main() -> int:
         raise SystemExit("hstu-gr or roo-lsr launched the dot-interaction "
                          "kernel")
     mods = (emod, kmod, pmod, bmod, dmod)
+    gr_long_launches = phase_gr_long_step(mods, smod, device)
     esr_serve = phase_arch_serve("esr serve", tt_setup(device, "esr"),
                                  "hstu", mods, device, card, cache=True)
     esr_train = phase_arch_train("esr train", lambda d: tt_setup(d, "esr"),
@@ -9019,7 +9249,8 @@ def main() -> int:
         **merge_times[label, law]}
         # the cell's merges are the sparse dlrm path's: its 20 steps'
         # launches (phase_dlrm_sparse_train asserts dlrm_merges a step)
-        for label, _, _ in MERGE_SHAPES for law in MERGE_LAWS]}))
+        for label, _, _ in MERGE_SHAPES for law in MERGE_LAWS]
+        + gr_long_entries(gr_long, gr_long_launches)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

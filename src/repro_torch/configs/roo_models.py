@@ -34,10 +34,17 @@ def esr_config(hstu: bool = True,
 
 
 def gr_config(hist_len: int = 64, m_targets: int = 16,
-              attn_backend: Optional[str] = None) -> GRConfig:
+              attn_backend: Optional[str] = None, d_model: int = 64,
+              n_heads: int = 2, d_qk: int = 32, d_v: int = 32,
+              n_layers: int = 2,
+              max_rel_pos: Optional[int] = None) -> GRConfig:
+    """hstu-gr ranking; the HSTU widths default to the repo's, the rab
+    table to the history window (``max_rel_pos`` None)."""
     return GRConfig(n_items=N_ITEMS, hist_len=hist_len, m_targets=m_targets,
-                    hstu=HSTUConfig(d_model=64, n_heads=2, d_qk=32, d_v=32,
-                                    n_layers=2, max_rel_pos=hist_len,
+                    hstu=HSTUConfig(d_model=d_model, n_heads=n_heads,
+                                    d_qk=d_qk, d_v=d_v, n_layers=n_layers,
+                                    max_rel_pos=(hist_len if max_rel_pos
+                                                 is None else max_rel_pos),
                                     attn_backend=attn_backend))
 
 

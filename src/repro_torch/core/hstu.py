@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.masks import MaskSpec, PrefixMaskSpec
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,9 +243,14 @@ def hstu_layer_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
 def hstu_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
                mask: Union[torch.Tensor, MaskSpec],
                backend: Optional[str] = None) -> torch.Tensor:
+    """The input LN, then every layer, each in a device-timed
+    ``hstu.layer`` span (args ``layer``, ``B``, ``S``; its forward only:
+    autograd runs the backward outside it)."""
     x = _ln(x, cfg.eps) * params["in_ln_scale"] + params["in_ln_bias"]
-    for layer in params["layers"]:
-        x = hstu_layer_apply(layer, cfg, x, mask, backend=backend)
+    b, s = x.shape[:2]
+    for i, layer in enumerate(params["layers"]):
+        with obs_trace.span("hstu.layer", device=True, layer=i, B=b, S=s):
+            x = hstu_layer_apply(layer, cfg, x, mask, backend=backend)
     return x
 
 
@@ -325,7 +331,13 @@ def hstu_prefix_apply(params: Dict, cfg: HSTUConfig, x: torch.Tensor,
 
 
 def hstu_flops(cfg: HSTUConfig, batch: int, seq: int) -> int:
-    """Forward FLOPs (2x MACs) of the encoder, dense (unmasked) count."""
+    """Forward FLOPs (2x MACs) of the encoder at ``batch`` sequences of
+    ``seq`` rows, every cell of the S x S scores counted whatever the mask
+    keeps: an upper bound. Under the ROO mask the attention computes only
+    the kept cells (per request and head, the history's causal triangle,
+    each target against the history and itself; ``kernels/
+    hstu_attention_bwd.kept_cells``), about half of S^2 for a full
+    history."""
     h, dqk, dv, d = cfg.n_heads, cfg.d_qk, cfg.d_v, cfg.d_model
     per_layer = (
         2 * seq * d * h * (2 * dv + 2 * dqk)        # f1 projections

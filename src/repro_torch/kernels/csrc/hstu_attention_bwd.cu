@@ -59,6 +59,12 @@
 //    by the copy. Rounds start at the block's first live tile, a tile no
 //    row of the block can see is never loaded, and a warp multiplies only
 //    the tiles its own rows can see.
+//  * Half the rab row in shared memory. The ROO mask keeps a cell only
+//    where i >= j, so only the bins of deltas 0..max_rel (max_rel + 1 of
+//    the 2 * max_rel + 1) are ever read or get a gradient: both kernels
+//    stage those alone (with D 128 and max_rel 8,256 the whole row would
+//    take B2 past the 227 KB a block may have), and the other bins' drab
+//    is exactly 0.
 //  * drab without float atomics, in two fixed-order stages. In B2 each warp
 //    stages its 16 x 16 ds tile in shared memory and sums each of its 31
 //    diagonals in row order (one lane a diagonal); the diagonals whose
@@ -66,9 +72,10 @@
 //    tree. After the round's barrier the block folds them into the head's
 //    compact delta table in shared memory, one thread per delta of the
 //    round adding the warps' sums in warp order (an unclipped delta has a
-//    bin of its own; one thread adds the clipped sums to bins 0 and
-//    2*max_rel). The block writes its table once to an
-//    (H, nrab, B * row blocks) buffer, which the caller sums over its last
+//    bin of its own; one thread adds the clipped sums to the bins of
+//    -max_rel, which only max_rel 0 stages, and max_rel). The block writes
+//    its table of the staged bins once to an (H, max_rel + 1,
+//    B * row blocks) buffer, which the caller sums over its last
 //    (contiguous) axis. Two calls give the same bits.
 // Both read the lengths in-block, use the unpadded S for 1/S, and give
 // exact zeros for masked rows (dq) and columns (dk, dv).
@@ -149,14 +156,14 @@ struct BwdArgs {
 };
 
 // Dynamic shared memory of one block: the two held tiles and the two-stage
-// ring of ks streamed tile pairs (elements of es bytes), then fp32: the rab
-// row and, for B2's drab, the delta table, the warps' staged ds tiles and
-// their diagonal sums.
-inline long long bwd_smem_bytes(const TileConfig& c, int dp, int nrab,
+// ring of ks streamed tile pairs (elements of es bytes), then fp32: the
+// nwin staged rab bins and, for B2's drab, their delta table, the warps'
+// staged ds tiles and their diagonal sums.
+inline long long bwd_smem_bytes(const TileConfig& c, int dp, int nwin,
                                 bool fold, int es = 4) {
   const long long ld = tile_ld(dp, es);
-  long long n = nrab;
-  if (fold) n += nrab + NWARPS * ROWS * DS_LD + NWARPS * DIAG_LD;
+  long long n = nwin;
+  if (fold) n += nwin + NWARPS * ROWS * DS_LD + NWARPS * DIAG_LD;
   return es * (2LL * c.rb * ROWS * ld + 2LL * c.ks * 2 * BK * ld) + 4 * n;
 }
 
@@ -180,15 +187,16 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
   const int my_rt = warp / ks_n, my_ks = warp - my_rt * ks_n;
   const bool use_rab = a.rab != nullptr;
   const bool fold = !DKV && use_rab;
-  const int nrab = use_rab ? 2 * a.max_rel + 1 : 0;
+  // the staged bins: deltas 0..max_rel (rab bins max_rel..2*max_rel)
+  const int nwin = use_rab ? a.max_rel + 1 : 0;
 
   T* h1_s = reinterpret_cast<T*>(smem);             // rb*16 x LD
   T* h2_s = h1_s + a.rb * ROWS * LD;                // rb*16 x LD
   T* ring = h2_s + a.rb * ROWS * LD;                // [2][ks][1|2] BK x LD
-  float* rab_s =                                    // nrab
+  float* rab_s =                                    // nwin
       reinterpret_cast<float*>(ring + 2 * ks_n * 2 * BK * LD);
-  float* drab_s = rab_s + nrab;                     // nrab (fold)
-  float* ds_s = drab_s + nrab;                      // NWARPS x 16 x DS_LD
+  float* drab_s = rab_s + nwin;                     // nwin (fold)
+  float* ds_s = drab_s + nwin;                      // NWARPS x 16 x DS_LD
   float* diag_s = ds_s + NWARPS * ROWS * DS_LD;     // NWARPS x DIAG_LD
 
   const int br0 = blockIdx.y * a.rb * ROWS;
@@ -228,7 +236,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
   // of the loop makes all of it visible
   copy_rows<DP>(h1_s, a.hold1, br0, a.rb * ROWS, S, a.Dqk, a.vec_qk);
   copy_rows<DP>(h2_s, a.hold2, br0, a.rb * ROWS, S, a.Dv, a.vec_v);
-  load_rab(rab_s, a.rab, nrab);
+  if (use_rab) load_rab(rab_s, a.rab + a.max_rel, nwin);
   int t = next_round(0);
   if (t < n_rounds) issue_round(t, 0);
   cp_async_commit();
@@ -240,7 +248,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
     zero_pad<DP>(ring + (i * 2 + 1) * BK * LD, BK, a.Dv);
   }
   if (fold)                         // visible after the first barrier
-    for (int i = threadIdx.x; i < nrab; i += NT) drab_s[i] = 0.0f;
+    for (int i = threadIdx.x; i < nwin; i += NT) drab_s[i] = 0.0f;
 
   float acc1[NB][4];                // dq (B2) / dk (B3)
   float acc2[DKV ? NB : 1][4];      // dv (B3)
@@ -313,9 +321,8 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
           float av = 0.0f, dsv = 0.0f;
           if (L.keep(i, jk)) {
             float x = p[j][e] * a.inv_sqrt_d;
-            if (use_rab)
-              x += rab_s[min(max(i - jk, -a.max_rel), a.max_rel) +
-                         a.max_rel];
+            if (use_rab)              // keep(i, jk) implies i >= jk
+              x += rab_s[min(i - jk, a.max_rel)];
             const float sig = 1.0f / (1.0f + expf(-x));
             av = x * sig * a.inv_s;
             dsv = d[j][e] * a.inv_s * (sig * (1.0f + x * (1.0f - sig)));
@@ -396,24 +403,27 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
       // d0 - 16 (ks - 1) + o and adds the warps' sums for it in warp
       // order (unclipped deltas have distinct bins; a warp without a tile
       // this round left zeros); one thread adds the clipped sums, all low
-      // then all high, in warp order.
+      // then all high, in warp order. A delta under 0 sees only masked
+      // cells (zeros) and has no staged bin; the low clipped bin is staged
+      // only at max_rel 0, where it is the high one's.
       const int d0 = br0 - (ct0 + t * ks_n) * BK - (ROWS - 1);
       const int o = threadIdx.x;
       const int delta = d0 - BK * (ks_n - 1) + o;
-      if (o < BK * (a.rb + ks_n - 2) + NDIAG && delta > -a.max_rel &&
+      if (o < BK * (a.rb + ks_n - 2) + NDIAG && delta >= 0 &&
           delta < a.max_rel) {
-        float x = drab_s[delta + a.max_rel];
+        float x = drab_s[delta];
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) {
           const int rt = w / ks_n, sw = w - rt * ks_n;
           const int u = o - BK * (ks_n - 1) - ROWS * (rt - sw);
           if (u >= 0 && u < NDIAG) x += diag_s[w * DIAG_LD + u];
         }
-        drab_s[delta + a.max_rel] = x;
+        drab_s[delta] = x;
       } else if (o == NT - 1) {
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          const int bin = k ? 2 * a.max_rel : 0;
+          if (k == 0 && a.max_rel > 0) continue;
+          const int bin = k ? a.max_rel : 0;      // staged index
           float x = drab_s[bin];
 #pragma unroll
           for (int w = 0; w < NWARPS; ++w)
@@ -461,7 +471,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
   if (fold) {                       // the block's drab partials
     __syncthreads();
     const size_t n_part = (size_t)(gridDim.x / a.H) * gridDim.y;
-    for (int i = threadIdx.x; i < nrab; i += NT)
+    for (int i = threadIdx.x; i < nwin; i += NT)
       a.part[(size_t)i * n_part] = drab_s[i];
   }
   if (my_ks != 0 || wr0 >= S) return;
@@ -498,10 +508,10 @@ __device__ __forceinline__ void bwd_block(BwdArgs<T> a,
   a.hold2 += vv;
   a.str2 += vv;
   if (a.rab != nullptr) {
-    const int nrab = 2 * a.max_rel + 1;
-    a.rab += (size_t)h * nrab;
-    if (!DKV)   // drab partials: (H, nrab, B * row blocks)
-      a.part += (size_t)h * nrab * (gridDim.x / a.H) * gridDim.y +
+    a.rab += (size_t)h * (2 * a.max_rel + 1);
+    if (!DKV)   // drab partials: (H, max_rel + 1, B * row blocks)
+      a.part += (size_t)h * (a.max_rel + 1) * (gridDim.x / a.H) *
+                    gridDim.y +
                 (size_t)b * gridDim.y + blockIdx.y;
   }
   if (DKV) a.out2 += vv;
@@ -525,8 +535,8 @@ hstu_bwd_dkv_kernel(BwdArgs<T> a, const int* __restrict__ hist_lengths,
 template <int DP, bool DKV, class T>
 cudaError_t launch(const BwdArgs<T>& a, const int* hl, const int* tc, int BH,
                    int n_hist, cudaStream_t stream) {
-  const int nrab = a.rab != nullptr ? 2 * a.max_rel + 1 : 0;
-  const long long smem = bwd_smem_bytes(TileConfig{a.rb, a.ks}, DP, nrab,
+  const int nwin = a.rab != nullptr ? a.max_rel + 1 : 0;
+  const long long smem = bwd_smem_bytes(TileConfig{a.rb, a.ks}, DP, nwin,
                                         !DKV && a.rab != nullptr, sizeof(T));
   void (*kern)(BwdArgs<T>, const int*, const int*, int) =
       DKV ? &hstu_bwd_dkv_kernel<DP, T> : &hstu_bwd_dq_kernel<DP, T>;
@@ -585,25 +595,25 @@ extern "C" {
 long long hstu_attention_bwd_dq_smem_bytes(int Dqk, int Dv, int max_rel,
                                            int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? 2 * max_rel + 1 : 0, use_rab != 0);
+                        use_rab ? max_rel + 1 : 0, use_rab != 0);
 }
 
 long long hstu_attention_bwd_dkv_smem_bytes(int Dqk, int Dv, int max_rel,
                                             int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? 2 * max_rel + 1 : 0, false);
+                        use_rab ? max_rel + 1 : 0, false);
 }
 
 long long hstu_attention_bwd_dq_bf16_smem_bytes(int Dqk, int Dv, int max_rel,
                                                 int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? 2 * max_rel + 1 : 0, use_rab != 0, 2);
+                        use_rab ? max_rel + 1 : 0, use_rab != 0, 2);
 }
 
 long long hstu_attention_bwd_dkv_bf16_smem_bytes(int Dqk, int Dv,
                                                  int max_rel, int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? 2 * max_rel + 1 : 0, false, 2);
+                        use_rab ? max_rel + 1 : 0, false, 2);
 }
 
 // Output rows (q rows of B2, k columns of B3) one block covers at this
@@ -614,8 +624,9 @@ int hstu_attention_bwd_rows_per_block(long long n_heads, int S) {
 
 // q, k, dq: (B, H, S, Dqk); v, g: (B, H, S, Dv); rab: (H, 2*max_rel+1) or
 // null when use_rab == 0; hist_lengths, target_counts: (B,) int32;
-// drab_part: (H, 2*max_rel+1, B * ceil(S / rows_per_block)), written only
-// when use_rab. All contiguous on the current device: fp32 here, bf16 (q,
+// drab_part: (H, max_rel+1, B * ceil(S / rows_per_block)), the partials of
+// drab's bins max_rel..2*max_rel (deltas 0..max_rel; the others' are 0),
+// written only when use_rab. All contiguous on the current device: fp32 here, bf16 (q,
 // k, v, rab, g, dq; drab_part stays fp32) in hstu_attention_bwd_dq_bf16.
 int hstu_attention_bwd_dq(const void* q, const void* k, const void* v,
                           const void* rab, const void* g,

@@ -63,7 +63,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 MAX_D = 128              # largest Dqk / Dv the kernel takes
 ROW_TILE = 16            # q rows per warp: a grid row covers 1-4 tiles
 MAX_GRID_Y = 65535
-MAX_REL_POS = 4096       # the rab row lives in shared memory
+# the rab row lives in a block's shared memory (B1, B4: all of it; B2, B3:
+# the half the ROO mask reads), so each launch's check of its shared memory
+# is the bound at a given D; this only keeps the indexing small
+MAX_REL_POS = 16384
 MAX_SMEM_BYTES = 227 * 1024
 DTYPES = (torch.float32, torch.bfloat16)   # what the kernels take
 

@@ -36,6 +36,7 @@ from repro_torch.kernels.hstu_attention import (MAX_D, MAX_REL_POS,
                                                 check_operand, rab_operand,
                                                 symbol)
 from repro_torch.kernels.ref import hstu_attention_bwd_ref
+from repro_torch.obs import trace as obs_trace
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "hstu_attention_bwd.cu"
 ROWS = 16                # q rows (B2) / k columns (B3) per warp; a block
@@ -151,10 +152,13 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                ) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
     """Launch B2: ``(dq (B, H, S, Dqk), drab (H, 2*max_rel_pos+1) or
-    None)``. The kernel writes one partial drab table per (b, h, row
-    block) into an (H, nrab, B * row blocks) buffer; they are summed here
-    over its last axis in a fixed order (the reference's ``.sum(0)`` over
-    its per-(b, h) partials) and come back in rab's dtype."""
+    None)``. The ROO mask keeps only cells with i >= j, so only drab's bins
+    of deltas 0..max_rel_pos (the last max_rel_pos + 1) can be nonzero: the
+    kernel writes one partial table of those per (b, h, row block) into an
+    (H, max_rel_pos + 1, B * row blocks) buffer; they are summed here over
+    its last axis in a fixed order (the reference's ``.sum(0)`` over its
+    per-(b, h) partials) beside exact zeros for the other bins, in rab's
+    dtype."""
     global dq_launch_count
     rab_in, hl, tc = _checked(q, k, v, rab, n_hist, hist_lengths,
                               target_counts, max_rel_pos, g)
@@ -164,8 +168,8 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     nrab = 2 * max_rel_pos + 1
     n_blocks = -(-s // rows_per_block(b * h, s))
     dq = torch.empty_like(q)
-    part = torch.empty((h, nrab, b * n_blocks) if use_rab else (0,),
-                       device=q.device, dtype=torch.float32)
+    part = torch.empty((h, max_rel_pos + 1, b * n_blocks) if use_rab
+                       else (0,), device=q.device, dtype=torch.float32)
     if dq.numel() == 0:
         return dq, (torch.zeros((h, nrab), device=q.device, dtype=rab.dtype)
                     if use_rab else None)
@@ -176,7 +180,11 @@ def hstu_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
             part.data_ptr() if use_rab else None, b, h, s, dqk, dv, n_hist,
             max_rel_pos, int(use_rab))
     dq_launch_count += 1
-    return dq, (part.sum(-1).to(rab.dtype) if use_rab else None)
+    if not use_rab:
+        return dq, None
+    drab = torch.zeros((h, nrab), device=q.device, dtype=rab.dtype)
+    drab[:, max_rel_pos:] = part.sum(-1).to(rab.dtype)
+    return dq, drab
 
 
 def hstu_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -219,6 +227,23 @@ def hstu_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv, drab
 
 
+def kept_cells(n_hist: int, hist_lengths: torch.Tensor,
+               target_counts: torch.Tensor, n_heads: int,
+               s: int) -> torch.Tensor:
+    """The cells the ROO mask keeps over the batch and its heads, a
+    one-element tensor on the lengths' device: per request, the valid
+    history's causal triangle, each valid target against that history and
+    against itself (the kernels' ``RooMask``)."""
+    hist = hist_lengths.long().clamp(0, n_hist)
+    tgt = target_counts.long().clamp(0, s - n_hist)
+    return n_heads * torch.sum(hist * (hist + 1) // 2 + tgt * hist + tgt)
+
+
+def _span_args(q: torch.Tensor, v: torch.Tensor) -> dict:
+    b, h, s, d = q.shape
+    return {"B": b, "H": h, "S": s, "D": d, "Dv": v.shape[-1]}
+
+
 class HSTUAttentionFn(torch.autograd.Function):
     """The ROO HSTU attention as one differentiable op: the forward kernel
     (B1) and the backward kernels (B2, B3), the port of the reference's
@@ -230,6 +255,12 @@ class HSTUAttentionFn(torch.autograd.Function):
     max_rel_pos)``; q, k, v, rab contiguous fp32 or bf16 (one dtype for q,
     k and v) on one CUDA device; the output and the gradients in their
     dtypes.
+
+    The forward runs in a device-timed ``hstu.attention`` span, the
+    backward in ``hstu.attention_bwd`` (args ``B``, ``H``, ``S``, ``D``,
+    ``Dv``); in ``trace`` mode each also gets ``kept_cells``
+    (:func:`kept_cells`, read without a sync), which the forward adds to
+    the counter ``hstu.kept_cells``.
     """
 
     @staticmethod
@@ -240,13 +271,24 @@ class HSTUAttentionFn(torch.autograd.Function):
                               dtype=torch.int32).contiguous()
         ctx.save_for_backward(q, k, v, rab, hl, tc)
         ctx.n_hist, ctx.max_rel_pos = n_hist, max_rel_pos
-        return fwd.hstu_attention_cuda(q, k, v, rab, n_hist, hl, tc,
-                                       max_rel_pos)
+        ctx.kept = (kept_cells(n_hist, hl, tc, q.shape[1], q.shape[2])
+                    if obs_trace.tracing_enabled() else None)
+        with obs_trace.span("hstu.attention", device=True,
+                            **_span_args(q, v)) as sp:
+            if ctx.kept is not None:
+                sp.set_later("kept_cells", ctx.kept,
+                             counter="hstu.kept_cells")
+            return fwd.hstu_attention_cuda(q, k, v, rab, n_hist, hl, tc,
+                                           max_rel_pos)
 
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, rab, hl, tc = ctx.saved_tensors
-        dq, dk, dv, drab = hstu_attention_bwd_cuda(
-            q, k, v, rab, ctx.n_hist, hl, tc, ctx.max_rel_pos,
-            grad_out.contiguous())
+        with obs_trace.span("hstu.attention_bwd", device=True,
+                            **_span_args(q, v)) as sp:
+            if ctx.kept is not None:
+                sp.set_later("kept_cells", ctx.kept)
+            dq, dk, dv, drab = hstu_attention_bwd_cuda(
+                q, k, v, rab, ctx.n_hist, hl, tc, ctx.max_rel_pos,
+                grad_out.contiguous())
         return dq, dk, dv, drab, None, None, None, None

@@ -41,7 +41,10 @@ from a pool; a pending pair belongs to an event of the buffer, so the
 buffer's bound is theirs, and a span the full buffer drops (counted in
 ``trace.dropped_events``) hands its events back. Spans opened inside
 autograd's backward run on its device thread: group spans into steps by
-time, not by ``tid``.
+time, not by ``tid``. ``span.set_later(key, tensor, counter)`` gives such a
+span an arg the card computes (a count that depends on the data, say)
+without a sync: the value is copied to pinned host memory on the stream
+inside the span and read, and added to ``counter``, when ``device_ms`` is.
 
 **Syncs.** On a card in ``trace`` mode the tracer turns on
 ``torch.cuda.set_sync_debug_mode("warn")`` and counts each
@@ -105,6 +108,10 @@ class _NullSpan:
     def set(self, **args) -> None:
         pass
 
+    def set_later(self, key: str, value, counter: Optional[str] = None
+                  ) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -128,7 +135,7 @@ def _card():
 
 class _Span:
     __slots__ = ("_tracer", "name", "cat", "args", "device", "_t0",
-                 "_start")
+                 "_start", "_later")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any], device: bool):
@@ -138,10 +145,27 @@ class _Span:
         self.args = args
         self.device = device
         self._start = None         # the opening timing event, on a card
+        self._later = []           # (key, pinned host copy, counter)
 
     def set(self, **args) -> None:
         """Attach/overwrite args while the span is open."""
         self.args.update(args)
+
+    def set_later(self, key: str, value, counter: Optional[str] = None
+                  ) -> None:
+        """``args[key]``: the integer a one-element tensor holds, read
+        without a wait. A tensor on a card of a span timed there is copied
+        to pinned host memory on the current stream and read when the
+        span's device time is (module note); any other is read now.
+        ``counter``, if named, gets the value added when it is read."""
+        if self._start is not None and value.is_cuda:
+            import torch
+            host = torch.empty(value.shape, dtype=value.dtype,
+                               pin_memory=True)
+            host.copy_(value, non_blocking=True)
+            self._later.append((key, host, counter))
+        else:
+            _fill(self.args, key, value, counter)
 
     def __enter__(self) -> "_Span":
         self._t0 = self._tracer._enter(self)
@@ -153,6 +177,13 @@ class _Span:
         metrics.histogram("span." + self.name).observe(
             (t1 - self._t0) / 1e6)
         return False
+
+
+def _fill(args: Dict[str, Any], key: str, value, counter: Optional[str]
+          ) -> None:
+    args[key] = int(value)
+    if counter is not None:
+        metrics.counter(counter).inc(args[key])
 
 
 class _SyncCounter:
@@ -207,8 +238,8 @@ class Tracer:
         self._pid = os.getpid()
         self._local = threading.local()        # .stack: open spans, trace mode
         self._anchors: List[Tuple[int, int]] = []   # (perf_counter_ns, time_ns)
-        # (event, start, end) the card has not reached: each holds an event
-        # of the buffer, so the buffer's bound is theirs
+        # (event, start, end, later) the card has not reached: each holds
+        # an event of the buffer, so the buffer's bound is theirs
         self._pending: List[tuple] = []
         self._resolve_at = RESOLVE_EVERY
         self._pool: list = []                  # timing events to reuse
@@ -259,7 +290,7 @@ class Tracer:
             stack.remove(span)
         timing = None
         if span._start is not None:
-            timing = (span._start, self._timing_event(_card()))
+            timing = (span._start, self._timing_event(_card()), span._later)
         t0 = span._t0
         # ts and end both floored to microseconds: a span inside another
         # never ends after it
@@ -283,7 +314,7 @@ class Tracer:
             if len(self._events) >= self.max_events:
                 metrics.counter("trace.dropped_events", gated=False).inc()
                 if timing is not None:
-                    self._pool.extend(timing)
+                    self._pool.extend(timing[:2])
                 return
             self._events.append(event)
             if timing is not None:
@@ -293,15 +324,19 @@ class Tracer:
                     self._resolve_at = len(self._pending) + RESOLVE_EVERY
 
     def _resolve(self) -> None:
-        """``device_ms`` into each pending span whose events have both
-        completed; never waits. Under the lock."""
+        """``device_ms``, and the values ``set_later`` left, into each
+        pending span whose events have both completed; never waits. Under
+        the lock."""
         still = []
-        for event, start, end in self._pending:
+        for pending in self._pending:
+            event, start, end, later = pending
             if end.query() and start.query():
                 event["args"]["device_ms"] = start.elapsed_time(end)
+                for key, host, counter in later:
+                    _fill(event["args"], key, host, counter)
                 self._pool += (start, end)
             else:
-                still.append((event, start, end))
+                still.append(pending)
         self._pending = still
 
     # -- syncs ------------------------------------------------------------------
@@ -357,7 +392,7 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
-            for _, start, end in self._pending:
+            for _, start, end, _ in self._pending:
                 self._pool += (start, end)
             self._pending = []
             self._resolve_at = RESOLVE_EVERY

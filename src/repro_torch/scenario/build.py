@@ -168,8 +168,9 @@ def _ne_metrics(logits_fn, plan=None):
 
 def build_model(spec: ScenarioSpec, gen: torch.Generator,
                 sparse: bool = False, device="cuda",
-                plan=None) -> ModelBundle:
-    """Params (drawn from ``gen``, placed on ``device``), loss and serving
+                plan=None, params=None) -> ModelBundle:
+    """Params (drawn from ``gen``, placed on ``device``; ``params`` in the
+    arch's layout instead, when the caller has them), loss and serving
     halves for ``spec.model``. ``loss_fn(params, batch, gen)`` takes the
     step's generator (only BERT4Rec's cloze mask draws from it). Under an
     SPMD ``plan`` (``PLAN_ARCHS`` only) the loss and the NE metric route
@@ -183,6 +184,10 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
             f"scenario {spec.name!r}: model.arch {arch!r} is not a recsys "
             f"scenario arch; expected one of {SCENARIO_ARCHS}")
 
+    def init(init_fn, cfg):
+        return (init_fn(gen, cfg, device=device) if params is None
+                else params)
+
     def sparse_vag(loss, table_ids_fn):
         return (make_sparse_value_and_grad(loss, table_ids_fn)
                 if sparse else None)
@@ -195,7 +200,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
                                   n_items=m.n_items)
         loss = lambda p, b, g: lsr_loss(p, cfg, b, plan=plan)
         return ModelBundle(
-            arch, cfg, lsr_init(gen, cfg, device=device), loss,
+            arch, cfg, init(lsr_init, cfg), loss,
             sparse_vag(loss, lambda b: lsr_table_ids(cfg, b)),
             _ne_metrics(lambda p, b: (
                 lsr_logits_roo(p, cfg, b, plan=plan)[:, 0], b.labels[:, 0],
@@ -224,7 +229,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
             from_user = lambda p, b, u: tt.retrieval_scores_from_user(
                 p, cfg, b, u)
         return ModelBundle(
-            arch, cfg, tt.two_tower_init(gen, cfg, device=device), loss,
+            arch, cfg, init(tt.two_tower_init, cfg), loss,
             sparse_vag(loss, lambda b: tt.two_tower_table_ids(cfg, b)),
             metrics,
             ServeAdapter(
@@ -233,12 +238,16 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
                 score_from_user=from_user))
     if arch == "hstu-gr":
         from repro_torch.models import gr
+        from repro_torch.scenario.spec import PORT_MODEL_FIELDS
+        widths = {f: getattr(m, f) for f in PORT_MODEL_FIELDS
+                  if getattr(m, f)}
         cfg = dataclasses.replace(
-            rm.gr_config(hist_len=m.hist_len, m_targets=m.m_targets),
+            rm.gr_config(hist_len=m.hist_len, m_targets=m.m_targets,
+                         **widths),
             n_items=m.n_items)
         loss = lambda p, b, g: gr.gr_ranking_loss(p, cfg, b, plan=plan)
         return ModelBundle(
-            arch, cfg, gr.gr_init(gen, cfg, device=device), loss,
+            arch, cfg, init(gr.gr_init, cfg), loss,
             sparse_vag(loss, lambda b: gr.gr_table_ids(cfg, b)),
             _ne_metrics(lambda p, b: (
                 gr.gr_ranking_logits(p, cfg, b, plan=plan)[:, 0],
@@ -259,7 +268,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
         cfg = mind.MINDConfig(n_items=m.n_items)
         loss = lambda p, b, g: mind.mind_loss(p, cfg, b)
         return ModelBundle(
-            arch, cfg, mind.mind_init(gen, cfg, device=device), loss,
+            arch, cfg, init(mind.mind_init, cfg), loss,
             sparse_vag(loss, lambda b: mind.mind_table_ids(cfg, b)), None,
             ServeAdapter(score=lambda p, b: mind.score_candidates_roo(
                 p, cfg, b)))
@@ -272,7 +281,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
         cfg = bert4rec.BERT4RecConfig(n_items=m.n_items,
                                       seq_len=m.seq_len or 65)
         return ModelBundle(
-            arch, cfg, bert4rec.bert4rec_init(gen, cfg, device=device),
+            arch, cfg, init(bert4rec.bert4rec_init, cfg),
             lambda p, b, g: bert4rec.bert4rec_loss(p, cfg, b, g), None, None,
             ServeAdapter(score=lambda p, b: bert4rec.score_candidates_roo(
                 p, cfg, b)))
@@ -281,7 +290,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
         cfg = din_dien.DIENConfig(n_items=m.n_items, seq_len=m.seq_len or 64)
         loss = lambda p, b, g: din_dien.dien_loss(p, cfg, b)
         return ModelBundle(
-            arch, cfg, din_dien.dien_init(gen, cfg, device=device), loss,
+            arch, cfg, init(din_dien.dien_init, cfg), loss,
             sparse_vag(loss, lambda b: din_dien.dien_table_ids(cfg, b)),
             _ne_metrics(lambda p, b: (din_dien.dien_logits_roo(p, cfg, b),
                                       b.labels[:, 0], b.impression_mask())),
@@ -305,7 +314,7 @@ def build_model(spec: ScenarioSpec, gen: torch.Generator,
         return bce(logits, b["y"])
 
     return ModelBundle(
-        arch, cfg, dlrm_init(gen, cfg, device=device), loss,
+        arch, cfg, init(dlrm_init, cfg), loss,
         sparse_vag(loss, lambda b: dlrm_table_ids(cfg, b["ro_ids"],
                                                   b["nro_ids"])),
         None, None)
@@ -639,7 +648,7 @@ def engine_from_scenario(spec: ScenarioSpec, params=None, rng_seed: int = 0,
     refuse_unported(spec, training=False)
     spec.apply()
     bundle = build_model(spec, torch.Generator().manual_seed(rng_seed),
-                         device=device)
+                         device=device, params=params)
     if bundle.serve is None:
         raise ScenarioValidationError(
             f"scenario {spec.name!r}: {spec.model.arch} is not servable "
@@ -682,7 +691,7 @@ def engine_from_scenario(spec: ScenarioSpec, params=None, rng_seed: int = 0,
                 f"'prefix of the served history' is ill-defined")
         state_store = UserStateStore(sv.state_capacity)
     return ScoringEngine(
-        params if params is not None else bundle.params,
+        bundle.params,
         policy=policy, ladder=ladder, adapter=adapter,
         user_fn=adapter.user_repr if cache is not None else None,
         score_from_user=(adapter.score_from_user

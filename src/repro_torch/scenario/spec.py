@@ -21,7 +21,12 @@ loads in the other. What differs is what the values are checked against:
     here (so a bare spec round-trip stays standard library only), and
     ``apply()`` installs them on ``distributed/comms.py``'s knobs;
   * ``faults`` parses with the port's ``reliability.faults``, ``obs.mode``
-    against the port's ``obs`` modes.
+    against the port's ``obs`` modes;
+  * ``model`` has six fields the reference lacks, hstu-gr's HSTU widths
+    (``d_model``, ``n_heads``, ``d_qk``, ``d_v``, ``n_layers``,
+    ``max_rel_pos``; 0 is the arch's default). The wire format leaves each
+    out while it is 0, so a spec that sets none of them is the reference's
+    byte for byte; one that sets them loads in the port only.
 
 Design rules (the reference's):
 
@@ -68,6 +73,15 @@ class ModelSpec:
     m_targets: int = 16       # GR ranking targets
     embed_dim: int = 0        # 0 = arch default
     variant: str = ""         # lsr mode / two-tower user-tower mode
+    # hstu-gr's HSTU widths (port only; 0 = the arch default). The wire
+    # format leaves a field out while it is 0, so a spec that sets none of
+    # them has the reference's bytes and hashes.
+    d_model: int = 0
+    n_heads: int = 0
+    d_qk: int = 0
+    d_v: int = 0
+    n_layers: int = 0
+    max_rel_pos: int = 0      # 0 = the history window (gr_config's default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +167,12 @@ class ObsSpec:
     export_every_s: float = 0.0         # min seconds between JSONL lines
     verbosity: Optional[int] = None     # 0=errors 1=progress 2=debug
 
+
+# ModelSpec fields the reference's schema lacks: written only when set
+PORT_MODEL_FIELDS = ("d_model", "n_heads", "d_qk", "d_v", "n_layers",
+                     "max_rel_pos")
+# archs that read them
+HSTU_WIDTH_ARCHS = ("hstu-gr",)
 
 # the comms group's choices (distributed/comms.py), copied so validate()
 # imports nothing
@@ -263,6 +283,9 @@ class ScenarioSpec:
                                "name": self.name}
         for sec in _SECTIONS:
             out[sec] = dataclasses.asdict(getattr(self, sec))
+        for f in PORT_MODEL_FIELDS:
+            if not out["model"][f]:
+                del out["model"][f]
         return out
 
     def to_json_str(self, indent: Optional[int] = 1) -> str:
@@ -330,6 +353,13 @@ class ScenarioSpec:
                             self.data.requests_per_shard)):
             if val <= 0:
                 bad(f"{field} must be positive, got {val}")
+        widths = [f for f in PORT_MODEL_FIELDS if getattr(self.model, f)]
+        for f in widths:
+            if getattr(self.model, f) < 0:
+                bad(f"model.{f} must be >= 0, got {getattr(self.model, f)}")
+        if widths and self.model.arch not in HSTU_WIDTH_ARCHS:
+            bad(f"model.{', model.'.join(widths)} set the HSTU widths of "
+                f"{HSTU_WIDTH_ARCHS}; {self.model.arch!r} does not read them")
         if self.train.mesh:
             parts = self.train.mesh.lower().split("x")
             if not (2 <= len(parts) <= 3 and
