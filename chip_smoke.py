@@ -43,10 +43,14 @@ Phases (any failure exits non-zero and prints no result):
                    partial history) against float64 head by head, within
                    1.5e-4 of the largest value (plain TF32 reads 2.5e-4 or
                    more), bit for bit on repeat, then timed beside their
-                   bounds; after the bag and dot kernels, one sparse-row
-                   step of the cell's configuration (its driver's
-                   scenario and pool, the Trainer) launches B1, B2 and B3
-                   once a layer (24 each) and the segmented merge once
+                   bounds; B1 also at the traffic's short end (4,096 +
+                   4,096 events, 8 targets each), its masked rows exactly
+                   0 at both, its shared memory a block and the occupancy
+                   query's blocks an SM printed; after the bag and dot
+                   kernels, one sparse-row step of the cell's
+                   configuration (its driver's scenario and pool, the
+                   Trainer) launches B1, B2 and B3 once a layer (24 each)
+                   and the segmented merge once
   5. bag kernels — the embedding-bag forward (B5) through dispatch's auto
                    backend against its plain version, sum / mean / max, at
                    the LSR training, serving and impression-level shapes,
@@ -1004,6 +1008,8 @@ def phase_bwd_kernels(kmod, pmod, bmod, device) -> dict:
 # requests, one full and one partial history
 GR_LONG = (2, 8, 8256, 128, 8192, 8256)
 GR_LONG_REQUESTS = ((8192, 64), (5003, 17))
+# the traffic's short end: the most padded rows, which B1 skips
+GR_LONG_SHORT = ((4096, 8), (4096, 8))
 # a kernel's largest error against float64, as a share of the largest
 # value: its products are 3xTF32 (fp32-accurate), but the tensor cores add
 # each 8-term product into the fp32 accumulator without rounding to
@@ -1052,12 +1058,37 @@ def gr_long_with_grads(fn, q, k, v, rab, g):
     return out.detach(), q.grad, k.grad, v.grad, rab.grad
 
 
+def gr_long_masked_rows_zero(kmod, x, what: str) -> None:
+    """B1 at ``x`` on memory the allocator last held NaN in: the rows the
+    mask zeroes (padded history, target slots past the count) must come
+    back exactly 0 (the output is ``torch.empty``)."""
+    import torch
+    from repro_torch.core.masks import roo_batch_mask
+    s, n_hist = x["q"].shape[2], x["n_hist"]
+    junk = torch.full_like(x["v"], float("nan"))
+    held = junk.data_ptr()
+    del junk
+    out = kmod.hstu_attention_cuda(x["q"], x["k"], x["v"], x["rab"], n_hist,
+                                   x["hl"], x["tc"], x["max_rel"])
+    if out.data_ptr() != held:
+        raise SystemExit(f"gr-train-long B1 ({what}): the output did not "
+                         f"reuse the NaN-filled block, so its zeros test "
+                         f"nothing")
+    dead = ~roo_batch_mask(x["hl"], x["tc"], n_hist, s - n_hist).any(-1)
+    if torch.count_nonzero(out.transpose(1, 2)[dead]):
+        raise SystemExit(f"gr-train-long B1 ({what}): a row the mask zeroes "
+                         f"is not exactly 0")
+    print(f"[gr-train-long kernels] B1 ({what}): the {int(dead.sum())} rows "
+          f"the mask zeroes are exactly 0")
+
+
 def gr_long_kernel_errors(kmod, bmod, x) -> dict:
     """B1, B2 and B3 at gr-train-long's attention shape: one launch each,
-    bit for bit on repeat, no gradient at a negative delta (the mask keeps
-    i >= j), and each output's largest error against float64 head by head
-    as a share of the largest value, ``{(name, head): share}``; beside it
-    (printed) the plain version's in fp32 and in TF32
+    bit for bit on repeat, B1's masked rows exactly 0
+    (``gr_long_masked_rows_zero``), no gradient at a negative delta (the
+    mask keeps i >= j), and each output's largest error against float64
+    head by head as a share of the largest value, ``{(name, head):
+    share}``; beside it (printed) the plain version's in fp32 and in TF32
     (``hstu_attention_plain``, its gradients by autograd:
     ``hstu_attention_bwd_plain`` sums drab through an
     (S^2, 2 max_rel + 1) one-hot, 4.5 TB here)."""
@@ -1079,6 +1110,7 @@ def gr_long_kernel_errors(kmod, bmod, x) -> dict:
                 grads, bmod.hstu_attention_bwd_cuda(*args, g)))):
         raise SystemExit("gr-train-long attention: not bit for bit on "
                          "repeat")
+    gr_long_masked_rows_zero(kmod, x, "the cell's requests")
     if torch.count_nonzero(grads[3][:, :max_rel]):
         raise SystemExit("gr-train-long attention: drab at a negative "
                          "delta")
@@ -1116,12 +1148,38 @@ def gr_long_kernel_errors(kmod, bmod, x) -> dict:
     return worst
 
 
+def gr_long_fwd_error(kmod, x, what: str) -> float:
+    """B1 alone at ``x``: its largest error against float64, head by head,
+    as a share of the largest value (the forward half of
+    ``gr_long_kernel_errors``, for a request mix the step's backward is
+    not checked at)."""
+    q, k, v, rab, hl, tc = (x[n] for n in ("q", "k", "v", "rab", "hl",
+                                           "tc"))
+    out = kmod.hstu_attention_cuda(q, k, v, rab, x["n_hist"], hl, tc,
+                                   x["max_rel"])
+    worst = 0.0
+    for h in range(q.shape[1]):
+        want = gr_long_dense64(*(t[:, h].double() for t in (q, k, v)),
+                               rab[h].double(), hl, tc)
+        top = float(want.abs().max())
+        share = float((out[:, h].double() - want).abs().max()) / top
+        print(f"[gr-train-long kernels] out ({what}) h{h}: from float64, "
+              f"of the largest |value| {top:.3e}: kernel {share:.2e}")
+        worst = max(worst, share)
+        del want
+    return worst
+
+
 def phase_gr_long_kernels(kmod, bmod, device, card: str) -> dict:
     """B1, B2 and B3 at gr-train-long's attention shape (B 2, H 8,
     S 8,256, D 128, ``max_rel_pos`` 8,256) against float64 within
     ``GR_LONG_TOL`` of the largest value (``gr_long_kernel_errors``), then
-    timed, each beside its bound. Returns ``{"b1" | "dq" | "dkv": entry}``
-    for the kernels line."""
+    timed, each beside its bound; B1 also at the traffic's short end
+    (``GR_LONG_SHORT``: its masked rows exactly 0, its output against
+    float64 within the same share, ``gr_long_fwd_error``), with its shared
+    memory a block and the occupancy query's blocks an SM. Returns ``{"b1" |
+    "b1_short" | "dq" | "dkv": entry}`` for the kernels line."""
+    import torch
     x = gr_long_inputs(device)
     worst = gr_long_kernel_errors(kmod, bmod, x)
     bad = {f"{n} h{h}": e for (n, h), e in worst.items()
@@ -1131,10 +1189,25 @@ def phase_gr_long_kernels(kmod, bmod, device, card: str) -> dict:
                          f"the largest value: {bad}")
     args = (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["hl"], x["tc"],
             x["max_rel"])
+    short = dict(x, **{n: torch.tensor(t, device=device) for n, t in
+                       zip(("hl", "tc"), zip(*GR_LONG_SHORT))})
+    gr_long_masked_rows_zero(kmod, short, "the short end")
+    worst["short", 0] = gr_long_fwd_error(kmod, short, "the short end")
+    if not worst["short", 0] <= GR_LONG_TOL:
+        raise SystemExit(f"gr-train-long B1 at the short end past "
+                         f"{GR_LONG_TOL} of the largest value: "
+                         f"{worst['short', 0]:.2e}")
+    short_args = (*args[:5], short["hl"], short["tc"], x["max_rel"])
+    b, h, s, d, _, max_rel = GR_LONG
+    blocks, smem = kmod.occupancy(b, h, s, d, d, max_rel)
+    print(f"[gr-train-long kernels] {card}: b1 {smem:,} B of shared memory "
+          f"a block, {blocks} blocks an SM (the occupancy query)")
     out = {}
     for key, fn, names, how in (
             ("b1", lambda: kmod.hstu_attention_cuda(*args), ("out",),
              bound(x)),
+            ("b1_short", lambda: kmod.hstu_attention_cuda(*short_args),
+             ("short",), bound(short)),
             ("dq", lambda: bmod.hstu_attention_bwd_dq_cuda(*args, x["g"]),
              ("dq", "drab"), bound_bwd(x, "dq")),
             ("dkv", lambda: bmod.hstu_attention_bwd_dkv_cuda(*args, x["g"]),
@@ -1144,6 +1217,8 @@ def phase_gr_long_kernels(kmod, bmod, device, card: str) -> dict:
             e for (n, _), e in worst.items() if n in names),
             "ms": ms, "bound_ms": how[0], "bound_by": how[1],
             "plain_ms": None}
+        if key.startswith("b1"):
+            out[key].update(smem_bytes=smem, blocks_per_sm=blocks)
         print(f"[gr-train-long kernels] {card}: {key} {ms:.3f} ms, bound "
               f"{how[0]:.3f} ms ({how[1]}), "
               f"{100 * how[0] / ms:.2f} % of it")
@@ -1187,15 +1262,19 @@ def gr_long_step(device, n_items: int):
 def gr_long_entries(kern: dict, launches: dict) -> list:
     """The kernels line's entries for B1, B2 and B3 at gr-train-long's
     shape: ``phase_gr_long_kernels``' errors, times and bounds beside a
-    step's launches (``phase_gr_long_step``)."""
+    step's launches (``phase_gr_long_step``; the step never runs the short
+    end's mix, so that entry has none)."""
     shape = "B 2, H 8, S 8,256, D 128, max_rel_pos 8,256"
     return [{
         "name": f"{name} (gr-train-long: {shape})", "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/hstu_attention.py:{line}",
-        "launches": launches[key], **kern[which], "library_ms": None}
+        "launches": launches[key] if key else None, **kern[which],
+        "library_ms": None}
         for name, src, line, key, which in (
             ("hstu_attention_fwd", "hstu_attention_fwd.cu", 80, "b1", "b1"),
+            ("hstu_attention_fwd, histories 4,096 + 4,096",
+             "hstu_attention_fwd.cu", 80, None, "b1_short"),
             ("hstu_attention_bwd_dq", "hstu_attention_bwd.cu", 108, "b2",
              "dq"),
             ("hstu_attention_bwd_dkv", "hstu_attention_bwd.cu", 170, "b3",

@@ -9,15 +9,24 @@ Builds the two kernels (``src/repro_torch/kernels/csrc/``) once as they
 are and once for each ablation of the shared tile body
 (``hstu_fwd_tile.cuh``), each variant with its own copy of the header under
 ``build/ablations/``, and prints each variant's device time per call
-(``chip_smoke.device_ms``) at B1's serving and training shapes and B4's
-serving shape with n_new 8 and 64, beside an empty launch. The ablations
-give wrong outputs on purpose; only "as built" is the kernel. They are:
+(``chip_smoke.device_ms``) at B1's serving and training shapes, at the
+gr-train-long cell's (B 2, H 8, S 8,256, D 128, ``max_rel_pos`` 8,256;
+``chip_smoke.GR_LONG_REQUESTS`` and the traffic's short end,
+``GR_LONG_SHORT``) and B4's serving shape with n_new 8 and 64, beside an
+empty launch. The ablations give wrong outputs on purpose; only "as built"
+is the kernel. They are:
 
-  no mma       the tensor-core products replaced by a few adds
-  1xTF32       hi*hi only (one mma a product instead of three)
-  no SiLU      SiLU(x) = x
-  no tiles     no tile is multiplied: launch, lengths, copies, barriers,
-               the split's sum and the stores only
+  no mma         the tensor-core products replaced by a few adds
+  1xTF32         hi*hi only (one mma a product instead of three)
+  no SiLU        SiLU(x) = x
+  no tiles       no tile is multiplied: launch, lengths, copies, barriers,
+                 the split's sum and the stores only
+  parent's skip  B1's tile skip without the rows' validity (a padded
+                 history row walks the valid history's tiles, as before
+                 the skip read it; same output)
+  whole rab row  every block stages the head's whole rab row (2 max_rel + 1
+                 bins, not max_rel + 1: one block an SM at gr-train-long's
+                 shape; same output)
 
 Needs the card; imports nothing of JAX.
 """
@@ -37,21 +46,41 @@ SOURCES = ("hstu_attention_fwd.cu", "hstu_attention_prefix_fwd.cu")
 MMA = '  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "'
 
 
+LIVE = ("  __device__ bool live(int i_lo, int i_hi, int j_lo, int j_hi) "
+        "const {\n    const int hrow_hi")
+
+
 def variants(header: str) -> dict:
     edits = {
-        "no mma": (MMA, "  c[0] += __uint_as_float(a[0] ^ b[0]);\n"
-                        "  c[2] += __uint_as_float(a[2] ^ b[1]);\n"
-                        "  if (0)" + MMA[1:]),
-        "1xTF32": ("  mma_tf32(c, a.lo, bh);\n  mma_tf32(c, a.hi, bl);\n",
-                   ""),
-        "no SiLU": ("return x / (1.0f + expf(-x));", "return x;"),
-        "no tiles": ("if (tile_live(kt, wq0, wq_last)) {", "if (kt < 0) {"),
+        "no mma": [(MMA, "  c[0] += __uint_as_float(a[0] ^ b[0]);\n"
+                         "  c[2] += __uint_as_float(a[2] ^ b[1]);\n"
+                         "  if (0)" + MMA[1:])],
+        "1xTF32": [("  mma_tf32(c, a.lo, bh);\n  mma_tf32(c, a.hi, bl);\n",
+                    "")],
+        "no SiLU": [("return x / (1.0f + expf(-x));", "return x;")],
+        "no tiles": [("if (tile_live(kt, wq0, wq_last)) {", "if (kt < 0) {")],
+        "parent's skip": [(LIVE, LIVE.replace(
+            "\n", "\n    return (j_lo < hist_end && i_hi >= j_lo) ||\n"
+            "           max(max(j_lo, n_hist), i_lo) <=\n"
+            "               min(min(j_hi, tgt_end - 1), i_hi);\n", 1))],
+        "whole rab row": [
+            ("return use_rab ? max_rel + 1 : 0;",
+             "return use_rab ? 2 * max_rel + 1 : 0;"),
+            ("load_rab(rab_s, a.rab + a.max_rel, a.max_rel + 1);",
+             "load_rab(rab_s, a.rab, 2 * a.max_rel + 1);"),
+            ("x += rab_s[min(L.pos(r) - c, a.max_rel)];",
+             "x += rab_s[min(max(L.pos(r) - c, -a.max_rel), a.max_rel) +\n"
+             "                          a.max_rel];")],
     }
     out = {"as built": header}
-    for name, (old, new) in edits.items():
-        if old not in header:
-            raise SystemExit(f"ablation {name!r}: its edit no longer applies")
-        out[name] = header.replace(old, new)
+    for name, pairs in edits.items():
+        text = header
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise SystemExit(f"ablation {name!r}: its edit no longer "
+                                 f"applies")
+            text = text.replace(old, new)
+        out[name] = text
     return out
 
 
@@ -116,20 +145,33 @@ def main() -> int:
         return (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], x["n_new"],
                 x["pfx"], x["nc"], x["tc"], x["scale_len"], x["max_rel"])
 
-    cases = {"B1 serve B64": (kmod.hstu_attention_cuda, b1_args(64)),
-             "B1 train B32": (kmod.hstu_attention_cuda, b1_args(32)),
-             "B4 n_new 8": (pmod.hstu_attention_prefix_cuda, b4_args(8)),
-             "B4 n_new 64": (pmod.hstu_attention_prefix_cuda, b4_args(64))}
+    def gr_long_args(requests):
+        x = cs.gr_long_inputs(dev)
+        hl, tc = (torch.tensor(t, device=dev) for t in zip(*requests))
+        return (x["q"], x["k"], x["v"], x["rab"], x["n_hist"], hl, tc,
+                x["max_rel"])
+
+    # {case: (function, arguments, calls timed)}
+    cases = {"B1 serve B64": (kmod.hstu_attention_cuda, b1_args(64), 200),
+             "B1 train B32": (kmod.hstu_attention_cuda, b1_args(32), 200),
+             "B1 gr-long": (kmod.hstu_attention_cuda,
+                            gr_long_args(cs.GR_LONG_REQUESTS), 5),
+             "B1 gr-long short": (kmod.hstu_attention_cuda,
+                                  gr_long_args(cs.GR_LONG_SHORT), 5),
+             "B4 n_new 8": (pmod.hstu_attention_prefix_cuda, b4_args(8), 200),
+             "B4 n_new 64": (pmod.hstu_attention_prefix_cuda, b4_args(64),
+                             200)}
     print(f"[ablations] {cs.card_line()}: device ms per call "
           f"(chip_smoke.device_ms, 200 calls); empty launch "
           f"{cs.device_ms(lambda: torch.cuda._sleep(0), 200):.5f} ms")
     for rnd in (1, 2):
         for name, pair in libs.items():
             kmod._lib, pmod._lib = bind(pair)
-            times = {case: cs.device_ms(lambda: fn(*args), 200)
-                     for case, (fn, args) in cases.items()}
-            print(f"[ablations] round {rnd} {name:9s} " + ", ".join(
-                f"{case} {ms:.5f}" for case, ms in times.items()))
+            times = {case: cs.device_ms(lambda: fn(*args), n)
+                     for case, (fn, args, n) in cases.items()}
+            print(f"[ablations] round {rnd} {name:13s} " + ", ".join(
+                f"{case} {ms:.5f}" for case, ms in times.items()),
+                flush=True)
     kmod._lib = pmod._lib = None
     return 0
 

@@ -17,7 +17,7 @@
 //   dv_j  = sum_i a_ij g_i                     (B3)
 //
 // The mask is generated in-kernel from n_hist, hist_lengths[b] and
-// target_counts[b], exactly as in the forward (hstu_attention_fwd.cu).
+// target_counts[b] by the forward's RooMask (hstu_fwd_tile.cuh).
 //
 // What bounds them on this card: at the training shape (B = 32, H = 2,
 // S = 80, Dqk = Dv = 32, fp32) each kernel must read the kept q, k, v and g
@@ -103,42 +103,6 @@ constexpr int DS_LD = ROWS + 1;       // row stride of a staged ds tile
 constexpr int DIAG_LD = NDIAG + 2;    // a warp's diagonal sums, lo, hi
 static_assert(BK == ROWS, "the drab fold stages square 16 x 16 tiles");
 
-// The ROO mask over positions 0..S-1 of [history | targets]; i is a q
-// position, j a k position, in both kernels.
-struct RooMask {
-  int S, n_hist, hl, tc;
-  int hist_end;   // valid history positions are [0, hist_end)
-  int tgt_end;    // valid target positions are [n_hist, tgt_end)
-
-  __device__ RooMask(const int* hist_lengths, const int* target_counts,
-                     int b, int S_, int n_hist_)
-      : S(S_), n_hist(n_hist_), hl(hist_lengths[b]), tc(target_counts[b]) {
-    hist_end = max(0, min(hl, n_hist));
-    tgt_end = n_hist + max(0, min(tc, S - n_hist));
-  }
-  __device__ bool keep(int i, int j) const {
-    const bool is_hq = i < n_hist, is_hk = j < n_hist;
-    const bool st = is_hk ? (!is_hq || j <= i) : (!is_hq && i == j);
-    const bool vr = is_hq ? (i < hl) : (i - n_hist < tc);
-    const bool vc = is_hk ? (j < hl) : (j - n_hist < tc);
-    return i < S && j < S && st && vr && vc;
-  }
-  // Whether some q row of [i_lo, i_hi] keeps some k column of [j_lo, j_hi]:
-  // a valid history column is seen by the valid history rows at or past it
-  // and by every valid target row; a valid target column only by its own
-  // diagonal.
-  __device__ bool live(int i_lo, int i_hi, int j_lo, int j_hi) const {
-    const int hrow_hi = min(i_hi, hist_end - 1);
-    const int trow_lo = max(i_lo, n_hist);
-    const int trow_hi = min(i_hi, tgt_end - 1);
-    const int hcol_hi = min(j_hi, hist_end - 1);
-    if (j_lo <= hcol_hi &&
-        (trow_lo <= trow_hi || (i_lo <= hrow_hi && j_lo <= hrow_hi)))
-      return true;
-    return max(max(j_lo, n_hist), trow_lo) <= min(j_hi, trow_hi);
-  }
-};
-
 template <class T>
 struct BwdArgs {
   const T* hold1;       // the warps' own rows: q (B2) / k (B3), (S, Dqk)
@@ -188,7 +152,7 @@ __device__ __forceinline__ void bwd_tile(const RooMask& L,
   const bool use_rab = a.rab != nullptr;
   const bool fold = !DKV && use_rab;
   // the staged bins: deltas 0..max_rel (rab bins max_rel..2*max_rel)
-  const int nwin = use_rab ? a.max_rel + 1 : 0;
+  const int nwin = rab_window(a.max_rel, use_rab);
 
   T* h1_s = reinterpret_cast<T*>(smem);             // rb*16 x LD
   T* h2_s = h1_s + a.rb * ROWS * LD;                // rb*16 x LD
@@ -535,7 +499,7 @@ hstu_bwd_dkv_kernel(BwdArgs<T> a, const int* __restrict__ hist_lengths,
 template <int DP, bool DKV, class T>
 cudaError_t launch(const BwdArgs<T>& a, const int* hl, const int* tc, int BH,
                    int n_hist, cudaStream_t stream) {
-  const int nwin = a.rab != nullptr ? a.max_rel + 1 : 0;
+  const int nwin = rab_window(a.max_rel, a.rab != nullptr);
   const long long smem = bwd_smem_bytes(TileConfig{a.rb, a.ks}, DP, nwin,
                                         !DKV && a.rab != nullptr, sizeof(T));
   void (*kern)(BwdArgs<T>, const int*, const int*, int) =
@@ -595,25 +559,25 @@ extern "C" {
 long long hstu_attention_bwd_dq_smem_bytes(int Dqk, int Dv, int max_rel,
                                            int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? max_rel + 1 : 0, use_rab != 0);
+                        rab_window(max_rel, use_rab), use_rab != 0);
 }
 
 long long hstu_attention_bwd_dkv_smem_bytes(int Dqk, int Dv, int max_rel,
                                             int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? max_rel + 1 : 0, false);
+                        rab_window(max_rel, use_rab), false);
 }
 
 long long hstu_attention_bwd_dq_bf16_smem_bytes(int Dqk, int Dv, int max_rel,
                                                 int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? max_rel + 1 : 0, use_rab != 0, 2);
+                        rab_window(max_rel, use_rab), use_rab != 0, 2);
 }
 
 long long hstu_attention_bwd_dkv_bf16_smem_bytes(int Dqk, int Dv,
                                                  int max_rel, int use_rab) {
   return bwd_smem_bytes(TileConfig{1, NWARPS}, padded_d(Dqk, Dv),
-                        use_rab ? max_rel + 1 : 0, false, 2);
+                        rab_window(max_rel, use_rab), false, 2);
 }
 
 // Output rows (q rows of B2, k columns of B3) one block covers at this

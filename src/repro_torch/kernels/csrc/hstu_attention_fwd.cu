@@ -29,7 +29,12 @@
 //  * 384 blocks of one 32-row tile each: 16-row warps, and the k tiles
 //    split among a block's warps where a head has few row tiles.
 // The tile body is hstu_fwd_tile.cuh (shared with the cached-prefix
-// forward); this file holds the ROO mask's maps and tile skip.
+// forward), and so is the ROO mask (RooMask, shared with the backward).
+// At gr-train-long's shape (S 8,256, D 128, histories of 4,096-8,192
+// padded to 8,192) two of the header's points carry the kernel: the tile
+// skip reads the rows' validity (a padded row walking the valid history's
+// tiles cost ~1.67x the kept tiles over that traffic), and a block stages
+// only the rab bins a kept cell reads, so two blocks share an SM.
 //
 // bf16 (hstu_attention_fwd_bf16): the same kernel on bf16 q, k, v and rab,
 // writing a bf16 output: half the bytes at the serving shape (~1.7 MB).
@@ -46,32 +51,6 @@ namespace {
 
 using namespace hstu_fwd;
 
-// Rows and columns are positions 0..S-1 of [history | targets].
-struct RooLayout {
-  int n_hist, hl, tc;
-  int hist_end;   // valid history columns are [0, hist_end)
-  int tgt_end;    // valid target slots are [n_hist, tgt_end)
-
-  __device__ bool keep(int i, int j) const {
-    const bool is_hq = i < n_hist, is_hk = j < n_hist;
-    const bool st = is_hk ? (!is_hq || j <= i) : (!is_hq && i == j);
-    const bool vr = is_hq ? (i < hl) : (i - n_hist < tc);
-    const bool vc = is_hk ? (j < hl) : (j - n_hist < tc);
-    return st && vr && vc;
-  }
-  __device__ int pos(int i) const { return i; }
-  // A history column j is reachable from some row of [i_lo, i_hi] iff j is
-  // valid and some row i >= j (history rows are causal, target rows sit
-  // past every history column); a target column only from its own
-  // diagonal row.
-  __device__ bool live(int i_lo, int i_hi, int j_lo, int j_hi) const {
-    const bool hist_live = j_lo < hist_end && i_hi >= j_lo;
-    const int lo = max(max(j_lo, n_hist), i_lo);
-    const int hi = min(min(j_hi, tgt_end - 1), i_hi);
-    return hist_live || lo <= hi;
-  }
-};
-
 template <int DP, class T>
 __global__ void __launch_bounds__(NT, 4)
 hstu_fwd_kernel(TileArgs<T> a, const int* __restrict__ hist_lengths,
@@ -80,12 +59,7 @@ hstu_fwd_kernel(TileArgs<T> a, const int* __restrict__ hist_lengths,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int S = a.R;
-  RooLayout L;
-  L.n_hist = n_hist;
-  L.hl = hist_lengths[b];
-  L.tc = target_counts[b];
-  L.hist_end = max(0, min(L.hl, n_hist));
-  L.tgt_end = n_hist + max(0, min(L.tc, S - n_hist));
+  const RooMask L(hist_lengths, target_counts, b, S, n_hist);
   a.q += (size_t)bh * S * a.Dqk;
   a.k += (size_t)bh * S * a.Dqk;
   a.v += (size_t)bh * S * a.Dv;
@@ -132,7 +106,7 @@ int run(const void* q, const void* k, const void* v, const void* rab,
   a.inv_scale = 1.0f / (float)S;
   a.rb = cfg.rb;
   a.ks = cfg.ks;
-  const int nrab = use_rab ? 2 * max_rel + 1 : 0;
+  const int nrab = rab_window(max_rel, use_rab);
   const int* hl = (const int*)hist_lengths;
   const int* tc = (const int*)target_counts;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -143,6 +117,16 @@ int run(const void* q, const void* k, const void* v, const void* rab,
   }
 }
 
+// The occupancy query: the blocks of kern an SM holds once the launch's
+// shared-memory attribute is set.
+template <class F>
+cudaError_t occupancy(F* kern, long long smem, int* blocks) {
+  const cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, NT,
+                                                       (size_t)smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -150,12 +134,30 @@ extern "C" {
 // Shared memory (bytes) one block may need, at most; the wrapper checks it.
 long long hstu_attention_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
                                         int use_rab) {
-  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0);
+  return max_smem_bytes(Dqk, Dv, rab_window(max_rel, use_rab));
 }
 
 long long hstu_attention_fwd_bf16_smem_bytes(int Dqk, int Dv, int max_rel,
                                              int use_rab) {
-  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0, 2);
+  return max_smem_bytes(Dqk, Dv, rab_window(max_rel, use_rab), 2);
+}
+
+// Blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and a
+// block's shared memory, at the configuration an fp32 launch of this shape
+// takes; returns a CUDA error code.
+int hstu_attention_fwd_occupancy(int B, int H, int S, int Dqk, int Dv,
+                                 int max_rel, int use_rab, int* blocks,
+                                 long long* smem) {
+  const int dp = padded_d(Dqk, Dv);
+  *smem = smem_bytes(tile_config((long long)B * H, S), dp,
+                     rab_window(max_rel, use_rab));
+  cudaError_t e;
+  switch (dp) {
+    case 32: e = occupancy(hstu_fwd_kernel<32, float>, *smem, blocks); break;
+    case 64: e = occupancy(hstu_fwd_kernel<64, float>, *smem, blocks); break;
+    default: e = occupancy(hstu_fwd_kernel<128, float>, *smem, blocks);
+  }
+  return (int)e;
 }
 
 // q, k: (B, H, S, Dqk); v, out: (B, H, S, Dv); rab: (H, 2*max_rel+1) or

@@ -153,7 +153,7 @@ int run(const void* q, const void* k, const void* v, const void* rab,
   a.inv_scale = 1.0f / (float)scale_len;
   a.rb = cfg.rb;
   a.ks = cfg.ks;
-  const int nrab = use_rab ? 2 * max_rel + 1 : 0;
+  const int nrab = rab_window(max_rel, use_rab);
   const int* pfx = (const int*)prefix_lengths;
   const int* nc = (const int*)new_counts;
   const int* tc = (const int*)target_counts;
@@ -178,13 +178,13 @@ extern "C" {
 // Shared memory (bytes) one block may need, at most; the wrapper checks it.
 long long hstu_attention_prefix_fwd_smem_bytes(int Dqk, int Dv, int max_rel,
                                                int use_rab) {
-  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0);
+  return max_smem_bytes(Dqk, Dv, rab_window(max_rel, use_rab));
 }
 
 long long hstu_attention_prefix_fwd_bf16_smem_bytes(int Dqk, int Dv,
                                                     int max_rel,
                                                     int use_rab) {
-  return max_smem_bytes(Dqk, Dv, use_rab ? 2 * max_rel + 1 : 0, 2);
+  return max_smem_bytes(Dqk, Dv, rab_window(max_rel, use_rab), 2);
 }
 
 // q: (B, H, R, Dqk) with R = n_new + m; k: (B, H, C, Dqk) and v: (B, H, C,

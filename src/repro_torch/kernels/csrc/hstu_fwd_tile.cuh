@@ -2,7 +2,8 @@
 // hstu_attention_fwd.cu, B4: hstu_attention_prefix_fwd.cu), for Hopper
 // (sm_90a). Each kernel supplies a Layout: its row and column maps (which
 // cells the mask keeps, each row's position for rab) and its tile skip.
-// Everything else lives here once.
+// B1's is the ROO mask (RooMask, below), which the backward kernels B2 and
+// B3 (hstu_attention_bwd.cu) read too. Everything else lives here once.
 //
 // Per (b, h), rows r < R and columns j < C:
 //
@@ -35,7 +36,15 @@
 //    load is free of bank conflicts. Out-of-range rows are zero-filled by
 //    the copy itself (src-size 0): no pad-and-crop on the host.
 //  * A k tile that no row of the block can see is never loaded; a warp
-//    multiplies only the tiles its own rows can see.
+//    multiplies only the tiles its own rows can see, and a row the mask
+//    zeroes (a padded history row, a target slot past the count) sees
+//    none. A block none of whose rows keeps a cell stages nothing and
+//    writes its rows' zeros.
+//  * Half the rab row in shared memory. Both layouts keep a cell only where
+//    pos(r) >= j, so only the bins of deltas 0..max_rel (bins max_rel..
+//    2*max_rel, rab_window) are ever read, and a block stages those alone:
+//    at D 128 and max_rel 8,256 that is 100,612 B a block instead of
+//    133,636, and two blocks fit an SM's 228 KB.
 //  * The element type T is a template: float, or __nv_bfloat16 for bf16
 //    models. A bf16 variant reads q, k, v and rab as bf16 (half the bytes),
 //    keeps its tiles in shared memory as bf16 (rows padded to D + 8), widens
@@ -92,8 +101,14 @@ __host__ __device__ constexpr int tile_ld(int dp, int es) {
   return dp + 16 / es;
 }
 
+// The rab bins a block stages (fp32): deltas 0..max_rel, the only ones a
+// kept cell reads (module note). B1, B4, B2 and B3 all stage this window.
+__host__ __device__ inline int rab_window(int max_rel, bool use_rab) {
+  return use_rab ? max_rel + 1 : 0;
+}
+
 // Dynamic shared memory of one block: the q rows, the two-stage ring of KS
-// k and v tiles (elements of ES bytes), and the head's rab row (fp32).
+// k and v tiles (elements of ES bytes), and nrab staged rab bins (fp32).
 inline long long smem_bytes(const TileConfig& c, int dp, int nrab,
                             int es = 4) {
   const long long ld = tile_ld(dp, es);
@@ -262,8 +277,8 @@ __device__ __forceinline__ void zero_pad(T* dst, int n_rows, int d) {
   }
 }
 
-// the head's rab row into fp32 shared memory (cp.async for fp32, widened
-// one element at a time for bf16)
+// n rab bins into fp32 shared memory (cp.async for fp32, widened one
+// element at a time for bf16)
 template <class T>
 __device__ __forceinline__ void load_rab(float* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += NT) {
@@ -273,6 +288,43 @@ __device__ __forceinline__ void load_rab(float* dst, const T* src, int n) {
       dst[i] = to_f32(src[i]);
   }
 }
+
+// The ROO mask over positions 0..S-1 of [history | targets]: B1's layout,
+// and B2's and B3's mask; i is a q position, j a k position.
+struct RooMask {
+  int S, n_hist, hl, tc;
+  int hist_end;   // valid history positions are [0, hist_end)
+  int tgt_end;    // valid target positions are [n_hist, tgt_end)
+
+  __device__ RooMask(const int* hist_lengths, const int* target_counts,
+                     int b, int S_, int n_hist_)
+      : S(S_), n_hist(n_hist_), hl(hist_lengths[b]), tc(target_counts[b]) {
+    hist_end = max(0, min(hl, n_hist));
+    tgt_end = n_hist + max(0, min(tc, S - n_hist));
+  }
+  __device__ bool keep(int i, int j) const {
+    const bool is_hq = i < n_hist, is_hk = j < n_hist;
+    const bool st = is_hk ? (!is_hq || j <= i) : (!is_hq && i == j);
+    const bool vr = is_hq ? (i < hl) : (i - n_hist < tc);
+    const bool vc = is_hk ? (j < hl) : (j - n_hist < tc);
+    return i < S && j < S && st && vr && vc;
+  }
+  __device__ int pos(int i) const { return i; }
+  // Whether some q row of [i_lo, i_hi] keeps some k column of [j_lo, j_hi]:
+  // a valid history column is seen by the valid history rows at or past it
+  // and by every valid target row; a valid target column only by its own
+  // diagonal.
+  __device__ bool live(int i_lo, int i_hi, int j_lo, int j_hi) const {
+    const int hrow_hi = min(i_hi, hist_end - 1);
+    const int trow_lo = max(i_lo, n_hist);
+    const int trow_hi = min(i_hi, tgt_end - 1);
+    const int hcol_hi = min(j_hi, hist_end - 1);
+    if (j_lo <= hcol_hi &&
+        (trow_lo <= trow_hi || (i_lo <= hrow_hi && j_lo <= hrow_hi)))
+      return true;
+    return max(max(j_lo, n_hist), trow_lo) <= min(j_hi, trow_hi);
+  }
+};
 
 template <class T>
 struct TileArgs {
@@ -289,7 +341,8 @@ struct TileArgs {
 
 // The block's work: row tiles [blockIdx.y * rb, +rb) of one (b, h).
 // Layout: keep(r, j), pos(r) and live(r_lo, r_hi, j_lo, j_hi) (some row in
-// [r_lo, r_hi] sees some column in [j_lo, j_hi]), all for r < R, j < C.
+// [r_lo, r_hi] keeps some column in [j_lo, j_hi]), all for r < R, j < C;
+// keep(r, j) implies pos(r) >= j.
 template <int DP, class T, class Layout>
 __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs<T>& a,
                                          float* smem) {
@@ -303,7 +356,7 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs<T>& a,
 
   T* q_s = reinterpret_cast<T*>(smem);             // rb*16 x LD
   T* ring = q_s + a.rb * ROWS * LD;                 // [2][ks][k|v] BK x LD
-  float* rab_s =                                    // 2*max_rel+1
+  float* rab_s =                                    // max_rel+1
       reinterpret_cast<float*>(ring + 2 * ks_n * 2 * BK * LD);
 
   const int bq0 = blockIdx.y * a.rb * ROWS;
@@ -335,12 +388,20 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs<T>& a,
     }
   };
 
-  // q and rab first (they need no lengths), then the first round; the
-  // first barrier of the loop makes all of it visible
-  copy_rows<DP>(q_s, a.q, bq0, a.rb * ROWS, a.R, a.Dqk, a.vec_qk);
-  if (a.rab != nullptr) load_rab(rab_s, a.rab, 2 * a.max_rel + 1);
+  // a block none of whose rows keeps a cell writes its rows' zeros (they
+  // are contiguous) and stages nothing
   int t = next_round(0);
-  if (t < n_rounds) issue_round(t, 0);
+  if (t == n_rounds) {
+    T* out = a.out + (size_t)bq0 * a.Dv;
+    for (int i = threadIdx.x; i < (bq_last - bq0 + 1) * a.Dv; i += NT)
+      out[i] = from_f32<T>(0.0f);
+    return;
+  }
+  // q, the staged rab bins and the first round; the first barrier of the
+  // loop makes all of it visible
+  copy_rows<DP>(q_s, a.q, bq0, a.rb * ROWS, a.R, a.Dqk, a.vec_qk);
+  if (a.rab != nullptr) load_rab(rab_s, a.rab + a.max_rel, a.max_rel + 1);
+  issue_round(t, 0);
   cp_async_commit();
   // padding columns, once: no copy ever writes them
   zero_pad<DP>(q_s, a.rb * ROWS, a.Dqk);
@@ -399,11 +460,8 @@ __device__ __forceinline__ void fwd_tile(const Layout& L, const TileArgs<T>& a,
           float p = 0.0f;
           if (r < a.R && c < a.C && L.keep(r, c)) {
             float x = s[j][e] * a.inv_sqrt_d;
-            if (a.rab != nullptr) {
-              const int delta =
-                  min(max(L.pos(r) - c, -a.max_rel), a.max_rel) + a.max_rel;
-              x += rab_s[delta];
-            }
+            if (a.rab != nullptr)   // the bin of delta pos(r) - c >= 0
+              x += rab_s[min(L.pos(r) - c, a.max_rel)];
             p = silu(x) * a.inv_scale;
           }
           s[j][e] = p;

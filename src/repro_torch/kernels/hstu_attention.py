@@ -63,9 +63,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 MAX_D = 128              # largest Dqk / Dv the kernel takes
 ROW_TILE = 16            # q rows per warp: a grid row covers 1-4 tiles
 MAX_GRID_Y = 65535
-# the rab row lives in a block's shared memory (B1, B4: all of it; B2, B3:
-# the half the ROO mask reads), so each launch's check of its shared memory
-# is the bound at a given D; this only keeps the indexing small
+# the half of the rab row the masks read (deltas 0..max_rel_pos) lives in a
+# block's shared memory, so each launch's check of its shared memory is the
+# bound at a given D; this only keeps the indexing small
 MAX_REL_POS = 16384
 MAX_SMEM_BYTES = 227 * 1024
 DTYPES = (torch.float32, torch.bfloat16)   # what the kernels take
@@ -155,10 +155,30 @@ def _load():
             smem = getattr(lib, name + "_smem_bytes")
             smem.argtypes = [i] * 4
             smem.restype = ctypes.c_longlong
+        lib.hstu_attention_fwd_occupancy.argtypes = [i] * 7 + [vp] * 2
+        lib.hstu_attention_fwd_occupancy.restype = i
         lib.hstu_attention_fwd_error_string.argtypes = [i]
         lib.hstu_attention_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def occupancy(b: int, h: int, s: int, dqk: int, dv: int,
+              max_rel_pos: int) -> Tuple[int, int]:
+    """(blocks an SM holds, a block's shared memory in bytes) for the fp32
+    kernel at the configuration a launch of this shape takes: CUDA's
+    occupancy query on the current card, after the launch's shared-memory
+    attribute."""
+    import ctypes
+    lib = _load()
+    blocks, smem = ctypes.c_int(), ctypes.c_longlong()
+    err = lib.hstu_attention_fwd_occupancy(
+        b, h, s, dqk, dv, max_rel_pos, 1, ctypes.byref(blocks),
+        ctypes.byref(smem))
+    if err != 0:
+        msg = lib.hstu_attention_fwd_error_string(err).decode()
+        raise RuntimeError(f"hstu_attention_fwd_occupancy: {msg} ({err})")
+    return blocks.value, smem.value
 
 
 def symbol(name: str, dtype: torch.dtype) -> str:

@@ -239,6 +239,28 @@ def kept_cells(n_hist: int, hist_lengths: torch.Tensor,
     return n_heads * torch.sum(hist * (hist + 1) // 2 + tgt * hist + tgt)
 
 
+def fwd_tiles(n_hist: int, hist_lengths: torch.Tensor,
+              target_counts: torch.Tensor, n_heads: int,
+              s: int) -> torch.Tensor:
+    """The 16 x 16 tiles B1 multiplies over the batch and its heads, a
+    one-element tensor on the lengths' device: those that hold a kept cell
+    (``RooMask::live`` is exact). Per request, with ``nh`` row tiles
+    holding valid history rows and the target rows' tiles ``t0..t1``: a
+    history row tile r outside ``t0..t1`` multiplies the r + 1 tiles up to
+    its diagonal, a target row tile the ``nh`` history tiles and its own
+    diagonal tile where that lies past them. Only a tile that both kinds of
+    row share (``n_hist`` off the tile grid) is counted once less."""
+    hist = hist_lengths.long().clamp(0, n_hist)
+    tgt = target_counts.long().clamp(0, s - n_hist)
+    nh = (hist + ROWS - 1) // ROWS
+    t0 = n_hist // ROWS
+    n_tt = torch.where(tgt > 0, (n_hist + tgt - 1) // ROWS - t0 + 1, 0)
+    shared = (tgt > 0) & (nh == t0 + 1)
+    tiles = nh * (nh + 1) // 2 + n_tt * (nh + 1) \
+        - torch.where(shared, nh + 1, 0)
+    return n_heads * torch.sum(tiles)
+
+
 def _span_args(q: torch.Tensor, v: torch.Tensor) -> dict:
     b, h, s, d = q.shape
     return {"B": b, "H": h, "S": s, "D": d, "Dv": v.shape[-1]}
@@ -260,7 +282,10 @@ class HSTUAttentionFn(torch.autograd.Function):
     backward in ``hstu.attention_bwd`` (args ``B``, ``H``, ``S``, ``D``,
     ``Dv``); in ``trace`` mode each also gets ``kept_cells``
     (:func:`kept_cells`, read without a sync), which the forward adds to
-    the counter ``hstu.kept_cells``.
+    the counter ``hstu.kept_cells``, and the forward ``fwd_tiles``
+    (:func:`fwd_tiles`, the same way; counter ``hstu.fwd_tiles``):
+    ``kept_cells / (256 fwd_tiles)`` is the share of B1's tile work the
+    mask keeps.
     """
 
     @staticmethod
@@ -271,13 +296,16 @@ class HSTUAttentionFn(torch.autograd.Function):
                               dtype=torch.int32).contiguous()
         ctx.save_for_backward(q, k, v, rab, hl, tc)
         ctx.n_hist, ctx.max_rel_pos = n_hist, max_rel_pos
-        ctx.kept = (kept_cells(n_hist, hl, tc, q.shape[1], q.shape[2])
-                    if obs_trace.tracing_enabled() else None)
+        ctx.kept = tiles = None
+        if obs_trace.tracing_enabled():
+            ctx.kept = kept_cells(n_hist, hl, tc, q.shape[1], q.shape[2])
+            tiles = fwd_tiles(n_hist, hl, tc, q.shape[1], q.shape[2])
         with obs_trace.span("hstu.attention", device=True,
                             **_span_args(q, v)) as sp:
             if ctx.kept is not None:
                 sp.set_later("kept_cells", ctx.kept,
                              counter="hstu.kept_cells")
+                sp.set_later("fwd_tiles", tiles, counter="hstu.fwd_tiles")
             return fwd.hstu_attention_cuda(q, k, v, rab, n_hist, hl, tc,
                                            max_rel_pos)
 

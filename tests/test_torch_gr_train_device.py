@@ -32,7 +32,7 @@ from torch_port_state import port_state  # noqa: E402,F401
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
-B, H, S, D = chip_smoke.GR_LONG[:4]
+B, H, S, D, N_HIST = chip_smoke.GR_LONG[:5]
 
 
 @pytest.fixture
@@ -81,6 +81,11 @@ def test_one_cell_step_launches_and_spans(cuda_card, port_state):
     tgts = [len(r["items"]) for r in grp]
     cells = H * sum(h * (h + 1) // 2 + t * h + t
                     for h, t in zip(hists, tgts))
+    # the 16 x 16 tiles B1 multiplies: those with a kept cell, so the mask
+    # keeps nearly all of their cells (the diagonal tiles' half less)
+    tiles = int(bwd.fwd_tiles(N_HIST, torch.tensor(hists),
+                              torch.tensor(tgts), H, S))
+    assert 0.98 < cells / (256 * tiles) <= 1
     for name in ("hstu.attention", "hstu.attention_bwd"):
         spans = named(name)
         assert len(spans) == n, name
@@ -89,5 +94,8 @@ def test_one_cell_step_launches_and_spans(cuda_card, port_state):
             assert (a["B"], a["H"], a["S"], a["D"], a["Dv"]) == \
                 (B, H, S, D, D)
             assert a["kept_cells"] == cells and a["device_ms"] > 0
+            assert a.get("fwd_tiles") == (
+                tiles if name == "hstu.attention" else None)
     assert obs_metrics.counter("hstu.kept_cells").value() == n * cells
+    assert obs_metrics.counter("hstu.fwd_tiles").value() == n * tiles
     OBS_KNOB.set_default("off")

@@ -354,3 +354,95 @@ def test_build_digest_covers_included_headers(tmp_path, source):
     # a source that does not include the header keeps its digest
     assert kmod.source_digest(tmp_path / "embedding_bag.cu") == other
     assert kmod.source_digest(csrc / source) == before   # the repo's copy
+
+
+# ---------------------------------------------------------------------------
+# B1's tile skip and shared memory, mirrored from the CUDA source
+# (csrc/hstu_fwd_tile.cuh: RooMask::live, rab_window, smem_bytes)
+# ---------------------------------------------------------------------------
+
+TILE = 16          # B1's row tiles (a warp's 16 q rows) and k tiles
+
+
+def b1_live(i_lo, i_hi, j_lo, j_hi, n_hist, hist_end, tgt_end):
+    """RooMask::live: some q row of [i_lo, i_hi] keeps some k column of
+    [j_lo, j_hi]; rows count only up to hist_end - 1 (history) and
+    tgt_end - 1 (targets)."""
+    hrow_hi = min(i_hi, hist_end - 1)
+    trow_lo, trow_hi = max(i_lo, n_hist), min(i_hi, tgt_end - 1)
+    if j_lo <= min(j_hi, hist_end - 1) and (
+            trow_lo <= trow_hi or (i_lo <= hrow_hi and j_lo <= hrow_hi)):
+        return True
+    return max(j_lo, n_hist, trow_lo) <= min(j_hi, trow_hi)
+
+
+def skip_cases():
+    """(n_hist, S, hist_lengths, target_counts): padded histories, zero and
+    partial targets, hl 0 and n_hist, n_hist on and off the tile grid."""
+    rng = np.random.default_rng(37)
+    out = []
+    for n_hist, m in ((64, 16), (37, 19), (48, 0), (0, 21), (100, 5),
+                      (16, 64)):
+        hl = [0, n_hist, *rng.integers(0, n_hist + 1, size=4)]
+        tc = [m, 0, *rng.integers(0, m + 1, size=4)]
+        out.append((n_hist, n_hist + m, hl, tc))
+    return out
+
+
+@pytest.mark.parametrize("n_hist,s,hl,tc", skip_cases())
+def test_b1_tile_skip_multiplies_only_kept_tiles(n_hist, s, hl, tc):
+    from repro_torch.kernels.hstu_attention_bwd import fwd_tiles
+    hl_t = torch.tensor(hl, dtype=torch.int32)
+    tc_t = torch.tensor(tc, dtype=torch.int32)
+    # the reference's mask, (B, S, S)
+    keep = np.asarray(jax_roo_spec(jnp.asarray(hl, dtype=jnp.int32),
+                                   jnp.asarray(tc, dtype=jnp.int32),
+                                   n_hist).dense(s))
+    n_t = -(-s // TILE)
+    multiplied = 0
+    for b in range(len(hl)):
+        hist_end = max(0, min(hl[b], n_hist))
+        tgt_end = n_hist + max(0, min(tc[b], s - n_hist))
+        for r in range(n_t):
+            i_lo, i_hi = r * TILE, min(r * TILE + TILE, s) - 1
+            padded = all(hist_end <= i < n_hist or i >= tgt_end
+                         for i in range(i_lo, i_hi + 1))
+            for c in range(n_t):
+                j_lo, j_hi = c * TILE, min(c * TILE + TILE, s) - 1
+                live = b1_live(i_lo, i_hi, j_lo, j_hi, n_hist, hist_end,
+                               tgt_end)
+                kept = bool(keep[b, i_lo:i_hi + 1, j_lo:j_hi + 1].any())
+                # a skipped tile holds only cells keep drops, and a tile
+                # that holds none is not multiplied
+                assert live == kept, (b, r, c)
+                # no tile of padded history rows or of target slots past
+                # the count
+                assert not (live and padded), (b, r, c)
+                multiplied += live
+    heads = 3
+    got = fwd_tiles(n_hist, hl_t, tc_t, heads, s)
+    assert got.dim() == 0 and int(got) == heads * multiplied
+
+
+def b1_smem_bytes(rb, dp, max_rel, es=4):
+    """hstu_fwd_tile.cuh's smem_bytes at rab_window(max_rel): the q rows,
+    the two-stage ring of 4 / rb k and v tiles, the staged rab bins."""
+    ld = dp + 16 // es
+    ks = 4 // rb
+    return es * (rb * TILE * ld + 2 * ks * 2 * TILE * ld) + 4 * (max_rel + 1)
+
+
+def test_b1_stages_half_the_rab_row():
+    header = (kmod.SOURCE.parent / "hstu_fwd_tile.cuh").read_text()
+    assert "return use_rab ? max_rel + 1 : 0;" in header
+    assert "load_rab(rab_s, a.rab + a.max_rel, a.max_rel + 1);" in header
+    # gr-train-long: D 128, max_rel_pos 8,256; B*H 16 at S 8,256 takes 4
+    # row tiles a block
+    smem = b1_smem_bytes(4, 128, 8256)
+    assert smem == 100612
+    per_sm, reserved = 233472, 1024     # an H100 SM; the runtime's per block
+    assert 2 * (smem + reserved) <= per_sm < 3 * (smem + reserved)
+    whole_row = smem + 4 * 8256         # the 2 * max_rel + 1 bins
+    assert whole_row == 133636 and 2 * (whole_row + reserved) > per_sm
+    # the wrapper's check, the 4-way split, stays under 227 KB
+    assert b1_smem_bytes(1, 128, 8256) <= kmod.MAX_SMEM_BYTES
